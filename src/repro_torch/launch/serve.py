@@ -1,0 +1,129 @@
+"""Serving launcher of the PyTorch port: the SLICE-scheduled paged engine.
+
+Serves the FULL-width config by default (``--reduced`` opts in to the
+small one), on the CUDA card by default (``--device cpu`` runs the plain
+kernel versions on the CPU):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch edge-6b \\
+      --dtype bfloat16 --scheduler slice --rate 2 --duration 4
+
+  # tiny CPU run
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --duration 3 --slots 4 --max-seq 128
+
+Prints the measured l(b) curve and a one-line SLO summary, as the JAX
+launcher does (``repro.launch.serve``, paged executor path).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.schedulers import (FastServeScheduler, OrcaScheduler,
+                                         SliceScheduler)
+from repro_torch.data.workload import poisson_workload
+from repro_torch.serving.executor import PagedTorchExecutor
+from repro_torch.serving.loop import LoopResult, run_serving_loop
+from repro_torch.serving.metrics import summarize
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class ServeRun:
+    executor: PagedTorchExecutor
+    lat: object                  # MeasuredLatencyModel
+    probes: List[tuple]          # measured (batch, ms) samples of l(b)
+    result: LoopResult
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="edge-6b")
+    ap.add_argument("--scheduler", default="slice",
+                    choices=["slice", "orca", "fastserve"])
+    ap.add_argument("--rate", type=float, default=1.0)
+    ap.add_argument("--duration", type=float, default=20.0)
+    ap.add_argument("--ratio", type=float, default=0.5)
+    ap.add_argument("--slots", type=int, default=8,
+                    help="max decode batch of the engine")
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--pages", type=int, default=None,
+                    help="KV pool size in pages (default: "
+                         "slots*max_seq/page_size)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the reduced (CPU-feasible) config instead "
+                         "of the full-width one")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def shape_workload(tasks, lat, slots: int, max_seq: int) -> None:
+    """Scale the paper's workload SLOs to this engine's measured speed and
+    cap every task inside the engine's per-task limits, as
+    ``repro.launch.serve`` does."""
+    scale = max(lat.decode_ms(max(2, slots // 2)) / 50.0, 0.02)
+    for t in tasks:
+        t.slo.tpot_ms *= scale
+        t.slo.ttft_ms *= max(scale, 1.0)
+        if t.slo.deadline_ms:
+            t.slo.deadline_ms *= max(scale, 1.0)
+        t.prompt_len = min(t.prompt_len, max_seq // 4)
+        t.prefix_len = min(t.prefix_len, t.prompt_len)
+        t.output_len = min(t.output_len, max_seq // 2)
+
+
+def run(args: argparse.Namespace) -> ServeRun:
+    """Build the engine, measure l(b), serve a Poisson workload under the
+    chosen scheduler, print the l(b) curve and the SLO summary line."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    n_pages = args.pages or (args.slots * args.max_seq) // args.page_size
+    ex = PagedTorchExecutor(cfg, n_pages=n_pages, page_size=args.page_size,
+                            max_seq=args.max_seq, seed=args.seed,
+                            max_batch=args.slots, dtype=DTYPES[args.dtype],
+                            device=args.device)
+    page_budget = ex.page_budget()
+    lat = ex.latency_model()
+    probes = list(ex.probe_samples)
+    curve = " ".join(f"l({b})={ms:.3f}ms" for b, ms in probes)
+    print(f"engine {cfg.name} (paged, {args.dtype}, {ex.device}): {curve}")
+    tasks = poisson_workload(args.rate, args.duration,
+                             realtime_frac=args.ratio, seed=args.seed,
+                             rt_output_len=8, voice_output_len=24,
+                             qa_output_len=32,
+                             prefix_len_range=(args.max_seq // 8,
+                                               args.max_seq // 4))
+    shape_workload(tasks, lat, args.slots, args.max_seq)
+    # Orca/FastServe have no memory model: cap their batch so worst-case
+    # residency (prompt cap + output cap per task) fits the pool
+    peak = args.max_seq // 4 + args.max_seq // 2
+    baseline_batch = max(1, min(args.slots,
+                                (n_pages * args.page_size) // peak))
+    sched = {"slice": lambda: SliceScheduler(lat, page_budget=page_budget),
+             "orca": lambda: OrcaScheduler(max_batch=baseline_batch),
+             "fastserve": lambda: FastServeScheduler(
+                 max_batch=baseline_batch)}[args.scheduler]()
+    res = run_serving_loop(sched, ex, tasks, max_ms=3e7)
+    s = summarize(res.tasks)
+    print(f"{args.scheduler}: n={s['all'].n} SLO={s['all'].slo:.1%} "
+          f"RT={s['realtime'].slo:.1%} nRT={s['non_realtime'].slo:.1%} "
+          f"decode_iters={res.decode_iterations} prefills={res.prefills} "
+          f"defers={dict(res.defers_by_reason)}")
+    return ServeRun(executor=ex, lat=lat, probes=probes, result=res)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,151 @@
+"""Core transformer layers in PyTorch: RMSNorm, RoPE, GQA attention (plain
+softmax and over a paged KV arena), gated MLP.
+
+Each function keeps the JAX package's layout and arithmetic
+(``repro.models.layers``): the same shapes at the public boundary, softmax
+in fp32, NEG_INF = -1e30 as the mask value. They are the plain versions
+of the hand-written kernels (``repro_torch.kernels.ref``) and run on any
+device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+# ---------------------------------------------------------------- RoPE
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)     # python-scalar base: no host->device copy
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S]. Half-split
+    rotation (first half against second half), not interleaved."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # [hd/2]
+    ang = positions[..., None].float() * freqs                # [..., S, hd/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- masks
+
+def band_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+              window: Optional[int]) -> torch.Tensor:
+    """[..., Sq, Sk] boolean keep-mask from absolute positions."""
+    d = q_pos[..., :, None] - k_pos[..., None, :]
+    m = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        m &= d >= 0
+    if window is not None:
+        m &= d < window
+    return m
+
+
+# ---------------------------------------------------------------- attention
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain softmax attention. q: [B,Sq,Hq,hd], k/v: [B,Sk,Hkv,hd].
+
+    GQA: query head h reads KV head h // (Hq // Hkv). mask: None, [Sq,Sk]
+    or [B,Sq,Sk] (True = keep). Softmax in fp32.
+    """
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, g, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    scores = scores * hd ** -0.5
+    if mask is not None:
+        if mask.ndim == 2:
+            mask = mask[None]
+        scores = torch.where(mask[:, None, None], scores,
+                             torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    return out.reshape(B, Sq, Hq, hd)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_pos: torch.Tensor,
+                     q_pos: torch.Tensor) -> torch.Tensor:
+    """Single-token decode over a contiguous KV view.
+
+    q: [B,Hq,hd] (RoPE'd); k/v_cache: [B,Hkv,Sbuf,hd]; kv_pos: [B,Sbuf]
+    absolute position per slot, -1 = empty; q_pos: [B].
+    """
+    B, Hq, hd = q.shape
+    Hkv = k_cache.shape[1]
+    g = Hq // Hkv
+    qg = q.reshape(B, Hkv, g, hd)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache).float()
+    s = s * hd ** -0.5
+    keep = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    s = torch.where(keep[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache)
+    return out.reshape(B, Hq, hd)
+
+
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """pages: [P,Hkv,psz,hd]; page_table: [B,maxp] (-1 = unused, gathered as
+    page 0 and masked by the caller via kv positions).
+    Returns the contiguous view [B,Hkv,maxp*psz,hd]."""
+    B, maxp = page_table.shape
+    _, Hkv, psz, hd = pages.shape
+    gathered = pages[page_table.clamp(min=0).long()]    # [B,maxp,Hkv,psz,hd]
+    return gathered.permute(0, 2, 1, 3, 4).reshape(B, Hkv, maxp * psz, hd)
+
+
+def paged_kv_positions(page_table: torch.Tensor, page_size: int) -> torch.Tensor:
+    """Logical token position per gathered KV slot, -1 where the page-table
+    entry is unused."""
+    B, maxp = page_table.shape
+    pos = torch.arange(maxp * page_size, dtype=torch.int32,
+                       device=page_table.device)
+    valid = (page_table >= 0).repeat_interleave(page_size, dim=1)
+    return torch.where(valid, pos[None, :], torch.full_like(pos, -1)[None, :])
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           q_pos: torch.Tensor) -> torch.Tensor:
+    """Single-token decode over a PAGED KV cache (the plain version of the
+    paged-decode kernel).
+
+    q: [B,Hq,hd] (RoPE'd); k/v_pages: [P,Hkv,psz,hd]; page_table: [B,maxp]
+    physical page per logical page, -1 = unused; q_pos: [B] position of the
+    newest token. Attends over logical positions 0..q_pos. A row with no
+    live entry averages page 0 here (the kernel gives 0): callers ignore
+    such rows.
+    """
+    psz = k_pages.shape[2]
+    kc = gather_pages(k_pages, page_table)
+    vc = gather_pages(v_pages, page_table)
+    kv_pos = paged_kv_positions(page_table, psz)
+    return decode_attention(q, kc, vc, kv_pos, q_pos)
+
+
+# ---------------------------------------------------------------- MLP
+
+def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+              wd: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ wg) * (x @ wu)) @ wd

@@ -1,0 +1,262 @@
+"""Dense GQA decoder in PyTorch: the main-path subset of ``repro.models.model``.
+
+Parameters are a plain dict of tensors with the JAX pytree's names and
+layouts — ``x @ W`` with ``W [D, out]``, per-layer weights stacked over a
+leading layer axis — so ``load_params`` can take the JAX package's own
+``init_params`` output (as numpy) and both packages compute on the same
+weights. Attention goes through ``kernels.ops``: the hand-written CUDA
+kernels on the card, their plain versions on the CPU.
+
+Entry points:
+  prefill(params, inputs, buf_len)          -> (last_logits, cache)
+  decode_step_paged(params, pages, ...)     -> (logits, pages)
+
+Unlike the functional JAX code, ``decode_step_paged`` writes the new K/V
+into the page arena in place (the arena is the engine's largest buffer).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+Cache = Dict[str, torch.Tensor]
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for ``device``; raises when CUDA is asked for and this
+    process has none (the port never carries on on the CPU instead)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available; pass device='cpu' to run the plain "
+                           "versions on the CPU")
+    return dev
+
+
+def _check_dense(cfg: ArchConfig) -> None:
+    if not (cfg.causal and cfg.has_attention and not cfg.has_ssm
+            and cfg.block_kind == "dense"):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense causal GQA decoders only; "
+            "MoE, SSM, hybrid and encoder archs are still to port "
+            "(ROADMAP.md)")
+
+
+# ------------------------------------------------------------------ init
+
+def param_shapes(cfg: ArchConfig) -> Params:
+    """Shape of every parameter, nested as in the JAX pytree."""
+    _check_dense(cfg)
+    D, Lh, f = cfg.d_model, cfg.n_layers, cfg.d_ff
+    shapes: Params = {"embed": (cfg.padded_vocab, D), "final_norm": (D,)}
+    if not cfg.tied_embeddings:
+        shapes["lm_head"] = (D, cfg.padded_vocab)
+    blk = {"ln1": (Lh, D), "wq": (Lh, D, cfg.q_dim), "wk": (Lh, D, cfg.kv_dim),
+           "wv": (Lh, D, cfg.kv_dim), "wo": (Lh, cfg.q_dim, D)}
+    if f > 0:
+        blk.update(wg=(Lh, D, f), wu=(Lh, D, f), wd=(Lh, f, D), ln2=(Lh, D))
+    shapes["blocks"] = blk
+    return shapes
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
+                device="cuda") -> Params:
+    """Random weights with the JAX init's shapes and scales (normal *
+    D^-0.5; wo by q_dim^-0.5, wd by d_ff^-0.5; norms zero), drawn from a
+    torch.Generator seeded with ``seed`` on ``device``. Stacked weights are
+    drawn one layer at a time, so the fp32 draw never holds more than one
+    layer's matrix beside the result."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D = cfg.d_model
+    scale = {"wo": cfg.q_dim ** -0.5, "wd": cfg.d_ff ** -0.5 if cfg.d_ff else 0}
+
+    def draw(shape, s):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    def fill(name, shape):
+        if name in ("final_norm", "ln1", "ln2"):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        s = scale.get(name, D ** -0.5)
+        if len(shape) == 2:
+            return draw(shape, s)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for layer in range(shape[0]):
+            out[layer] = draw(shape[1:], s)
+        return out
+
+    shapes = param_shapes(cfg)
+    p: Params = {k: fill(k, v) for k, v in shapes.items() if k != "blocks"}
+    p["blocks"] = {k: fill(k, v) for k, v in shapes["blocks"].items()}
+    return p
+
+
+def load_params(cfg: ArchConfig, tree: Params, device="cuda") -> Params:
+    """The weight bridge: a JAX ``init_params`` pytree (arrays or numpy)
+    -> the port's parameter dict on ``device``, with every shape checked
+    and each array's type kept (bf16 stays bf16)."""
+    dev = resolve_device(device)
+
+    def conv(name, arr, shape):
+        a = np.asarray(arr)
+        to = None
+        if a.dtype.name == "bfloat16":     # numpy has no bf16 of its own
+            a, to = a.astype(np.float32), torch.bfloat16
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"param {name}: shape {a.shape} != {shape}")
+        return torch.from_numpy(np.array(a)).to(dev, to)   # own, writable copy
+
+    shapes = param_shapes(cfg)
+    missing = set(shapes) - set(tree) | {
+        f"blocks.{k}" for k in set(shapes["blocks"]) - set(tree["blocks"])}
+    if missing:
+        raise KeyError(f"params missing {sorted(missing)}")
+    p: Params = {k: conv(k, tree[k], s) for k, s in shapes.items()
+                 if k != "blocks"}
+    p["blocks"] = {k: conv(f"blocks.{k}", tree["blocks"][k], s)
+                   for k, s in shapes["blocks"].items()}
+    return p
+
+
+def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
+                     dtype=torch.float32, device="cuda") -> Cache:
+    """Shared KV page arena: k/v_pages [L, n_pages, Hkv, page_size, hd]."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+# ------------------------------------------------------------------ blocks
+
+def embed_inputs(cfg: ArchConfig, params: Params,
+                 inputs: torch.Tensor) -> torch.Tensor:
+    """Token ids [B,S] -> embeddings [B,S,D]."""
+    return params["embed"][inputs.long()]
+
+
+def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and projection to the vocabulary (pad lanes sliced off)."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
+    logits = x @ head
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits = logits[..., :cfg.vocab_size]
+    return logits
+
+
+def _ffn(cfg: ArchConfig, blk: Params, layer: int,
+         x: torch.Tensor) -> torch.Tensor:
+    if cfg.d_ff <= 0:
+        return torch.zeros_like(x)
+    h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
+    return L.gated_mlp(h, blk["wg"][layer], blk["wu"][layer], blk["wd"][layer])
+
+
+def _qkv(cfg: ArchConfig, blk: Params, layer: int, x: torch.Tensor):
+    """Normed input projections of one layer, heads split: x [..., D] ->
+    q [..., Hq, hd], k/v [..., Hkv, hd]."""
+    h = L.rms_norm(x, blk["ln1"][layer], cfg.norm_eps)
+    lead = x.shape[:-1]
+    q = (h @ blk["wq"][layer]).reshape(*lead, cfg.n_heads, cfg.head_dim)
+    k = (h @ blk["wk"][layer]).reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ blk["wv"][layer]).reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+# ------------------------------------------------------------------ prefill
+
+def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
+            buf_len: int) -> Tuple[torch.Tensor, Cache]:
+    """Process prompts (all rows full length S) with attention in the
+    flash-prefill kernel. Returns (last-position logits [B,V], cache) with
+    the JAX cache layout: k/v [L,B,Hkv,buf_len,hd] (zero past S), kv_pos
+    [B,buf_len] (-1 past S), length [B]. buf_len >= S (the ring branch for
+    sliding-window long context is not ported)."""
+    _check_dense(cfg)
+    x = embed_inputs(cfg, params, inputs)
+    B, S, _ = x.shape
+    if buf_len < S:
+        raise NotImplementedError("ring-buffer prefill (buf_len < S) is "
+                                  "still to port (ROADMAP.md)")
+    positions = torch.arange(S, device=x.device)
+    blk = params["blocks"]
+    ks, vs = [], []
+    for layer in range(cfg.n_layers):
+        q, k, v = _qkv(cfg, blk, layer, x)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        a = ops.flash_prefill(q, k, v, causal=cfg.causal)
+        x = x + a.reshape(B, S, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _ffn(cfg, blk, layer, x)
+        ks.append(k)
+        vs.append(v)
+    pad = (0, 0, 0, buf_len - S)                     # [.., S, hd] -> buf_len
+    cache: Cache = {
+        "length": torch.full((B,), S, dtype=torch.int32, device=x.device),
+        "k": torch.nn.functional.pad(torch.stack(ks).transpose(2, 3), pad),
+        "v": torch.nn.functional.pad(torch.stack(vs).transpose(2, 3), pad),
+    }
+    pos = torch.arange(buf_len, dtype=torch.int32, device=x.device)
+    cache["kv_pos"] = torch.where(pos < S, pos, -1).expand(B, buf_len)
+    return unembed(cfg, params, x[:, -1]), cache
+
+
+# ------------------------------------------------------------ paged decode
+
+def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
+                      page_table: torch.Tensor, lengths: torch.Tensor,
+                      tokens: torch.Tensor,
+                      active: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """One decode iteration over the paged KV arena, attention in the
+    paged-decode kernel.
+
+    pages: init_paged_cache dict; page_table: [B, maxp] int32 physical page
+    per logical page (-1 unused; row b must cover lengths[b]+1 tokens);
+    lengths: [B] int32 cached tokens per row (the new token is written at
+    logical position lengths[b]); tokens: [B]; active: [B] bool — inactive
+    and untabled rows write nothing and their logits are garbage to be
+    ignored. The new K/V is written into ``pages`` in place before
+    attention reads it. Returns (logits [B,V], pages).
+    """
+    _check_dense(cfg)
+    B = tokens.shape[0]
+    dev = tokens.device
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+    k_all, v_all = pages["k_pages"], pages["v_pages"]
+    psz, maxp = k_all.shape[3], page_table.shape[1]
+    x = params["embed"][tokens.long()]                 # [B,D]
+    q_pos = lengths
+    rows = torch.arange(B, device=dev)
+    # the JAX gather clamps an out-of-range logical page; indexing here
+    # would raise, so clamp the same way
+    pt_row = page_table[rows, (q_pos // psz).clamp(max=maxp - 1).long()]
+    # JAX drops the scatter of inactive/untabled rows through an
+    # out-of-bounds index; torch raises on one, so select the rows that
+    # write instead (one host sync per step)
+    w_rows = (active & (pt_row >= 0)).nonzero().squeeze(1)
+    w_page = pt_row[w_rows].long()
+    w_off = (q_pos[w_rows] % psz).long()
+    blk = params["blocks"]
+    for layer in range(cfg.n_layers):
+        q, k, v = _qkv(cfg, blk, layer, x)
+        q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
+        k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
+        k_all[layer, w_page, :, w_off] = k[w_rows]
+        v_all[layer, w_page, :, w_off] = v[w_rows]
+        a = ops.paged_decode_attention(q, k_all[layer], v_all[layer],
+                                       page_table, q_pos)
+        x = x + a.reshape(B, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _ffn(cfg, blk, layer, x)
+    return unembed(cfg, params, x), pages

@@ -1,0 +1,166 @@
+"""The port's attention kernels held against the JAX package.
+
+On the CPU the port's wrappers (``repro_torch.kernels.ops``) run the
+plain PyTorch versions; these are compared with the Pallas kernels in
+interpret mode (``repro.kernels.ops.*(interpret=True)``) and with the jnp
+oracles, on the same numpy inputs. fp32 at atol 1e-5 (the repo's engine
+contract). The CUDA kernels themselves run only on a card:
+``tests/test_torch_cuda.py`` holds them against these plain versions.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+
+ATOL = 1e-5
+
+
+def _paged_inputs(Hq, Hkv, hd=32, psz=8, maxp=4, n_pages=16, seed=0):
+    """Rows: a pad row (q_pos 0, table all -1), page-boundary positions
+    (psz-1, psz), a full table, and a row with trailing -1 entries."""
+    rng = np.random.default_rng(seed)
+    q_pos = np.array([0, psz - 1, psz, maxp * psz - 1, 2 * psz + 3], np.int32)
+    B = len(q_pos)
+    pt = np.full((B, maxp), -1, np.int32)
+    perm = list(rng.permutation(n_pages))
+    for b in range(1, B):
+        n = q_pos[b] // psz + 1
+        pt[b, :n] = [perm.pop() for _ in range(n)]
+    q = rng.standard_normal((B, Hq, hd)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, Hkv, psz, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, Hkv, psz, hd)).astype(np.float32)
+    return q, kp, vp, pt, q_pos
+
+
+def _t(*arrs):
+    return [torch.from_numpy(np.array(a)) for a in arrs]
+
+
+def _j(*arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (4, 1), (6, 3)])
+def test_paged_decode_plain_matches_pallas(Hq, Hkv):
+    """Live rows match the Pallas kernel; every row (the pad row, which
+    both oracles average over page 0) matches the jnp oracle."""
+    arrs = _paged_inputs(Hq, Hkv)
+    got = ops.paged_decode_attention(*_t(*arrs)).numpy()
+    kern = np.asarray(jops.paged_decode_attention(*_j(*arrs), interpret=True))
+    oracle = np.asarray(jref.paged_decode_attention_ref(*_j(*arrs)))
+    live = arrs[3].max(axis=1) >= 0
+    np.testing.assert_allclose(got[live], kern[live], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, oracle, atol=ATOL, rtol=0)
+    assert np.all(kern[~live] == 0)       # the kernels' pad-row contract
+
+
+def _prefill_inputs(B, S, Hq, Hkv, hd=32, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(dtype)
+            for s in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 5),
+                                           (False, None), (False, 6)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (4, 1)])
+def test_flash_prefill_plain_matches_pallas(causal, window, Hq, Hkv):
+    arrs = _prefill_inputs(2, 16, Hq, Hkv)
+    got = ops.flash_prefill(*_t(*arrs), causal=causal, window=window).numpy()
+    kern = np.asarray(jops.flash_prefill(*_j(*arrs), causal=causal,
+                                         window=window, qblk=8, kblk=8,
+                                         interpret=True))
+    np.testing.assert_allclose(got, kern, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("S", [1, 7, 37])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 4),
+                                           (False, None)])
+def test_flash_prefill_ragged_matches_jnp(S, causal, window):
+    """Any S (no block divisibility): against L.attention + band_mask."""
+    arrs = _prefill_inputs(2, S, 6, 2, seed=S)
+    got = ops.flash_prefill(*_t(*arrs), causal=causal, window=window).numpy()
+    pos = jnp.arange(S)
+    q, k, v = _j(*arrs)
+    want = np.asarray(JL.attention(q, k, v,
+                                   JL.band_mask(pos, pos, causal, window)))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_bf16_inputs_match_jax_oracles():
+    """bf16 inputs through both packages' plain versions. Both take the
+    scores to fp32 but round the probabilities to bf16 before the PV
+    product at framework-specific places, so the bound is bf16's: 2e-2 on
+    outputs of magnitude <= ~3 (about 2^-6 relative)."""
+    q, kp, vp, pt, qp = _paged_inputs(4, 2)
+    tb = [x.to(torch.bfloat16) for x in _t(q, kp, vp)]
+    got = ops.paged_decode_attention(*tb, *_t(pt, qp)).float().numpy()
+    jb = [x.astype(jnp.bfloat16) for x in _j(q, kp, vp)]
+    want = np.asarray(jref.paged_decode_attention_ref(*jb, *_j(pt, qp)),
+                      np.float32)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+
+    arrs = _prefill_inputs(1, 19, 4, 2, seed=3)
+    tb = [x.to(torch.bfloat16) for x in _t(*arrs)]
+    got = ops.flash_prefill(*tb, causal=True)
+    assert got.dtype == torch.bfloat16
+    jb = [x.astype(jnp.bfloat16) for x in _j(*arrs)]
+    want = np.asarray(jref.flash_prefill_ref(*jb, causal=True), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=0)
+
+
+def test_layers_match_jax():
+    """rms_norm (1 + w), half-split RoPE, gated MLP against their twins."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 5, 3, 32)).astype(np.float32)
+    w = rng.standard_normal((32,)).astype(np.float32) * 0.1
+    pos = np.array([0, 3, 17, 64, 1000], np.int32)
+    np.testing.assert_allclose(
+        TL.rms_norm(*_t(x, w)).numpy(),
+        np.asarray(JL.rms_norm(*_j(x, w))), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(
+        TL.apply_rope(*_t(x, pos), 1e6).numpy(),
+        np.asarray(JL.apply_rope(*_j(x, pos), 1e6)), atol=ATOL, rtol=0)
+    h = rng.standard_normal((3, 16)).astype(np.float32)
+    wg, wu = (rng.standard_normal((16, 24)).astype(np.float32) * 0.2
+              for _ in range(2))
+    wd = rng.standard_normal((24, 16)).astype(np.float32) * 0.2
+    np.testing.assert_allclose(
+        TL.gated_mlp(*_t(h, wg, wu, wd)).numpy(),
+        np.asarray(JL.gated_mlp(*_j(h, wg, wu, wd))), atol=ATOL, rtol=0)
+
+
+def test_wrappers_reject_bad_window():
+    arrs = _t(*_prefill_inputs(1, 4, 2, 1))
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_prefill(*arrs, window=0)
+
+
+def test_cpu_calls_do_not_count_launches():
+    ops.reset_launches()
+    ops.flash_prefill(*_t(*_prefill_inputs(1, 4, 2, 1)))
+    ops.paged_decode_attention(*_t(*_paged_inputs(2, 1)))
+    assert ops.LAUNCHES == {"paged_decode_attention": 0, "flash_prefill": 0}
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """A compiler failure surfaces as RuntimeError with its output; no
+    library is left behind to be loaded."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "nvcc", lambda: sys.executable)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        build.build_all(["flash_prefill"], force=True)
+    assert not build.library("flash_prefill").exists()
+    assert build.build_log("flash_prefill").read_text()
