@@ -4,24 +4,35 @@
 
 Phases, each printing its own lines; any failed check exits non-zero:
 
-1. build  — compile both CUDA kernels from csrc/ (one nvcc per source,
+1. build  — compile every CUDA source in csrc/ (one nvcc per source,
             started together) and print ptxas's register/shared-memory
             report.
-2. check  — hold each kernel against its plain PyTorch version on the card
-            at edge-6b head shapes (Hq=32, Hkv=2, hd=128, page 16), fp32 and
-            bf16: -1 page-table entries, a pad row, page-boundary positions,
-            ragged prompt lengths, causal / window / non-causal. Then a
-            reduced engine on the card against the same engine on the CPU
-            (prefill + decode logits, greedy streams).
-3. serve  — SLICE over the paged engine, edge-6b at full width in bf16,
-            through the serve entry point: measured l(b), a few Poisson
-            voice/QA requests; every task must finish and the pool must
-            end empty.
-            Kernel launch counts are zeroed just before and read just after.
-4. time   — each kernel, its plain version and (prefill) the library's
-            scaled_dot_product_attention as a yardstick, at the shapes the
-            serving run used; the bound is the larger of bytes over 3.35 TB/s
-            and flops over the type's peak (H100 SXM data sheet).
+2. check  — hold each of the four kernels against its plain PyTorch
+            version on the card at edge-6b head shapes (Hq=32, Hkv=2,
+            hd=128, page 16), fp32 and bf16: paged decode with -1 table
+            entries, a pad row and page-boundary positions; flash prefill
+            at ragged lengths, causal / window / non-causal; ring-cache
+            decode with -1 slots, a pad row, wrapped kv_pos, window 64 and
+            8192; prompt chunks at q_start 0/16/300, C 1/37/64/128, over a
+            1024-slot buffer with stale data past the chunk, K/V read
+            through the strides of a [B,Hkv,S,hd] buffer, with a window.
+            Then reduced engines on the card against the same engines on
+            the CPU (prefill + decode logits, greedy streams): paged atomic,
+            paged chunked, slot chunked (masked decode), slot compacted.
+3. serve  — SLICE through the serve entry point, edge-6b at full width in
+            bf16: measured l(b), a few Poisson voice/QA requests, in three
+            runs: (a) the paged engine with atomic prefill, (b) the slot
+            engine with --prefill-chunk 64, (c) the paged engine with
+            --prefill-chunk 64. Every task must finish, a paged pool must
+            end empty, and each run must launch the kernels of its path.
+            Kernel launch counts are zeroed just before each run and read
+            just after; the engine is freed before the next run.
+4. time   — each kernel, its plain version and the library's
+            scaled_dot_product_attention as a yardstick (explicit boolean
+            mask, K/V repeated to Hq, where the kernel masks by position),
+            at the shapes its serving run used; the bound is the larger of
+            bytes over 3.35 TB/s and flops over the type's peak (H100 SXM
+            data sheet).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -51,6 +62,18 @@ SERVE_ARGS = ["--arch", "edge-6b", "--dtype", "bfloat16", "--device", "cuda",
               "--scheduler", "slice", "--slots", "8", "--max-seq", "1024",
               "--rate", "2.0", "--duration", "4", "--ratio", "0",
               "--seed", "0"]
+# (run, extra serve arguments, kernels the run's path must launch). The
+# slot engine has no page budget, so SLICE admits against its slots only:
+# 16 slots hold every request of this workload at once.
+SERVE_RUNS = (
+    ("paged-atomic", ["--executor", "paged"],
+     ("paged_decode_attention", "flash_prefill")),
+    ("slot-chunked", ["--executor", "slot", "--prefill-chunk", "64",
+                      "--slots", "16"],
+     ("decode_attention", "flash_prefill_chunk")),
+    ("paged-chunked", ["--executor", "paged", "--prefill-chunk", "64"],
+     ("paged_decode_attention", "flash_prefill_chunk")),
+)
 KERNELS = {
     "paged_decode_attention": {
         "source": "src/repro_torch/csrc/paged_decode_attention.cu",
@@ -58,6 +81,12 @@ KERNELS = {
     "flash_prefill": {
         "source": "src/repro_torch/csrc/flash_prefill.cu",
         "replaces": "src/repro/kernels/flash_prefill.py:73"},
+    "flash_prefill_chunk": {
+        "source": "src/repro_torch/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/flash_prefill.py:161"},
+    "decode_attention": {
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:69"},
 }
 
 
@@ -120,6 +149,43 @@ def prefill_inputs(B, S, dtype, Hq=32, Hkv=2, hd=128, seed=0):
     return q, k, v
 
 
+def ring_inputs(q_pos, kv_pos, dtype, S, Hq=32, Hkv=2, hd=128, seed=0):
+    """Slot-cache decode inputs on the card: q [B,Hq,hd], k/v [B,Hkv,S,hd]
+    filled with random data in every slot, the given kv_pos [B,S] and
+    q_pos [B]."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = len(q_pos)
+    q = torch.randn(B, Hq, hd, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
+    return (q, k, v, torch.as_tensor(kv_pos, dtype=torch.int32).cuda(),
+            torch.as_tensor(q_pos, dtype=torch.int32).cuda())
+
+
+def appended_kv_pos(lengths, S):
+    """kv_pos of an append-only slot cache: row b holds positions
+    0..lengths[b]-1 in slots 0..lengths[b]-1, -1 after (length 0: an empty
+    row)."""
+    import numpy as np
+    kv = np.full((len(lengths), S), -1, np.int32)
+    for b, n in enumerate(lengths):
+        kv[b, :n] = np.arange(n)
+    return kv
+
+
+def chunk_inputs(B, C, S, dtype, Hq=32, Hkv=2, hd=128, seed=0):
+    """Chunk queries [B,C,Hq,hd] and K/V as the slot cache lays them out,
+    [B,Hkv,S,hd], every slot filled; returned as the strided [B,S,Hkv,hd]
+    views the engines pass."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, C, Hq, hd, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, S, hd, generator=g, device="cuda").to(dtype)
+    return q, k.transpose(1, 2), v.transpose(1, 2)
+
+
 # ----------------------------------------------------------------- phases
 
 def build_phase():
@@ -179,57 +245,140 @@ def check_kernels():
                 fail("flash_prefill: non-finite output")
             report("flash_prefill", f"B={B} S={S} causal={causal} "
                    f"window={window}", dt, (out.float() - want).abs().max().item())
+
+    # ring-cache decode: an empty row and a pad row (every kv_pos -1), an
+    # append-only row, a ring wrapped twice (slot p % S holds p), a row
+    # with -1 holes and positions past q_pos, a full ring
+    import numpy as np
+    S = 1024
+    rng = np.random.default_rng(0)
+    q_pos = [0, 0, 299, 2 * S + 100, 700, S - 1]
+    kv_pos = np.full((len(q_pos), S), -1, np.int32)
+    kv_pos[2, :300] = np.arange(300)
+    for p in range(q_pos[3] - S + 1, q_pos[3] + 1):
+        kv_pos[3, p % S] = p
+    kv_pos[4] = rng.integers(0, 900, S)
+    kv_pos[4, ::7] = -1
+    kv_pos[5] = np.arange(S)
+    for dt in ("float32", "bfloat16"):
+        q, k, v, kp, qp = ring_inputs(q_pos, kv_pos, getattr(torch, dt), S)
+        for window in (None, 64, 8192):
+            out = ops.decode_attention(q, k, v, kp, qp, window=window)
+            torch.cuda.synchronize()
+            want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                            kp, qp, window)
+            d = qp[:, None] - kp
+            live = ((kp >= 0) & (d >= 0)
+                    & (d < (window or 1 << 30))).any(dim=1)
+            if not (torch.isfinite(out.float()).all()
+                    and (out[~live].float() == 0).all() and live[2:].all()):
+                fail("decode_attention: empty rows must give finite zeros")
+            report("decode_attention", f"B={len(q_pos)} S={S} q_pos={q_pos} "
+                   f"window={window}", dt,
+                   (out.float() - want)[live].abs().max().item())
+
+    # prompt chunks over a 1024-slot buffer holding stale data past every
+    # chunk; row 1 starts 3 positions after row 0
+    for dt in ("float32", "bfloat16"):
+        for q0 in (0, 16, 300):
+            for C in (1, 37, 64, 128):
+                for window in ((None, 64) if C == 64 else (None,)):
+                    q, k, v = chunk_inputs(2, C, S, getattr(torch, dt),
+                                           seed=q0 + C)
+                    qs = torch.tensor([q0, q0 + 3], dtype=torch.int32,
+                                      device="cuda")
+                    out = ops.flash_prefill_chunk(q, k, v, qs, window=window)
+                    torch.cuda.synchronize()
+                    want = ref.flash_prefill_chunk_ref(q.float(), k.float(),
+                                                       v.float(), qs, window)
+                    if not torch.isfinite(out.float()).all():
+                        fail("flash_prefill_chunk: non-finite output")
+                    report("flash_prefill_chunk",
+                           f"B=2 C={C} q_start={q0},{q0 + 3} S={S} strided "
+                           f"window={window}", dt,
+                           (out.float() - want).abs().max().item())
     return worst
 
 
 def check_engine():
-    """Reduced edge-6b engine on the card against the same engine (same
+    """Reduced edge-6b engines on the card against the same engines (same
     weights, same tasks) on the CPU: prefill and decode logits in fp32 and
-    identical greedy streams."""
+    identical greedy streams. Paged with atomic and with chunked prefill,
+    slot with chunked prefill (masked decode) and slot with compacted
+    decode."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.task import SLOSpec, Task
     from repro_torch.models import model as M
-    from repro_torch.serving.executor import PagedTorchExecutor
-    phase("check reduced engine on the card against the CPU")
+    from repro_torch.serving.executor import PagedTorchExecutor, TorchExecutor
+    phase("check reduced engines on the card against the CPU")
     cfg = get_config("edge-6b").reduced()
     params = M.init_params(cfg, seed=0, device="cpu")
-    on = {}
-    for dev in ("cpu", "cuda"):
-        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if k == "blocks"
-                 else v.to(dev)) for k, v in params.items()}
-        on[dev] = PagedTorchExecutor(cfg, params=p, n_pages=32, page_size=16,
-                                     max_seq=128, max_batch=4, device=dev)
-    tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n, output_len=8,
-                  task_id=7000 + i) for i, n in enumerate((5, 17, 40))]
-    worst = 0.0
-    for t in tasks:
-        for ex in on.values():
-            ex.prefill(t)
-        worst = max(worst, float(np.abs(on["cuda"].last_prefill_logits
-                                        - on["cpu"].last_prefill_logits).max()))
-    for _ in range(3):
-        for ex in on.values():
-            ex.decode(tasks)
-        got = on["cuda"].last_logits
-        if got.shape != (len(tasks), cfg.vocab_size) or not np.isfinite(got).all():
-            fail(f"engine logits shape {got.shape} or non-finite values")
-        worst = max(worst, float(np.abs(got - on["cpu"].last_logits).max()))
-    streams = {d: [ex.generated_tokens(t) for t in tasks] for d, ex in on.items()}
-    print(f"engine cuda vs cpu: max |logit diff|={worst:.3e} tol=1e-4 "
-          f"streams_equal={streams['cuda'] == streams['cpu']}")
-    if worst > 1e-4 or streams["cuda"] != streams["cpu"]:
-        fail("reduced engine on the card disagrees with the CPU engine")
+    engines = {
+        "paged": lambda p, d: PagedTorchExecutor(
+            cfg, params=p, n_pages=32, page_size=16, max_seq=128,
+            max_batch=4, device=d),
+        "paged chunked": lambda p, d: PagedTorchExecutor(
+            cfg, params=p, n_pages=32, page_size=16, max_seq=128,
+            max_batch=4, device=d, prefill_chunk_size=16),
+        "slot chunked": lambda p, d: TorchExecutor(
+            cfg, params=p, max_slots=4, max_seq=128, device=d,
+            prefill_chunk_size=16),
+        "slot compact": lambda p, d: TorchExecutor(
+            cfg, params=p, max_slots=4, max_seq=128, device=d,
+            compact_buckets=True),
+    }
+    for name, make in engines.items():
+        on = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if k == "blocks"
+                     else v.to(dev)) for k, v in params.items()}
+            on[dev] = make(p, dev)
+        tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n, output_len=8,
+                      task_id=7000 + i) for i, n in enumerate((5, 17, 40))]
+        worst = 0.0
+        for t in tasks:
+            for ex in on.values():
+                if ex.prefill_chunk_size is None:
+                    ex.prefill(t)
+                else:
+                    while not ex.prefill_chunk(t, 16)[1]:
+                        pass
+            worst = max(worst, float(np.abs(
+                on["cuda"].last_prefill_logits
+                - on["cpu"].last_prefill_logits).max()))
+        for step in range(3):
+            batch = tasks if step != 1 else tasks[1:]
+            for ex in on.values():
+                ex.decode(batch)
+            got = on["cuda"].last_logits
+            if (got.shape != (len(batch), cfg.vocab_size)
+                    or not np.isfinite(got).all()):
+                fail(f"{name}: logits shape {got.shape} or non-finite values")
+            worst = max(worst, float(np.abs(got - on["cpu"].last_logits).max()))
+        streams = {d: [ex.generated_tokens(t) for t in tasks]
+                   for d, ex in on.items()}
+        print(f"engine {name} cuda vs cpu: max |logit diff|={worst:.3e} "
+              f"tol=1e-4 streams_equal={streams['cuda'] == streams['cpu']}")
+        if worst > 1e-4 or streams["cuda"] != streams["cpu"]:
+            fail(f"reduced {name} engine on the card disagrees with the CPU")
 
 
-def serve_phase():
+def serve_phase(run_name, extra, required):
+    """One serving run through the serve entry point; returns what the time
+    phase needs of it (the engine's shapes and the tasks) and the run's
+    launch counts, and frees the engine."""
+    import gc
+
     import numpy as np
     import torch
+    from repro_torch.core.task import SLOSpec, Task
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    phase("serve edge-6b at full width (bf16) under SLICE")
-    args = serve.parse_args(SERVE_ARGS)
-    print("serve args:", " ".join(SERVE_ARGS))
+    phase(f"serve {run_name}: edge-6b at full width (bf16) under SLICE")
+    argv = SERVE_ARGS + extra
+    args = serve.parse_args(argv)
+    print("serve args:", " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ops.reset_launches()
@@ -240,65 +389,111 @@ def serve_phase():
     peak = torch.cuda.max_memory_allocated()
     print("l(b) curve: " + " ".join(f"l({b})={ms:.3f}ms" for b, ms in run.probes))
     print(f"served n={len(res.tasks)} prefills={res.prefills} "
+          f"prefill_chunks={res.prefill_chunks} "
           f"decode_iters={res.decode_iterations} loop_clock={res.end_ms:.1f}ms "
           f"wall={wall:.1f}s max_memory_allocated={peak} "
           f"({peak / 2**30:.2f} GiB)")
-    print(f"launches in the serving run: {launches}")
+    print(f"launches in the {run_name} run: {launches}")
     unfinished = [t.task_id for t in res.tasks if t.dropped or not t.finished]
     if not res.tasks or unfinished:
-        fail(f"tasks not finished: {unfinished} of {len(res.tasks)}")
-    ex.pool.check()
-    if ex.pool.used_pages != 0 or ex.pool.owners():
-        fail(f"page leak: {ex.pool.used_pages} pages held by {ex.pool.owners()}")
+        fail(f"{run_name}: tasks not finished: {unfinished} of "
+             f"{len(res.tasks)}")
+    pool = getattr(ex, "pool", None)
+    if pool is not None:
+        pool.check()
+        if pool.used_pages != 0 or pool.owners():
+            fail(f"{run_name}: page leak: {pool.used_pages} pages held by "
+                 f"{pool.owners()}")
+    elif ex.slot_of:
+        fail(f"{run_name}: slots still held by {sorted(ex.slot_of)}")
     logits = ex.last_logits
     if (logits is None or logits.shape[1] != ex.cfg.vocab_size
             or not np.isfinite(logits).all()):
-        fail("last decode logits missing, misshapen or non-finite")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    return run, launches
+        fail(f"{run_name}: last decode logits missing, misshapen or "
+             "non-finite")
+    for name in required:
+        if launches[name] <= 0:
+            fail(f"{run_name}: kernel {name} was not launched on its path")
+    # engine clock of one prompt of the workload's longest effective
+    # length, whole or in chunks, min of 3, on the idle engine
+    L = max(min(t.prompt_len, ex.max_seq // 2) for t in res.tasks)
+    probe_ms = []
+    for i in range(3):
+        t = Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=L, output_len=1,
+                 task_id=9000 + i)
+        probe_ms.append(ex.prefill(t) if args.prefill_chunk is None
+                        else ex.prefill_chunk(t, L)[0])
+        ex.release(t)
+    how = ("whole" if args.prefill_chunk is None
+           else f"in chunks of {args.prefill_chunk}")
+    print(f"prefill of {L} prompt tokens {how}: {min(probe_ms):.3f} ms "
+          f"(min of {', '.join(f'{m:.3f}' for m in probe_ms)})")
+    shapes = {"cfg": ex.cfg, "max_seq": ex.max_seq, "tasks": res.tasks,
+              "chunk": args.prefill_chunk}
+    if pool is not None:
+        shapes.update(batch=ex.max_batch, n_pages=ex.n_pages,
+                      page_size=ex.page_size, maxp=ex.max_pages_per_seq)
+    else:
+        shapes.update(batch=ex.max_slots)
+    del run, ex, res, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes, launches
 
 
-def time_phase(run, launches, worst):
+def time_phase(runs, worst):
     """Time each kernel, its plain version and the library yardstick at the
-    serving run's shapes; bound from this run's inputs."""
+    shapes its serving run gave it; bound from these inputs. ``runs`` maps
+    a run's name to (shapes, launches); a kernel's launches are the sum
+    over the serving runs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    phase("time kernels at the serving run's shapes")
-    ex = run.executor
-    cfg = ex.cfg
+    from repro_torch.models import model as M
+    phase("time kernels at the serving runs' shapes")
     dt = "bfloat16"
     dtype = torch.bfloat16
     elt = 2
-    Hq, Hkv, hd, psz = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ex.page_size
-    tasks = run.result.tasks                     # in arrival order
-    eff = [min(t.prompt_len, ex.max_seq // 2) for t in tasks]
+    launches = {k: sum(r[1][k] for r in runs.values()) for k in KERNELS}
     rows = []
 
-    # decode: a full bucket of the engine over the workload's first
-    # requests, each mid-way through its output (prompt + half its output
-    # cached)
-    B = ex.max_batch
-    lengths = [eff[i % len(tasks)] + tasks[i % len(tasks)].output_len // 2
-               for i in range(B)]
-    q, kp, vp, pt, qp = decode_inputs(lengths, dtype, n_pages=ex.n_pages,
-                                      Hq=Hq, Hkv=Hkv, hd=hd, psz=psz,
-                                      maxp=ex.max_pages_per_seq, seed=1)
+    def lengths_of(shapes):
+        """Cached tokens of a full batch over the workload's first requests,
+        each mid-way through its output (prompt + half its output)."""
+        tasks = shapes["tasks"]                  # in arrival order
+        eff = [min(t.prompt_len, shapes["max_seq"] // 2) for t in tasks]
+        return eff, [eff[i % len(tasks)] + tasks[i % len(tasks)].output_len // 2
+                     for i in range(shapes["batch"])]
+
+    def masked_sdpa(q, k, v, keep):
+        """One library call for the same function: K/V repeated to Hq and
+        an explicit boolean mask. q [B,Hq,Sq,hd], k/v [B,Hkv,S,hd]."""
+        g = q.shape[1] // k.shape[1]
+        kr, vr = (x.repeat_interleave(g, dim=1) for x in (k, v))
+        return lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                      attn_mask=keep)
+
+    # paged decode (run paged-atomic)
+    sh = runs["paged-atomic"][0]
+    cfg = sh["cfg"]
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    eff, lengths = lengths_of(sh)
+    B = sh["batch"]
+    q, kp, vp, pt, qp = decode_inputs(lengths, dtype, n_pages=sh["n_pages"],
+                                      Hq=Hq, Hkv=Hkv, hd=hd,
+                                      psz=sh["page_size"], maxp=sh["maxp"],
+                                      seed=1)
     live = sum(ln + 1 for ln in lengths)
-    nbytes = (2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
-              + pt.numel() * 4 + B * 4)
-    flops = 4 * live * Hq * hd
     rows.append(("paged_decode_attention",
-                 f"B={B} q_pos={lengths} maxp={ex.max_pages_per_seq}",
+                 f"B={B} q_pos={lengths} maxp={sh['maxp']}",
                  lambda: ops.paged_decode_attention(q, kp, vp, pt, qp),
                  lambda: ref.paged_decode_attention_ref(q, kp, vp, pt, qp),
                  lambda: ref.paged_decode_attention_ref(
                      q.float(), kp.float(), vp.float(), pt, qp),
-                 None, nbytes, flops))
+                 None, 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
+                 + pt.numel() * 4 + B * 4, 4 * live * Hq * hd))
 
-    # prefill: one prompt at the median effective length of the workload
+    # prefill: one prompt at the median effective length (run paged-atomic)
     S = sorted(eff)[len(eff) // 2]
     qf, kf, vf = prefill_inputs(1, S, dtype, Hq=Hq, Hkv=Hkv, hd=hd, seed=2)
     qt, kt, vt = (x.transpose(1, 2) for x in (qf, kf, vf))
@@ -307,14 +502,56 @@ def time_phase(run, launches, worst):
     def sdpa():
         return F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
 
-    pairs = S * (S + 1) // 2
     rows.append(("flash_prefill", f"B=1 S={S} causal",
                  lambda: ops.flash_prefill(qf, kf, vf, causal=True),
                  lambda: ref.flash_prefill_ref(qf, kf, vf, causal=True),
                  lambda: ref.flash_prefill_ref(qf.float(), kf.float(),
                                                vf.float(), causal=True),
                  sdpa, (2 * S * Hq + 2 * S * Hkv) * hd * elt,
-                 4 * pairs * Hq * hd))
+                 4 * (S * (S + 1) // 2) * Hq * hd))
+
+    # ring-cache decode over the whole slot array (run slot-chunked): every
+    # slot holds a request mid-way through its output, append-only
+    sh = runs["slot-chunked"][0]
+    eff, lengths = lengths_of(sh)
+    Sbuf, B = sh["max_seq"], sh["batch"]
+    window = M.cache_window(cfg, Sbuf)
+    kv_pos = appended_kv_pos([ln + 1 for ln in lengths], Sbuf)
+    dq, dk, dv, dkp, dqp = ring_inputs(lengths, kv_pos, dtype, Sbuf, Hq=Hq,
+                                       Hkv=Hkv, hd=hd, seed=3)
+    live = sum(ln + 1 for ln in lengths)
+    keep = (dkp >= 0)[:, None, None, :]
+    rows.append(("decode_attention",
+                 f"B={B} S={Sbuf} q_pos={lengths} window={window}",
+                 lambda: ops.decode_attention(dq, dk, dv, dkp, dqp,
+                                              window=window),
+                 lambda: ref.decode_attention_ref(dq, dk, dv, dkp, dqp, window),
+                 lambda: ref.decode_attention_ref(dq.float(), dk.float(),
+                                                  dv.float(), dkp, dqp, window),
+                 masked_sdpa(dq[:, :, None], dk, dv, keep),
+                 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
+                 + dkp.numel() * 4 + B * 4, 4 * live * Hq * hd))
+
+    # one full chunk of the median prompt, its last full one, over the
+    # slot engine's [1,Hkv,S,hd] layer buffer read through its strides
+    C = sh["chunk"]
+    S_med = sorted(eff)[len(eff) // 2]
+    q0 = C * max(0, S_med // C - 1)
+    cq, ck, cv = chunk_inputs(1, C, Sbuf, dtype, Hq=Hq, Hkv=Hkv, hd=hd, seed=4)
+    cqs = torch.tensor([q0], dtype=torch.int32, device="cuda")
+    q_pos = q0 + torch.arange(C, device="cuda")
+    ckeep = (torch.arange(Sbuf, device="cuda")[None, :] <= q_pos[:, None])
+    rows.append(("flash_prefill_chunk",
+                 f"B=1 C={C} q_start={q0} S={Sbuf} strided window={window}",
+                 lambda: ops.flash_prefill_chunk(cq, ck, cv, cqs,
+                                                 window=window),
+                 lambda: ref.flash_prefill_chunk_ref(cq, ck, cv, cqs, window),
+                 lambda: ref.flash_prefill_chunk_ref(cq.float(), ck.float(),
+                                                     cv.float(), cqs, window),
+                 masked_sdpa(cq.transpose(1, 2), ck.transpose(1, 2),
+                             cv.transpose(1, 2), ckeep),
+                 (2 * C * Hq + 2 * (q0 + C) * Hkv) * hd * elt + 4,
+                 4 * Hq * hd * (C * q0 + C * (C + 1) // 2)))
 
     out = []
     for name, shape, kern, plain, plain_fp32, lib, nbytes, flops in rows:
@@ -334,7 +571,8 @@ def time_phase(run, launches, worst):
         print(f"{name} [{shape}, {dt}]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-              f"{bound:.5f} ms by {by} ({nbytes} B, {flops} flop)")
+              f"{bound:.5f} ms by {by} ({nbytes} B, {flops} flop), launches "
+              + ", ".join(f"{r} {v[1][name]}" for r, v in runs.items()))
         out.append({"name": name, "route": "cuda",
                     "source": KERNELS[name]["source"],
                     "replaces": KERNELS[name]["replaces"],
@@ -360,8 +598,9 @@ def main() -> None:
     build_phase()
     worst = check_kernels()
     check_engine()
-    run, launches = serve_phase()
-    kernels = time_phase(run, launches, worst)
+    runs = {name: serve_phase(name, extra, required)
+            for name, extra, required in SERVE_RUNS}
+    kernels = time_phase(runs, worst)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked:

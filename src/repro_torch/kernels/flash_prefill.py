@@ -1,10 +1,11 @@
-"""Launcher of the flash-prefill CUDA kernel (csrc/flash_prefill.cu), the
-Hopper counterpart of the TPU kernel
-``repro.kernels.flash_prefill.flash_prefill_kernel``.
+"""Launchers of the flash-prefill CUDA kernel (csrc/flash_prefill.cu), the
+Hopper counterpart of the TPU kernels
+``repro.kernels.flash_prefill.flash_prefill_kernel`` (``launch``) and
+``flash_prefill_chunk_kernel`` (``launch_chunk``).
 
-``launch`` takes tensors already checked and allocated by
-``kernels.ops.flash_prefill`` and enqueues the kernel on the current CUDA
-stream; it raises if the launch returns an error.
+Each takes tensors already checked and allocated by its wrapper in
+``kernels.ops`` and enqueues the kernel on the current CUDA stream; it
+raises if the launch returns an error.
 """
 from __future__ import annotations
 
@@ -27,6 +28,11 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, I, P]
         fn.restype = ctypes.c_int
+        L = ctypes.c_longlong
+        lib.flash_prefill_chunk.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
+                                            L, L, L, L, L, L, I,
+                                            ctypes.c_float, I, P]
+        lib.flash_prefill_chunk.restype = ctypes.c_int
     return lib
 
 
@@ -43,4 +49,22 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, S, Hq, Hkv, hd, int(bool(causal)),
         -1 if window is None else int(window), float(hd ** -0.5),
         DTYPES[q.dtype], stream)
+    build.check(lib, NAME, rc)
+
+
+def launch_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_start: torch.Tensor, out: torch.Tensor,
+                 window: Optional[int]) -> None:
+    """q/out [B,C,Hq,hd] contiguous; k/v [B,S,Hkv,hd] views whose last
+    dimension is contiguous (the kernel reads them through their strides);
+    q_start [B] int32; one type (fp32 or bf16), one CUDA device."""
+    lib = _lib()
+    B, C, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_prefill_chunk(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_start.data_ptr(), B, C, S, Hq, Hkv, hd, *k.stride()[:3],
+        *v.stride()[:3], -1 if window is None else int(window),
+        float(hd ** -0.5), DTYPES[q.dtype], stream)
     build.check(lib, NAME, rc)

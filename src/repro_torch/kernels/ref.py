@@ -10,8 +10,23 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import attention, band_mask
+from repro_torch.models.layers import (attention, band_mask,
+                                       chunk_decode_attention,
+                                       decode_attention)
 from repro_torch.models.layers import paged_decode_attention as _paged
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, kv_pos: torch.Tensor,
+                         q_pos: torch.Tensor,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Same contract as csrc/decode_attention.cu: one query token per row
+    over a ring cache. q [B,Hq,hd], k/v_cache [B,Hkv,S,hd], kv_pos [B,S]
+    int32 (-1 empty), q_pos [B] int32 -> [B,Hq,hd]; keys kept where
+    0 <= kv_pos <= q_pos (and q_pos - kv_pos < window). A row with nothing
+    live averages every slot here (the kernel gives 0): callers ignore
+    such rows."""
+    return decode_attention(q, k_cache, v_cache, kv_pos, q_pos, window)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -33,3 +48,19 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S = q.shape[1]
     pos = torch.arange(S, device=q.device)
     return attention(q, k, v, band_mask(pos, pos, causal, window))
+
+
+def flash_prefill_chunk_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, q_start: torch.Tensor,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """Same contract as the chunk entry point of csrc/flash_prefill.cu:
+    chunk queries q [B,C,Hq,hd] at absolute positions q_start[b]+i over
+    the whole KV buffer k/v [B,S,Hkv,hd] (key j at position j), causal and
+    within ``window`` when given, so stale data past the chunk end is
+    masked -> [B,C,Hq,hd]. k/v may be strided views."""
+    B, C = q.shape[:2]
+    S = k.shape[1]
+    q_pos = q_start[:, None] + torch.arange(C, device=q.device)
+    kv_pos = torch.arange(S, device=q.device).expand(B, S)
+    return chunk_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                  kv_pos, q_pos, window)

@@ -1,18 +1,24 @@
-"""Serving launcher of the PyTorch port: the SLICE-scheduled paged engine.
+"""Serving launcher of the PyTorch port: SLICE over the paged or the slot
+engine.
 
 Serves the FULL-width config by default (``--reduced`` opts in to the
 small one), on the CUDA card by default (``--device cpu`` runs the plain
-kernel versions on the CPU):
+kernel versions on the CPU), over the paged engine by default
+(``--executor slot`` serves the slot engine, the JAX CLI's default):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch edge-6b \\
       --dtype bfloat16 --scheduler slice --rate 2 --duration 4
+
+  # slot engine with chunked prefill (SLICE only)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch edge-6b \\
+      --dtype bfloat16 --executor slot --prefill-chunk 64 --slots 16
 
   # tiny CPU run
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --duration 3 --slots 4 --max-seq 128
 
 Prints the measured l(b) curve and a one-line SLO summary, as the JAX
-launcher does (``repro.launch.serve``, paged executor path).
+launcher does (``repro.launch.serve``).
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.schedulers import (FastServeScheduler, OrcaScheduler,
                                          SliceScheduler)
 from repro_torch.data.workload import poisson_workload
-from repro_torch.serving.executor import PagedTorchExecutor
+from repro_torch.serving.executor import (Executor, PagedTorchExecutor,
+                                          TorchExecutor)
 from repro_torch.serving.loop import LoopResult, run_serving_loop
 from repro_torch.serving.metrics import summarize
 
@@ -35,7 +42,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass
 class ServeRun:
-    executor: PagedTorchExecutor
+    executor: Executor           # PagedTorchExecutor or TorchExecutor
     lat: object                  # MeasuredLatencyModel
     probes: List[tuple]          # measured (batch, ms) samples of l(b)
     result: LoopResult
@@ -46,11 +53,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="edge-6b")
     ap.add_argument("--scheduler", default="slice",
                     choices=["slice", "orca", "fastserve"])
+    ap.add_argument("--executor", default="paged", choices=["slot", "paged"],
+                    help="paged KV arena (default) or fixed slot array")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: prompt tokens per chunk (SLICE "
+                         "only)")
     ap.add_argument("--rate", type=float, default=1.0)
     ap.add_argument("--duration", type=float, default=20.0)
     ap.add_argument("--ratio", type=float, default=0.5)
     ap.add_argument("--slots", type=int, default=8,
-                    help="max decode batch of the engine")
+                    help="max decode batch of the paged engine; slot "
+                         "count of the slot engine")
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--pages", type=int, default=None,
                     help="KV pool size in pages (default: "
@@ -86,16 +99,33 @@ def run(args: argparse.Namespace) -> ServeRun:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.prefill_chunk is not None and args.scheduler != "slice":
+        raise SystemExit("--prefill-chunk requires --scheduler slice "
+                         "(Orca/FastServe are atomic-prefill baselines)")
+    if args.prefill_chunk is not None and (not cfg.has_attention or cfg.has_ssm):
+        raise SystemExit(f"{args.arch}: executor-level chunked prefill needs "
+                         "a pure-attention arch — SSM/hybrid archs serve "
+                         "with atomic prefill (DESIGN.md §12)")
     n_pages = args.pages or (args.slots * args.max_seq) // args.page_size
-    ex = PagedTorchExecutor(cfg, n_pages=n_pages, page_size=args.page_size,
-                            max_seq=args.max_seq, seed=args.seed,
-                            max_batch=args.slots, dtype=DTYPES[args.dtype],
-                            device=args.device)
-    page_budget = ex.page_budget()
+    page_budget = None
+    if args.executor == "paged":
+        ex = PagedTorchExecutor(cfg, n_pages=n_pages,
+                                page_size=args.page_size,
+                                max_seq=args.max_seq, seed=args.seed,
+                                max_batch=args.slots,
+                                dtype=DTYPES[args.dtype], device=args.device,
+                                prefill_chunk_size=args.prefill_chunk)
+        page_budget = ex.page_budget()
+    else:
+        ex = TorchExecutor(cfg, max_slots=args.slots, max_seq=args.max_seq,
+                           seed=args.seed,
+                           prefill_chunk_size=args.prefill_chunk,
+                           dtype=DTYPES[args.dtype], device=args.device)
     lat = ex.latency_model()
     probes = list(ex.probe_samples)
     curve = " ".join(f"l({b})={ms:.3f}ms" for b, ms in probes)
-    print(f"engine {cfg.name} (paged, {args.dtype}, {ex.device}): {curve}")
+    print(f"engine {cfg.name} ({args.executor}, {args.dtype}, {ex.device}): "
+          f"{curve}")
     tasks = poisson_workload(args.rate, args.duration,
                              realtime_frac=args.ratio, seed=args.seed,
                              rt_output_len=8, voice_output_len=24,
@@ -104,11 +134,16 @@ def run(args: argparse.Namespace) -> ServeRun:
                                                args.max_seq // 4))
     shape_workload(tasks, lat, args.slots, args.max_seq)
     # Orca/FastServe have no memory model: cap their batch so worst-case
-    # residency (prompt cap + output cap per task) fits the pool
-    peak = args.max_seq // 4 + args.max_seq // 2
-    baseline_batch = max(1, min(args.slots,
-                                (n_pages * args.page_size) // peak))
-    sched = {"slice": lambda: SliceScheduler(lat, page_budget=page_budget),
+    # residency (prompt cap + output cap per task) fits the pool; the slot
+    # engine holds one slot per task, so its cap is the slot count
+    baseline_batch = args.slots
+    if args.executor == "paged":
+        peak = args.max_seq // 4 + args.max_seq // 2
+        baseline_batch = max(1, min(args.slots,
+                                    (n_pages * args.page_size) // peak))
+    sched = {"slice": lambda: SliceScheduler(
+                 lat, page_budget=page_budget,
+                 prefill_chunk=args.prefill_chunk),
              "orca": lambda: OrcaScheduler(max_batch=baseline_batch),
              "fastserve": lambda: FastServeScheduler(
                  max_batch=baseline_batch)}[args.scheduler]()
@@ -117,7 +152,7 @@ def run(args: argparse.Namespace) -> ServeRun:
     print(f"{args.scheduler}: n={s['all'].n} SLO={s['all'].slo:.1%} "
           f"RT={s['realtime'].slo:.1%} nRT={s['non_realtime'].slo:.1%} "
           f"decode_iters={res.decode_iterations} prefills={res.prefills} "
-          f"defers={dict(res.defers_by_reason)}")
+          f"prefill_chunks={res.prefill_chunks} defers={dict(res.defers_by_reason)}")
     return ServeRun(executor=ex, lat=lat, probes=probes, result=res)
 
 

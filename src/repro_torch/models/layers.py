@@ -1,5 +1,6 @@
 """Core transformer layers in PyTorch: RMSNorm, RoPE, GQA attention (plain
-softmax and over a paged KV arena), gated MLP.
+softmax, over a ring cache, for a prompt chunk, and over a paged KV
+arena), gated MLP.
 
 Each function keeps the JAX package's layout and arithmetic
 (``repro.models.layers``): the same shapes at the public boundary, softmax
@@ -86,11 +87,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_pos: torch.Tensor,
-                     q_pos: torch.Tensor) -> torch.Tensor:
-    """Single-token decode over a contiguous KV view.
+                     q_pos: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token decode over a (possibly ring-buffer) KV cache.
 
     q: [B,Hq,hd] (RoPE'd); k/v_cache: [B,Hkv,Sbuf,hd]; kv_pos: [B,Sbuf]
-    absolute position per slot, -1 = empty; q_pos: [B].
+    absolute position per slot, -1 = empty; q_pos: [B]; window: keep only
+    keys with q_pos - kv_pos < window.
     """
     B, Hq, hd = q.shape
     Hkv = k_cache.shape[1]
@@ -99,10 +102,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache).float()
     s = s * hd ** -0.5
     keep = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        keep &= q_pos[:, None] - kv_pos < window
     s = torch.where(keep[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache)
     return out.reshape(B, Hq, hd)
+
+
+def chunk_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, kv_pos: torch.Tensor,
+                           q_pos: torch.Tensor,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """Prompt-chunk attention over a KV cache buffer: the multi-query
+    generalisation of ``decode_attention`` and the plain version of the
+    flash-prefill-chunk kernel.
+
+    q: [B,C,Hq,hd], RoPE'd at absolute positions q_pos [B,C];
+    k/v_cache: [B,Hkv,Sbuf,hd] with the chunk's own KV already written;
+    kv_pos: [B,Sbuf] absolute position per slot, -1 = empty. Causal, and
+    within ``window`` when given.
+    """
+    d = q_pos[:, :, None] - kv_pos[:, None, :]           # [B,C,Sbuf]
+    keep = (kv_pos[:, None, :] >= 0) & (d >= 0)
+    if window is not None:
+        keep &= d < window
+    return attention(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2), keep)
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

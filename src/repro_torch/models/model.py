@@ -9,10 +9,15 @@ kernels on the card, their plain versions on the CPU.
 
 Entry points:
   prefill(params, inputs, buf_len)          -> (last_logits, cache)
+  prefill_chunk(params, cache, tokens)      -> (last_logits, cache)
+  decode_step(params, cache, tokens, active) -> (logits, cache)
+  prefill_chunk_paged(params, pages, ...)   -> (last_logits, pages)
   decode_step_paged(params, pages, ...)     -> (logits, pages)
 
-Unlike the functional JAX code, ``decode_step_paged`` writes the new K/V
-into the page arena in place (the arena is the engine's largest buffer).
+Unlike the functional JAX code, every step writes the new K/V (and
+``kv_pos``/``length``) into the slot cache or the page arena in place:
+these are the engine's largest buffers, and a view of some rows of the
+slot cache (``cache[k][:, s:s+1]``) is updated through to the whole.
 """
 from __future__ import annotations
 
@@ -126,6 +131,28 @@ def load_params(cfg: ArchConfig, tree: Params, device="cuda") -> Params:
     return p
 
 
+def init_cache(cfg: ArchConfig, batch: int, buf_len: int,
+               dtype=torch.float32, device="cuda") -> Cache:
+    """Empty slot cache: k/v [L,batch,Hkv,buf_len,hd] (ring of buf_len
+    slots), kv_pos [batch,buf_len] = -1, length [batch] = 0."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, buf_len, cfg.head_dim)
+    return {"length": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "kv_pos": torch.full((batch, buf_len), -1, dtype=torch.int32,
+                                 device=dev)}
+
+
+def cache_window(cfg: ArchConfig, buf_len: int) -> Optional[int]:
+    """The sliding window a slot cache of buf_len slots attends under: the
+    arch's window when the ring is no longer than it, else none."""
+    if cfg.sliding_window and buf_len <= cfg.sliding_window:
+        return cfg.sliding_window
+    return None
+
+
 def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
                      dtype=torch.float32, device="cuda") -> Cache:
     """Shared KV page arena: k/v_pages [L, n_pages, Hkv, page_size, hd]."""
@@ -207,8 +234,142 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
         "v": torch.nn.functional.pad(torch.stack(vs).transpose(2, 3), pad),
     }
     pos = torch.arange(buf_len, dtype=torch.int32, device=x.device)
-    cache["kv_pos"] = torch.where(pos < S, pos, -1).expand(B, buf_len)
+    cache["kv_pos"] = torch.where(pos < S, pos, -1).repeat(B, 1)
     return unembed(cfg, params, x[:, -1]), cache
+
+
+# ---------------------------------------------------------- chunked prefill
+
+def prefill_chunk(cfg: ArchConfig, params: Params, cache: Cache,
+                  tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """Process ONE prompt chunk against a slot cache (DESIGN.md §5), in
+    place.
+
+    tokens: [B,C], the next C prompt tokens of every row, appended at each
+    row's ``cache['length']``. The chunk's K/V and kv_pos are written into
+    the buffer, then its queries attend over everything cached so far in
+    the flash-prefill-chunk kernel, which reads the [B,Hkv,S,hd] layer
+    buffer through its strides (no copy). Caller guarantees length+C <=
+    buf_len (no ring wrap). Returns (logits of the chunk's last position
+    [B,V], cache).
+    """
+    _check_dense(cfg)
+    B, C = tokens.shape
+    dev = tokens.device
+    x = embed_inputs(cfg, params, tokens)                 # [B,C,D]
+    length = cache["length"]
+    q_pos = length[:, None] + torch.arange(C, dtype=length.dtype, device=dev)
+    barr = torch.arange(B, device=dev)[:, None]
+    slot = q_pos.long()                                    # append-only
+    window = cache_window(cfg, cache["k"].shape[3])
+    cache["kv_pos"][barr, slot] = q_pos
+    blk = params["blocks"]
+    for layer in range(cfg.n_layers):
+        q, k, v = _qkv(cfg, blk, layer, x)
+        q = L.apply_rope(q, q_pos, cfg.rope_theta)
+        k = L.apply_rope(k, q_pos, cfg.rope_theta)
+        kc, vc = cache["k"][layer], cache["v"][layer]     # [B,Hkv,S,hd]
+        kc[barr, :, slot] = k
+        vc[barr, :, slot] = v
+        a = ops.flash_prefill_chunk(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                    length, window=window)
+        x = x + a.reshape(B, C, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _ffn(cfg, blk, layer, x)
+    length += C
+    return unembed(cfg, params, x[:, -1]), cache
+
+
+def prefill_chunk_paged(cfg: ArchConfig, params: Params, pages: Cache,
+                        page_table: torch.Tensor, lengths: torch.Tensor,
+                        tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """Process ONE prompt chunk against the paged KV arena (DESIGN.md §5),
+    in place.
+
+    tokens: [B,C] appended at logical positions lengths[b]+i; the page
+    table [B,maxp] must already cover lengths+C tokens (the pool extends
+    BEFORE the chunk). The chunk's K/V is written into its pages (tokens
+    whose page-table entry is -1 write nothing), then its queries attend
+    over the gathered page view in the flash-prefill-chunk kernel:
+    untabled entries gather page 0 at positions past the chunk end, so
+    causal masking covers them. Returns (logits of the chunk's last
+    position [B,V], pages); lengths and tables are the caller's.
+    """
+    _check_dense(cfg)
+    B, C = tokens.shape
+    dev = tokens.device
+    k_all, v_all = pages["k_pages"], pages["v_pages"]
+    psz, maxp = k_all.shape[3], page_table.shape[1]
+    x = embed_inputs(cfg, params, tokens)                 # [B,C,D]
+    q_pos = lengths[:, None] + torch.arange(C, dtype=lengths.dtype,
+                                            device=dev)
+    barr = torch.arange(B, device=dev)[:, None]
+    # the JAX gather clamps an out-of-range logical page; clamp the same way
+    pt_row = page_table[barr, (q_pos // psz).clamp(max=maxp - 1).long()]
+    # JAX drops untabled tokens' scatter through an out-of-bounds index;
+    # torch raises on one, so select the tokens that write (one host sync)
+    w_b, w_c = (pt_row >= 0).nonzero(as_tuple=True)
+    w_page = pt_row[w_b, w_c].long()
+    w_off = (q_pos[w_b, w_c] % psz).long()
+    blk = params["blocks"]
+    for layer in range(cfg.n_layers):
+        q, k, v = _qkv(cfg, blk, layer, x)
+        q = L.apply_rope(q, q_pos, cfg.rope_theta)
+        k = L.apply_rope(k, q_pos, cfg.rope_theta)
+        k_all[layer, w_page, :, w_off] = k[w_b, w_c]
+        v_all[layer, w_page, :, w_off] = v[w_b, w_c]
+        kc = L.gather_pages(k_all[layer], page_table)     # [B,Hkv,maxp*psz,hd]
+        vc = L.gather_pages(v_all[layer], page_table)
+        a = ops.flash_prefill_chunk(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                    lengths)
+        x = x + a.reshape(B, C, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _ffn(cfg, blk, layer, x)
+    return unembed(cfg, params, x[:, -1]), pages
+
+
+# ------------------------------------------------------------ slot decode
+
+def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor,
+                active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decode iteration for every (active) row of a slot cache, in
+    place; attention in the decode-attention kernel.
+
+    tokens: [B] int; active: [B] bool (the decode-mask-matrix column from
+    SLICE's rate allocator). The new token of row b goes to ring slot
+    length[b] % buf_len; with a ring no longer than the arch's sliding
+    window, attention keeps only that window. Inactive rows keep their
+    state (K/V, kv_pos and length unchanged) and their logits are garbage
+    to be ignored. Returns (logits [B,V], cache).
+    """
+    _check_dense(cfg)
+    B = tokens.shape[0]
+    dev = tokens.device
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+    x = embed_inputs(cfg, params, tokens)                 # [B,D]
+    length = cache["length"]
+    q_pos = length.clone()
+    buf_len = cache["k"].shape[3]
+    window = cache_window(cfg, buf_len)
+    rows = torch.arange(B, device=dev)
+    slot = (q_pos % buf_len).long()
+    kv_pos = cache["kv_pos"]
+    kv_pos[rows, slot] = torch.where(active, q_pos, kv_pos[rows, slot])
+    sel = active[:, None, None]
+    blk = params["blocks"]
+    for layer in range(cfg.n_layers):
+        q, k, v = _qkv(cfg, blk, layer, x)
+        q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
+        k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
+        kc, vc = cache["k"][layer], cache["v"][layer]     # [B,Hkv,S,hd]
+        kc[rows, :, slot] = torch.where(sel, k, kc[rows, :, slot])
+        vc[rows, :, slot] = torch.where(sel, v, vc[rows, :, slot])
+        a = ops.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
+        x = x + a.reshape(B, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _ffn(cfg, blk, layer, x)
+    length += active.to(length.dtype)
+    return unembed(cfg, params, x), cache
 
 
 # ------------------------------------------------------------ paged decode

@@ -7,7 +7,9 @@ port's dependencies:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Inputs at edge-6b head shapes (Hq=32, Hkv=2, hd=128, page 16), with a pad
-row, -1 table entries and ragged prompt lengths. Tolerances: fp32 1e-4
+row, -1 table entries and ragged prompt lengths; for the slot-cache
+kernels, -1 slots, a wrapped ring, a window, chunk offsets and K/V read
+through the strides of a [B,Hkv,S,hd] buffer. Tolerances: fp32 1e-4
 (summation order over up to a few hundred keys), bf16 1.6e-2 (output
 rounding to bf16 of values below ~4), against the plain version on the
 same inputs in fp32.
@@ -79,6 +81,69 @@ def test_flash_prefill_kernel_matches_plain(dtype, S, causal, window):
                                rtol=0)
 
 
+def _ring_inputs(seed=0, Hq=32, Hkv=2, hd=128, S=1024):
+    """Rows: empty (all -1), 300 appended tokens, a ring wrapped twice
+    (slot p % S holds p), and a random history with holes."""
+    rng = np.random.default_rng(seed)
+    q_pos = np.array([0, 299, 2 * S + 100, 700], np.int32)
+    kv_pos = np.full((4, S), -1, np.int32)
+    kv_pos[1, :300] = np.arange(300)
+    for p in range(q_pos[2] - S + 1, q_pos[2] + 1):
+        kv_pos[2, p % S] = p
+    kv_pos[3] = rng.integers(0, 900, S)
+    kv_pos[3, ::7] = -1
+    f = [rng.standard_normal(s).astype(np.float32)
+         for s in ((4, Hq, hd), (4, Hkv, S, hd), (4, Hkv, S, hd))]
+    return [torch.from_numpy(a) for a in (*f, kv_pos, q_pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 64, 8192])
+def test_decode_attention_kernel_matches_plain(dtype, window):
+    _need_cuda()
+    q, k, v, kp, qp = _ring_inputs()
+    dt = getattr(torch, dtype)
+    dev = [x.to(dt).cuda() for x in (q, k, v)] + [kp.cuda(), qp.cuda()]
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(*dev, window=window).float().cpu()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    want = ops.decode_attention(*[x.cpu().float() for x in dev[:3]], kp, qp,
+                                window=window)
+    d = qp[:, None] - kp
+    live = ((kp >= 0) & (d >= 0) & (d < (window or 1 << 30))).any(dim=1)
+    assert not live[0] and live[1:].all()
+    assert torch.all(got[~live] == 0)              # empty row: 0
+    torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,q_start,window", [(1, 0, None), (37, 16, None),
+                                              (64, 300, 64), (128, 0, None)])
+def test_flash_prefill_chunk_kernel_matches_plain(dtype, C, q_start, window):
+    """K/V as the strided view of a [B,Hkv,S,hd] buffer full of stale data
+    past the chunk; row 1 starts 5 positions later than row 0."""
+    _need_cuda()
+    rng = np.random.default_rng(C)
+    S = 1024
+    arrs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((2, C, 32, 128), (2, 2, S, 128), (2, 2, S, 128))]
+    dt = getattr(torch, dtype)
+    q, k, v = (x.to(dt).cuda() for x in arrs)
+    qs = torch.tensor([q_start, q_start + 5], dtype=torch.int32).cuda()
+    before = ops.LAUNCHES["flash_prefill_chunk"]
+    got = ops.flash_prefill_chunk(q, k.transpose(1, 2), v.transpose(1, 2), qs,
+                                  window=window)
+    assert ops.LAUNCHES["flash_prefill_chunk"] == before + 1
+    assert got.dtype == dt
+    want = ops.flash_prefill_chunk(
+        q.float().cpu(), k.float().cpu().transpose(1, 2),
+        v.float().cpu().transpose(1, 2), qs.cpu(), window=window)
+    torch.testing.assert_close(got.float().cpu(), want, atol=TOL[dtype],
+                               rtol=0)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take():
     _need_cuda()
@@ -92,3 +157,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                    .transpose(0, 1), kp, vp, pt, qp)
     with pytest.raises(ValueError, match="types"):
         ops.paged_decode_attention(q.half(), kp.half(), vp.half(), pt, qp)
+    q, k, v, kv, qp = [x.cuda() for x in _ring_inputs()]
+    k_cols = k.transpose(2, 3).contiguous().transpose(2, 3)   # hd strided
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, k_cols, v, kv, qp)
+    with pytest.raises(ValueError, match="last dimension"):
+        ops.flash_prefill_chunk(q[:, None], k_cols.transpose(1, 2),
+                                v.transpose(1, 2), qp)

@@ -146,13 +146,130 @@ def test_wrappers_reject_bad_window():
     arrs = _t(*_prefill_inputs(1, 4, 2, 1))
     with pytest.raises(ValueError, match="window"):
         ops.flash_prefill(*arrs, window=0)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_prefill_chunk(*arrs, torch.zeros(1, dtype=torch.int32),
+                                window=0)
+    with pytest.raises(ValueError, match="window"):
+        ops.decode_attention(*_t(*_ring_inputs(2, 1)), window=-3)
+
+
+# ------------------------------------------------ slot decode, prompt chunks
+
+def _ring_inputs(Hq, Hkv, hd=32, S=32, seed=0):
+    """Ring-cache decode inputs: rows with an empty cache (every kv_pos
+    -1), a short append-only history with -1 tail slots, a wrapped ring
+    (slot p % S holds position p, oldest overwritten), a row with -1 holes
+    and future positions (kv_pos > q_pos), and a full ring at the start."""
+    rng = np.random.default_rng(seed)
+    q_pos = np.array([0, 5, 3 * S - 7, 40, S - 1], np.int32)
+    kv_pos = np.full((len(q_pos), S), -1, np.int32)
+    kv_pos[1, :6] = np.arange(6)
+    for p in range(q_pos[2] - S + 1, q_pos[2] + 1):
+        kv_pos[2, p % S] = p
+    kv_pos[3] = rng.integers(0, 60, S)
+    kv_pos[3, ::5] = -1
+    kv_pos[4] = np.arange(S)
+    B = len(q_pos)
+    q = rng.standard_normal((B, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
+    return q, k, v, kv_pos, q_pos
+
+
+@pytest.mark.parametrize("window", [None, 8, 24])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (4, 1), (6, 3)])
+def test_decode_attention_plain_matches_pallas(window, Hq, Hkv):
+    """The port's ring-cache decode attention (plain version and
+    ``layers.decode_attention``, with ``window``) against the JAX layer
+    on every row and the Pallas kernel (interpret) on rows with a live
+    slot: -1 slots, a wrapped ring, future positions, a sliding window."""
+    arrs = _ring_inputs(Hq, Hkv)
+    got = ops.decode_attention(*_t(*arrs), window=window).numpy()
+    layer = TL.decode_attention(*_t(*arrs), window=window).numpy()
+    want = np.asarray(JL.decode_attention(*_j(*arrs), window))
+    kern = np.asarray(jops.decode_attention(*_j(*arrs), window=window,
+                                            blk=16, interpret=True))
+    q_pos, kv_pos = arrs[4], arrs[3]
+    d = q_pos[:, None] - kv_pos
+    keep = (kv_pos >= 0) & (d >= 0) & (d < (window or 10 ** 9))
+    live = keep.any(axis=1)
+    assert live.sum() >= 4 and not live[0]
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(layer, got)
+    np.testing.assert_allclose(got[live], kern[live], atol=ATOL, rtol=0)
+    assert np.all(kern[~live] == 0)       # the kernels' empty-row contract
+
+
+def _chunk_inputs(B, C, S, Hq, Hkv, hd=32, seed=0):
+    """Chunk queries [B,C,Hq,hd] and a KV buffer laid out as the slot
+    cache, [B,Hkv,S,hd], every slot filled (the tail past each chunk is
+    stale data the causal mask must hide)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, C, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("window", [None, 12])
+@pytest.mark.parametrize("q_start", [(0, 0), (16, 40), (48, 5)])
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (6, 2), (16, 1)])
+def test_flash_prefill_chunk_plain_matches_pallas(window, q_start, Hq, Hkv):
+    """The chunk wrapper's plain version, given K/V as the strided view
+    ``.transpose(1, 2)`` of a [B,Hkv,S,hd] buffer, against the Pallas
+    chunk kernel (interpret) on the same data: q_start 0 and > 0, stale
+    tail data, a window, GQA g in {1, 3, 16}."""
+    q, k, v = _chunk_inputs(2, 16, 64, Hq, Hkv, seed=sum(q_start))
+    qs = np.asarray(q_start, np.int32)
+    kt, vt = (x.transpose(1, 2) for x in _t(k, v))
+    got = ops.flash_prefill_chunk(*_t(q), kt, vt, *_t(qs),
+                                  window=window).numpy()
+    kj, vj = (jnp.asarray(x).swapaxes(1, 2) for x in (k, v))
+    kern = np.asarray(jops.flash_prefill_chunk(
+        jnp.asarray(q), kj, vj, jnp.asarray(qs), window=window, qblk=8,
+        kblk=16, interpret=True))
+    np.testing.assert_allclose(got, kern, atol=ATOL, rtol=0)
+    want = np.asarray(jref.flash_prefill_chunk_ref(jnp.asarray(q), kj, vj,
+                                                   jnp.asarray(qs),
+                                                   window=window))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("C,S", [(1, 7), (37, 50), (5, 77)])
+@pytest.mark.parametrize("window", [None, 9])
+def test_chunk_decode_attention_ragged_matches_jnp(C, S, window):
+    """Any C and S (no block divisibility), with -1 slots: the port's
+    ``chunk_decode_attention`` against the JAX one, and the chunk
+    wrapper's plain version against it where kv_pos is the slot index."""
+    q, k, v = _chunk_inputs(2, C, S, 6, 2, seed=C * S)
+    q_start = np.array([0, S - C], np.int32)
+    q_pos = q_start[:, None] + np.arange(C, dtype=np.int32)
+    kv_pos = np.tile(np.arange(S, dtype=np.int32), (2, 1))
+    holes = kv_pos.copy()
+    holes[:, 1::4] = -1
+    for kp in (kv_pos, holes):
+        got = TL.chunk_decode_attention(*_t(q, k, v, kp, q_pos), window)
+        want = JL.chunk_decode_attention(*_j(q, k, v, kp, q_pos), window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0)
+    kt, vt = (x.transpose(1, 2) for x in _t(k, v))
+    chunk = ops.flash_prefill_chunk(*_t(q), kt, vt, *_t(q_start),
+                                    window=window)
+    want = JL.chunk_decode_attention(*_j(q, k, v, kv_pos, q_pos), window)
+    np.testing.assert_allclose(chunk.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
 
 
 def test_cpu_calls_do_not_count_launches():
     ops.reset_launches()
     ops.flash_prefill(*_t(*_prefill_inputs(1, 4, 2, 1)))
     ops.paged_decode_attention(*_t(*_paged_inputs(2, 1)))
-    assert ops.LAUNCHES == {"paged_decode_attention": 0, "flash_prefill": 0}
+    ops.decode_attention(*_t(*_ring_inputs(2, 1)), window=8)
+    q, k, v = _t(*_prefill_inputs(2, 16, 2, 1))
+    ops.flash_prefill_chunk(q[:, :4], k, v, torch.tensor([0, 3],
+                                                         dtype=torch.int32))
+    assert ops.LAUNCHES == {"paged_decode_attention": 0, "flash_prefill": 0,
+                            "flash_prefill_chunk": 0, "decode_attention": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -143,3 +143,91 @@ def test_prefill_then_paged_decode_match_jax(pair):
             if act[r]:
                 lengths[r] += 1
                 toks[r] = int(nxt[r])
+
+
+def _jax_cache(tc):
+    return {k: jnp.asarray(v.numpy()) for k, v in tc.items()}
+
+
+def test_slot_chunks_then_ring_decode_match_jax(pair):
+    """Slot cache: a 13-token prompt appended as chunks of 8 and 5 to row
+    0 (row 1 takes a 4-token chunk, then a 9-token one), then decode steps
+    over a 16-slot ring, past its end, with row 1 inactive on some steps.
+    Logits of active rows and the whole cache (k, v, kv_pos, length)
+    match JAX's ``prefill_chunk`` and ``decode_step`` (kv_pos masking,
+    ring slot q_pos % buf_len, the reduced config's window of 64)."""
+    jcfg, cfg, jp, _, tp = pair
+    buf = 16
+    rng = np.random.default_rng(5)
+    jc = JM.init_cache(jcfg, 2, buf)
+    tc = TM.init_cache(cfg, 2, buf, device="cpu")
+    for c0, c1 in ((8, 4), (5, 9)):
+        toks = rng.integers(0, cfg.vocab_size, (2, max(c0, c1)))
+        # the rows take chunks of different lengths, so each runs on a
+        # view of its own row, as the slot engine does
+        for rows, c in ((slice(0, 1), c0), (slice(1, 2), c1)):
+            sub_t = {k: v[:, rows] if k in ("k", "v") else v[rows]
+                     for k, v in tc.items()}
+            sub_j = {k: v[:, rows] if k in ("k", "v") else v[rows]
+                     for k, v in jc.items()}
+            tl, _ = TM.prefill_chunk(cfg, tp, sub_t,
+                                     torch.from_numpy(toks[rows, :c]))
+            jl, sub_j = JM.prefill_chunk(jcfg, jp, sub_j,
+                                         jnp.asarray(toks[rows, :c]))
+            assert_logits_close(tl.numpy(), np.asarray(jl), err_msg="chunk")
+            jc = {k: (v.at[:, rows].set(sub_j[k]) if k in ("k", "v")
+                      else v.at[rows].set(sub_j[k])) for k, v in jc.items()}
+    for name in ("k", "v"):
+        assert_logits_close(tc[name].numpy(), np.asarray(jc[name]))
+    for name in ("kv_pos", "length"):
+        np.testing.assert_array_equal(tc[name].numpy(), np.asarray(jc[name]))
+    toks = np.array([3, 7], np.int32)
+    for step in range(12):                 # row 0 runs 13 -> 25 > buf
+        av = np.array([True, step % 3 != 1])
+        jl, jc = JM.decode_step(jcfg, jp, jc, jnp.asarray(toks),
+                                jnp.asarray(av))
+        tl, tc = TM.decode_step(cfg, tp, tc, torch.from_numpy(toks),
+                                torch.from_numpy(av))
+        assert_logits_close(tl.numpy()[av], np.asarray(jl)[av],
+                            err_msg=f"decode step {step}")
+        for name in ("k", "v"):
+            assert_logits_close(tc[name].numpy(), np.asarray(jc[name]))
+        for name in ("kv_pos", "length"):
+            np.testing.assert_array_equal(tc[name].numpy(),
+                                          np.asarray(jc[name]))
+        toks = np.where(av, np.asarray(jl).argmax(-1), toks).astype(np.int32)
+    assert int(tc["length"][0]) == 25 and tc["kv_pos"].max() == 24
+
+
+def test_prefill_chunk_paged_matches_jax(pair):
+    """Paged chunks: row 1 first takes 3 tokens alone, then rows 0 and 1
+    take two chunks of 6 together at unequal lengths (pages crossed
+    mid-chunk), with a pad row (table all -1) riding along. The tables
+    cover every chunk, as the pool guarantees. Logits of the real rows
+    and the whole arena (the pad row writes nothing) match JAX."""
+    jcfg, cfg, jp, _, tp = pair
+    psz, n_pages, maxp = 4, 10, 6
+    rng = np.random.default_rng(9)
+    jpages = JM.init_paged_cache(jcfg, n_pages, psz)
+    tpages = TM.init_paged_cache(cfg, n_pages, psz, device="cpu")
+    steps = (([[8]], [0], 3),
+             ([[2, 7], [8, 1, 5], []], [0, 3, 0], 6),
+             ([[2, 7, 4], [8, 1, 5, 3], []], [6, 9, 0], 6))
+    for step, (tables, lengths, c) in enumerate(steps):
+        B = len(tables)
+        pt = np.full((B, maxp), -1, np.int32)
+        for r, row in enumerate(tables):
+            pt[r, :len(row)] = row
+        ln = np.asarray(lengths, np.int32)
+        toks = rng.integers(0, cfg.vocab_size, (B, c))
+        jl, jpages = JM.prefill_chunk_paged(jcfg, jp, jpages, jnp.asarray(pt),
+                                            jnp.asarray(ln), jnp.asarray(toks))
+        tl, tpages = TM.prefill_chunk_paged(cfg, tp, tpages,
+                                            torch.from_numpy(pt),
+                                            torch.from_numpy(ln),
+                                            torch.from_numpy(toks))
+        real = (pt >= 0).any(axis=1)
+        assert_logits_close(tl.numpy()[real], np.asarray(jl)[real],
+                            err_msg=f"chunk {step}")
+        for name in ("k_pages", "v_pages"):
+            assert_logits_close(tpages[name].numpy(), np.asarray(jpages[name]))

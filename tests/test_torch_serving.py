@@ -5,8 +5,10 @@ same weights and pinned task ids (identical greedy streams, prefill and
 decode logits at atol 1e-5), and the SLICE serving loop over both with a
 priced clock (each executor returns ms priced from one LatencyModel, not
 measured), which makes every scheduling decision deterministic: counts,
-per-task token times and streams must be equal. Plus the port's package
-rules: no jax, no ``repro.*`` imports, and no silent CPU fallback.
+per-task token times and streams must be equal. The priced loop also runs
+with chunked prefill over both engine pairs (paged, and the slot engines
+``TorchExecutor``/``JaxExecutor``). Plus the port's package rules: no
+jax, no ``repro.*`` imports, and no silent CPU fallback.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro.core import schedulers as jsched  # noqa: E402
 from repro.core import task as jtask  # noqa: E402
 from repro.core.latency_model import MeasuredLatencyModel as JLat  # noqa: E402
 from repro.models import model as JM  # noqa: E402
-from repro.serving.executor import PagedJaxExecutor  # noqa: E402
+from repro.serving.executor import JaxExecutor, PagedJaxExecutor  # noqa: E402
 from repro.serving.loop import run_serving_loop as jax_loop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import schedulers as tsched  # noqa: E402
@@ -38,7 +40,9 @@ from repro_torch.core import task as ttask  # noqa: E402
 from repro_torch.core.latency_model import MeasuredLatencyModel as TLat  # noqa: E402
 from repro_torch.data.workload import poisson_workload as t_workload  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.serving.executor import PagedTorchExecutor  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.serving.executor import (PagedTorchExecutor,  # noqa: E402
+                                          TorchExecutor)
 from repro_torch.serving.loop import run_serving_loop as torch_loop  # noqa: E402
 from repro.data.workload import poisson_workload as j_workload  # noqa: E402
 
@@ -101,17 +105,33 @@ def test_page_budget_mirrors_jax(engines):
 class Priced:
     """Executor wrapper returning priced ms from a LatencyModel instead of
     the measured time, so the serving loop's clock — and with it every
-    scheduling decision — is deterministic and backend-independent."""
+    scheduling decision — is deterministic and backend-independent. It
+    records every task's greedy stream from the engine's logits (the JAX
+    slot engine has no ``generated_tokens``)."""
 
     def __init__(self, inner, lat):
         self.inner, self.lat = inner, lat
+        self.streams = {}
+
+    def _first(self, task):
+        self.streams[task.task_id] = [
+            int(self.inner.last_prefill_logits[0].argmax())]
 
     def prefill(self, task):
         self.inner.prefill(task)
+        self._first(task)
         return self.lat.prefill_ms(task.prompt_len)
+
+    def prefill_chunk(self, task, n_tokens):
+        _, done = self.inner.prefill_chunk(task, n_tokens)
+        if done:
+            self._first(task)
+        return self.lat.prefill_ms(n_tokens), done
 
     def decode(self, tasks, depths=None):
         self.inner.decode(tasks)
+        for t, row in zip(tasks, self.inner.last_logits):
+            self.streams.setdefault(t.task_id, []).append(int(row.argmax()))
         return self.lat.decode_ms(len(tasks))
 
     def __getattr__(self, name):           # release, page_budget, ...
@@ -122,9 +142,10 @@ SAMPLES = [(1, 8.0), (2, 9.0), (4, 11.0)]
 PREFILL = [(8, 4.0), (64, 12.0)]
 
 
-def _priced_run(workload, sched_mod, lat_cls, loop, ex):
+def _priced_run(workload, sched_mod, lat_cls, loop, ex, prefill_chunk=None):
     """SLICE loop over ``ex`` on the priced clock; returns the LoopResult and
-    every task's generated stream, recorded as the loop releases it."""
+    every task's generated stream. A slot engine has no page budget:
+    SLICE admits it against its slots."""
     lat = lat_cls(SAMPLES, PREFILL)
     tasks = workload(4.0, 3.0, realtime_frac=0.5, seed=5, rt_output_len=6,
                      voice_output_len=10, qa_output_len=12,
@@ -132,22 +153,15 @@ def _priced_run(workload, sched_mod, lat_cls, loop, ex):
                      qa_prompt=(8, 28))
     for i, t in enumerate(tasks):              # pin ids: prompts derive from them
         t.task_id = 5000 + i
-    streams = {}
-    release = ex.release
-
-    def recording_release(t):
-        streams[t.task_id] = ex.generated_tokens(t)
-        release(t)
-    ex.release = recording_release
-    sched = sched_mod.SliceScheduler(lat, page_budget=ex.page_budget())
-    res = loop(sched, Priced(ex, lat), tasks, max_ms=1e6)
-    return res, streams
+    budget = ex.page_budget() if hasattr(ex, "page_budget") else None
+    sched = sched_mod.SliceScheduler(lat, page_budget=budget,
+                                     prefill_chunk=prefill_chunk)
+    priced = Priced(ex, lat)
+    res = loop(sched, priced, tasks, max_ms=1e6)
+    return res, priced.streams
 
 
-def test_priced_slice_loop_matches_jax(engines):
-    jx, tx = engines()
-    jres, jstreams = _priced_run(j_workload, jsched, JLat, jax_loop, jx)
-    tres, tstreams = _priced_run(t_workload, tsched, TLat, torch_loop, tx)
+def _assert_same_run(jres, jstreams, tres, tstreams):
     assert len(jres.tasks) == len(tres.tasks) >= 6
     assert jres.decode_iterations > 0
     for f in ("decode_iterations", "prefills", "prefill_chunks", "end_ms",
@@ -162,7 +176,44 @@ def test_priced_slice_loop_matches_jax(engines):
     finished = [t.task_id for t in jres.tasks if t.finished]
     assert finished and all(len(jstreams[i]) > 1 for i in finished)
     assert tstreams == jstreams
+
+
+def test_priced_slice_loop_matches_jax(engines):
+    jx, tx = engines()
+    jres, jstreams = _priced_run(j_workload, jsched, JLat, jax_loop, jx)
+    tres, tstreams = _priced_run(t_workload, tsched, TLat, torch_loop, tx)
+    _assert_same_run(jres, jstreams, tres, tstreams)
+    assert all(tx.generated_tokens(t) == [] for t in tres.tasks)  # released
     assert tx.pool.used_pages == 0
+
+
+@pytest.mark.parametrize("kind", ["paged", "slot"])
+def test_priced_chunked_slice_loop_matches_jax(kind):
+    """SLICE with ``prefill_chunk`` on the priced clock: chunk and decode
+    decisions, token times and streams equal the JAX engine's, on the
+    paged engines and on the slot engines (16 slots: SLICE admits the
+    slot engine against slots only, and the run never runs out)."""
+    jcfg = jax_config("edge-6b").reduced()
+    cfg = get_config("edge-6b").reduced()
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(1))
+    tp = TM.load_params(cfg, jax.tree_util.tree_map(np.asarray, jp),
+                        device="cpu")
+    if kind == "paged":
+        jx = PagedJaxExecutor(jcfg, params=jp, prefill_chunk_size=8, **ENGINE)
+        tx = PagedTorchExecutor(cfg, params=tp, device="cpu",
+                                prefill_chunk_size=8, **ENGINE)
+    else:
+        slots = dict(max_slots=16, max_seq=64, prefill_chunk_size=8)
+        jx = JaxExecutor(jcfg, params=jp, **slots)
+        tx = TorchExecutor(cfg, params=tp, device="cpu", **slots)
+    jres, jstreams = _priced_run(j_workload, jsched, JLat, jax_loop, jx, 8)
+    tres, tstreams = _priced_run(t_workload, tsched, TLat, torch_loop, tx, 8)
+    assert jres.prefill_chunks > jres.prefills > 0
+    _assert_same_run(jres, jstreams, tres, tstreams)
+    if kind == "paged":
+        assert tx.pool.used_pages == 0
+    else:
+        assert sorted(tx.free) == list(range(16))
 
 
 _SERVE = """
@@ -209,7 +260,7 @@ def test_cuda_request_raises_without_gpu():
 
 
 @pytest.mark.parametrize("option", [
-    {"prefill_chunk_size": 16}, {"prefix_cache": True},
+    {"prefix_cache": True},
     {"host_arena_bytes": 1 << 20}, {"spec_decode": True}, {"mesh": object()},
     {"async_dispatch": True}])
 def test_unported_options_raise(option):
@@ -233,3 +284,26 @@ def test_unported_arch_kinds_raise():
                               block_kind="moe", n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="dense"):
         TM.init_params(cfg, device="cpu")
+
+
+def test_slot_chunked_serving_run():
+    """The CLI over the slot engine with chunked prefill, on the CPU: every
+    task finishes, chunks ran, and every slot is free at the end."""
+    run = tserve.run(tserve.parse_args([
+        "--reduced", "--device", "cpu", "--executor", "slot",
+        "--prefill-chunk", "8", "--slots", "16", "--max-seq", "64",
+        "--duration", "1.5", "--rate", "2", "--ratio", "0"]))
+    assert isinstance(run.executor, TorchExecutor)
+    assert run.result.prefill_chunks >= run.result.prefills > 0
+    assert all(t.finished for t in run.result.tasks)
+    assert sorted(run.executor.free) == list(range(16))
+
+
+@pytest.mark.parametrize("argv", [["--prefill-chunk", "8", "--scheduler",
+                                   "orca"],
+                                  ["--prefill-chunk", "8", "--scheduler",
+                                   "fastserve", "--executor", "slot"]])
+def test_cli_refuses_chunking_without_slice(argv):
+    with pytest.raises(SystemExit, match="requires --scheduler slice"):
+        tserve.run(tserve.parse_args(["--reduced", "--device", "cpu",
+                                      *argv]))
