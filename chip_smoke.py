@@ -7,10 +7,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
 1. build  — compile every CUDA source in csrc/ (one nvcc per source,
             started together) and print ptxas's register/shared-memory
             report.
-2. check  — hold each of the four kernels against its plain PyTorch
+2. check  — hold each of the five kernels against its plain PyTorch
             version on the card at edge-6b head shapes (Hq=32, Hkv=2,
             hd=128, page 16), fp32 and bf16: paged decode with -1 table
-            entries, a pad row and page-boundary positions; flash prefill
+            entries, a pad row and page-boundary positions; paged verify
+            windows of C = 1, 3, 5 queries (16 to 80 rows per KV head) at
+            and across page boundaries, with -1 entries and a pad row;
+            flash prefill
             at ragged lengths, causal / window / non-causal; ring-cache
             decode with -1 slots, a pad row, wrapped kv_pos, window 64 and
             8192; prompt chunks at q_start 0/16/300, C 1/37/64/128, over a
@@ -18,21 +21,34 @@ Phases, each printing its own lines; any failed check exits non-zero:
             through the strides of a [B,Hkv,S,hd] buffer, with a window.
             Then reduced engines on the card against the same engines on
             the CPU (prefill + decode logits, greedy streams): paged atomic,
-            paged chunked, slot chunked (masked decode), slot compacted.
+            paged chunked, slot chunked (masked decode), slot compacted;
+            paged speculative decoding with a self-draft (streams also equal
+            to depth-0 decode), prefix-shared prefill and decode, and a
+            suspend/resume (restored K/V bit for bit, logits after resume
+            equal to the never-suspended engine's).
 3. serve  — SLICE through the serve entry point, edge-6b at full width in
-            bf16: measured l(b), a few Poisson voice/QA requests, in three
+            bf16: measured l(b), a few Poisson voice/QA requests, in four
             runs: (a) the paged engine with atomic prefill, (b) the slot
             engine with --prefill-chunk 64, (c) the paged engine with
-            --prefill-chunk 64. Every task must finish, a paged pool must
-            end empty, and each run must launch the kernels of its path.
+            --prefill-chunk 64, (d) the paged engine with --spec-decode
+            --spec-depth 4 --prefix-cache --shared-prefix-frac 0.7. Every
+            task must finish, a paged pool must end empty (after the radix
+            index is cleared), run (d) must run verify steps and hit the
+            prefix cache, and each run must launch the kernels of its path.
             Kernel launch counts are zeroed just before each run and read
-            just after; the engine is freed before the next run.
+            just after; the engine is freed before the next run. Run (d)
+            also prints a speculative iteration's engine clock beside a
+            plain decode step's at the same batch.
 4. time   — each kernel, its plain version and the library's
             scaled_dot_product_attention as a yardstick (explicit boolean
-            mask, K/V repeated to Hq, where the kernel masks by position),
-            at the shapes its serving run used; the bound is the larger of
-            bytes over 3.35 TB/s and flops over the type's peak (H100 SXM
-            data sheet).
+            mask, K/V repeated to Hq, where the kernel masks by position;
+            none for the paged kernels, which no single PyTorch call
+            gathers), at the shapes its serving run used (the paged
+            kernels over a full batch of the run's first requests, each
+            mid-way through its output; verify windows of depth+1
+            queries); the bound is the
+            larger of bytes over 3.35 TB/s and flops over the type's peak
+            (H100 SXM data sheet).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -73,6 +89,12 @@ SERVE_RUNS = (
      ("decode_attention", "flash_prefill_chunk")),
     ("paged-chunked", ["--executor", "paged", "--prefill-chunk", "64"],
      ("paged_decode_attention", "flash_prefill_chunk")),
+    # verify steps, plain decode steps, prefix-hit suffixes and the draft
+    # model's catch-up chunks and slot decode
+    ("paged-spec", ["--executor", "paged", "--spec-decode", "--spec-depth",
+                    "4", "--prefix-cache", "--shared-prefix-frac", "0.7"],
+     ("paged_verify_attention", "paged_decode_attention",
+      "flash_prefill_chunk", "decode_attention")),
 )
 KERNELS = {
     "paged_decode_attention": {
@@ -87,6 +109,9 @@ KERNELS = {
     "decode_attention": {
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:69"},
+    "paged_verify_attention": {
+        "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:126"},
 }
 
 
@@ -138,6 +163,30 @@ def decode_inputs(lengths, dtype, n_pages=600, Hq=32, Hkv=2, hd=128, psz=16,
         pt[b, :n] = torch.tensor([perm.pop() for _ in range(n)])
         qpos[b] = ln
     return q, kp, vp, pt.cuda(), qpos.cuda()
+
+
+def verify_inputs(q_start, C, dtype, n_pages=600, Hq=32, Hkv=2, hd=128,
+                  psz=16, maxp=64, seed=0):
+    """Paged-verify inputs on the card: row b's window of C queries starts
+    at q_start[b] (< 0 gives a pad row: q_start 0, every table entry -1);
+    each live row's table covers its window with pages drawn without
+    replacement from a shuffled arena, -1 after."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = len(q_start)
+    q = torch.randn(B, C, Hq, hd, generator=g, device="cuda").to(dtype)
+    kp = torch.randn(n_pages, Hkv, psz, hd, generator=g, device="cuda").to(dtype)
+    vp = torch.randn(n_pages, Hkv, psz, hd, generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(n_pages, generator=g, device="cuda").tolist()
+    pt = torch.full((B, maxp), -1, dtype=torch.int32)
+    qs = torch.zeros(B, dtype=torch.int32)
+    for b, s0 in enumerate(q_start):
+        if s0 < 0:
+            continue
+        n = (s0 + C - 1) // psz + 1
+        pt[b, :n] = torch.tensor([perm.pop() for _ in range(n)])
+        qs[b] = s0
+    return q, kp, vp, pt.cuda(), qs.cuda()
 
 
 def prefill_inputs(B, S, dtype, Hq=32, Hkv=2, hd=128, seed=0):
@@ -232,6 +281,25 @@ def check_kernels():
             fail("paged_decode_attention: pad rows must give finite zeros")
         report("paged_decode_attention", f"B={len(lengths)} lengths={lengths}",
                dt, err)
+    # verify windows: a pad row, starts just before / at / past page
+    # boundaries, a window ending at the table's last position (maxp 64)
+    for dt in ("float32", "bfloat16"):
+        for C in (1, 3, 5):
+            starts = [-1, 0, 15, 16, 30, 517, 1024 - C]
+            q, kp, vp, pt, qs = verify_inputs(starts, C, getattr(torch, dt),
+                                              seed=C)
+            out = ops.paged_verify_attention(q, kp, vp, pt, qs)
+            torch.cuda.synchronize()
+            want = ref.paged_verify_attention_ref(q.float(), kp.float(),
+                                                  vp.float(), pt, qs)
+            live = torch.tensor([s0 >= 0 for s0 in starts], device="cuda")
+            if not (torch.isfinite(out.float()).all()
+                    and (out[~live].float() == 0).all()):
+                fail("paged_verify_attention: pad rows must give finite "
+                     "zeros")
+            report("paged_verify_attention",
+                   f"B={len(starts)} C={C} R={C * 16} q_start={starts}", dt,
+                   (out.float() - want)[live].abs().max().item())
     for dt in ("float32", "bfloat16"):
         for B, S, causal, window in ((2, 77, True, None), (1, 1000, True, None),
                                      (2, 300, True, 128), (2, 77, False, None),
@@ -364,6 +432,139 @@ def check_engine():
             fail(f"reduced {name} engine on the card disagrees with the CPU")
 
 
+def check_engine_features():
+    """Speculative decoding, prefix sharing and KV swap on reduced edge-6b
+    engines on the card against the same engines on the CPU (fp32, same
+    weights, same tasks): logits within 1e-4 and identical greedy streams.
+    The spec streams must also equal depth-0 decode on the card, and a
+    swapped task's K/V must come back bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    phase("check spec, prefix and swap engines on the card against the CPU")
+    cfg = get_config("edge-6b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    base = dict(n_pages=48, page_size=16, max_seq=128, max_batch=4)
+
+    def on(dev, **kw):
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if k == "blocks"
+                 else v.to(dev)) for k, v in params.items()}
+        if kw.pop("self_draft", False):
+            kw.update(draft_cfg=cfg, draft_params=p)
+        return PagedTorchExecutor(cfg, params=p, device=dev, **base, **kw)
+
+    def tasks_of(base_id, prompts, out, group=None, prefix=0):
+        ts = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n, output_len=out,
+                   task_id=base_id + i) for i, n in enumerate(prompts)]
+        for t in ts:
+            t.prefix_group, t.prefix_len = group, prefix
+        return ts
+
+    def compare(name, pair, tasks, worst):
+        streams = {d: [ex.generated_tokens(t) for t in tasks]
+                   for d, ex in pair.items()}
+        print(f"engine {name} cuda vs cpu: max |logit diff|={worst:.3e} "
+              f"tol=1e-4 streams_equal={streams['cuda'] == streams['cpu']}")
+        if worst > 1e-4 or streams["cuda"] != streams["cpu"]:
+            fail(f"reduced {name} engine on the card disagrees with the CPU")
+        return streams["cuda"]
+
+    def diff(pair, attr):
+        return float(np.abs(getattr(pair["cuda"], attr)
+                            - getattr(pair["cpu"], attr)).max())
+
+    # speculative decoding, self-draft, depths across the K buckets
+    pair = {d: on(d, spec_decode=True, self_draft=True, max_spec_depth=4)
+            for d in ("cpu", "cuda")}
+    tasks = tasks_of(7100, (5, 17, 40), 40)
+    worst = 0.0
+    for t in tasks:
+        for ex in pair.values():
+            ex.prefill(t)
+        worst = max(worst, diff(pair, "last_prefill_logits"))
+    for depths in ([4, 0, 2], [1, 3, 0], [2, 2, 2], [0, 4, 1], [3, 1, 4]):
+        for ex in pair.values():
+            ex.decode(tasks, depths)
+        # commits may differ on a near-tie between the draft's and the
+        # target's argmax; the streams may not
+        worst = max(worst, diff(pair, "last_logits"))
+    spec = compare("paged spec (self-draft)", pair, tasks, worst)
+    plain = on("cuda")
+    for t in tasks:
+        plain.prefill(t)
+    for _ in range(max(len(s) for s in spec)):
+        plain.decode(tasks)
+    depth0 = [plain.generated_tokens(t)[: len(s)] for t, s in zip(tasks, spec)]
+    print(f"spec streams ({[len(x) for x in spec]} tokens) equal depth-0 "
+          f"streams: {depth0 == spec}; verify steps "
+          f"{pair['cuda'].spec_steps}, accepted "
+          f"{pair['cuda'].accepted_tokens}/{pair['cuda'].drafted_tokens}")
+    if depth0 != spec or pair["cuda"].spec_steps == 0:
+        fail("spec engine on the card: streams differ from depth-0 decode")
+
+    # prefix-shared prefill and decode: two pages shared, one private tail
+    pair = {d: on(d, prefix_cache=True) for d in ("cpu", "cuda")}
+    tasks = tasks_of(7200, (40, 40, 45), 8, group=3, prefix=32)
+    worst = 0.0
+    for t in tasks:
+        for ex in pair.values():
+            ex.prefill(t)
+        worst = max(worst, diff(pair, "last_prefill_logits"))
+    for step in range(3):
+        for ex in pair.values():
+            ex.decode(tasks if step != 1 else tasks[1:])
+        worst = max(worst, diff(pair, "last_logits"))
+    compare("paged prefix-shared", pair, tasks, worst)
+    hits = pair["cuda"].prefix_cache.hits
+    for ex in pair.values():
+        for t in tasks:
+            ex.release(t)
+        ex.prefix_cache.clear()
+        ex.pool.check()
+    if hits != 2 or pair["cuda"].pool.used_pages != 0:
+        fail(f"prefix engine: {hits} hits (2 expected) or pages leaked")
+
+    # suspend / resume against the never-suspended engine on the card
+    pair = {d: on(d) for d in ("cpu", "cuda")}
+    ref_ex = on("cuda")
+    tasks = tasks_of(7300, (18, 33), 8)
+    for t in tasks:
+        for ex in (*pair.values(), ref_ex):
+            ex.prefill(t)
+
+    def kv(ex, t):
+        idx = torch.as_tensor(ex.pool.page_table(t.task_id), device="cuda")
+        return [ex.pages[n][:, idx].clone() for n in ("k_pages", "v_pages")]
+
+    for ex in (*pair.values(), ref_ex):
+        ex.decode(tasks)
+    before = kv(pair["cuda"], tasks[0])
+    for ex in pair.values():
+        ex.suspend(tasks[0])
+    for ex in (*pair.values(), ref_ex):
+        ex.decode(tasks[1:])
+    for ex in pair.values():
+        ex.resume(tasks[0])
+    same_kv = all(torch.equal(a, b)
+                  for a, b in zip(kv(pair["cuda"], tasks[0]), before))
+    worst, vs_ref = 0.0, 0.0
+    for _ in range(2):
+        for ex in (*pair.values(), ref_ex):
+            ex.decode(tasks)
+        worst = max(worst, diff(pair, "last_logits"))
+        vs_ref = max(vs_ref, float(np.abs(pair["cuda"].last_logits
+                                          - ref_ex.last_logits).max()))
+    compare("paged suspend/resume", pair, tasks, worst)
+    print(f"swap: restored K/V bit for bit: {same_kv}; logits after resume "
+          f"vs never-suspended on the card: max diff {vs_ref:.3e}; "
+          f"swapped {pair['cuda'].swapped_bytes:.0f} B")
+    if not same_kv or vs_ref > 0.0:
+        fail("suspend/resume on the card changed the task's K/V or logits")
+
+
 def serve_phase(run_name, extra, required):
     """One serving run through the serve entry point; returns what the time
     phase needs of it (the engine's shapes and the tasks) and the run's
@@ -399,6 +600,14 @@ def serve_phase(run_name, extra, required):
         fail(f"{run_name}: tasks not finished: {unfinished} of "
              f"{len(res.tasks)}")
     pool = getattr(ex, "pool", None)
+    cache = getattr(ex, "prefix_cache", None)
+    if cache is not None:
+        print(f"prefix cache: hits={cache.hits} misses={cache.misses} "
+              f"hit_tokens={cache.hit_tokens} pages_indexed="
+              f"{cache.pages_indexed}")
+        if cache.hits == 0:
+            fail(f"{run_name}: no prompt hit the prefix cache")
+        cache.clear()
     if pool is not None:
         pool.check()
         if pool.used_pages != 0 or pool.owners():
@@ -430,15 +639,56 @@ def serve_phase(run_name, extra, required):
           f"(min of {', '.join(f'{m:.3f}' for m in probe_ms)})")
     shapes = {"cfg": ex.cfg, "max_seq": ex.max_seq, "tasks": res.tasks,
               "chunk": args.prefill_chunk}
+    if args.spec_decode:
+        print(f"speculative decoding: verify steps={ex.spec_steps} "
+              f"spec_extra={res.spec_extra_tokens} "
+              f"accepted/drafted={res.accepted_tokens}/{res.drafted_tokens}")
+        if ex.spec_steps == 0 or ex.last_verify is None:
+            fail(f"{run_name}: SLICE granted no depth: no verify step ran")
+        C, rows, verify_ms = ex.last_verify
+        print(f"last verify step served: C={C} rows' lengths={rows} "
+              f"{verify_ms:.3f} ms")
+        spec_probe(ex, L)
+        shapes["window"] = ex.spec_depth + 1
     if pool is not None:
         shapes.update(batch=ex.max_batch, n_pages=ex.n_pages,
                       page_size=ex.page_size, maxp=ex.max_pages_per_seq)
     else:
         shapes.update(batch=ex.max_slots)
-    del run, ex, res, pool
+    del run, ex, res, pool, cache
     gc.collect()
     torch.cuda.empty_cache()
     return shapes, launches
+
+
+def spec_probe(ex, L, b=4, depth=4, reps=3):
+    """Engine clock of a speculative iteration (draft of ``depth`` tokens,
+    one verify step of depth+1 queries, acceptance) beside a plain decode
+    step, both at batch b over b prompts of L tokens, min of ``reps`` each,
+    on the idle engine; the first iteration (the draft's catch-up) is not
+    counted."""
+    from repro_torch.core.task import SLOSpec, Task
+    tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=L, output_len=64,
+                  task_id=9100 + i) for i in range(b)]
+    for t in tasks:
+        ex.prefill(t)
+    ex.decode(tasks, [depth] * b)
+    plain, spec, commits, verify_ms = [], [], [], []
+    for _ in range(reps):
+        plain.append(ex.decode(tasks))
+        spec.append(ex.decode(tasks, [depth] * b))
+        commits.append(sum(ex.last_commits))
+        verify_ms.append(ex.last_verify[2])
+    for t in tasks:
+        ex.release(t)
+    print(f"at b={b}: verify step ({depth + 1} queries a row) "
+          f"{min(verify_ms):.3f} ms; whole speculative iteration (draft, "
+          f"verify, acceptance) {min(spec):.3f} ms committing {commits} "
+          f"tokens; plain decode step l({b}) {min(plain):.3f} ms committing "
+          f"{b} (min of {reps}: verify "
+          f"{', '.join(f'{m:.3f}' for m in verify_ms)}; iteration "
+          f"{', '.join(f'{m:.3f}' for m in spec)}; decode "
+          f"{', '.join(f'{m:.3f}' for m in plain)})")
 
 
 def time_phase(runs, worst):
@@ -553,6 +803,30 @@ def time_phase(runs, worst):
                  (2 * C * Hq + 2 * (q0 + C) * Hkv) * hd * elt + 4,
                  4 * Hq * hd * (C * q0 + C * (C + 1) // 2)))
 
+    # paged verify (run paged-spec): a full batch of the widest window the
+    # run's depth grants, q_start as the paged-decode row's q_pos, over the
+    # engine's arena shape
+    sh = runs["paged-spec"][0]
+    C = sh["window"]
+    _, starts = lengths_of(sh)
+    psz = sh["page_size"]
+    B = len(starts)
+    vq, vkp, vvp, vpt, vqs = verify_inputs(starts, C, dtype,
+                                           n_pages=sh["n_pages"], Hq=Hq,
+                                           Hkv=Hkv, hd=hd, psz=psz,
+                                           maxp=sh["maxp"], seed=5)
+    keys = sum(s0 + C for s0 in starts)          # K/V rows the windows keep
+    pairs = sum(C * s0 + C * (C + 1) // 2 for s0 in starts)   # (query, key)
+    rows.append(("paged_verify_attention",
+                 f"B={B} C={C} q_start={starts} maxp={sh['maxp']}",
+                 lambda: ops.paged_verify_attention(vq, vkp, vvp, vpt, vqs),
+                 lambda: ref.paged_verify_attention_ref(vq, vkp, vvp, vpt,
+                                                        vqs),
+                 lambda: ref.paged_verify_attention_ref(
+                     vq.float(), vkp.float(), vvp.float(), vpt, vqs),
+                 None, 2 * keys * Hkv * hd * elt + 2 * B * C * Hq * hd * elt
+                 + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd))
+
     out = []
     for name, shape, kern, plain, plain_fp32, lib, nbytes, flops in rows:
         # held against the plain version at these shapes too
@@ -598,6 +872,7 @@ def main() -> None:
     build_phase()
     worst = check_kernels()
     check_engine()
+    check_engine_features()
     runs = {name: serve_phase(name, extra, required)
             for name, extra, required in SERVE_RUNS}
     kernels = time_phase(runs, worst)

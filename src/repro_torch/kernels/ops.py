@@ -22,7 +22,8 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "flash_prefill": 0,
-                            "flash_prefill_chunk": 0, "decode_attention": 0}
+                            "flash_prefill_chunk": 0, "decode_attention": 0,
+                            "paged_verify_attention": 0}
 
 
 def reset_launches() -> None:
@@ -47,6 +48,34 @@ def _check(name: str, cond: bool, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
+def _check_paged(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, page_table: torch.Tensor,
+                 q_start: torch.Tensor) -> None:
+    """Checks shared by the paged wrappers: q [B,...,Hq,hd]."""
+    B, Hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    _, Hkv, psz, hd_k = k_pages.shape
+    _check(name, v_pages.shape == k_pages.shape, "k/v pages differ in shape")
+    _check(name, hd_k == hd and hd in _pa.HEAD_DIMS,
+           f"head_dim {hd} (pages {hd_k}) not in {_pa.HEAD_DIMS}")
+    _check(name, Hkv > 0 and Hq % Hkv == 0,
+           f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    _check(name, q.dtype in _pa.DTYPES and k_pages.dtype == q.dtype
+           and v_pages.dtype == q.dtype,
+           f"types {q.dtype}/{k_pages.dtype}/{v_pages.dtype}: one of fp32, "
+           "bf16 expected")
+    _check(name, page_table.dtype == torch.int32
+           and q_start.dtype == torch.int32,
+           "page_table and q positions must be int32")
+    _check(name, page_table.ndim == 2 and page_table.shape[0] == B
+           and q_start.shape == (B,), "page_table [B,maxp] and q positions "
+           "[B] expected")
+    _check(name, B <= 65535 and Hkv <= 65535, f"batch {B} or Hkv {Hkv} "
+           "> 65535")
+    _check(name, all(t.is_contiguous() for t in
+                     (q, k_pages, v_pages, page_table, q_start)),
+           "tensors must be contiguous")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            q_pos: torch.Tensor) -> torch.Tensor:
@@ -60,28 +89,35 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                               page_table, q_pos)
     _check(name, q.ndim == 3 and k_pages.ndim == 4, "q [B,Hq,hd] and "
            "pages [P,Hkv,psz,hd] expected")
-    B, Hq, hd = q.shape
-    _, Hkv, psz, hd_k = k_pages.shape
-    _check(name, v_pages.shape == k_pages.shape, "k/v pages differ in shape")
-    _check(name, hd_k == hd and hd in _pa.HEAD_DIMS,
-           f"head_dim {hd} (pages {hd_k}) not in {_pa.HEAD_DIMS}")
-    _check(name, Hkv > 0 and Hq % Hkv == 0 and Hq // Hkv <= 64,
-           f"Hq={Hq} not a multiple (<= 64x) of Hkv={Hkv}")
-    _check(name, q.dtype in _pa.DTYPES and k_pages.dtype == q.dtype
-           and v_pages.dtype == q.dtype,
-           f"types {q.dtype}/{k_pages.dtype}/{v_pages.dtype}: one of fp32, "
-           "bf16 expected")
-    _check(name, page_table.dtype == torch.int32 and q_pos.dtype == torch.int32,
-           "page_table and q_pos must be int32")
-    _check(name, page_table.ndim == 2 and page_table.shape[0] == B
-           and q_pos.shape == (B,), "page_table [B,maxp], q_pos [B] expected")
-    _check(name, all(t.is_contiguous() for t in
-                     (q, k_pages, v_pages, page_table, q_pos)),
-           "tensors must be contiguous")
+    _check_paged(name, q, k_pages, v_pages, page_table, q_pos)
     out = torch.empty_like(q)
-    if B == 0 or page_table.shape[1] == 0:
+    if q.shape[0] == 0 or page_table.shape[1] == 0:
         return out.zero_()
     _pa.launch(q, k_pages, v_pages, page_table, q_pos, out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           q_start: torch.Tensor) -> torch.Tensor:
+    """C verify queries per sequence over the paged arena, any C. q
+    [B,C,Hq,hd] at positions q_start[b]+i (query i keeps keys at positions
+    0..q_start[b]+i); k/v_pages [P,Hkv,psz,hd]; page_table [B,maxp] int32
+    (-1 unused); q_start [B] int32. Returns [B,C,Hq,hd] in q's type. A row
+    with no live page gives 0 on the card (the plain version averages
+    page 0): callers ignore such rows."""
+    name = "paged_verify_attention"
+    if not _on_cuda(name, q, k_pages, v_pages, page_table, q_start):
+        return ref.paged_verify_attention_ref(q, k_pages, v_pages,
+                                              page_table, q_start)
+    _check(name, q.ndim == 4 and k_pages.ndim == 4, "q [B,C,Hq,hd] and "
+           "pages [P,Hkv,psz,hd] expected")
+    _check_paged(name, q, k_pages, v_pages, page_table, q_start)
+    out = torch.empty_like(q)
+    if q.shape[0] == 0 or q.shape[1] == 0 or page_table.shape[1] == 0:
+        return out.zero_()
+    _pa.launch_verify(q, k_pages, v_pages, page_table, q_start, out)
     LAUNCHES[name] += 1
     return out
 

@@ -14,6 +14,7 @@ from repro_torch.models.layers import (attention, band_mask,
                                        chunk_decode_attention,
                                        decode_attention)
 from repro_torch.models.layers import paged_decode_attention as _paged
+from repro_torch.models.layers import paged_verify_attention as _verify
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -37,6 +38,17 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     over it. q [B,Hq,hd], k/v_pages [P,Hkv,psz,hd], page_table [B,maxp]
     int32 (-1 unused), q_pos [B] int32 -> [B,Hq,hd]."""
     return _paged(q, k_pages, v_pages, page_table, q_pos)
+
+
+def paged_verify_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, page_table: torch.Tensor,
+                               q_start: torch.Tensor) -> torch.Tensor:
+    """Same contract as the verify entry point of
+    csrc/paged_decode_attention.cu: C queries per sequence at positions
+    q_start[b]+i over the gathered page view, query i keeping positions
+    0..q_start[b]+i. q [B,C,Hq,hd], k/v_pages [P,Hkv,psz,hd], page_table
+    [B,maxp] int32 (-1 unused), q_start [B] int32 -> [B,C,Hq,hd]."""
+    return _verify(q, k_pages, v_pages, page_table, q_start)
 
 
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,6 +1,6 @@
 """Core transformer layers in PyTorch: RMSNorm, RoPE, GQA attention (plain
 softmax, over a ring cache, for a prompt chunk, and over a paged KV
-arena), gated MLP.
+arena for one decode query or a verify window), gated MLP.
 
 Each function keeps the JAX package's layout and arithmetic
 (``repro.models.layers``): the same shapes at the public boundary, softmax
@@ -167,6 +167,29 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     vc = gather_pages(v_pages, page_table)
     kv_pos = paged_kv_positions(page_table, psz)
     return decode_attention(q, kc, vc, kv_pos, q_pos)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           q_start: torch.Tensor) -> torch.Tensor:
+    """Multi-token verify attention over a PAGED KV cache: the C-query
+    generalisation of ``paged_decode_attention`` (the plain version of the
+    paged-verify kernel), used by speculative decoding's verify step.
+
+    q: [B,C,Hq,hd], the C = depth+1 verify queries RoPE'd at positions
+    ``q_start[b]+i``; k/v_pages: [P,Hkv,psz,hd] with the window's own K/V
+    already written; page_table: [B,maxp], -1 = unused; q_start: [B]
+    position of the first verify query. Query i attends over logical
+    positions 0..q_start+i (causal within the window).
+    """
+    psz = k_pages.shape[2]
+    C = q.shape[1]
+    kc = gather_pages(k_pages, page_table)
+    vc = gather_pages(v_pages, page_table)
+    kv_pos = paged_kv_positions(page_table, psz)
+    q_pos = q_start[:, None] + torch.arange(C, dtype=q_start.dtype,
+                                            device=q.device)
+    return chunk_decode_attention(q, kc, vc, kv_pos, q_pos)
 
 
 # ---------------------------------------------------------------- MLP

@@ -13,6 +13,7 @@ Entry points:
   decode_step(params, cache, tokens, active) -> (logits, cache)
   prefill_chunk_paged(params, pages, ...)   -> (last_logits, pages)
   decode_step_paged(params, pages, ...)     -> (logits, pages)
+  verify_step_paged(params, pages, ...)     -> (logits [B,C,V], pages)
 
 Unlike the functional JAX code, every step writes the new K/V (and
 ``kv_pos``/``length``) into the slot cache or the page arena in place:
@@ -419,5 +420,55 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
         a = ops.paged_decode_attention(q, k_all[layer], v_all[layer],
                                        page_table, q_pos)
         x = x + a.reshape(B, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _ffn(cfg, blk, layer, x)
+    return unembed(cfg, params, x), pages
+
+
+# ------------------------------------------------------- speculative verify
+
+def verify_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
+                      page_table: torch.Tensor, lengths: torch.Tensor,
+                      tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """Multi-token draft-verify step over the paged KV arena (DESIGN.md
+    §8), in place; attention in the paged-verify kernel.
+
+    tokens: [B,C], the last committed token followed by C-1 draft tokens,
+    appended at logical positions lengths[b]+i; the page table [B,maxp]
+    must already cover lengths+C tokens (the pool extends BEFORE the step;
+    the caller rolls back pages of rejected drafts with pool.truncate).
+    The window's K/V is written into its pages (tokens whose page-table
+    entry is -1, such as pad rows', write nothing), then query i attends
+    over positions 0..lengths[b]+i. Returns (logits [B,C,V], pages):
+    logits[:, i] is the next-token distribution after window token i. Pad
+    rows' logits are garbage to be ignored, as inactive decode rows'.
+    """
+    _check_dense(cfg)
+    B, C = tokens.shape
+    dev = tokens.device
+    k_all, v_all = pages["k_pages"], pages["v_pages"]
+    psz, maxp = k_all.shape[3], page_table.shape[1]
+    x = embed_inputs(cfg, params, tokens)                 # [B,C,D]
+    q_pos = lengths[:, None] + torch.arange(C, dtype=lengths.dtype,
+                                            device=dev)
+    barr = torch.arange(B, device=dev)[:, None]
+    pt_row = page_table[barr, (q_pos // psz).clamp(max=maxp - 1).long()]
+    # a bucket's pad positions can run past the table (q_pos >= maxp*psz):
+    # they are untabled like -1 entries, never the clamped last page, whose
+    # committed K/V they would overwrite. Select the tokens that write
+    # (one host sync).
+    writes = (pt_row >= 0) & (q_pos < maxp * psz)
+    w_b, w_c = writes.nonzero(as_tuple=True)
+    w_page = pt_row[w_b, w_c].long()
+    w_off = (q_pos[w_b, w_c] % psz).long()
+    blk = params["blocks"]
+    for layer in range(cfg.n_layers):
+        q, k, v = _qkv(cfg, blk, layer, x)
+        q = L.apply_rope(q, q_pos, cfg.rope_theta)
+        k = L.apply_rope(k, q_pos, cfg.rope_theta)
+        k_all[layer, w_page, :, w_off] = k[w_b, w_c]
+        v_all[layer, w_page, :, w_off] = v[w_b, w_c]
+        a = ops.paged_verify_attention(q, k_all[layer], v_all[layer],
+                                       page_table, lengths)
+        x = x + a.reshape(B, C, cfg.q_dim) @ blk["wo"][layer]
         x = x + _ffn(cfg, blk, layer, x)
     return unembed(cfg, params, x), pages

@@ -10,7 +10,9 @@ PagedTorchExecutor — the counterpart of ``PagedJaxExecutor`` on one
                      device: the model over a paged KV arena
                      (kv_pool.KVPagePool + model.decode_step_paged),
                      admission bounded by the page pool, page_budget() for
-                     SLICE's memory-aware selection.
+                     SLICE's memory-aware selection; the radix prefix
+                     cache, synchronous host KV swap and speculative
+                     decoding (model.verify_step_paged).
 
 Both measure l(b) for SLICE's Eq. 7 feasibility test, and both take
 ``prefill_chunk_size`` for chunked prefill (``prefill_chunk``, DESIGN.md
@@ -18,10 +20,9 @@ Both measure l(b) for SLICE's Eq. 7 feasibility test, and both take
 (``_chunk_pieces``). Attention runs in the hand-written CUDA kernels on
 the card and in their plain versions on the CPU.
 
-The engines are synchronous, dense and single-device. The prefix cache,
-KV swap, speculative decoding, tensor parallelism, async dispatch and SSM
-state are still to port (ROADMAP.md); asking for one raises
-NotImplementedError.
+The engines are synchronous, dense and single-device. Tensor
+parallelism, async dispatch and SSM state are still to port (ROADMAP.md);
+asking for one raises NotImplementedError.
 
 Every timed operation ends in a device synchronise before its clock read,
 as the JAX engine's ``block_until_ready``: without it l(b) would time only
@@ -39,7 +40,12 @@ from repro_torch.core.latency_model import LatencyModel, MeasuredLatencyModel
 from repro_torch.core.selection import PageBudget
 from repro_torch.core.task import Task, qa_task
 from repro_torch.models import model as M
-from repro_torch.serving.kv_pool import KVPagePool
+from repro_torch.serving.kv_pool import KVPagePool, OutOfPages
+from repro_torch.serving.kv_swap import HostArenaFull, KVSwapArena
+from repro_torch.serving.prefix_cache import RadixPrefixCache
+from repro_torch.serving.spec_decode import (DraftModel, default_draft_config,
+                                             depth_bucket, greedy_accept,
+                                             pow2_pieces)
 
 _PREFILL_PRIOR = [(64, 10.0), (512, 40.0)]   # prefill ms prior until measured
 
@@ -347,6 +353,26 @@ class PagedTorchExecutor(Executor):
     piece of a prompt through model.prefill_chunk_paged, allocating its
     pages as each piece arrives (never the prompt's peak up front).
 
+    With ``prefix_cache=True`` a radix index over page-aligned prompt
+    blocks (serving.prefix_cache, DESIGN.md §6) dedups shared prompt
+    prefixes: prefill acquires the cached pages (pool.share) and computes
+    only the uncached suffix in power-of-two prefill_chunk_paged pieces;
+    chunked prefill starts at the first uncached chunk; admission
+    (page_budget) counts shared pages once and treats idle cached pages as
+    reclaimable headroom, evicted under pressure (``_reserve``).
+
+    ``suspend``/``resume`` swap a task's private pages to the host arena
+    (serving.kv_swap, DESIGN.md §7) and back, synchronously; with
+    ``host_arena_bytes`` the arena is bounded and a suspension past it is
+    rolled back.
+
+    With ``spec_decode=True``, ``decode(tasks, depths)`` runs a draft-verify
+    iteration (DESIGN.md §8): the draft model (serving.spec_decode)
+    proposes per-task windows, model.verify_step_paged checks them in one
+    step over a power-of-two (batch, depth) bucket, the greedy-accepted
+    prefix plus a bonus token is committed and pages of rejected drafts are
+    rolled back. The committed stream equals depth-0 greedy decode.
+
     Sequences are hard-capped at max_seq (the paged cache is append-only)
     and prompts at max_seq // 2, as in the JAX engine.
     """
@@ -357,12 +383,10 @@ class PagedTorchExecutor(Executor):
                  prefill_chunk_size: Optional[int] = None,
                  prefix_cache: bool = False,
                  host_arena_bytes: Optional[int] = None,
-                 spec_decode: bool = False, mesh=None,
+                 spec_decode: bool = False, draft_cfg=None,
+                 draft_params=None, max_spec_depth: int = 4, mesh=None,
                  async_dispatch: bool = False):
         unported = [name for name, on in (
-            ("prefix_cache", prefix_cache),
-            ("host_arena_bytes (KV swap)", host_arena_bytes is not None),
-            ("spec_decode", spec_decode),
             ("mesh", mesh is not None),
             ("async_dispatch", async_dispatch)) if on]
         if unported:
@@ -381,16 +405,48 @@ class PagedTorchExecutor(Executor):
         self.prefill_chunk_size = prefill_chunk_size
         self._chunk_progress: Dict[int, int] = {}
         self.pool = KVPagePool(n_pages, page_size)
+        # host-offload KV swap (DESIGN.md §7): suspended tasks' private
+        # page contents live here until resume; host_arena_bytes bounds it
+        self.arena = KVSwapArena(page_size, capacity_bytes=host_arena_bytes)
+        self.prefix_cache = None
+        if prefix_cache:
+            self.prefix_cache = RadixPrefixCache(self.pool, max_pages=n_pages)
         self.max_pages_per_seq = -(-max_seq // page_size)
-        self.pages = M.init_paged_cache(cfg, n_pages, page_size, dtype=dtype,
+        self.pages = M.init_paged_cache(cfg, n_pages, page_size,
+                                        dtype=self.params["embed"].dtype,
                                         device=self.device)
         self._last_tok: Dict[int, int] = {}
         self._gen: Dict[int, List[int]] = {}     # generated tokens per task
         self._toks_memo: Dict[int, np.ndarray] = {}
+        self._gtoks: Dict[int, np.ndarray] = {}  # group -> prefix tokens
         self.last_logits: Optional[np.ndarray] = None
         self.last_prefill_logits: Optional[np.ndarray] = None
         # (batch, ms) samples of the last latency_model() probe
         self.probe_samples: List[Tuple[int, float]] = []
+        # speculative decoding (DESIGN.md §8)
+        self.draft = None
+        self.spec_depth = 0
+        self.spec_steps = 0
+        self.accepted_tokens = 0
+        self.last_commits: Optional[List[int]] = None
+        # (window C, the rows' cached lengths, verify-call ms) of the last
+        # verify step
+        self.last_verify: Optional[Tuple[int, List[int], float]] = None
+        if spec_decode:
+            if max_spec_depth < 1:
+                raise ValueError("max_spec_depth must be >= 1")
+            self.spec_depth = max_spec_depth
+            self.draft = DraftModel(
+                draft_cfg if draft_cfg is not None
+                else default_draft_config(cfg),
+                params=draft_params, max_slots=max_batch, max_seq=max_seq,
+                seed=seed, dtype=self.params["embed"].dtype,
+                device=self.device)
+            if self.draft.cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {self.draft.cfg.vocab_size} != target "
+                    f"vocab {cfg.vocab_size}: proposals would not be "
+                    "valid target token ids")
 
     # -- observation surfaces --
     @property
@@ -398,13 +454,32 @@ class PagedTorchExecutor(Executor):
         return self._last_tok
 
     def generated_tokens(self, task: Task) -> List[int]:
-        """Generated token ids so far, the first (from prefill) included."""
+        """Committed generated token ids so far, the first (from prefill)
+        included."""
         return list(self._gen.get(task.task_id, []))
+
+    @property
+    def drafted_tokens(self) -> int:
+        return self.draft.drafted_tokens if self.draft is not None else 0
+
+    @property
+    def suspend_count(self) -> int:
+        return self.arena.swap_outs
+
+    @property
+    def resume_count(self) -> int:
+        return self.arena.swap_ins
+
+    @property
+    def swapped_bytes(self) -> float:
+        return float(self.arena.bytes_out + self.arena.bytes_in)
 
     def _effective_prompt(self, task: Task) -> int:
         return min(task.prompt_len, self.max_seq // 2)
 
     def _task_tokens(self, task: Task) -> np.ndarray:
+        """Memoised per-task prompt tokens (``cached_prompt_tokens`` sits on
+        the scheduler's pruning path); purged on release."""
         toks = self._toks_memo.get(task.task_id)
         if toks is None:
             toks = _prompt_tokens(self.seed, task, self.cfg.vocab_size,
@@ -412,8 +487,31 @@ class PagedTorchExecutor(Executor):
             self._toks_memo[task.task_id] = toks
         return toks
 
+    def _committed_tokens(self, task: Task) -> np.ndarray:
+        """Token ids at the committed cached positions 0..pool.length-1:
+        the effective prompt, then generated tokens. The last committed
+        token (``last_tok``, K/V not yet written) is not included: it is
+        the first token the next decode or verify window feeds."""
+        tid = task.task_id
+        L = self.pool.length(tid)
+        prompt = self._task_tokens(task)[0]
+        if L <= prompt.shape[0]:
+            return prompt[:L]
+        gen = self._gen.get(tid, [])
+        return np.concatenate(
+            [prompt, np.asarray(gen, dtype=prompt.dtype)])[:L]
+
     def _tensor(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    def _table(self, ids: Sequence[int], b: int) -> torch.Tensor:
+        """Page tables of ``ids`` padded to b rows and max_pages_per_seq
+        columns with -1."""
+        pt = np.full((b, self.max_pages_per_seq), -1, np.int32)
+        for r, i in enumerate(ids):
+            row = self.pool.page_table(i)
+            pt[r, : len(row)] = row
+        return self._tensor(pt)
 
     def _set_first_token(self, tid: int, logits: torch.Tensor) -> None:
         """Record a completed prefill's logits and first output token."""
@@ -422,16 +520,134 @@ class PagedTorchExecutor(Executor):
         self._last_tok[tid] = tok
         self._gen[tid] = [tok]
 
+    # -- prefix sharing (DESIGN.md §6) --
+    def _group_tokens(self, group: int, k: int) -> np.ndarray:
+        """First k tokens of a prefix group's stream (bulk rng draws are
+        prefix-consistent, so the memo only ever grows)."""
+        cur = self._gtoks.get(group)
+        if cur is None or cur.shape[0] < k:
+            grng = np.random.default_rng(
+                (self.seed + 1) * 7_919 + 1_000_003 * (group + 1))
+            cur = grng.integers(0, self.cfg.vocab_size, (max(k, 1),))
+            self._gtoks[group] = cur
+        return cur[:k]
+
+    def _reserve(self, fn):
+        """Run a pool reservation, evicting LRU prefix-cache pages until it
+        fits before giving up: cached-but-idle prefix K/V is reclaimable
+        headroom. OutOfPages still propagates when live sequences fill the
+        pool."""
+        while True:
+            try:
+                return fn()
+            except OutOfPages:
+                cache = self.prefix_cache
+                if cache is None:
+                    raise
+                # escalate the eviction batch (1, 2, 4, ...): owner-shared
+                # leaves free nothing, so fixed-size nibbles could rescan
+                # the trie once per indexed node before finding a free page
+                before = self.pool.free_pages
+                batch = 1
+                while (cache.pages_indexed > 0
+                       and self.pool.free_pages == before):
+                    if cache.evict(batch) == 0:
+                        break
+                    batch *= 2
+                if self.pool.free_pages == before:
+                    raise
+
+    def _ensure_range_writable(self, tid: int, start: int, end: int) -> None:
+        """Copy-on-write defence: every page receiving tokens [start, end)
+        must be private to ``tid``. With page-aligned prefix matching a
+        shared page is an immutable full block, so this fires only on
+        boundary cases; pool.fork copies the bookkeeping and the device
+        page is copied here, in place."""
+        if end <= start:
+            return
+        psz = self.page_size
+        for idx in range(start // psz, (end - 1) // psz + 1):
+            forked = self._reserve(lambda i=idx: self.pool.fork(tid, i))
+            if forked is not None:
+                old, new = forked
+                for name in ("k_pages", "v_pages"):
+                    self.pages[name][:, new] = self.pages[name][:, old]
+
+    def _acquire_prefix(self, task: Task, toks_np: np.ndarray) -> int:
+        """Register this task over the cached page-aligned prefix of its
+        prompt (pool.share, no copy), capped at L-1 tokens so at least one
+        suffix token is computed: its logits give the first output token.
+        Returns the tokens skipped (0 on a miss or without the cache)."""
+        if self.prefix_cache is None:
+            return 0
+        hit, _ = self.prefix_cache.acquire(task.task_id, toks_np[0],
+                                           max_tokens=toks_np.shape[1] - 1)
+        return hit
+
+    def _insert_prefix(self, task: Task, toks_np: np.ndarray,
+                       upto: Optional[int] = None) -> None:
+        """Index the full-page prefix of a (possibly partial) prefill so
+        later tasks with the same opening tokens share its pages. Chunked
+        prefill inserts after every piece: full pages of a prompt still
+        being prefilled are already immutable."""
+        if self.prefix_cache is None:
+            return
+        n = toks_np.shape[1] if upto is None else min(upto, toks_np.shape[1])
+        n_full = n // self.page_size
+        if n_full:
+            self.prefix_cache.insert(
+                toks_np[0, : n_full * self.page_size],
+                self.pool.page_table(task.task_id)[:n_full])
+
+    def cached_prompt_tokens(self, task: Task) -> int:
+        """Prompt tokens already resident for this task: its own prefill
+        progress, or the radix cache's matched prefix. The scheduler takes
+        it as TTFT credit."""
+        L = self._effective_prompt(task)
+        if self.pool.holds(task.task_id):
+            return min(self.pool.length(task.task_id), L)
+        if self.prefix_cache is None:
+            return 0
+        matched, _ = self.prefix_cache.match(self._task_tokens(task)[0],
+                                             touch=False)
+        cap = ((L - 1) // self.page_size) * self.page_size
+        return min(matched, max(cap, 0))
+
     def page_budget(self) -> PageBudget:
         """Admission-side view of the pool for SliceScheduler: peak pages per
         task (capped prompt + full output) against the pool, counting pages
         held by running tasks; seq_cap/max_tasks mirror the engine's hard
-        limits."""
+        limits. With the prefix cache, admission sees the live free count
+        plus reclaimable cached pages and counts each shared prompt prefix
+        once (DESIGN.md §6)."""
+        free_pages_now = None
+        prefix_pages = None
+        if self.prefix_cache is not None:
+            cache, psz = self.prefix_cache, self.page_size
+
+            def free_pages_now():
+                return self.pool.free_pages + cache.reclaimable_pages()
+
+            def prefix_pages(t):
+                if getattr(t, "prefix_group", None) is None:
+                    return None, 0
+                L = self._effective_prompt(t)
+                k = min(t.prefix_len or 0, max(L - 1, 0))
+                kp = k // psz
+                if self.prefill_chunk_size is not None and kp:
+                    # chunked prefills interleave: discount only the pages
+                    # resident right now (per-piece insertion lets
+                    # admission catch up at the next reschedule)
+                    matched, _ = cache.match(self._group_tokens(
+                        t.prefix_group, kp * psz), touch=False)
+                    kp = min(kp, matched // psz)
+                return ("prefix", t.prefix_group), kp
         return PageBudget(
             total_pages=self.n_pages, page_size=self.page_size,
             prompt_cap=self.max_seq // 2, seq_cap=self.max_seq,
             max_tasks=self.max_batch,
-            held_pages=lambda t: self.pool.resident_page_count(t.task_id))
+            held_pages=lambda t: self.pool.resident_page_count(t.task_id),
+            free_pages_now=free_pages_now, prefix_pages=prefix_pages)
 
     # -- ops --
     def prefill(self, task: Task) -> float:
@@ -439,8 +655,19 @@ class PagedTorchExecutor(Executor):
         L = self._effective_prompt(task)
         if self.pool.holds(tid):
             raise RuntimeError(f"task {tid} already prefilled")
-        toks = self._tensor(self._task_tokens(task), torch.long)
-        phys = self.pool.alloc(tid, L)                # OutOfPages -> caller
+        toks_np = self._task_tokens(task)
+        hit = self._acquire_prefix(task, toks_np)     # pool.share on a hit
+        if hit > 0:
+            try:
+                ms = self._prefill_suffix(task, toks_np, hit, L)
+            except OutOfPages:
+                # undo the share: OutOfPages leaves the task unprefilled
+                self.pool.free(tid)
+                raise
+            self._insert_prefix(task, toks_np)
+            return ms
+        toks = self._tensor(toks_np, torch.long)
+        phys = self._reserve(lambda: self.pool.alloc(tid, L))
         _sync(self.device)
         t0 = time.perf_counter()
         last, cache1 = M.prefill(self.cfg, self.params, toks,
@@ -457,18 +684,52 @@ class PagedTorchExecutor(Executor):
                     .transpose(1, 2))
             self.pages[name][:, idx] = view
         self._set_first_token(tid, last)
+        self._insert_prefix(task, toks_np)
         return ms
 
+    def _prefill_suffix(self, task: Task, toks_np: np.ndarray, start: int,
+                        L: int) -> float:
+        """Cache-hit prefill: only the uncached suffix runs, its queries
+        attending over the shared prefix pages, in power-of-two
+        prefill_chunk_paged pieces, largest first."""
+        tid = task.task_id
+        self._reserve(lambda: self.pool.extend(tid, L))
+        self._ensure_range_writable(tid, start, L)
+        pt = self._table([tid], 1)
+        done, ms = start, 0.0
+        for c in pow2_pieces(L - start):
+            logits, piece_ms = self._paged_chunk(pt, done,
+                                                 toks_np[:, done:done + c])
+            ms += piece_ms
+            done += c
+        self._set_first_token(tid, logits)
+        return ms
+
+    def _paged_chunk(self, pt: torch.Tensor, start: int,
+                     toks: np.ndarray) -> Tuple[torch.Tensor, float]:
+        """One model.prefill_chunk_paged call of a single row appending
+        ``toks`` [1,c] at ``start``; returns (last logits, engine ms)."""
+        args = (pt, self._tensor(np.asarray([start])),
+                self._tensor(toks, torch.long))
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, self.pages = M.prefill_chunk_paged(
+            self.cfg, self.params, self.pages, *args)
+        _sync(self.device)
+        return logits, (time.perf_counter() - t0) * 1000.0
+
     def prompt_progress(self, task: Task) -> int:
-        """Prompt tokens cached so far by chunked prefill."""
+        """Prompt tokens cached so far by chunked prefill, prefix-cache
+        credit included."""
         return self._chunk_progress.get(task.task_id, 0)
 
     def prefill_chunk(self, task: Task, n_tokens: int) -> Tuple[float, bool]:
         """Run the next ``n_tokens`` of the task's prompt, piece by piece
-        (``_chunk_pieces``). Each piece's pages are allocated just before
-        it runs and progress advances per piece, so an OutOfPages from the
-        pool propagates with pool and progress consistent and the task
-        resumes from its cached tokens."""
+        (``_chunk_pieces``), starting at the first uncached chunk when the
+        prefix cache holds the opening pages. Each piece's pages are
+        allocated just before it runs and progress advances per piece, so
+        an OutOfPages from the pool propagates with pool and progress
+        consistent and the task resumes from its cached tokens."""
         if self.prefill_chunk_size is None:
             raise RuntimeError("executor built without prefill_chunk_size")
         tid = task.task_id
@@ -477,27 +738,25 @@ class PagedTorchExecutor(Executor):
         if done >= L or (done == 0 and self.pool.holds(tid)):
             raise RuntimeError(f"task {tid} already prefilled")
         toks_full = self._task_tokens(task)
+        if done == 0:
+            done = self._acquire_prefix(task, toks_full)
+            if done:
+                self._chunk_progress[tid] = done
         n = min(n_tokens, L - done)
         ms = 0.0
         logits = None
         for c in _chunk_pieces(n, self.prefill_chunk_size):
             if self.pool.holds(tid):
-                self.pool.extend(tid, done + c)       # OutOfPages -> caller
+                self._reserve(lambda e=done + c: self.pool.extend(tid, e))
             else:
-                self.pool.alloc(tid, c)
-            row = self.pool.page_table(tid)
-            pt = np.full((1, self.max_pages_per_seq), -1, np.int32)
-            pt[0, : len(row)] = row
-            args = (self._tensor(pt), self._tensor(np.asarray([done])),
-                    self._tensor(toks_full[:, done:done + c], torch.long))
-            _sync(self.device)
-            t0 = time.perf_counter()
-            logits, self.pages = M.prefill_chunk_paged(
-                self.cfg, self.params, self.pages, *args)
-            _sync(self.device)
-            ms += (time.perf_counter() - t0) * 1000.0
+                self._reserve(lambda e=c: self.pool.alloc(tid, e))
+            self._ensure_range_writable(tid, done, done + c)
+            logits, piece_ms = self._paged_chunk(
+                self._table([tid], 1), done, toks_full[:, done:done + c])
+            ms += piece_ms
             done += c
             self._chunk_progress[tid] = done
+            self._insert_prefix(task, toks_full, upto=done)
         if done >= L:
             self._set_first_token(tid, logits)
             return ms, True
@@ -505,30 +764,28 @@ class PagedTorchExecutor(Executor):
 
     def decode(self, tasks: Sequence[Task],
                depths: Optional[Sequence[int]] = None) -> float:
-        if depths is not None and any(depths):
-            raise NotImplementedError("speculative decoding is still to "
-                                      "port (ROADMAP.md)")
         if len(tasks) > self.max_batch:
             raise RuntimeError(f"decode batch {len(tasks)} > max_batch "
                                f"{self.max_batch}")
+        if depths is not None and any(depths):
+            if self.draft is None:
+                raise RuntimeError("executor built without spec_decode=True")
+            return self._decode_spec(tasks, [int(d) for d in depths])
         ids = [t.task_id for t in tasks]
         lengths = [self.pool.length(i) for i in ids]
         for i, ln in zip(ids, lengths):
             if ln + 1 > self.max_seq:
                 raise RuntimeError(f"task {i} exceeds max_seq {self.max_seq}")
-            self.pool.extend(i, ln + 1)
+            self._reserve(lambda i=i, ln=ln: self.pool.extend(i, ln + 1))
+            self._ensure_range_writable(i, ln, ln + 1)
         b = next(x for x in _pow2_buckets(self.max_batch) if x >= len(tasks))
-        pt = np.full((b, self.max_pages_per_seq), -1, np.int32)
-        for r, i in enumerate(ids):
-            row = self.pool.page_table(i)
-            pt[r, : len(row)] = row
         ln = np.zeros((b,), np.int32)
         ln[: len(ids)] = lengths
         av = np.zeros((b,), bool)
         av[: len(ids)] = True
         tk = np.zeros((b,), np.int32)
         tk[: len(ids)] = [self._last_tok[i] for i in ids]
-        args = (self._tensor(pt), self._tensor(ln), self._tensor(tk),
+        args = (self._table(ids, b), self._tensor(ln), self._tensor(tk),
                 self._tensor(av, torch.bool))
         _sync(self.device)
         t0 = time.perf_counter()
@@ -541,15 +798,171 @@ class PagedTorchExecutor(Executor):
             self._last_tok[i] = int(tok)
             # setdefault: latency-model probes decode without a prefill
             self._gen.setdefault(i, []).append(int(tok))
+        self.last_commits = [1] * len(ids)
         return ms
+
+    # -- speculative decoding (DESIGN.md §8) --
+    def _decode_spec(self, tasks: Sequence[Task], depths: List[int]) -> float:
+        """Draft-verify iteration: per-task windows drafted by the draft
+        model, verified in ONE bucketed ``verify_step_paged`` call, the
+        accepted prefix committed and rejected-draft pages rolled back.
+        The engine clock spans drafting, verify and acceptance."""
+        ids = [t.task_id for t in tasks]
+        lengths = [self.pool.length(i) for i in ids]
+        _sync(self.device)
+        t0 = time.perf_counter()
+        # clamp each row's depth to the sequence cap, its remaining output
+        # (a window past the last needed token is wasted) and the buckets
+        capped = []
+        for t, ln, d in zip(tasks, lengths, depths):
+            if ln + 1 > self.max_seq:
+                raise RuntimeError(f"task {t.task_id} exceeds max_seq "
+                                   f"{self.max_seq}")
+            capped.append(max(0, min(d, self.spec_depth,
+                                     self.max_seq - ln - 1,
+                                     t.output_len - t.tokens_done - 1)))
+        drafts: List[List[int]] = [[] for _ in tasks]
+        d_items, d_depths, d_rows = [], [], []
+        for r, (t, d) in enumerate(zip(tasks, capped)):
+            if d > 0:
+                d_items.append((t.task_id, self._committed_tokens(t),
+                                self._last_tok[t.task_id]))
+                d_depths.append(d)
+                d_rows.append(r)
+        if d_items:
+            for r, dr in zip(d_rows, self.draft.propose(d_items, d_depths)):
+                drafts[r] = dr
+        # reserve each window's pages, falling back to depth 0 under
+        # pressure (plain decode must stay possible), then copy-on-write
+        for r, (i, ln) in enumerate(zip(ids, lengths)):
+            try:
+                self._reserve(
+                    lambda i=i, e=ln + 1 + capped[r]: self.pool.extend(i, e))
+            except OutOfPages:
+                if capped[r] == 0:
+                    raise
+                capped[r] = 0
+                drafts[r] = []
+                self._reserve(lambda i=i, e=ln + 1: self.pool.extend(i, e))
+            self._ensure_range_writable(i, ln, ln + 1 + capped[r])
+        b = depth_bucket(len(tasks), self.max_batch)
+        K = depth_bucket(max(max(capped), 1), self.spec_depth)
+        ln_arr = np.zeros((b,), np.int32)
+        ln_arr[: len(ids)] = lengths
+        toks = np.zeros((b, K + 1), np.int32)
+        for r, i in enumerate(ids):
+            toks[r, 0] = self._last_tok[i]
+            toks[r, 1: 1 + len(drafts[r])] = drafts[r]
+        _sync(self.device)
+        t_verify = time.perf_counter()
+        logits, self.pages = M.verify_step_paged(
+            self.cfg, self.params, self.pages, self._table(ids, b),
+            self._tensor(ln_arr), self._tensor(toks))
+        logits_np = logits[: len(ids)].float().cpu().numpy()  # synchronises
+        self.last_verify = (K + 1, lengths,
+                            (time.perf_counter() - t_verify) * 1000.0)
+        self._apply_verify(tasks, lengths, capped, drafts, logits_np)
+        ms = (time.perf_counter() - t0) * 1000.0
+        return ms
+
+    def _apply_verify(self, tasks, lengths, capped, drafts,
+                      logits_np: np.ndarray) -> None:
+        """Host side of a verify window: greedy acceptance, page rollback,
+        committed-history updates."""
+        commits: List[int] = []
+        last_rows = []
+        for r, (t, ln) in enumerate(zip(tasks, lengths)):
+            i = t.task_id
+            d = capped[r]
+            target_ids = np.argmax(logits_np[r, : d + 1], -1)
+            n_acc = greedy_accept(drafts[r][:d], target_ids)
+            bonus = int(target_ids[n_acc])
+            new_len = ln + n_acc + 1
+            if new_len < ln + d + 1:     # roll back rejected-draft pages
+                self.pool.truncate(i, new_len)
+            self._last_tok[i] = bonus
+            self._gen[i].extend(drafts[r][:n_acc] + [bonus])
+            self.draft.note_commit(i, new_len)
+            self.accepted_tokens += n_acc
+            commits.append(n_acc + 1)
+            last_rows.append(logits_np[r, n_acc])
+        self.spec_steps += 1
+        self.last_logits = np.stack(last_rows)
+        self.last_commits = commits
+
+    # -- host-offload KV swap (DESIGN.md §7) --
+    def _restore_pages(self, positions, entries) -> None:
+        """Write host page blobs back into freshly allocated device pages.
+        positions: [(logical_idx, phys)] from pool.swap_in; entries: the
+        arena's [(logical_idx, {"k","v"})], both ascending by logical."""
+        if not positions:
+            return
+        assert [li for li, _ in positions] == [li for li, _ in entries], (
+            positions, [li for li, _ in entries])
+        idx = torch.as_tensor([p for _, p in positions], dtype=torch.long,
+                              device=self.device)
+        for name, key in (("k_pages", "k"), ("v_pages", "v")):
+            host = torch.stack([blob[key] for _, blob in entries], dim=1)
+            self.pages[name][:, idx] = host.to(self.device)
+
+    def suspend(self, task: Task) -> float:
+        """Swap the task's private pages to the host arena: copy their
+        device contents to host memory, then release them to the pool's
+        free list; shared prefix pages stay resident. The copy completes
+        before this returns: the arena is updated in place, so a freed page
+        may be handed out and overwritten by the next step. On
+        HostArenaFull the swap is rolled back (contents restored into
+        re-allocated pages) and the error propagates with the task still
+        resident."""
+        tid = task.task_id
+        _sync(self.device)
+        t0 = time.perf_counter()
+        released = self.pool.swap_out(tid)
+        entries = []
+        if released:
+            idx = torch.as_tensor([p for _, p in released], dtype=torch.long,
+                                  device=self.device)
+            k_host = self.pages["k_pages"][:, idx].cpu()   # synchronous
+            v_host = self.pages["v_pages"][:, idx].cpu()
+            entries = [(li, {"k": k_host[:, n], "v": v_host[:, n]})
+                       for n, (li, _) in enumerate(released)]
+        try:
+            self.arena.put(tid, entries)
+        except HostArenaFull:
+            # the released pages are still free (nothing allocated since),
+            # so swap_in cannot fail here
+            self._restore_pages(self.pool.swap_in(tid), entries)
+            raise
+        if self.draft is not None:
+            # the draft state is dropped: the committed history survives in
+            # _gen, and the first propose after resume re-prefills it
+            self.draft.drop(tid)
+        _sync(self.device)
+        return (time.perf_counter() - t0) * 1000.0
+
+    def resume(self, task: Task) -> float:
+        """Re-allocate device pages for the swapped-out positions (evicting
+        idle prefix-cache pages under pressure) and restore the host
+        contents. OutOfPages propagates with pool and arena unchanged: the
+        task stays suspended."""
+        tid = task.task_id
+        _sync(self.device)
+        t0 = time.perf_counter()
+        restored = self._reserve(lambda: self.pool.swap_in(tid))
+        self._restore_pages(restored, self.arena.take(tid))
+        _sync(self.device)
+        return (time.perf_counter() - t0) * 1000.0
 
     def release(self, task: Task) -> None:
         tid = task.task_id
         self.pool.free(tid)
+        self.arena.drop(tid)
         self._chunk_progress.pop(tid, None)
         self._last_tok.pop(tid, None)
         self._toks_memo.pop(tid, None)
         self._gen.pop(tid, None)
+        if self.draft is not None:
+            self.draft.drop(tid)
 
     def latency_model(self) -> LatencyModel:
         """Measure l(b) on the live engine (warm) — MeasuredLatencyModel."""

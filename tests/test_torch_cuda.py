@@ -7,7 +7,8 @@ port's dependencies:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Inputs at edge-6b head shapes (Hq=32, Hkv=2, hd=128, page 16), with a pad
-row, -1 table entries and ragged prompt lengths; for the slot-cache
+row, -1 table entries and ragged prompt lengths; verify windows of C = 1,
+3 and 5 queries at and across page boundaries; for the slot-cache
 kernels, -1 slots, a wrapped ring, a window, chunk offsets and K/V read
 through the strides of a [B,Hkv,S,hd] buffer. Tolerances: fp32 1e-4
 (summation order over up to a few hundred keys), bf16 1.6e-2 (output
@@ -57,6 +58,45 @@ def test_paged_decode_kernel_matches_plain(dtype):
     assert ops.LAUNCHES["paged_decode_attention"] == before + 1
     want = ops.paged_decode_attention(*[x.cpu().float() for x in dev[:3]],
                                       pt, qp)
+    live = pt.max(dim=1).values >= 0
+    assert torch.all(got[~live] == 0)              # pad row: 0, as on the TPU
+    torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)
+
+
+def _verify_inputs(C, seed=0, Hq=32, Hkv=2, hd=128, psz=16, maxp=8,
+                   n_pages=40):
+    """A pad row (table all -1), windows starting just before and at a
+    page boundary, one ending at the table's last position, one with
+    trailing -1 entries."""
+    rng = np.random.default_rng(seed + C)
+    q_start = np.array([0, psz - 1, psz, maxp * psz - C, 2 * psz + 3],
+                       np.int32)
+    pt = np.full((len(q_start), maxp), -1, np.int32)
+    perm = list(rng.permutation(n_pages))
+    for b in range(1, len(q_start)):
+        n = (q_start[b] + C - 1) // psz + 1
+        pt[b, :n] = [perm.pop() for _ in range(n)]
+    f = [rng.standard_normal(s).astype(np.float32)
+         for s in ((len(q_start), C, Hq, hd), (n_pages, Hkv, psz, hd),
+                   (n_pages, Hkv, psz, hd))]
+    return [torch.from_numpy(a) for a in (*f, pt, q_start)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_paged_verify_kernel_matches_plain(dtype, C):
+    """C verify queries over 16 heads per KV head: R = C*16 rows per
+    block, 80 at C = 5, past one 64-row tile."""
+    _need_cuda()
+    q, kp, vp, pt, qs = _verify_inputs(C)
+    dt = getattr(torch, dtype)
+    dev = [x.to(dt).cuda() for x in (q, kp, vp)] + [pt.cuda(), qs.cuda()]
+    before = ops.LAUNCHES["paged_verify_attention"]
+    got = ops.paged_verify_attention(*dev).float().cpu()
+    assert ops.LAUNCHES["paged_verify_attention"] == before + 1
+    want = ops.paged_verify_attention(*[x.cpu().float() for x in dev[:3]],
+                                      pt, qs)
     live = pt.max(dim=1).values >= 0
     assert torch.all(got[~live] == 0)              # pad row: 0, as on the TPU
     torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)

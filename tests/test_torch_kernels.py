@@ -66,6 +66,49 @@ def test_paged_decode_plain_matches_pallas(Hq, Hkv):
     assert np.all(kern[~live] == 0)       # the kernels' pad-row contract
 
 
+def _verify_inputs(C, Hq, Hkv, hd=32, psz=8, maxp=5, n_pages=24, seed=0):
+    """Verify windows of C queries: a pad row (table all -1), windows
+    starting just before and at a page boundary, one ending at the table's
+    last position, and one with trailing -1 entries (the table covers
+    exactly its window)."""
+    rng = np.random.default_rng(seed + C)
+    q_start = np.array([0, psz - 1, psz, maxp * psz - C, 2 * psz + 3],
+                       np.int32)
+    B = len(q_start)
+    pt = np.full((B, maxp), -1, np.int32)
+    perm = list(rng.permutation(n_pages))
+    for b in range(1, B):
+        n = (q_start[b] + C - 1) // psz + 1
+        pt[b, :n] = [perm.pop() for _ in range(n)]
+    q = rng.standard_normal((B, C, Hq, hd)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, Hkv, psz, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, Hkv, psz, hd)).astype(np.float32)
+    return q, kp, vp, pt, q_start
+
+
+@pytest.mark.parametrize("C", [1, 3, 5])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (16, 1)])
+def test_paged_verify_plain_matches_pallas(C, Hq, Hkv):
+    """Live rows match the Pallas verify kernel in interpret mode (R =
+    C*Hq/Hkv query rows per block, 80 at C=5 over 16 heads); every row
+    matches the jnp oracle, the pad row included, and the port's layer."""
+    arrs = _verify_inputs(C, Hq, Hkv)
+    got = ops.paged_verify_attention(*_t(*arrs)).numpy()
+    kern = np.asarray(jops.paged_verify_attention(*_j(*arrs),
+                                                  interpret=True))
+    oracle = np.asarray(JL.paged_verify_attention(*_j(*arrs)))
+    live = arrs[3].max(axis=1) >= 0
+    np.testing.assert_allclose(got[live], kern[live], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, oracle, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(TL.paged_verify_attention(*_t(*arrs)).numpy(),
+                               oracle, atol=ATOL, rtol=0)
+    assert np.all(kern[~live] == 0)       # the kernels' pad-row contract
+    if C == 1:                            # one query is a decode query
+        q, kp, vp, pt, qs = arrs
+        dec = ops.paged_decode_attention(*_t(q[:, 0], kp, vp, pt, qs))
+        np.testing.assert_allclose(got[:, 0], dec.numpy(), atol=ATOL, rtol=0)
+
+
 def _prefill_inputs(B, S, Hq, Hkv, hd=32, seed=0, dtype=np.float32):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(dtype)
@@ -268,8 +311,10 @@ def test_cpu_calls_do_not_count_launches():
     q, k, v = _t(*_prefill_inputs(2, 16, 2, 1))
     ops.flash_prefill_chunk(q[:, :4], k, v, torch.tensor([0, 3],
                                                          dtype=torch.int32))
+    ops.paged_verify_attention(*_t(*_verify_inputs(3, 2, 1)))
     assert ops.LAUNCHES == {"paged_decode_attention": 0, "flash_prefill": 0,
-                            "flash_prefill_chunk": 0, "decode_attention": 0}
+                            "flash_prefill_chunk": 0, "decode_attention": 0,
+                            "paged_verify_attention": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -231,3 +231,89 @@ def test_prefill_chunk_paged_matches_jax(pair):
                             err_msg=f"chunk {step}")
         for name in ("k_pages", "v_pages"):
             assert_logits_close(tpages[name].numpy(), np.asarray(jpages[name]))
+
+
+def test_verify_step_paged_matches_jax(pair):
+    """Verify windows over a seeded arena: rows of C = 3 and C = 5 queries
+    at unequal lengths (a window crossing a page boundary), a pad row
+    (table all -1) riding along. Logits of every position of the real
+    rows and the whole arena match JAX."""
+    jcfg, cfg, jp, _, tp = pair
+    psz, n_pages, maxp = 4, 12, 6
+    rng = np.random.default_rng(11)
+    jpages = JM.init_paged_cache(jcfg, n_pages, psz)
+    tpages = TM.init_paged_cache(cfg, n_pages, psz, device="cpu")
+    seed_pt = np.array([[2, 7, 4, -1, -1, -1], [8, 1, 5, 3, -1, -1]],
+                       np.int32)
+    seed = rng.integers(0, cfg.vocab_size, (2, 9))
+    _, jpages = JM.prefill_chunk_paged(jcfg, jp, jpages, jnp.asarray(seed_pt),
+                                       jnp.zeros((2,), jnp.int32),
+                                       jnp.asarray(seed))
+    TM.prefill_chunk_paged(cfg, tp, tpages, torch.from_numpy(seed_pt),
+                           torch.zeros(2, dtype=torch.int32),
+                           torch.from_numpy(seed))
+    for C, lengths in ((3, [9, 6, 0]), (5, [9, 7, 0])):
+        pt = np.full((3, maxp), -1, np.int32)
+        pt[:2] = seed_pt
+        pt[0, 3] = 9                      # row 0's window crosses into page 9
+        ln = np.asarray(lengths, np.int32)
+        toks = rng.integers(0, cfg.vocab_size, (3, C))
+        jl, jpages = JM.verify_step_paged(jcfg, jp, jpages, jnp.asarray(pt),
+                                          jnp.asarray(ln), jnp.asarray(toks))
+        tl, tpages = TM.verify_step_paged(cfg, tp, tpages,
+                                          torch.from_numpy(pt),
+                                          torch.from_numpy(ln),
+                                          torch.from_numpy(toks))
+        assert tl.shape == (3, C, cfg.vocab_size)
+        assert_logits_close(tl.numpy()[:2], np.asarray(jl)[:2],
+                            err_msg=f"C={C}")
+        for name in ("k_pages", "v_pages"):
+            assert_logits_close(tpages[name].numpy(), np.asarray(jpages[name]))
+
+
+def test_verify_pad_positions_past_table_write_nothing(pair):
+    """A bucketed window near max_seq runs past the table: with 3 pages of
+    4 and 10 cached tokens, a C = 4 window covers positions 10..13, and
+    12, 13 have no page. They must write nothing, not wrap onto the last
+    page's committed positions 8, 9: the arena outside positions 10, 11
+    stays bit for bit, and the tabled queries' logits equal a C = 2 window."""
+    _, cfg, _, _, tp = pair
+    pages = [TM.init_paged_cache(cfg, 5, 4, device="cpu") for _ in range(2)]
+    pt = torch.tensor([[3, 0, 4]], dtype=torch.int32)
+    seed = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (1, 10)))
+    for p in pages:
+        TM.prefill_chunk_paged(cfg, tp, p, pt, torch.zeros(1, dtype=torch.int32),
+                               seed)
+    before = {name: t.clone() for name, t in pages[0].items()}
+    lengths = torch.tensor([10], dtype=torch.int32)
+    tokens = torch.tensor([[7, 11, 13, 17]])
+    got, _ = TM.verify_step_paged(cfg, tp, pages[0], pt, lengths, tokens)
+    want, _ = TM.verify_step_paged(cfg, tp, pages[1], pt, lengths,
+                                   tokens[:, :2])
+    assert_logits_close(got[:, :2].numpy(), want.numpy())
+    for name in ("k_pages", "v_pages"):
+        assert torch.equal(pages[0][name], pages[1][name])
+        changed = pages[0][name] != before[name]
+        changed[:, 4, :, 2:] = False              # positions 10, 11
+        assert not changed.any()
+
+
+def test_verify_single_token_matches_decode_step(pair):
+    """A C = 1 verify (no drafts) gives decode_step_paged's logits and
+    writes the same K/V: the identity greedy equivalence rests on."""
+    _, cfg, _, _, tp = pair
+    pages = [TM.init_paged_cache(cfg, 6, 4, device="cpu") for _ in range(2)]
+    pt = torch.tensor([[0, 2, -1], [1, 3, -1]], dtype=torch.int32)
+    seed = torch.tensor([[1, 2, 3, 4, 5], [9, 8, 7, 6, 5]])
+    for p in pages:
+        TM.prefill_chunk_paged(cfg, tp, p, pt, torch.zeros(2, dtype=torch.int32),
+                               seed)
+    lengths = torch.tensor([5, 3], dtype=torch.int32)
+    tokens = torch.tensor([7, 11])
+    want, _ = TM.decode_step_paged(cfg, tp, pages[0], pt, lengths, tokens)
+    got, _ = TM.verify_step_paged(cfg, tp, pages[1], pt, lengths,
+                                  tokens[:, None])
+    assert_logits_close(got[:, 0].numpy(), want.numpy())
+    for name in ("k_pages", "v_pages"):
+        assert torch.equal(pages[0][name], pages[1][name])

@@ -220,7 +220,7 @@ _SERVE = """
 import sys
 from repro_torch.launch import serve
 serve.main(["--reduced", "--device", "cpu", "--duration", "1.5",
-            "--rate", "2", "--slots", "2", "--max-seq", "64"])
+            "--rate", "2", "--slots", "2", "--max-seq", "64", *sys.argv[1:]])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -229,13 +229,29 @@ print("CLEAN")
 """
 
 
-def test_serving_run_imports_no_jax():
+def _serve_clean(*argv):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", _SERVE], env=env,
+    out = subprocess.run([sys.executable, "-c", _SERVE, *argv], env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "CLEAN" in out.stdout
     assert re.search(r"slice: n=\d+ SLO=", out.stdout)
+    return out.stdout
+
+
+def test_serving_run_imports_no_jax():
+    _serve_clean()
+
+
+def test_spec_prefix_swap_serving_run_imports_no_jax():
+    """The CLI with speculative decoding, the prefix cache and KV swap on,
+    on the CPU, in a process that never imports JAX or the JAX package;
+    the summary line carries the swap and spec counters."""
+    out = _serve_clean("--spec-decode", "--prefix-cache",
+                       "--shared-prefix-frac", "0.7", "--kv-swap",
+                       "--ratio", "0")
+    assert re.search(r"suspends=\d+ resumes=\d+ swapped=[\d.]+MB "
+                     r"spec_extra=\d+ accepted=\d+/\d+", out)
 
 
 def test_port_sources_import_no_jax_or_repro():
@@ -259,10 +275,8 @@ def test_cuda_request_raises_without_gpu():
         TM.init_params(cfg, device="cuda")
 
 
-@pytest.mark.parametrize("option", [
-    {"prefix_cache": True},
-    {"host_arena_bytes": 1 << 20}, {"spec_decode": True}, {"mesh": object()},
-    {"async_dispatch": True}])
+@pytest.mark.parametrize("option", [{"mesh": object()},
+                                    {"async_dispatch": True}])
 def test_unported_options_raise(option):
     cfg = get_config("edge-6b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -305,5 +319,21 @@ def test_slot_chunked_serving_run():
                                    "fastserve", "--executor", "slot"]])
 def test_cli_refuses_chunking_without_slice(argv):
     with pytest.raises(SystemExit, match="requires --scheduler slice"):
+        tserve.run(tserve.parse_args(["--reduced", "--device", "cpu",
+                                      *argv]))
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--spec-decode", "--executor", "slot"], "requires --executor paged"),
+    (["--spec-decode", "--scheduler", "orca"], "requires --scheduler slice"),
+    (["--spec-decode", "--scheduler", "fastserve"],
+     "requires --scheduler slice"),
+    (["--prefix-cache", "--executor", "slot"], "requires --executor paged"),
+    (["--kv-swap", "--executor", "slot"], "requires --executor paged"),
+    (["--kv-swap", "--scheduler", "orca"],
+     "requires --scheduler slice or fastserve")])
+def test_cli_refuses_spec_prefix_swap_where_jax_does(argv, match):
+    """The JAX CLI's refusals, raised before any engine is built."""
+    with pytest.raises(SystemExit, match=match):
         tserve.run(tserve.parse_args(["--reduced", "--device", "cpu",
                                       *argv]))
