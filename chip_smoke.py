@@ -7,9 +7,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
 1. build  — compile every CUDA source in csrc/ (one nvcc per source,
             started together) and print ptxas's register/shared-memory
             report.
-2. check  — hold each of the five kernels against its plain PyTorch
-            version on the card at edge-6b head shapes (Hq=32, Hkv=2,
-            hd=128, page 16), fp32 and bf16: paged decode with -1 table
+2. check  — hold each of the eight kernels against its plain PyTorch
+            version on the card, fp32 and bf16. At edge-6b head shapes
+            (Hq=32, Hkv=2, hd=128, page 16): paged decode with -1 table
             entries, a pad row and page-boundary positions; paged verify
             windows of C = 1, 3, 5 queries (16 to 80 rows per KV head) at
             and across page boundaries, with -1 entries and a pad row;
@@ -19,13 +19,25 @@ Phases, each printing its own lines; any failed check exits non-zero:
             8192; prompt chunks at q_start 0/16/300, C 1/37/64/128, over a
             1024-slot buffer with stale data past the chunk, K/V read
             through the strides of a [B,Hkv,S,hd] buffer, with a window.
+            The four attention kernels again at granite-moe (Hq=24, Hkv=8,
+            hd=64) and hymba (Hq=25, Hkv=5, hd=64) head shapes. The SSD
+            scan at mamba2-780m (H=48, P=64, N=128) and hymba (H=50, N=16)
+            widths, T=256 and a ragged T=77, inputs as strided splits of
+            one projection; the SSD decode step over a shuffled state arena
+            with a pad and an inactive row (arena after the step compared
+            too); the grouped-expert FFN at granite-moe widths (E=40,
+            D=1536, F=512) for one decode group (C=64) and two per-example
+            prefill groups, with zero rows.
             Then reduced engines on the card against the same engines on
             the CPU (prefill + decode logits, greedy streams): paged atomic,
             paged chunked, slot chunked (masked decode), slot compacted;
             paged speculative decoding with a self-draft (streams also equal
             to depth-0 decode), prefix-shared prefill and decode, and a
             suspend/resume (restored K/V bit for bit, logits after resume
-            equal to the never-suspended engine's).
+            equal to the never-suspended engine's); mamba2-780m, hymba-1.5b
+            and granite-moe-3b-a800m (reduced) paged engines with prefill,
+            decode steps and a suspend/resume that restores the SSM state,
+            the conv tail and the K/V pages bit for bit.
 3. serve  — SLICE through the serve entry point, edge-6b at full width in
             bf16: measured l(b), a few Poisson voice/QA requests, in four
             runs: (a) the paged engine with atomic prefill, (b) the slot
@@ -35,18 +47,31 @@ Phases, each printing its own lines; any failed check exits non-zero:
             task must finish, a paged pool must end empty (after the radix
             index is cleared), run (d) must run verify steps and hit the
             prefix cache, and each run must launch the kernels of its path.
+            Then (e) mamba2-780m and (f) granite-moe-3b-a800m at full width
+            in bf16 on the paged engine, with the same workload: every task
+            finishes, no page or state slot is left held, (e) launches the
+            SSD scan and decode-step kernels, (f) the grouped-expert FFN,
+            paged decode and flash prefill at head_dim 64, group 3.
             Kernel launch counts are zeroed just before each run and read
             just after; the engine is freed before the next run. Run (d)
             also prints a speculative iteration's engine clock beside a
             plain decode step's at the same batch.
-4. time   — each kernel, its plain version and the library's
+4. time   — each kernel (device time: CUDA events over 30 calls queued
+            behind a spin kernel, so the calls run back to back; the
+            kernel's time launched at the host's pace is printed beside
+            it), its plain version and the library's
             scaled_dot_product_attention as a yardstick (explicit boolean
             mask, K/V repeated to Hq, where the kernel masks by position;
             none for the paged kernels, which no single PyTorch call
             gathers), at the shapes its serving run used (the paged
             kernels over a full batch of the run's first requests, each
             mid-way through its output; verify windows of depth+1
-            queries); the bound is the
+            queries); the SSD scan over one median prompt of run (e), the
+            SSD step over its full decode batch, the grouped-expert FFN
+            over run (f)'s full decode batch (C = batch * top_k; no single
+            PyTorch call computes these three: the MoE FFN's chain of
+            batched matmuls is printed as a yardstick, and its
+            library_ms stays null); the bound is the
             larger of bytes over 3.35 TB/s and flops over the type's peak
             (H100 SXM data sheet).
 
@@ -68,6 +93,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}     # max |kernel - plain|
+SPIN_CYCLES = 200_000_000                       # ~0.1 s at the H100's clock
 # Non-realtime traffic only (--ratio 0): SLICE paces a realtime task at
 # exactly its SLO rate and drops it once it falls behind its deadline, and
 # this host-bound engine's steps vary around the probed l(b), so whether a
@@ -95,6 +121,12 @@ SERVE_RUNS = (
                     "4", "--prefix-cache", "--shared-prefix-frac", "0.7"],
      ("paged_verify_attention", "paged_decode_attention",
       "flash_prefill_chunk", "decode_attention")),
+    # SSM and MoE serving (DESIGN.md §12): the later --arch overrides
+    # SERVE_ARGS's
+    ("paged-ssm", ["--executor", "paged", "--arch", "mamba2-780m"],
+     ("ssd_scan", "ssd_decode_step")),
+    ("paged-moe", ["--executor", "paged", "--arch", "granite-moe-3b-a800m"],
+     ("moe_grouped_ffn", "paged_decode_attention", "flash_prefill")),
 )
 KERNELS = {
     "paged_decode_attention": {
@@ -112,6 +144,15 @@ KERNELS = {
     "paged_verify_attention": {
         "source": "src/repro_torch/csrc/paged_decode_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:126"},
+    "ssd_scan": {
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:75"},
+    "ssd_decode_step": {
+        "source": "src/repro_torch/csrc/ssd_decode.cu",
+        "replaces": "src/repro/kernels/ssd_decode.py:34"},
+    "moe_grouped_ffn": {
+        "source": "src/repro_torch/csrc/moe_grouped_ffn.cu",
+        "replaces": "src/repro/kernels/moe_dispatch.py:32"},
 }
 
 
@@ -124,13 +165,22 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 30, warmup: int = 3,
+            queued: bool = True) -> float:
+    """Device time of one call: CUDA events around ``iters`` calls after
+    ``warmup`` ones. ``queued``: a spin kernel (``torch.cuda._sleep``,
+    ~0.1 s) goes first, so the host has enqueued the calls before the
+    device reaches them and the events time them back to back; without
+    it a call shorter than its wrapper's host path (checks and the ctypes
+    call take tens of microseconds) is timed at the host's pace."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -235,6 +285,52 @@ def chunk_inputs(B, C, S, dtype, Hq=32, Hkv=2, hd=128, seed=0):
     return q, k.transpose(1, 2), v.transpose(1, 2)
 
 
+def ssd_inputs(B, T, H, P, N, dtype, seed=0):
+    """SSD inputs on the card as the mixer passes them: x [B,T,H,P], dt
+    [B,T,H], b and c [B,T,N] as strided splits of one [B,T,H*P+2N+H]
+    projection, x scaled by 0.5 and b, c by N^-0.5 so outputs stay below
+    4 (the range the bf16 tolerance is set for); the [H]
+    parameters at the JAX init's values (a_log = log(linspace(1, 16)),
+    d_skip = 1, dt_bias ~ 0.1 N(0,1))."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    W = H * P + 2 * N + H
+    proj = torch.randn(B, T, W, generator=g, device="cuda")
+    proj[..., :H * P] *= 0.5
+    proj[..., H * P:H * P + 2 * N] *= N ** -0.5
+    proj[..., H * P + 2 * N:] *= 0.5
+    proj = proj.to(dtype)
+    x = proj[..., :H * P].reshape(B, T, H, P)
+    b = proj[..., H * P:H * P + N]
+    c = proj[..., H * P + N:H * P + 2 * N]
+    dt = proj[..., H * P + 2 * N:]
+    params = (torch.log(torch.linspace(1.0, 16.0, H, device="cuda")).to(dtype),
+              torch.ones(H, device="cuda", dtype=dtype),
+              (0.1 * torch.randn(H, generator=g, device="cuda")).to(dtype))
+    return x, dt, b, c, params
+
+
+def moe_inputs(G, C, dtype, E=40, D=1536, F=512, seed=0):
+    """A dispatched buffer [G,C,D] whose second half of rows is zero (an
+    expert's unused capacity) and expert weights at the JAX init's scales
+    (wg/wu by D^-0.5, wd by F^-0.5), granite-moe widths by default."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn(G, C, D, generator=g, device="cuda")
+    buf[:, C // 2:] = 0.0
+    wg = torch.randn(E, D, F, generator=g, device="cuda") * D ** -0.5
+    wu = torch.randn(E, D, F, generator=g, device="cuda") * D ** -0.5
+    wd = torch.randn(E, F, D, generator=g, device="cuda") * F ** -0.5
+    return [t.to(dtype) for t in (buf, wg, wu, wd)]
+
+
+def to_device(tree, dev):
+    """A parameter tree (nested dicts of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 # ----------------------------------------------------------------- phases
 
 def build_phase():
@@ -256,14 +352,18 @@ def check_kernels():
     phase("check kernels against their plain versions")
     worst = {k: 0.0 for k in KERNELS}
 
-    def report(name, case, dtype, err):
+    def report(name, case, dtype, err, absolute=True):
+        """``absolute=False``: a state error relative to its magnitude,
+        checked but kept out of the kernel's max_abs_err."""
         tol = TOL[dtype]
         ok = err <= tol
-        print(f"{name} {case} {dtype}: max_abs_err={err:.3e} tol={tol:g} "
+        what = "max_abs_err" if absolute else "max_rel_err"
+        print(f"{name} {case} {dtype}: {what}={err:.3e} tol={tol:g} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name} {case} {dtype} disagrees with its plain version")
-        worst[name] = max(worst[name], err)
+        if absolute:
+            worst[name] = max(worst[name], err)
 
     # decode: pad row (-1), page-boundary positions (15, 16, 31, 32), short
     # and long rows, trailing -1 entries on every live row
@@ -365,7 +465,119 @@ def check_kernels():
                            f"B=2 C={C} q_start={q0},{q0 + 3} S={S} strided "
                            f"window={window}", dt,
                            (out.float() - want).abs().max().item())
+    check_hetero_kernels(report)
     return worst
+
+
+def check_hetero_kernels(report):
+    """The attention kernels at granite-moe and hymba head shapes, and the
+    SSD scan, SSD decode step and grouped-expert FFN at the serving runs'
+    widths, each against its plain version on the same inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    lengths = [-1, 0, 15, 16, 100, 517, 1023]
+    for Hq, Hkv in ((24, 8), (25, 5)):
+        heads = dict(Hq=Hq, Hkv=Hkv, hd=64)
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            q, kp, vp, pt, qp = decode_inputs(lengths, dtype, **heads)
+            out = ops.paged_decode_attention(q, kp, vp, pt, qp)
+            want = ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                                  vp.float(), pt, qp)
+            live = torch.tensor([ln >= 0 for ln in lengths], device="cuda")
+            if not (torch.isfinite(out.float()).all()
+                    and (out[~live].float() == 0).all()):
+                fail("paged_decode_attention: pad rows must give finite zeros")
+            report("paged_decode_attention", f"Hq={Hq} Hkv={Hkv} hd=64 "
+                   f"lengths={lengths}", dt,
+                   (out.float() - want)[live].abs().max().item())
+            starts = [-1, 0, 15, 30, 517, 1024 - 5]
+            q, kp, vp, pt, qs = verify_inputs(starts, 5, dtype, **heads)
+            out = ops.paged_verify_attention(q, kp, vp, pt, qs)
+            want = ref.paged_verify_attention_ref(q.float(), kp.float(),
+                                                  vp.float(), pt, qs)
+            live = torch.tensor([s0 >= 0 for s0 in starts], device="cuda")
+            report("paged_verify_attention", f"Hq={Hq} Hkv={Hkv} hd=64 C=5 "
+                   f"q_start={starts}", dt,
+                   (out.float() - want)[live].abs().max().item())
+            q, k, v = prefill_inputs(2, 300, dtype, **heads)
+            out = ops.flash_prefill(q, k, v, causal=True)
+            want = ref.flash_prefill_ref(q.float(), k.float(), v.float(),
+                                         causal=True)
+            report("flash_prefill", f"Hq={Hq} Hkv={Hkv} hd=64 B=2 S=300 "
+                   "causal", dt, (out.float() - want).abs().max().item())
+            q, k, v = chunk_inputs(2, 37, 1024, dtype, **heads)
+            qs = torch.tensor([16, 19], dtype=torch.int32, device="cuda")
+            out = ops.flash_prefill_chunk(q, k, v, qs)
+            want = ref.flash_prefill_chunk_ref(q.float(), k.float(),
+                                               v.float(), qs)
+            report("flash_prefill_chunk", f"Hq={Hq} Hkv={Hkv} hd=64 B=2 C=37 "
+                   "q_start=16,19 S=1024 strided", dt,
+                   (out.float() - want).abs().max().item())
+    torch.cuda.synchronize()
+
+    def f32(ts):
+        return [t.float() for t in ts]
+
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for B, T, H, P, N in ((1, 256, 48, 64, 128), (2, 77, 48, 64, 128),
+                              (1, 256, 50, 64, 16)):
+            x, dtr, b, c, (a_log, d_skip, bias) = ssd_inputs(B, T, H, P, N,
+                                                             dtype, seed=T)
+            y, h = ops.ssd_scan(x, dtr, a_log, b, c, d_skip, bias)
+            torch.cuda.synchronize()
+            yw, hw = ref.ssd_scan_ref(*f32((x, dtr, a_log, b, c, d_skip,
+                                            bias)))
+            if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+                    and y.shape == x.shape and h.shape == (B, H, P, N)):
+                fail("ssd_scan: non-finite or misshapen output")
+            case = f"B={B} T={T} H={H} P={P} N={N} strided"
+            report("ssd_scan", case + f" y (max |y| "
+                   f"{yw.abs().max().item():.2f})", dt,
+                   (y.float() - yw).abs().max().item())
+            scale = max(1.0, hw.abs().max().item())
+            report("ssd_scan", case + " final state, fp32, over max(1, |h|)",
+                   "float32", (h - hw).abs().max().item() / scale, False)
+        for H, P, N in ((48, 64, 128), (50, 64, 16)):
+            B, S = 8, 16
+            x, dtr, b, c, (a_log, d_skip, bias) = ssd_inputs(B, 1, H, P, N,
+                                                             dtype, seed=H)
+            args = (x[:, 0], dtr[:, 0], a_log, b[:, 0], c[:, 0], d_skip, bias)
+            g = torch.Generator(device="cuda").manual_seed(N)
+            arena = 0.5 * torch.randn(S, H, P, N, generator=g, device="cuda")
+            slots = torch.tensor([5, 0, -1, 9, 3, 12, 7, 15], dtype=torch.int32,
+                                 device="cuda")
+            active = torch.tensor([1, 1, 0, 1, 0, 1, 1, 1], dtype=torch.bool,
+                                  device="cuda")
+            st_k, st_p = arena.clone(), arena.clone()
+            y = ops.ssd_decode_step(*args, st_k, slots, active)
+            torch.cuda.synchronize()
+            yw = ref.ssd_decode_step_ref(*f32(args), st_p, slots, active)
+            live = slots >= 0
+            untouched = [s_ for s_ in range(S) if s_ not in (5, 0, 9, 12, 7, 15)]
+            if not ((y[~live] == 0).all() and torch.equal(st_k[untouched],
+                                                          arena[untouched])):
+                fail("ssd_decode_step: a pad row gave output or an unwritten "
+                     "slot changed")
+            case = f"B={B} H={H} P={P} N={N} arena={S} pad+inactive rows"
+            report("ssd_decode_step", case + " y", dt,
+                   (y.float() - yw)[live].abs().max().item())
+            scale = max(1.0, st_p.abs().max().item())
+            report("ssd_decode_step", case + " arena after, fp32, over "
+                   "max(1, |h|)", "float32",
+                   (st_k - st_p).abs().max().item() / scale, False)
+        for G, C in ((40, 64), (80, 37)):
+            buf, wg, wu, wd = moe_inputs(G, C, dtype, seed=C)
+            out = ops.moe_grouped_ffn(buf, wg, wu, wd)
+            torch.cuda.synchronize()
+            want = ref.moe_grouped_ffn_ref(*f32((buf, wg, wu, wd)))
+            if not (torch.isfinite(out.float()).all()
+                    and (out[:, C // 2:] == 0).all()):
+                fail("moe_grouped_ffn: zero rows must give zero rows")
+            report("moe_grouped_ffn", f"G={G} E=40 C={C} D=1536 F=512 "
+                   "zero rows", dt, (out.float() - want).abs().max().item())
+            del buf, wg, wu, wd, out, want
 
 
 def check_engine():
@@ -399,8 +611,7 @@ def check_engine():
     for name, make in engines.items():
         on = {}
         for dev in ("cpu", "cuda"):
-            p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if k == "blocks"
-                     else v.to(dev)) for k, v in params.items()}
+            p = to_device(params, dev)
             on[dev] = make(p, dev)
         tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n, output_len=8,
                       task_id=7000 + i) for i, n in enumerate((5, 17, 40))]
@@ -450,8 +661,7 @@ def check_engine_features():
     base = dict(n_pages=48, page_size=16, max_seq=128, max_batch=4)
 
     def on(dev, **kw):
-        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if k == "blocks"
-                 else v.to(dev)) for k, v in params.items()}
+        p = to_device(params, dev)
         if kw.pop("self_draft", False):
             kw.update(draft_cfg=cfg, draft_params=p)
         return PagedTorchExecutor(cfg, params=p, device=dev, **base, **kw)
@@ -565,6 +775,92 @@ def check_engine_features():
         fail("suspend/resume on the card changed the task's K/V or logits")
 
 
+def check_hetero_engines():
+    """Reduced mamba2-780m (SSM), hymba-1.5b (hybrid) and
+    granite-moe-3b-a800m (MoE) paged engines on the card against the same
+    engines on the CPU (fp32, same weights, same tasks): prefill and
+    decode logits within 1e-4 and identical greedy streams, across a
+    suspend/resume after which the task's SSM state, conv tail and K/V
+    pages are bit for bit what they were; no page or state slot left
+    held."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    phase("check SSM, hybrid and MoE engines on the card against the CPU")
+    for arch in ("mamba2-780m", "hymba-1.5b", "granite-moe-3b-a800m"):
+        cfg = get_config(arch).reduced()
+        params = M.init_params(cfg, seed=0, device="cpu")
+        on = {d: PagedTorchExecutor(cfg, params=to_device(params, d),
+                                    n_pages=48, page_size=16, max_seq=128,
+                                    max_batch=4, device=d)
+              for d in ("cpu", "cuda")}
+        # a 2-token prompt leaves the conv tail left-padded
+        tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n, output_len=8,
+                      task_id=7400 + i) for i, n in enumerate((5, 17, 40, 2))]
+        worst = 0.0
+
+        def diff(attr):
+            return float(np.abs(getattr(on["cuda"], attr)
+                                - getattr(on["cpu"], attr)).max())
+
+        def state_of(ex, t):
+            snap = []
+            if cfg.has_attention:
+                idx = torch.as_tensor(ex.pool.page_table(t.task_id),
+                                      device=ex.device)
+                snap += [ex.pages[n][:, idx].clone()
+                         for n in ("k_pages", "v_pages")]
+            if ex.states is not None:
+                slot = ex.states.slot_of(t.task_id)
+                snap += [ex.pages[n][:, slot].clone()
+                         for n in ("ssm_state", "conv_state")]
+            return snap
+
+        for t in tasks:
+            for ex in on.values():
+                ex.prefill(t)
+            worst = max(worst, diff("last_prefill_logits"))
+        same = True
+        for step in range(5):
+            if step == 1:
+                before = state_of(on["cuda"], tasks[0])
+                for ex in on.values():
+                    ex.suspend(tasks[0])
+            if step == 3:
+                for ex in on.values():
+                    ex.resume(tasks[0])
+                same = all(torch.equal(a, b) for a, b in
+                           zip(before, state_of(on["cuda"], tasks[0])))
+            batch = tasks[1:] if step in (1, 2) else tasks
+            for ex in on.values():
+                ex.decode(batch)
+            got = on["cuda"].last_logits
+            if (got.shape != (len(batch), cfg.vocab_size)
+                    or not np.isfinite(got).all()):
+                fail(f"{arch}: logits shape {got.shape} or non-finite values")
+            worst = max(worst, diff("last_logits"))
+        streams = {d: [ex.generated_tokens(t) for t in tasks]
+                   for d, ex in on.items()}
+        for ex in on.values():
+            for t in tasks:
+                ex.release(t)
+            ex.store.check()
+        leaked = on["cuda"].store.leaked()
+        print(f"engine {arch}-smoke cuda vs cpu: max |logit diff|="
+              f"{worst:.3e} tol=1e-4 streams_equal="
+              f"{streams['cuda'] == streams['cpu']}; suspend/resume restored "
+              f"{'state and pages' if cfg.has_ssm else 'pages'} bit for bit: "
+              f"{same}; swapped {on['cuda'].swapped_bytes:.0f} B; held after "
+              f"release {leaked}")
+        if (worst > 1e-4 or streams["cuda"] != streams["cpu"] or not same
+                or leaked):
+            fail(f"reduced {arch} engine on the card disagrees with the CPU, "
+                 "changed a swapped task or leaked")
+
+
 def serve_phase(run_name, extra, required):
     """One serving run through the serve entry point; returns what the time
     phase needs of it (the engine's shapes and the tasks) and the run's
@@ -576,9 +872,9 @@ def serve_phase(run_name, extra, required):
     from repro_torch.core.task import SLOSpec, Task
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    phase(f"serve {run_name}: edge-6b at full width (bf16) under SLICE")
     argv = SERVE_ARGS + extra
     args = serve.parse_args(argv)
+    phase(f"serve {run_name}: {args.arch} at full width (bf16) under SLICE")
     print("serve args:", " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -609,10 +905,14 @@ def serve_phase(run_name, extra, required):
             fail(f"{run_name}: no prompt hit the prefix cache")
         cache.clear()
     if pool is not None:
-        pool.check()
-        if pool.used_pages != 0 or pool.owners():
-            fail(f"{run_name}: page leak: {pool.used_pages} pages held by "
-                 f"{pool.owners()}")
+        ex.store.check()
+        if pool.used_pages != 0 or pool.owners() or ex.store.leaked():
+            fail(f"{run_name}: leak: {pool.used_pages} pages held by "
+                 f"{pool.owners()}, {ex.store.leaked()} pages and state "
+                 "slots held")
+        if ex.states is not None:
+            print(f"state slots: {ex.n_state_slots} of "
+                  f"{ex.store.state_bytes} B each, all free at the end")
     elif ex.slot_of:
         fail(f"{run_name}: slots still held by {sorted(ex.slot_of)}")
     logits = ex.last_logits
@@ -827,6 +1127,80 @@ def time_phase(runs, worst):
                  None, 2 * keys * Hkv * hd * elt + 2 * B * C * Hq * hd * elt
                  + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd))
 
+    def f32(ts):
+        return [t.float() for t in ts]
+
+    # SSD scan (run paged-ssm): one prompt of the median effective length,
+    # inputs as strided splits of one projection, as the mixer passes them
+    sh = runs["paged-ssm"][0]
+    scfg = sh["cfg"]
+    eff, _ = lengths_of(sh)
+    T = sorted(eff)[len(eff) // 2]
+    H, P, N = scfg.ssm_heads, scfg.ssm_head_dim, scfg.ssm_state
+    sx, sdt, sb, sc, sprm = ssd_inputs(1, T, H, P, N, dtype, seed=6)
+    s_args = (sx, sdt, sprm[0], sb, sc, sprm[1], sprm[2])
+    s_args32 = f32(s_args)
+    pieces = [min(64, T - t0) for t0 in range(0, T, 64)]   # 64-step chunks
+    rows.append(("ssd_scan", f"B=1 T={T} H={H} P={P} N={N} strided",
+                 lambda: ops.ssd_scan(*s_args)[0],
+                 lambda: ref.ssd_scan_ref(*s_args)[0],
+                 lambda: ref.ssd_scan_ref(*s_args32)[0], None,
+                 (2 * T * H * P + T * H + 2 * T * N + 3 * H) * elt
+                 + H * P * N * 4,
+                 H * sum(n * (n + 1) * (N + P) + 4 * n * P * N
+                         for n in pieces)))
+
+    # SSD decode step (run paged-ssm): the full decode batch, each row on
+    # its own slot of a 2*batch-slot arena, every row active
+    B = sh["batch"]
+    dx, ddt, dbm, dcm, dprm = ssd_inputs(B, 1, H, P, N, dtype, seed=7)
+    d_args = (dx[:, 0], ddt[:, 0], dprm[0], dbm[:, 0], dcm[:, 0], dprm[1],
+              dprm[2])
+    d_args32 = f32(d_args)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    arenas = [0.5 * torch.randn(2 * B, H, P, N, generator=g, device="cuda")]
+    arenas += [arenas[0].clone(), arenas[0].clone()]
+    slots = torch.arange(0, 2 * B, 2, dtype=torch.int32, device="cuda")
+    act = torch.ones(B, dtype=torch.bool, device="cuda")
+    rows.append(("ssd_decode_step", f"B={B} H={H} P={P} N={N} "
+                 f"arena={2 * B} in place",
+                 lambda: ops.ssd_decode_step(*d_args, arenas[0], slots, act),
+                 lambda: ref.ssd_decode_step_ref(*d_args, arenas[1], slots,
+                                                 act),
+                 lambda: ref.ssd_decode_step_ref(*d_args32, arenas[2], slots,
+                                                 act), None,
+                 2 * B * H * P * N * 4
+                 + (2 * B * H * P + B * H + 2 * B * N + 3 * H) * elt + 5 * B,
+                 5 * B * H * P * N))
+
+    # grouped-expert FFN (run paged-moe): the dispatch buffer of the full
+    # decode batch, C = batch * top_k, rows placed by a random top-k
+    # routing of the batch's tokens, so most of each expert's capacity is
+    # zero rows, as in serving
+    sh = runs["paged-moe"][0]
+    mcfg = sh["cfg"]
+    E, D, Fd, K = mcfg.n_experts, mcfg.d_model, mcfg.d_ff, mcfg.top_k
+    B = sh["batch"]
+    C = B * K
+    mbuf, mwg, mwu, mwd = moe_inputs(E, C, dtype, E=E, D=D, F=Fd, seed=8)
+    mbuf.zero_()
+    picks = torch.rand(B, E, generator=g, device="cuda").topk(K).indices
+    fill = torch.zeros(E, dtype=torch.long)
+    for e in picks.flatten().tolist():
+        mbuf[e, fill[e]] = torch.randn(D, generator=g, device="cuda").to(dtype)
+        fill[e] += 1
+    used = int((fill > 0).sum())
+    live_rows = int(fill.sum())
+    m_args32 = f32((mbuf, mwg, mwu, mwd))
+    rows.append(("moe_grouped_ffn", f"G=E={E} C={C} D={D} F={Fd}, {live_rows} "
+                 f"live rows over {used} experts",
+                 lambda: ops.moe_grouped_ffn(mbuf, mwg, mwu, mwd),
+                 lambda: ref.moe_grouped_ffn_ref(mbuf, mwg, mwu, mwd),
+                 lambda: ref.moe_grouped_ffn_ref(*m_args32), None,
+                 # the weights of experts with rows, the buffer in and out
+                 3 * used * D * Fd * elt + 2 * E * C * D * elt,
+                 6 * live_rows * D * Fd))
+
     out = []
     for name, shape, kern, plain, plain_fp32, lib, nbytes, flops in rows:
         # held against the plain version at these shapes too
@@ -836,13 +1210,15 @@ def time_phase(runs, worst):
             fail(f"{name} disagrees with its plain version at the timed shapes")
         worst[name] = max(worst[name], err)
         ms = time_ms(kern)
+        paced_ms = time_ms(kern, queued=False)
         plain_ms = time_ms(plain)
         lib_ms = time_ms(lib) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dt] * 1e3
         bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                                  "operations")
-        print(f"{name} [{shape}, {dt}]: kernel {ms:.4f} ms, plain "
+        print(f"{name} [{shape}, {dt}]: kernel {ms:.4f} ms (launched at the "
+              f"host's pace: {paced_ms:.4f}), plain "
               f"{plain_ms:.4f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
               f"{bound:.5f} ms by {by} ({nbytes} B, {flops} flop), launches "
@@ -853,6 +1229,12 @@ def time_phase(runs, worst):
                     "launches": launches[name], "max_abs_err": worst[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": by, "library_ms": lib_ms})
+    # no single PyTorch call computes the grouped FFN: the chain of
+    # batched matmuls over the same buffer is a yardstick, used nowhere
+    chain_ms = time_ms(lambda: torch.bmm(
+        F.silu(torch.bmm(mbuf, mwg)) * torch.bmm(mbuf, mwu), mwd))
+    print(f"moe_grouped_ffn yardstick (not one library call): "
+          f"bmm/silu/bmm/bmm chain over the same buffer {chain_ms:.4f} ms")
     return out
 
 
@@ -873,6 +1255,7 @@ def main() -> None:
     worst = check_kernels()
     check_engine()
     check_engine_features()
+    check_hetero_engines()
     runs = {name: serve_phase(name, extra, required)
             for name, extra, required in SERVE_RUNS}
     kernels = time_phase(runs, worst)

@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("paged_decode_attention", "flash_prefill", "decode_attention")
+KERNELS = ("paged_decode_attention", "flash_prefill", "decode_attention",
+           "ssd_scan", "ssd_decode", "moe_grouped_ffn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

@@ -1,4 +1,5 @@
-"""Public wrappers of the port's attention kernels.
+"""Public wrappers of the port's kernels: attention, the SSD scan and
+decode step, and the grouped-expert FFN.
 
 A wrapper given CUDA tensors checks them (device, type, shape,
 contiguity, or strides where the kernel reads a view), allocates the
@@ -12,18 +13,22 @@ went through the kernels; ``reset_launches()`` zeroes it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_prefill as _fp
+from repro_torch.kernels import moe_dispatch as _moe
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_decode as _ssdd
+from repro_torch.kernels import ssd_scan as _ssd
 
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "flash_prefill": 0,
                             "flash_prefill_chunk": 0, "decode_attention": 0,
-                            "paged_verify_attention": 0}
+                            "paged_verify_attention": 0, "ssd_scan": 0,
+                            "ssd_decode_step": 0, "moe_grouped_ffn": 0}
 
 
 def reset_launches() -> None:
@@ -240,5 +245,138 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B == 0 or S == 0:
         return out
     _fp.launch(q, k, v, out, causal, window)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_ssd_params(name: str, H: int, dtype: torch.dtype,
+                      *params: torch.Tensor) -> None:
+    _check(name, all(t.shape == (H,) and t.is_contiguous() for t in params),
+           f"a_log/d_skip/dt_bias must be contiguous [{H}]")
+    _check(name, dtype in _ssd.DTYPES and all(t.dtype == dtype
+                                               for t in params),
+           f"type {dtype} (parameters "
+           f"{'/'.join(str(t.dtype) for t in params)}): one of fp32, bf16, "
+           "all alike, expected")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+             dt_bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan from a zero state, any T. x [B,T,H,P]; dt [B,T,H];
+    b,c [B,T,N]; a_log/d_skip/dt_bias [H]. x, dt, b and c may be strided
+    views (the mixer passes splits of one projection) as long as their last
+    dimension, and x's [H,P] block, are contiguous: the kernel reads them
+    through their strides, nothing is copied. Returns (y [B,T,H,P]
+    contiguous in x's type, final state [B,H,P,N] fp32)."""
+    name = "ssd_scan"
+    if not _on_cuda(name, x, dt, a_log, b, c, d_skip, dt_bias):
+        return ref.ssd_scan_ref(x, dt, a_log, b, c, d_skip, dt_bias)
+    _check(name, x.ndim == 4 and dt.ndim == 3 and b.ndim == 3
+           and c.ndim == 3, "x [B,T,H,P], dt [B,T,H], b/c [B,T,N] expected")
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    _check(name, dt.shape == (B, T, H) and b.shape == (B, T, N)
+           and c.shape == b.shape, f"shapes x {tuple(x.shape)} dt "
+           f"{tuple(dt.shape)} b {tuple(b.shape)} c {tuple(c.shape)} "
+           "disagree")
+    _check_ssd_params(name, H, x.dtype, a_log, d_skip, dt_bias)
+    _check(name, all(t.dtype == x.dtype for t in (dt, b, c)),
+           "x, dt, b, c must share one type")
+    _check(name, x.stride(3) == 1 and x.stride(2) == P and dt.stride(2) == 1
+           and b.stride(2) == 1 and c.stride(2) == 1,
+           "x's [H,P] block and the last dimension of dt, b, c must be "
+           "contiguous")
+    _check(name, B <= 65535, f"batch {B} > 65535")
+    y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
+    h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    if B == 0 or T == 0 or H == 0:
+        return y, h.zero_()
+    _ssd.launch(x, dt, a_log, b, c, d_skip, dt_bias, y, h)
+    LAUNCHES[name] += 1
+    return y, h
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                    dt_bias: torch.Tensor, state: torch.Tensor,
+                    slots: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """One SSD recurrence step of B rows over a layer's state arena, in
+    place. x [B,H,P]; dt [B,H]; b,c [B,N] (strided views with a contiguous
+    last dimension, and x's P contiguous, are read in place);
+    a_log/d_skip/dt_bias [H]; state [S,H,P,N] fp32; slots [B] int32, the
+    arena slot of each row; active [B] bool. Row b steps state[slots[b]]
+    and writes it back when active and slots[b] >= 0; live rows' slots
+    must be distinct. Returns y [B,H,P] in x's type (0 for slot -1
+    rows)."""
+    name = "ssd_decode_step"
+    if not _on_cuda(name, x, dt, a_log, b, c, d_skip, dt_bias, state, slots,
+                    active):
+        return ref.ssd_decode_step_ref(x, dt, a_log, b, c, d_skip, dt_bias,
+                                       state, slots, active)
+    _check(name, x.ndim == 3 and dt.ndim == 2 and b.ndim == 2
+           and c.ndim == 2 and state.ndim == 4,
+           "x [B,H,P], dt [B,H], b/c [B,N], state [S,H,P,N] expected")
+    B, H, P = x.shape
+    N = b.shape[-1]
+    _check(name, dt.shape == (B, H) and b.shape == (B, N)
+           and c.shape == b.shape and state.shape[1:] == (H, P, N),
+           f"shapes x {tuple(x.shape)} dt {tuple(dt.shape)} b "
+           f"{tuple(b.shape)} state {tuple(state.shape)} disagree")
+    _check_ssd_params(name, H, x.dtype, a_log, d_skip, dt_bias)
+    _check(name, all(t.dtype == x.dtype for t in (dt, b, c)),
+           "x, dt, b, c must share one type")
+    _check(name, state.dtype == torch.float32 and state.is_contiguous()
+           and state.data_ptr() % 16 == 0 and N % 4 == 0,
+           "state must be a contiguous, 16-byte aligned fp32 arena with "
+           "N % 4 == 0")
+    _check(name, x.stride(2) == 1 and dt.stride(1) == 1 and b.stride(1) == 1
+           and c.stride(1) == 1, "the last dimension of x, dt, b, c must "
+           "be contiguous")
+    _check(name, slots.dtype == torch.int32 and slots.shape == (B,)
+           and active.dtype == torch.bool and active.shape == (B,)
+           and slots.is_contiguous() and active.is_contiguous(),
+           "slots [B] int32 and active [B] bool expected")
+    _check(name, B <= 65535, f"batch {B} > 65535")
+    y = torch.empty((B, H, P), dtype=x.dtype, device=x.device)
+    if B == 0 or H == 0:
+        return y
+    _ssdd.launch(x, dt, a_log, b, c, d_skip, dt_bias, state, slots, active, y)
+    LAUNCHES[name] += 1
+    return y
+
+
+def moe_grouped_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wd: torch.Tensor) -> torch.Tensor:
+    """Per-group gated MLP silu(x Wg) * (x Wu) Wd over a dispatched buffer,
+    fp32 inside. buf [G,C,D] with G a multiple of E, group g using expert
+    g mod E (G = E for one dispatch group, B*E for per-example buffers);
+    wg/wu [E,D,F]; wd [E,F,D]. Returns [G,C,D] in buf's type; zero rows
+    give zero rows. The kernel's two passes (gate/up, down) count as one
+    launch."""
+    name = "moe_grouped_ffn"
+    if not _on_cuda(name, buf, wg, wu, wd):
+        return ref.moe_grouped_ffn_ref(buf, wg, wu, wd)
+    _check(name, buf.ndim == 3 and wg.ndim == 3 and wu.ndim == 3
+           and wd.ndim == 3, "buf [G,C,D], wg/wu [E,D,F], wd [E,F,D] "
+           "expected")
+    G, C, D = buf.shape
+    E, _, F = wg.shape
+    _check(name, wg.shape == (E, D, F) and wu.shape == wg.shape
+           and wd.shape == (E, F, D) and E > 0 and G % E == 0,
+           f"shapes buf {tuple(buf.shape)} wg {tuple(wg.shape)} wu "
+           f"{tuple(wu.shape)} wd {tuple(wd.shape)} disagree")
+    _check(name, buf.dtype in _moe.DTYPES
+           and all(t.dtype == buf.dtype for t in (wg, wu, wd)),
+           f"types {buf.dtype}/{wg.dtype}/{wu.dtype}/{wd.dtype}: one of "
+           "fp32, bf16 expected")
+    _check(name, all(t.is_contiguous() for t in (buf, wg, wu, wd)),
+           "tensors must be contiguous")
+    _check(name, G <= 65535, f"{G} groups > 65535")
+    out = torch.empty_like(buf)
+    if G == 0 or C == 0:
+        return out
+    hid = torch.empty((G, C, F), dtype=torch.float32, device=buf.device)
+    _moe.launch(buf, wg, wu, wd, hid, out)
     LAUNCHES[name] += 1
     return out

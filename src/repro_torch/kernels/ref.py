@@ -3,12 +3,15 @@
 They are what ``kernels.ops`` runs for CPU tensors, and what
 ``chip_smoke.py`` holds each kernel against on the card. They share the
 model's layer code, as the JAX package's oracles do (``repro.kernels.ref``).
+The SSD versions call ``models.ssm`` at call time (that module imports
+``kernels.ops``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers import (attention, band_mask,
                                        chunk_decode_attention,
@@ -76,3 +79,51 @@ def flash_prefill_chunk_ref(q: torch.Tensor, k: torch.Tensor,
     kv_pos = torch.arange(S, device=q.device).expand(B, S)
     return chunk_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
                                   kv_pos, q_pos, window)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                 dt_bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as csrc/ssd_scan.cu: the Mamba2 SSD scan from a zero
+    state, any T. x [B,T,H,P]; dt [B,T,H]; b,c [B,T,N]; a_log, d_skip,
+    dt_bias [H] -> (y [B,T,H,P] in x's type, final state [B,H,P,N] f32).
+    The chunked dual form with 64-step chunks, T padded with dt = -1e9."""
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, dt, a_log, b, c, d_skip, dt_bias, chunk=64)
+
+
+def ssd_decode_step_ref(x: torch.Tensor, dt: torch.Tensor,
+                        a_log: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, d_skip: torch.Tensor,
+                        dt_bias: torch.Tensor, state: torch.Tensor,
+                        slots: torch.Tensor,
+                        active: torch.Tensor) -> torch.Tensor:
+    """Same contract as csrc/ssd_decode.cu: one SSD recurrence step of B
+    rows over a state arena, in place. x [B,H,P]; dt [B,H]; b,c [B,N];
+    a_log, d_skip, dt_bias [H]; state [S,H,P,N] f32; slots [B] int32;
+    active [B] bool. Row b gathers state[slots[b]], steps it
+    (``models.ssm.ssd_step``) and, when active and slots[b] >= 0, writes
+    h' back. Returns y [B,H,P] in x's type, 0 for rows with slot -1."""
+    from repro_torch.models.ssm import ssd_step
+    live = slots >= 0
+    rd = slots.long().clamp(min=0)
+    y, h_new = ssd_step(x, dt, a_log, b, c, d_skip, dt_bias, state[rd])
+    w = (active & live).nonzero().squeeze(1)
+    state[rd[w]] = h_new[w]
+    return y * live[:, None, None]
+
+
+def moe_grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor,
+                        wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """Same contract as csrc/moe_grouped_ffn.cu: per-group gated MLP
+    silu(x Wg) * (x Wu) Wd over a dispatched buffer, f32 inside. buf
+    [G,C,D] with G a multiple of E, group g using expert g mod E; wg/wu
+    [E,D,F]; wd [E,F,D] -> [G,C,D] in buf's type. Zero rows give zero
+    rows."""
+    E = wg.shape[0]
+    G, C, D = buf.shape
+    x = buf.reshape(G // E, E, C, D).float()
+    h = torch.einsum("gecd,edf->gecf", x, wg.float())
+    h = F.silu(h) * torch.einsum("gecd,edf->gecf", x, wu.float())
+    out = torch.einsum("gecf,efd->gecd", h, wd.float())
+    return out.reshape(G, C, D).to(buf.dtype)

@@ -19,6 +19,12 @@ kernel versions on the CPU), over the paged engine by default
       --dtype bfloat16 --spec-decode --spec-depth 4 --prefix-cache \\
       --shared-prefix-frac 0.7 --kv-swap
 
+  # SSM, MoE and hybrid archs on the paged engine (DESIGN.md §12)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --dtype bfloat16 --max-seq 1024 --ratio 0
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --dtype bfloat16 --max-seq 1024
+
   # tiny CPU run
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --duration 3 --slots 4 --max-seq 128
@@ -133,6 +139,9 @@ def run(args: argparse.Namespace) -> ServeRun:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode serving "
+                         "(DESIGN.md §4)")
     if args.prefill_chunk is not None and args.scheduler != "slice":
         raise SystemExit("--prefill-chunk requires --scheduler slice "
                          "(Orca/FastServe are atomic-prefill baselines)")
@@ -140,6 +149,15 @@ def run(args: argparse.Namespace) -> ServeRun:
         raise SystemExit(f"{args.arch}: executor-level chunked prefill needs "
                          "a pure-attention arch — SSM/hybrid archs serve "
                          "with atomic prefill (DESIGN.md §12)")
+    if cfg.has_ssm and args.executor == "paged" and (
+            args.spec_decode or args.prefix_cache):
+        raise SystemExit(f"{args.arch}: spec-decode/prefix-cache/mesh need "
+                         "rewindable/sharable per-token KV; the recurrent "
+                         "state kind has none (DESIGN.md §12)")
+    if cfg.has_ssm and args.executor == "slot":
+        raise SystemExit(f"{args.arch}: the port's slot engine serves "
+                         "attention-only archs; SSM/hybrid archs serve with "
+                         "--executor paged (ROADMAP.md)")
     if args.prefix_cache and args.executor != "paged":
         raise SystemExit("--prefix-cache requires --executor paged "
                          "(sharing rides on the refcounted page pool)")

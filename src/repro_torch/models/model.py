@@ -1,11 +1,14 @@
-"""Dense GQA decoder in PyTorch: the main-path subset of ``repro.models.model``.
+"""Causal decoders in PyTorch — dense GQA, MoE, Mamba2-SSD and hybrid
+(parallel attention + SSM) — the serving subset of ``repro.models.model``.
 
 Parameters are a plain dict of tensors with the JAX pytree's names and
 layouts — ``x @ W`` with ``W [D, out]``, per-layer weights stacked over a
-leading layer axis — so ``load_params`` can take the JAX package's own
-``init_params`` output (as numpy) and both packages compute on the same
-weights. Attention goes through ``kernels.ops``: the hand-written CUDA
-kernels on the card, their plain versions on the CPU.
+leading layer axis, the JAX ``SSMParams``/``MoEParams`` NamedTuples as
+dicts under ``blocks["ssm"]``/``blocks["moe"]`` — so ``load_params`` can
+take the JAX package's own ``init_params`` output (as numpy) and both
+packages compute on the same weights. Attention, the SSD scan and decode
+step and the grouped-expert FFN go through ``kernels.ops``: the
+hand-written CUDA kernels on the card, their plain versions on the CPU.
 
 Entry points:
   prefill(params, inputs, buf_len)          -> (last_logits, cache)
@@ -15,14 +18,21 @@ Entry points:
   decode_step_paged(params, pages, ...)     -> (logits, pages)
   verify_step_paged(params, pages, ...)     -> (logits [B,C,V], pages)
 
+``prefill`` and ``decode_step_paged`` serve every causal arch (attention
+layers on the paged KV arena, SSM layers on the constant-size state arena
+of ``init_state_arena``, hybrids both, DESIGN.md §12); the slot-cache
+functions and the paged chunk and verify steps serve attention-only archs,
+dense or MoE.
+
 Unlike the functional JAX code, every step writes the new K/V (and
-``kv_pos``/``length``) into the slot cache or the page arena in place:
-these are the engine's largest buffers, and a view of some rows of the
-slot cache (``cache[k][:, s:s+1]``) is updated through to the whole.
+``kv_pos``/``length``, or the recurrent state) into the slot cache, the
+page arena or the state arena in place: these are the engine's largest
+buffers, and a view of some rows of the slot cache (``cache[k][:, s:s+1]``)
+is updated through to the whole.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +40,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -46,53 +58,96 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if not (cfg.causal and cfg.has_attention and not cfg.has_ssm
-            and cfg.block_kind == "dense"):
+def _check_causal(cfg: ArchConfig) -> None:
+    if not (cfg.causal and (cfg.has_attention or cfg.has_ssm)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense causal GQA decoders only; "
-            "MoE, SSM, hybrid and encoder archs are still to port "
+            f"{cfg.name}: the port serves causal decoders with attention "
+            "and/or SSM layers; encoder-only archs are still to port "
             "(ROADMAP.md)")
+
+
+def _check_kv_only(cfg: ArchConfig, what: str) -> None:
+    """The slot cache and the paged chunk/verify steps carry per-token K/V
+    only."""
+    _check_causal(cfg)
+    if cfg.has_ssm or not cfg.has_attention:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} serves attention-only archs (dense or MoE); "
+            "SSM and hybrid archs serve through prefill and "
+            "decode_step_paged (DESIGN.md §12, ROADMAP.md)")
 
 
 # ------------------------------------------------------------------ init
 
 def param_shapes(cfg: ArchConfig) -> Params:
     """Shape of every parameter, nested as in the JAX pytree."""
-    _check_dense(cfg)
+    _check_causal(cfg)
     D, Lh, f = cfg.d_model, cfg.n_layers, cfg.d_ff
     shapes: Params = {"embed": (cfg.padded_vocab, D), "final_norm": (D,)}
     if not cfg.tied_embeddings:
         shapes["lm_head"] = (D, cfg.padded_vocab)
-    blk = {"ln1": (Lh, D), "wq": (Lh, D, cfg.q_dim), "wk": (Lh, D, cfg.kv_dim),
-           "wv": (Lh, D, cfg.kv_dim), "wo": (Lh, cfg.q_dim, D)}
-    if f > 0:
+    blk: Params = {"ln1": (Lh, D)}
+    if cfg.has_attention:
+        blk.update(wq=(Lh, D, cfg.q_dim), wk=(Lh, D, cfg.kv_dim),
+                   wv=(Lh, D, cfg.kv_dim), wo=(Lh, cfg.q_dim, D))
+    if cfg.has_ssm:
+        blk["ssm"] = {k: (Lh, *v) for k, v in SSM.param_shapes(
+            D, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim,
+            cfg.ssm_conv).items()}
+    if cfg.block_kind == "moe":
+        blk["moe"] = {k: (Lh, *v) for k, v in
+                      MOE.param_shapes(D, f, cfg.n_experts).items()}
+        blk["ln2"] = (Lh, D)
+    elif f > 0:
         blk.update(wg=(Lh, D, f), wu=(Lh, D, f), wd=(Lh, f, D), ln2=(Lh, D))
     shapes["blocks"] = blk
     return shapes
 
 
+def _init_rule(cfg: ArchConfig, group: str, name: str):
+    """How the JAX init fills one parameter: ("zeros"|"ones"|"a_log", None)
+    or ("normal", scale)."""
+    D = cfg.d_model
+    if name in ("final_norm", "ln1", "ln2", "conv_b", "norm_w"):
+        return "zeros", None
+    if group == "ssm":
+        return {"in_proj": ("normal", D ** -0.5),
+                "conv_w": ("normal", cfg.ssm_conv ** -0.5),
+                "a_log": ("a_log", None), "d_skip": ("ones", None),
+                "dt_bias": ("normal", 0.1),
+                "out_proj": ("normal", cfg.ssm_inner ** -0.5)}[name]
+    if name == "wo":
+        return "normal", cfg.q_dim ** -0.5
+    if name == "wd":
+        return "normal", cfg.d_ff ** -0.5
+    return "normal", D ** -0.5
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
                 device="cuda") -> Params:
     """Random weights with the JAX init's shapes and scales (normal *
-    D^-0.5; wo by q_dim^-0.5, wd by d_ff^-0.5; norms zero), drawn from a
+    D^-0.5; wo by q_dim^-0.5, wd by d_ff^-0.5; norms zero; the SSM and MoE
+    groups as ``init_ssm_params``/``init_moe_params`` draw them), from a
     torch.Generator seeded with ``seed`` on ``device``. Stacked weights are
     drawn one layer at a time, so the fp32 draw never holds more than one
     layer's matrix beside the result."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    D = cfg.d_model
-    scale = {"wo": cfg.q_dim ** -0.5, "wd": cfg.d_ff ** -0.5 if cfg.d_ff else 0}
 
     def draw(shape, s):
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
 
-    def fill(name, shape):
-        if name in ("final_norm", "ln1", "ln2"):
+    def fill(group, name, shape):
+        kind, s = _init_rule(cfg, group, name)
+        if kind == "zeros":
             return torch.zeros(shape, dtype=dtype, device=dev)
-        s = scale.get(name, D ** -0.5)
-        if len(shape) == 2:
+        if kind == "ones":
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if kind == "a_log":
+            row = torch.log(torch.linspace(1.0, 16.0, shape[-1], device=dev))
+            return row.expand(shape).to(dtype).contiguous()
+        if len(shape) == 2 and group is None:
             return draw(shape, s)
         out = torch.empty(shape, dtype=dtype, device=dev)
         for layer in range(shape[0]):
@@ -100,15 +155,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
         return out
 
     shapes = param_shapes(cfg)
-    p: Params = {k: fill(k, v) for k, v in shapes.items() if k != "blocks"}
-    p["blocks"] = {k: fill(k, v) for k, v in shapes["blocks"].items()}
+    p: Params = {k: fill(None, k, v) for k, v in shapes.items()
+                 if k != "blocks"}
+    p["blocks"] = {}
+    for k, v in shapes["blocks"].items():
+        if isinstance(v, dict):
+            p["blocks"][k] = {kk: fill(k, kk, vv) for kk, vv in v.items()}
+        else:
+            p["blocks"][k] = fill("blocks", k, v)
     return p
 
 
 def load_params(cfg: ArchConfig, tree: Params, device="cuda") -> Params:
-    """The weight bridge: a JAX ``init_params`` pytree (arrays or numpy)
-    -> the port's parameter dict on ``device``, with every shape checked
-    and each array's type kept (bf16 stays bf16)."""
+    """The weight bridge: a JAX ``init_params`` pytree (arrays or numpy;
+    ``SSMParams``/``MoEParams`` NamedTuples or dicts) -> the port's
+    parameter dict on ``device``, with every shape checked and each
+    array's type kept (bf16 stays bf16)."""
     dev = resolve_device(device)
 
     def conv(name, arr, shape):
@@ -120,15 +182,28 @@ def load_params(cfg: ArchConfig, tree: Params, device="cuda") -> Params:
             raise ValueError(f"param {name}: shape {a.shape} != {shape}")
         return torch.from_numpy(np.array(a)).to(dev, to)   # own, writable copy
 
+    def as_dict(node):
+        return node._asdict() if hasattr(node, "_asdict") else node
+
+    def load(prefix, node, shapes):
+        node = as_dict(node)
+        missing = sorted(f"{prefix}{k}" for k in set(shapes) - set(node))
+        if missing:
+            raise KeyError(f"params missing {missing}")
+        out = {}
+        for k, s in shapes.items():
+            if isinstance(s, dict):
+                out[k] = load(f"{prefix}{k}.", node[k], s)
+            else:
+                out[k] = conv(f"{prefix}{k}", node[k], s)
+        return out
+
     shapes = param_shapes(cfg)
-    missing = set(shapes) - set(tree) | {
-        f"blocks.{k}" for k in set(shapes["blocks"]) - set(tree["blocks"])}
-    if missing:
-        raise KeyError(f"params missing {sorted(missing)}")
-    p: Params = {k: conv(k, tree[k], s) for k, s in shapes.items()
-                 if k != "blocks"}
-    p["blocks"] = {k: conv(f"blocks.{k}", tree["blocks"][k], s)
-                   for k, s in shapes["blocks"].items()}
+    blocks = shapes.pop("blocks")
+    p = load("", {k: v for k, v in tree.items() if k != "blocks"}, shapes)
+    if "blocks" not in tree:
+        raise KeyError("params missing ['blocks']")
+    p["blocks"] = load("blocks.", tree["blocks"], blocks)
     return p
 
 
@@ -136,7 +211,7 @@ def init_cache(cfg: ArchConfig, batch: int, buf_len: int,
                dtype=torch.float32, device="cuda") -> Cache:
     """Empty slot cache: k/v [L,batch,Hkv,buf_len,hd] (ring of buf_len
     slots), kv_pos [batch,buf_len] = -1, length [batch] = 0."""
-    _check_dense(cfg)
+    _check_kv_only(cfg, "the slot cache")
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, buf_len, cfg.head_dim)
     return {"length": torch.zeros((batch,), dtype=torch.int32, device=dev),
@@ -156,12 +231,37 @@ def cache_window(cfg: ArchConfig, buf_len: int) -> Optional[int]:
 
 def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
                      dtype=torch.float32, device="cuda") -> Cache:
-    """Shared KV page arena: k/v_pages [L, n_pages, Hkv, page_size, hd]."""
-    _check_dense(cfg)
+    """Shared KV page arena: k/v_pages [L, n_pages, Hkv, page_size, hd].
+    Attention-free (pure SSM) archs get a zero-width arena (Hkv = hd = 0):
+    the page table stays the logical token-length ledger of every arch
+    (DESIGN.md §12) but the pages hold no bytes."""
+    _check_causal(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+    hkv = cfg.n_kv_heads if cfg.has_attention else 0
+    hd = cfg.head_dim if cfg.has_attention else 0
+    shape = (cfg.n_layers, n_pages, hkv, page_size, hd)
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
             "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def init_state_arena(cfg: ArchConfig, n_slots: int, dtype=torch.float32,
+                     device="cuda") -> Cache:
+    """Constant-size recurrent-state arena (DESIGN.md §12): per layer one
+    [H, P, N] SSD state per slot (f32: the recurrence accumulates in f32)
+    and one [C, K-1] conv tail per slot in ``dtype``. Slot ownership lives
+    in serving.state_store.SSMStateStore."""
+    if not cfg.has_ssm:
+        raise ValueError(f"{cfg.name}: a state arena needs SSM layers")
+    dev = resolve_device(device)
+    return {
+        "ssm_state": torch.zeros((cfg.n_layers, n_slots, cfg.ssm_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=dev),
+        "conv_state": torch.zeros((cfg.n_layers, n_slots,
+                                   cfg.ssm_inner + 2 * cfg.ssm_state,
+                                   cfg.ssm_conv - 1), dtype=dtype,
+                                  device=dev),
+    }
 
 
 # ------------------------------------------------------------------ blocks
@@ -184,33 +284,61 @@ def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _ffn(cfg: ArchConfig, blk: Params, layer: int,
          x: torch.Tensor) -> torch.Tensor:
+    """Post-mixer FFN (residual applied by the caller). MoE blocks dispatch
+    as the JAX model's default ``moe_impl="grouped"``: a sequence of T > 1
+    tokens a row through ``moe_ffn_grouped`` (per-example capacity, drops),
+    one token a row through the lossless ``moe_ffn_grouped_decode``."""
+    if cfg.block_kind == "moe":
+        h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
+        mp = {k: v[layer] for k, v in blk["moe"].items()}
+        if h.ndim == 3 and h.shape[1] > 1:
+            return MOE.moe_ffn_grouped(mp, h, cfg.top_k)[0]
+        return MOE.moe_ffn_grouped_decode(mp, h, cfg.top_k)[0]
     if cfg.d_ff <= 0:
         return torch.zeros_like(x)
     h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
     return L.gated_mlp(h, blk["wg"][layer], blk["wu"][layer], blk["wd"][layer])
 
 
-def _qkv(cfg: ArchConfig, blk: Params, layer: int, x: torch.Tensor):
-    """Normed input projections of one layer, heads split: x [..., D] ->
-    q [..., Hq, hd], k/v [..., Hkv, hd]."""
-    h = L.rms_norm(x, blk["ln1"][layer], cfg.norm_eps)
-    lead = x.shape[:-1]
+def _proj_qkv(cfg: ArchConfig, blk: Params, layer: int, h: torch.Tensor):
+    """Input projections of one layer from the normed input, heads split:
+    h [..., D] -> q [..., Hq, hd], k/v [..., Hkv, hd]."""
+    lead = h.shape[:-1]
     q = (h @ blk["wq"][layer]).reshape(*lead, cfg.n_heads, cfg.head_dim)
     k = (h @ blk["wk"][layer]).reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
     v = (h @ blk["wv"][layer]).reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
     return q, k, v
 
 
+def _qkv(cfg: ArchConfig, blk: Params, layer: int, x: torch.Tensor):
+    """Normed input projections of one layer: x [..., D] -> q, k, v."""
+    return _proj_qkv(cfg, blk, layer,
+                     L.rms_norm(x, blk["ln1"][layer], cfg.norm_eps))
+
+
+def _ssm_params(blk: Params, layer: int) -> SSM.SSMParams:
+    return {k: v[layer] for k, v in blk["ssm"].items()}
+
+
+def _mix(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The block's mixer output: attention's or the SSM's, or their mean
+    for hybrid blocks (the JAX model's 0.5 * (attn + ssm))."""
+    return parts[0] if len(parts) == 1 else 0.5 * (parts[0] + parts[1])
+
+
 # ------------------------------------------------------------------ prefill
 
 def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
             buf_len: int) -> Tuple[torch.Tensor, Cache]:
-    """Process prompts (all rows full length S) with attention in the
-    flash-prefill kernel. Returns (last-position logits [B,V], cache) with
-    the JAX cache layout: k/v [L,B,Hkv,buf_len,hd] (zero past S), kv_pos
-    [B,buf_len] (-1 past S), length [B]. buf_len >= S (the ring branch for
-    sliding-window long context is not ported)."""
-    _check_dense(cfg)
+    """Process prompts (all rows full length S): attention in the
+    flash-prefill kernel, the SSD scan of SSM layers in the ssd-scan
+    kernel, hybrid blocks both. Returns (last-position logits [B,V], cache)
+    with the JAX cache layout: length [B]; for attention layers k/v
+    [L,B,Hkv,buf_len,hd] (zero past S) and kv_pos [B,buf_len] (-1 past S);
+    for SSM layers ssm [L,B,H,P,N] f32 and conv [L,B,C,K-1], the final
+    recurrent state. buf_len >= S (the ring branch for sliding-window long
+    context is not ported)."""
+    _check_causal(cfg)
     x = embed_inputs(cfg, params, inputs)
     B, S, _ = x.shape
     if buf_len < S:
@@ -218,24 +346,40 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
                                   "still to port (ROADMAP.md)")
     positions = torch.arange(S, device=x.device)
     blk = params["blocks"]
-    ks, vs = [], []
+    ks, vs, hs, cs = [], [], [], []
     for layer in range(cfg.n_layers):
-        q, k, v = _qkv(cfg, blk, layer, x)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        a = ops.flash_prefill(q, k, v, causal=cfg.causal)
-        x = x + a.reshape(B, S, cfg.q_dim) @ blk["wo"][layer]
+        h = L.rms_norm(x, blk["ln1"][layer], cfg.norm_eps)
+        parts = []
+        if cfg.has_attention:
+            q, k, v = _proj_qkv(cfg, blk, layer, h)
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+            a = ops.flash_prefill(q, k, v, causal=cfg.causal)
+            parts.append(a.reshape(B, S, cfg.q_dim) @ blk["wo"][layer])
+            ks.append(k)
+            vs.append(v)
+        if cfg.has_ssm:
+            s_out, h_last, conv_last = SSM.ssm_mixer_with_state(
+                _ssm_params(blk, layer), h, cfg.ssm_inner, cfg.ssm_state,
+                cfg.ssm_head_dim)
+            parts.append(s_out)
+            hs.append(h_last)
+            cs.append(conv_last)
+        x = x + _mix(parts)
         x = x + _ffn(cfg, blk, layer, x)
-        ks.append(k)
-        vs.append(v)
-    pad = (0, 0, 0, buf_len - S)                     # [.., S, hd] -> buf_len
     cache: Cache = {
-        "length": torch.full((B,), S, dtype=torch.int32, device=x.device),
-        "k": torch.nn.functional.pad(torch.stack(ks).transpose(2, 3), pad),
-        "v": torch.nn.functional.pad(torch.stack(vs).transpose(2, 3), pad),
-    }
-    pos = torch.arange(buf_len, dtype=torch.int32, device=x.device)
-    cache["kv_pos"] = torch.where(pos < S, pos, -1).repeat(B, 1)
+        "length": torch.full((B,), S, dtype=torch.int32, device=x.device)}
+    if cfg.has_attention:
+        pad = (0, 0, 0, buf_len - S)                 # [.., S, hd] -> buf_len
+        cache["k"] = torch.nn.functional.pad(torch.stack(ks).transpose(2, 3),
+                                             pad)
+        cache["v"] = torch.nn.functional.pad(torch.stack(vs).transpose(2, 3),
+                                             pad)
+        pos = torch.arange(buf_len, dtype=torch.int32, device=x.device)
+        cache["kv_pos"] = torch.where(pos < S, pos, -1).repeat(B, 1)
+    if cfg.has_ssm:
+        cache["ssm"] = torch.stack(hs)
+        cache["conv"] = torch.stack(cs)
     return unembed(cfg, params, x[:, -1]), cache
 
 
@@ -254,7 +398,7 @@ def prefill_chunk(cfg: ArchConfig, params: Params, cache: Cache,
     buf_len (no ring wrap). Returns (logits of the chunk's last position
     [B,V], cache).
     """
-    _check_dense(cfg)
+    _check_kv_only(cfg, "slot prefill_chunk")
     B, C = tokens.shape
     dev = tokens.device
     x = embed_inputs(cfg, params, tokens)                 # [B,C,D]
@@ -295,7 +439,7 @@ def prefill_chunk_paged(cfg: ArchConfig, params: Params, pages: Cache,
     causal masking covers them. Returns (logits of the chunk's last
     position [B,V], pages); lengths and tables are the caller's.
     """
-    _check_dense(cfg)
+    _check_kv_only(cfg, "prefill_chunk_paged")
     B, C = tokens.shape
     dev = tokens.device
     k_all, v_all = pages["k_pages"], pages["v_pages"]
@@ -343,7 +487,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
     state (K/V, kv_pos and length unchanged) and their logits are garbage
     to be ignored. Returns (logits [B,V], cache).
     """
-    _check_dense(cfg)
+    _check_kv_only(cfg, "slot decode_step")
     B = tokens.shape[0]
     dev = tokens.device
     if active is None:
@@ -378,20 +522,27 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
 def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
                       page_table: torch.Tensor, lengths: torch.Tensor,
                       tokens: torch.Tensor,
-                      active: Optional[torch.Tensor] = None
+                      active: Optional[torch.Tensor] = None,
+                      state_slots: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Cache]:
-    """One decode iteration over the paged KV arena, attention in the
-    paged-decode kernel.
+    """One decode iteration with per-layer cache-kind dispatch (DESIGN.md
+    §12): attention layers read and write the paged KV arena (attention in
+    the paged-decode kernel), SSM layers the state arena (the recurrence in
+    the ssd-decode kernel), hybrid blocks both in the same step.
 
-    pages: init_paged_cache dict; page_table: [B, maxp] int32 physical page
-    per logical page (-1 unused; row b must cover lengths[b]+1 tokens);
+    pages: init_paged_cache dict, plus the init_state_arena entries for
+    SSM/hybrid archs; page_table: [B, maxp] int32 physical page per
+    logical page (-1 unused; row b must cover lengths[b]+1 tokens);
     lengths: [B] int32 cached tokens per row (the new token is written at
     logical position lengths[b]); tokens: [B]; active: [B] bool — inactive
     and untabled rows write nothing and their logits are garbage to be
-    ignored. The new K/V is written into ``pages`` in place before
-    attention reads it. Returns (logits [B,V], pages).
+    ignored; state_slots: [B] int32 state-arena slot per row (-1 pad rows,
+    which write nothing), required for SSM/hybrid archs. The new K/V and
+    state are written in place. Returns (logits [B,V], pages).
     """
-    _check_dense(cfg)
+    _check_causal(cfg)
+    if cfg.has_ssm and state_slots is None:
+        raise ValueError(f"{cfg.name}: SSM layers need state_slots")
     B = tokens.shape[0]
     dev = tokens.device
     if active is None:
@@ -400,26 +551,39 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     psz, maxp = k_all.shape[3], page_table.shape[1]
     x = params["embed"][tokens.long()]                 # [B,D]
     q_pos = lengths
-    rows = torch.arange(B, device=dev)
-    # the JAX gather clamps an out-of-range logical page; indexing here
-    # would raise, so clamp the same way
-    pt_row = page_table[rows, (q_pos // psz).clamp(max=maxp - 1).long()]
-    # JAX drops the scatter of inactive/untabled rows through an
-    # out-of-bounds index; torch raises on one, so select the rows that
-    # write instead (one host sync per step)
-    w_rows = (active & (pt_row >= 0)).nonzero().squeeze(1)
-    w_page = pt_row[w_rows].long()
-    w_off = (q_pos[w_rows] % psz).long()
+    if cfg.has_attention:
+        rows = torch.arange(B, device=dev)
+        # the JAX gather clamps an out-of-range logical page; indexing
+        # here would raise, so clamp the same way
+        pt_row = page_table[rows, (q_pos // psz).clamp(max=maxp - 1).long()]
+        # JAX drops the scatter of inactive/untabled rows through an
+        # out-of-bounds index; torch raises on one, so select the rows that
+        # write instead (one host sync per step)
+        w_rows = (active & (pt_row >= 0)).nonzero().squeeze(1)
+        w_page = pt_row[w_rows].long()
+        w_off = (q_pos[w_rows] % psz).long()
+    if cfg.has_ssm:
+        # rows that write their state (one host sync per step)
+        s_rows = (active & (state_slots >= 0)).nonzero().squeeze(1)
     blk = params["blocks"]
     for layer in range(cfg.n_layers):
-        q, k, v = _qkv(cfg, blk, layer, x)
-        q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
-        k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
-        k_all[layer, w_page, :, w_off] = k[w_rows]
-        v_all[layer, w_page, :, w_off] = v[w_rows]
-        a = ops.paged_decode_attention(q, k_all[layer], v_all[layer],
-                                       page_table, q_pos)
-        x = x + a.reshape(B, cfg.q_dim) @ blk["wo"][layer]
+        h = L.rms_norm(x, blk["ln1"][layer], cfg.norm_eps)
+        parts = []
+        if cfg.has_attention:
+            q, k, v = _proj_qkv(cfg, blk, layer, h)
+            q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
+            k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
+            k_all[layer, w_page, :, w_off] = k[w_rows]
+            v_all[layer, w_page, :, w_off] = v[w_rows]
+            a = ops.paged_decode_attention(q, k_all[layer], v_all[layer],
+                                           page_table, q_pos)
+            parts.append(a.reshape(B, cfg.q_dim) @ blk["wo"][layer])
+        if cfg.has_ssm:
+            parts.append(SSM.ssm_mixer_step(
+                _ssm_params(blk, layer), h, cfg.ssm_inner, cfg.ssm_state,
+                cfg.ssm_head_dim, pages["ssm_state"][layer],
+                pages["conv_state"][layer], state_slots, active, s_rows))
+        x = x + _mix(parts)
         x = x + _ffn(cfg, blk, layer, x)
     return unembed(cfg, params, x), pages
 
@@ -442,7 +606,7 @@ def verify_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     logits[:, i] is the next-token distribution after window token i. Pad
     rows' logits are garbage to be ignored, as inactive decode rows'.
     """
-    _check_dense(cfg)
+    _check_kv_only(cfg, "verify_step_paged")
     B, C = tokens.shape
     dev = tokens.device
     k_all, v_all = pages["k_pages"], pages["v_pages"]

@@ -1,0 +1,165 @@
+"""Mixture-of-Experts FFN in PyTorch: the port of ``repro.models.moe``.
+
+Top-k routing with sort-based capacity dispatch into a dense [E, C, D]
+expert buffer. Parameters are a dict with the names of the JAX
+``MoEParams`` fields (router [D,E], wg/wu [E,D,F], wd [E,F,D]).
+
+The per-expert gated FFN of both grouped paths (``moe_ffn_grouped`` for
+sequences, ``moe_ffn_grouped_decode`` for one token per row) runs through
+``kernels.ops.moe_grouped_ffn``: the hand-written CUDA kernel on the card,
+its plain version on the CPU. Dispatch and combine stay tensor code, as
+they are jnp code outside the Pallas kernel in JAX.
+
+Routing must agree with JAX bit for bit, so the argsort is stable
+(``torch.argsort(..., stable=True)``, as ``jnp.argsort``) and segment
+starts come from a left ``torch.searchsorted``: capacity drops in
+``moe_ffn_grouped`` depend on each assignment's position after that sort.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+MoEParams = Dict[str, torch.Tensor]
+
+
+def param_shapes(d_model: int, d_ff: int, n_experts: int) -> Dict[str, tuple]:
+    """Shape of each MoEParams field (one layer)."""
+    return {"router": (d_model, n_experts),
+            "wg": (n_experts, d_model, d_ff), "wu": (n_experts, d_model, d_ff),
+            "wd": (n_experts, d_ff, d_model)}
+
+
+def route(router: torch.Tensor, x: torch.Tensor, top_k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: [N,D] -> (weights [N,K] in x's type, expert_ids [N,K], aux_loss
+    scalar f32, the Switch-style load-balance loss)."""
+    logits = (x @ router).float()                       # [N,E]
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = torch.topk(probs, top_k, dim=-1)
+    w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+    E = router.shape[-1]
+    me = probs.mean(0)
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
+    ce.index_add_(0, ids.reshape(-1),
+                  torch.ones((ids.numel(),), device=x.device))
+    ce = ce / ce.sum().clamp(min=1.0)
+    aux = E * torch.sum(me * ce)
+    return w.to(x.dtype), ids, aux
+
+
+def _dispatch(e_flat: torch.Tensor, K: int, E: int):
+    """Stable sort of a [G, M] block of expert ids: (order, sorted ids,
+    token index, position of each assignment within its expert's
+    segment)."""
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    es = torch.gather(e_flat, -1, order)
+    ts = order // K
+    experts = torch.arange(E, device=e_flat.device).expand(e_flat.shape[0], E)
+    seg_start = torch.searchsorted(es.contiguous(), experts.contiguous())
+    pos = (torch.arange(es.shape[-1], device=es.device)
+           - torch.gather(seg_start, -1, es))
+    return order, es, ts, pos
+
+
+def moe_ffn(p: MoEParams, x: torch.Tensor, top_k: int,
+            capacity_factor: float = 1.25
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global-argsort dispatch. x: [B,T,D] or [N,D] -> (y same shape,
+    aux_loss). Assignments past an expert's capacity are dropped."""
+    orig_shape = x.shape
+    D = orig_shape[-1]
+    x2 = x.reshape(-1, D)
+    N = x2.shape[0]
+    E, K = p["router"].shape[-1], top_k
+    w, ids, aux = route(p["router"], x2, K)
+    order, es, ts, pos = _dispatch(ids.reshape(1, -1), K, E)
+    es, ts, pos = es[0], ts[0], pos[0]
+    ws = w.reshape(-1)[order[0]]
+    C = max(int(N * K / E * capacity_factor + 0.999), K)
+    keep = pos < C
+    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
+    buf[es[keep], pos[keep]] = x2[ts[keep]]
+    h = torch.einsum("ecd,edf->ecf", buf, p["wg"])
+    h = F.silu(h) * torch.einsum("ecd,edf->ecf", buf, p["wu"])
+    out = torch.einsum("ecf,efd->ecd", h, p["wd"])
+    y_assign = out[es, pos.clamp(max=C - 1)] * keep[:, None]
+    y = torch.zeros((N, D), dtype=x.dtype, device=x.device)
+    y.index_add_(0, ts, y_assign * ws[:, None])
+    return y.reshape(orig_shape), aux
+
+
+def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
+                    capacity_factor: float = 1.25
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-local dispatch: sort and scatter WITHIN each example
+    (GShard-style groups), capacity C = max(int(T*K/E*cf + 0.999), K) per
+    example; assignments past it are dropped. x: [B,T,D], T > 1. The
+    per-example buffers [B,E,C,D] go through ``ops.moe_grouped_ffn`` as
+    G = B*E groups in ONE launch, group g using expert g mod E."""
+    B, T, D = x.shape
+    E, K = p["router"].shape[-1], top_k
+    w, ids, aux = route(p["router"], x.reshape(-1, D), K)
+    C = max(int(T * K / E * capacity_factor + 0.999), K)
+    order, es, ts, pos = _dispatch(ids.reshape(B, T * K), K, E)
+    ws = torch.gather(w.reshape(B, T * K), 1, order)
+    keep = pos < C
+    bi = torch.arange(B, device=x.device)[:, None]
+    # row of each assignment in the flat [B*E*C] buffer; dropped ones go to
+    # one spare row past its end (JAX drops them through an out-of-bounds
+    # index), so no boolean mask, and no host sync, is needed
+    row = torch.where(keep, (bi * E + es) * C + pos, B * E * C)
+    buf = torch.zeros((B * E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf[row] = x[bi, ts]
+    out = ops.moe_grouped_ffn(buf[:-1].view(B * E, C, D), p["wg"], p["wu"],
+                              p["wd"]).view(B * E * C, D)
+    y_assign = out[row.clamp(max=B * E * C - 1)] * keep[..., None]
+    y = torch.zeros((B * T, D), dtype=x.dtype, device=x.device)
+    y.index_add_(0, (bi * T + ts).reshape(-1),
+                 (y_assign * ws[..., None]).reshape(-1, D))
+    return y.reshape(B, T, D), aux
+
+
+def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode-step dispatch: ONE token per row ([B,D] or [B,1,D]), the whole
+    batch one group with capacity C = B*K, so nothing is dropped and each
+    expert sees only its routed rows. The expert FFN runs through
+    ``ops.moe_grouped_ffn``."""
+    orig_shape = x.shape
+    D = orig_shape[-1]
+    x2 = x.reshape(-1, D)
+    B = x2.shape[0]
+    E, K = p["router"].shape[-1], top_k
+    w, ids, aux = route(p["router"], x2, K)
+    order, es, ts, pos = _dispatch(ids.reshape(1, B * K), K, E)
+    es, ts, pos = es[0], ts[0], pos[0]
+    ws = w.reshape(-1)[order[0]]
+    C = B * K                                            # lossless capacity
+    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
+    buf[es, pos] = x2[ts]
+    out = ops.moe_grouped_ffn(buf, p["wg"], p["wu"], p["wd"])
+    y = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+    y.index_add_(0, ts, out[es, pos] * ws[:, None])
+    return y.reshape(orig_shape), aux
+
+
+def moe_ffn_dense(p: MoEParams, x: torch.Tensor, top_k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle: every expert over every token, combined with the top-k
+    weights."""
+    orig_shape = x.shape
+    x2 = x.reshape(-1, orig_shape[-1])
+    w, ids, aux = route(p["router"], x2, top_k)
+    h = torch.einsum("nd,edf->enf", x2, p["wg"])
+    h = F.silu(h) * torch.einsum("nd,edf->enf", x2, p["wu"])
+    all_out = torch.einsum("enf,efd->end", h, p["wd"])   # [E,N,D]
+    E = p["router"].shape[-1]
+    onehot = F.one_hot(ids, E).to(x2.dtype)              # [N,K,E]
+    comb = torch.einsum("nke,nk->en", onehot, w)
+    y = torch.einsum("end,en->nd", all_out, comb)
+    return y.reshape(orig_shape), aux

@@ -12,16 +12,20 @@ PagedTorchExecutor — the counterpart of ``PagedJaxExecutor`` on one
                      admission bounded by the page pool, page_budget() for
                      SLICE's memory-aware selection; the radix prefix
                      cache, synchronous host KV swap and speculative
-                     decoding (model.verify_step_paged).
+                     decoding (model.verify_step_paged); SSM and hybrid
+                     archs with a recurrent-state arena beside the pages
+                     (serving.state_store, DESIGN.md §12), MoE archs
+                     through the model's grouped dispatch.
 
 Both measure l(b) for SLICE's Eq. 7 feasibility test, and both take
 ``prefill_chunk_size`` for chunked prefill (``prefill_chunk``, DESIGN.md
 §5), cutting a request into the same pieces as the JAX engines
-(``_chunk_pieces``). Attention runs in the hand-written CUDA kernels on
-the card and in their plain versions on the CPU.
+(``_chunk_pieces``). Attention, the SSD scan and step and the MoE expert
+FFN run in the hand-written CUDA kernels on the card and in their plain
+versions on the CPU.
 
-The engines are synchronous, dense and single-device. Tensor
-parallelism, async dispatch and SSM state are still to port (ROADMAP.md);
+The engines are synchronous and single-device. Tensor parallelism, async
+dispatch and SSM archs on the slot engine are still to port (ROADMAP.md);
 asking for one raises NotImplementedError.
 
 Every timed operation ends in a device synchronise before its clock read,
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.latency_model import LatencyModel, MeasuredLatencyModel
-from repro_torch.core.selection import PageBudget
+from repro_torch.core.selection import PageBudget, StateBudget
 from repro_torch.core.task import Task, qa_task
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVPagePool, OutOfPages
@@ -46,6 +50,8 @@ from repro_torch.serving.prefix_cache import RadixPrefixCache
 from repro_torch.serving.spec_decode import (DraftModel, default_draft_config,
                                              depth_bucket, greedy_accept,
                                              pow2_pieces)
+from repro_torch.serving.state_store import (CacheStore, OutOfStates,
+                                             SSMStateStore)
 
 _PREFILL_PRIOR = [(64, 10.0), (512, 40.0)]   # prefill ms prior until measured
 
@@ -168,6 +174,12 @@ class TorchExecutor(Executor):
                  compact_buckets: bool = False,
                  prefill_chunk_size: Optional[int] = None,
                  dtype=torch.float32, device="cuda"):
+        if cfg.has_ssm or not cfg.has_attention:
+            raise NotImplementedError(
+                f"TorchExecutor: {cfg.name} has SSM layers; the slot engine "
+                "serves attention-only archs (dense or MoE) until SSM state "
+                "in the slot cache is ported (ROADMAP.md); serve it with "
+                "PagedTorchExecutor")
         self.device = M.resolve_device(device)
         self.cfg = cfg
         self.params = params if params is not None else M.init_params(
@@ -373,6 +385,16 @@ class PagedTorchExecutor(Executor):
     prefix plus a bonus token is committed and pages of rejected drafts are
     rolled back. The committed stream equals depth-0 greedy decode.
 
+    SSM and hybrid archs (DESIGN.md §12) hold, beside their (for pure SSM
+    zero-width) pages, one constant-size slot of a recurrent-state arena
+    (``n_state_slots``, default 2*max_batch, allocated by SSMStateStore):
+    prefill writes the prompt's final SSD state and conv tail into it,
+    decode steps it in place through a per-row slot vector, suspend/resume
+    swap it with the pages as one blob, and admission (page_budget) is a
+    StateBudget. Speculative decoding, the prefix cache and executor-level
+    chunked prefill need per-token state and raise for these archs, as in
+    the JAX engine.
+
     Sequences are hard-capped at max_seq (the paged cache is append-only)
     and prompts at max_seq // 2, as in the JAX engine.
     """
@@ -385,7 +407,8 @@ class PagedTorchExecutor(Executor):
                  host_arena_bytes: Optional[int] = None,
                  spec_decode: bool = False, draft_cfg=None,
                  draft_params=None, max_spec_depth: int = 4, mesh=None,
-                 async_dispatch: bool = False):
+                 async_dispatch: bool = False,
+                 n_state_slots: Optional[int] = None):
         unported = [name for name, on in (
             ("mesh", mesh is not None),
             ("async_dispatch", async_dispatch)) if on]
@@ -393,6 +416,21 @@ class PagedTorchExecutor(Executor):
             raise NotImplementedError(
                 f"PagedTorchExecutor: {', '.join(unported)} still to port "
                 "(ROADMAP.md)")
+        if not (cfg.has_attention or cfg.has_ssm):
+            raise ValueError("PagedTorchExecutor needs an attention and/or "
+                             "SSM mixer")
+        if cfg.has_ssm:
+            gated = [name for name, on in (
+                ("spec_decode", spec_decode),
+                ("prefix_cache", prefix_cache),
+                ("prefill_chunk_size", prefill_chunk_size is not None)) if on]
+            if gated:
+                raise ValueError(
+                    f"{'/'.join(gated)} unsupported for SSM/hybrid archs: "
+                    "recurrent state is a running summary, not a per-token "
+                    "log — it cannot be rewound, prefix-shared, chunk-"
+                    "restarted at the executor level, or sharded "
+                    "(DESIGN.md §12)")
         self.device = M.resolve_device(device)
         self.cfg = cfg
         self.params = params if params is not None else M.init_params(
@@ -415,6 +453,19 @@ class PagedTorchExecutor(Executor):
         self.pages = M.init_paged_cache(cfg, n_pages, page_size,
                                         dtype=self.params["embed"].dtype,
                                         device=self.device)
+        # recurrent-state kind (DESIGN.md §12): one constant-size slot of
+        # the state arena per SSM/hybrid task, allocated as pages are;
+        # CacheStore is the cross-kind audit facade
+        self.states: Optional[SSMStateStore] = None
+        self.n_state_slots = 0
+        if cfg.has_ssm:
+            self.n_state_slots = (n_state_slots if n_state_slots is not None
+                                  else 2 * max_batch)
+            self.states = SSMStateStore(self.n_state_slots)
+            self.pages.update(M.init_state_arena(
+                cfg, self.n_state_slots, dtype=self.params["embed"].dtype,
+                device=self.device))
+        self.store = CacheStore(cfg, self.pool, self.states)
         self._last_tok: Dict[int, int] = {}
         self._gen: Dict[int, List[int]] = {}     # generated tokens per task
         self._toks_memo: Dict[int, np.ndarray] = {}
@@ -642,12 +693,33 @@ class PagedTorchExecutor(Executor):
                         t.prefix_group, kp * psz), touch=False)
                     kp = min(kp, matched // psz)
                 return ("prefix", t.prefix_group), kp
-        return PageBudget(
+        kw = dict(
             total_pages=self.n_pages, page_size=self.page_size,
             prompt_cap=self.max_seq // 2, seq_cap=self.max_seq,
             max_tasks=self.max_batch,
             held_pages=lambda t: self.pool.resident_page_count(t.task_id),
             free_pages_now=free_pages_now, prefix_pages=prefix_pages)
+        if self.states is None:
+            return PageBudget(**kw)
+        # SSM/hybrid archs: admission also reserves one constant-size
+        # recurrent-state slot per task, under the same headroom arithmetic
+        # as pages (DESIGN.md §12)
+        return StateBudget(
+            total_states=self.n_state_slots,
+            state_bytes=self.store.state_bytes,
+            page_bytes=self.store.page_bytes,
+            held_states=lambda t: self.states.resident_slot_count(t.task_id),
+            **kw)
+
+    def trace_gauges(self) -> Dict[str, int]:
+        """Pool (and state-slot) occupancy for a trace's metrics
+        snapshots."""
+        g = {"pages_in_use": self.pool.used_pages,
+             "pages_total": self.n_pages}
+        if self.states is not None:
+            g["states_in_use"] = self.states.used_slots
+            g["states_total"] = self.n_state_slots
+        return g
 
     # -- ops --
     def prefill(self, task: Task) -> float:
@@ -668,6 +740,15 @@ class PagedTorchExecutor(Executor):
             return ms
         toks = self._tensor(toks_np, torch.long)
         phys = self._reserve(lambda: self.pool.alloc(tid, L))
+        slot = -1
+        if self.states is not None:
+            try:
+                slot = self.states.alloc(tid)
+            except OutOfStates:
+                # OutOfStates leaves the store unchanged; undo the page
+                # reservation so the deferred task re-enters prefill cleanly
+                self.pool.free(tid)
+                raise
         _sync(self.device)
         t0 = time.perf_counter()
         last, cache1 = M.prefill(self.cfg, self.params, toks,
@@ -678,11 +759,19 @@ class PagedTorchExecutor(Executor):
         # pages [L,n_alloc,Hkv,psz,hd] (untimed, as in the JAX engine)
         n_alloc, psz = len(phys), self.page_size
         idx = torch.as_tensor(phys, dtype=torch.long, device=self.device)
-        for name, src in (("k_pages", cache1["k"]), ("v_pages", cache1["v"])):
-            view = (src[:, 0, :, :n_alloc * psz, :]
-                    .reshape(src.shape[0], src.shape[2], n_alloc, psz, -1)
-                    .transpose(1, 2))
-            self.pages[name][:, idx] = view
+        if self.cfg.has_attention:
+            for name, src in (("k_pages", cache1["k"]),
+                              ("v_pages", cache1["v"])):
+                view = (src[:, 0, :, :n_alloc * psz, :]
+                        .reshape(src.shape[0], src.shape[2], n_alloc, psz, -1)
+                        .transpose(1, 2))
+                self.pages[name][:, idx] = view
+        if self.states is not None:
+            # the prompt's final recurrent state goes into the task's slot:
+            # the whole per-task state is one fixed-size "page"
+            for name, key in (("ssm_state", "ssm"), ("conv_state", "conv")):
+                self.pages[name][:, slot] = cache1[key][:, 0].to(
+                    self.pages[name].dtype)
         self._set_first_token(tid, last)
         self._insert_prefix(task, toks_np)
         return ms
@@ -787,10 +876,17 @@ class PagedTorchExecutor(Executor):
         tk[: len(ids)] = [self._last_tok[i] for i in ids]
         args = (self._table(ids, b), self._tensor(ln), self._tensor(tk),
                 self._tensor(av, torch.bool))
+        kw = {}
+        if self.states is not None:
+            # per-row recurrent-state slots; pad rows carry -1 and write
+            # nothing
+            sl = np.full((b,), -1, np.int32)
+            sl[: len(ids)] = [self.states.slot_of(i) for i in ids]
+            kw["state_slots"] = self._tensor(sl)
         _sync(self.device)
         t0 = time.perf_counter()
         logits, self.pages = M.decode_step_paged(
-            self.cfg, self.params, self.pages, *args)
+            self.cfg, self.params, self.pages, *args, **kw)
         new_toks = logits.argmax(-1).cpu().numpy()     # synchronises
         ms = (time.perf_counter() - t0) * 1000.0
         self.last_logits = logits[: len(ids)].float().cpu().numpy()
@@ -906,14 +1002,16 @@ class PagedTorchExecutor(Executor):
             self.pages[name][:, idx] = host.to(self.device)
 
     def suspend(self, task: Task) -> float:
-        """Swap the task's private pages to the host arena: copy their
-        device contents to host memory, then release them to the pool's
-        free list; shared prefix pages stay resident. The copy completes
-        before this returns: the arena is updated in place, so a freed page
-        may be handed out and overwritten by the next step. On
-        HostArenaFull the swap is rolled back (contents restored into
-        re-allocated pages) and the error propagates with the task still
-        resident."""
+        """Swap the task's private pages, and for SSM/hybrid archs its
+        recurrent state, to the host arena: copy their device contents to
+        host memory, then release them to the pool's free list and the
+        state store; shared prefix pages stay resident. The copy completes
+        before this returns: the arenas are updated in place, so a freed
+        page or slot may be handed out and overwritten by the next step.
+        The state swaps as ONE blob {"ssm","conv"} at logical index -1,
+        below every page index, as in the JAX engine. On HostArenaFull the
+        swap is rolled back (contents restored into re-allocated pages and
+        slot) and the error propagates with the task still resident."""
         tid = task.task_id
         _sync(self.device)
         t0 = time.perf_counter()
@@ -926,11 +1024,22 @@ class PagedTorchExecutor(Executor):
             v_host = self.pages["v_pages"][:, idx].cpu()
             entries = [(li, {"k": k_host[:, n], "v": v_host[:, n]})
                        for n, (li, _) in enumerate(released)]
+        stashed = entries
+        blob = None
+        if (self.states is not None and self.states.holds(tid)
+                and not self.states.is_swapped(tid)):
+            slot = self.states.slot_of(tid)
+            blob = {"ssm": self.pages["ssm_state"][:, slot].cpu(),
+                    "conv": self.pages["conv_state"][:, slot].cpu()}
+            self.states.swap_out(tid)
+            stashed = [(-1, blob)] + entries
         try:
-            self.arena.put(tid, entries)
+            self.arena.put(tid, stashed)
         except HostArenaFull:
-            # the released pages are still free (nothing allocated since),
-            # so swap_in cannot fail here
+            # the released pages and slot are still free (nothing allocated
+            # since), so swap_in cannot fail here
+            if blob is not None:
+                self._restore_state(self.states.swap_in(tid), blob)
             self._restore_pages(self.pool.swap_in(tid), entries)
             raise
         if self.draft is not None:
@@ -940,22 +1049,42 @@ class PagedTorchExecutor(Executor):
         _sync(self.device)
         return (time.perf_counter() - t0) * 1000.0
 
+    def _restore_state(self, slot: int, blob) -> None:
+        """Write a host state blob {"ssm","conv"} into a state slot."""
+        for name, key in (("ssm_state", "ssm"), ("conv_state", "conv")):
+            self.pages[name][:, slot] = blob[key].to(self.device)
+
     def resume(self, task: Task) -> float:
-        """Re-allocate device pages for the swapped-out positions (evicting
-        idle prefix-cache pages under pressure) and restore the host
-        contents. OutOfPages propagates with pool and arena unchanged: the
+        """Re-allocate the task's state slot (SSM/hybrid archs) and device
+        pages for the swapped-out positions (evicting idle prefix-cache
+        pages under pressure) and restore the host contents. OutOfStates or
+        OutOfPages propagates with pool, store and arena unchanged: the
         task stays suspended."""
         tid = task.task_id
         _sync(self.device)
         t0 = time.perf_counter()
-        restored = self._reserve(lambda: self.pool.swap_in(tid))
-        self._restore_pages(restored, self.arena.take(tid))
+        slot = -1
+        if self.states is not None and self.states.is_swapped(tid):
+            slot = self.states.swap_in(tid)   # OutOfStates: nothing changed
+        try:
+            restored = self._reserve(lambda: self.pool.swap_in(tid))
+        except OutOfPages:
+            if slot >= 0:
+                self.states.swap_out(tid)     # give the fresh slot back
+            raise
+        entries = self.arena.take(tid)
+        state = [blob for li, blob in entries if li < 0]
+        self._restore_pages(restored, [e for e in entries if e[0] >= 0])
+        if state:
+            self._restore_state(slot, state[0])
         _sync(self.device)
         return (time.perf_counter() - t0) * 1000.0
 
     def release(self, task: Task) -> None:
         tid = task.task_id
         self.pool.free(tid)
+        if self.states is not None:
+            self.states.free(tid)
         self.arena.drop(tid)
         self._chunk_progress.pop(tid, None)
         self._last_tok.pop(tid, None)
@@ -970,10 +1099,14 @@ class PagedTorchExecutor(Executor):
         # reserve that many pages so probing never exhausts the pool
         nmax = min(self.max_batch,
                    max(1, self.n_pages // max(1, self.pool.pages_for(32))))
+        if self.states is not None:
+            nmax = min(nmax, max(1, self.states.free_slots))
         probes = sorted({b for b in (1, 2, 4, 8, nmax) if b <= nmax})
         warm = [qa_task() for _ in range(nmax)]
         for t in warm:
             self.pool.alloc(t.task_id, 1)
+            if self.states is not None:
+                self.states.alloc(t.task_id)
             self._last_tok[t.task_id] = 0
         lat = _probe_latency_curve(self, warm, probes)
         for t in warm:

@@ -10,10 +10,15 @@ Inputs at edge-6b head shapes (Hq=32, Hkv=2, hd=128, page 16), with a pad
 row, -1 table entries and ragged prompt lengths; verify windows of C = 1,
 3 and 5 queries at and across page boundaries; for the slot-cache
 kernels, -1 slots, a wrapped ring, a window, chunk offsets and K/V read
-through the strides of a [B,Hkv,S,hd] buffer. Tolerances: fp32 1e-4
-(summation order over up to a few hundred keys), bf16 1.6e-2 (output
-rounding to bf16 of values below ~4), against the plain version on the
-same inputs in fp32.
+through the strides of a [B,Hkv,S,hd] buffer. The SSD scan and decode
+step at mamba2-780m and hymba-1.5b widths and a ragged T, with inputs as
+strided splits of one projection, pad and inactive rows over a shuffled
+state arena; the grouped-expert FFN at granite-moe-3b-a800m widths and a
+ragged shape with zero rows. Tolerances: fp32 1e-4 (summation order over
+up to a few hundred terms), bf16 1.6e-2 (output rounding to bf16 of
+values below ~4: the SSD and MoE inputs are scaled so outputs stay
+there), against the plain version on the same inputs in fp32; fp32
+states to 1e-4 of their largest magnitude.
 """
 from __future__ import annotations
 
@@ -204,3 +209,124 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="last dimension"):
         ops.flash_prefill_chunk(q[:, None], k_cols.transpose(1, 2),
                                 v.transpose(1, 2), qp)
+
+
+def _ssd_inputs(B, T, H, P, N, seed=0):
+    """x, dt, b, c as strided splits of one [B,T,H*P+H+2N] projection (as
+    the mixer passes them), the [H] parameters at the JAX init's values;
+    x scaled by 0.5 and b, c by N^-0.5 so outputs stay below 4."""
+    rng = np.random.default_rng(seed)
+    W = H * P + 2 * N + H
+    proj = rng.standard_normal((B, T, W)).astype(np.float32)
+    proj[..., :H * P] *= 0.5
+    proj[..., H * P:H * P + 2 * N] *= N ** -0.5
+    proj[..., H * P + 2 * N:] *= 0.5
+    proj = torch.from_numpy(proj)
+    params = [torch.log(torch.linspace(1.0, 16.0, H)), torch.ones(H),
+              torch.from_numpy(rng.standard_normal(H).astype(np.float32)) * 0.1]
+    return proj, params
+
+
+def _ssd_split(proj, H, P, N):
+    B, T = proj.shape[:2]
+    x = proj[..., :H * P].reshape(B, T, H, P)
+    b = proj[..., H * P:H * P + N]
+    c = proj[..., H * P + N:H * P + 2 * N]
+    dt = proj[..., H * P + 2 * N:]
+    return x, dt, b, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,P,N", [(1, 256, 48, 64, 128),   # mamba2
+                                       (1, 100, 50, 64, 16),    # hymba
+                                       (2, 77, 4, 32, 16),      # ragged
+                                       (1, 1, 2, 32, 16)])
+def test_ssd_scan_kernel_matches_plain(dtype, B, T, H, P, N):
+    _need_cuda()
+    proj, (a_log, d_skip, dt_bias) = _ssd_inputs(B, T, H, P, N, seed=T)
+    dt_ = getattr(torch, dtype)
+    proj_d = proj.to(dt_).cuda()
+    prm = [t.to(dt_).cuda() for t in (a_log, d_skip, dt_bias)]
+    x, dt, b, c = _ssd_split(proj_d, H, P, N)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, h = ops.ssd_scan(x, dt, prm[0], b, c, prm[1], prm[2])
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == dt_ and h.dtype == torch.float32
+    xc, dtc, bc, cc = _ssd_split(proj_d.float().cpu(), H, P, N)
+    pc = [t.float().cpu() for t in prm]
+    y_w, h_w = ops.ssd_scan(xc, dtc, pc[0], bc, cc, pc[1], pc[2])
+    torch.testing.assert_close(y.float().cpu(), y_w, atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(h.cpu(), h_w, rtol=0,
+                               atol=TOL["float32"] * max(1.0, h_w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,P,N", [(48, 64, 128), (50, 64, 16)])
+def test_ssd_decode_kernel_matches_plain(dtype, H, P, N):
+    """Rows over a shuffled arena of 12 slots: a pad row (slot -1), an
+    inactive row, three live rows. The arena after the step equals the
+    plain version's bit for bit in every slot no live row writes."""
+    _need_cuda()
+    B, S = 5, 12
+    proj, (a_log, d_skip, dt_bias) = _ssd_inputs(B, 1, H, P, N, seed=H)
+    rng = np.random.default_rng(N)
+    arena = torch.from_numpy(0.5 * rng.standard_normal((S, H, P, N))
+                             .astype(np.float32))
+    slots = torch.tensor([7, -1, 2, 11, 0], dtype=torch.int32)
+    active = torch.tensor([True, False, False, True, True])
+    dt_ = getattr(torch, dtype)
+    proj_d = proj[:, 0].to(dt_).cuda()
+    prm = [t.to(dt_).cuda() for t in (a_log, d_skip, dt_bias)]
+
+    def split(pr):
+        return (pr[:, :H * P].reshape(B, H, P), pr[:, H * P + 2 * N:],
+                pr[:, H * P:H * P + N], pr[:, H * P + N:H * P + 2 * N])
+
+    x, dt, b, c = split(proj_d)
+    st = arena.cuda()
+    before = ops.LAUNCHES["ssd_decode_step"]
+    y = ops.ssd_decode_step(x, dt, prm[0], b, c, prm[1], prm[2], st,
+                            slots.cuda(), active.cuda())
+    assert ops.LAUNCHES["ssd_decode_step"] == before + 1
+    xc, dtc, bc, cc = split(proj_d.float().cpu())
+    pc = [t.float().cpu() for t in prm]
+    st_w = arena.clone()
+    y_w = ops.ssd_decode_step(xc, dtc, pc[0], bc, cc, pc[1], pc[2], st_w,
+                              slots, active)
+    live = slots >= 0
+    assert torch.all(y[~live.cuda()] == 0)
+    torch.testing.assert_close(y.float().cpu()[live], y_w[live],
+                               atol=TOL[dtype], rtol=0)
+    written = [7, 11, 0]                 # the active rows' slots
+    kept = [s for s in range(S) if s not in written]
+    assert torch.equal(st.cpu()[kept], arena[kept])
+    torch.testing.assert_close(st.cpu()[written], st_w[written], rtol=0,
+                               atol=TOL["float32"] * max(1.0, st_w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,E,C,D,F", [(40, 40, 64, 1536, 512),   # granite
+                                       (8, 4, 37, 96, 80)])        # ragged
+def test_moe_grouped_ffn_kernel_matches_plain(dtype, G, E, C, D, F):
+    """Weights at the JAX init's scales; the buffer's second half of rows
+    is zero (an expert's unused capacity) and must give zero rows."""
+    _need_cuda()
+    rng = np.random.default_rng(G + C)
+    buf = rng.standard_normal((G, C, D)).astype(np.float32)
+    buf[:, C // 2:] = 0.0
+    ws = [rng.standard_normal(s).astype(np.float32) * sc for s, sc in
+          (((E, D, F), D ** -0.5), ((E, D, F), D ** -0.5),
+           ((E, F, D), F ** -0.5))]
+    dt_ = getattr(torch, dtype)
+    dev = [torch.from_numpy(a).to(dt_).cuda() for a in (buf, *ws)]
+    before = ops.LAUNCHES["moe_grouped_ffn"]
+    got = ops.moe_grouped_ffn(*dev)
+    assert ops.LAUNCHES["moe_grouped_ffn"] == before + 1
+    assert got.dtype == dt_ and got.shape == (G, C, D)
+    want = ops.moe_grouped_ffn(*[t.float().cpu() for t in dev])
+    assert torch.all(got[:, C // 2:] == 0)
+    torch.testing.assert_close(got.float().cpu(), want, atol=TOL[dtype],
+                               rtol=0)

@@ -312,9 +312,21 @@ def test_cpu_calls_do_not_count_launches():
     ops.flash_prefill_chunk(q[:, :4], k, v, torch.tensor([0, 3],
                                                          dtype=torch.int32))
     ops.paged_verify_attention(*_t(*_verify_inputs(3, 2, 1)))
+    H, P, N = 2, 8, 4
+    x, dt, b, c = (torch.randn(*s) for s in ((1, 5, H, P), (1, 5, H),
+                                              (1, 5, N), (1, 5, N)))
+    prm = (torch.zeros(H), torch.ones(H), torch.zeros(H))
+    ops.ssd_scan(x, dt, prm[0], b, c, prm[1], prm[2])
+    ops.ssd_decode_step(x[:, 0], dt[:, 0], prm[0], b[:, 0], c[:, 0], prm[1],
+                        prm[2], torch.zeros(2, H, P, N),
+                        torch.tensor([1], dtype=torch.int32),
+                        torch.tensor([True]))
+    ops.moe_grouped_ffn(torch.randn(4, 3, 8), torch.randn(2, 8, 6),
+                        torch.randn(2, 8, 6), torch.randn(2, 6, 8))
     assert ops.LAUNCHES == {"paged_decode_attention": 0, "flash_prefill": 0,
                             "flash_prefill_chunk": 0, "decode_attention": 0,
-                            "paged_verify_attention": 0}
+                            "paged_verify_attention": 0, "ssd_scan": 0,
+                            "ssd_decode_step": 0, "moe_grouped_ffn": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
