@@ -5,8 +5,8 @@
 Phases, each printing its own lines; any failed check exits non-zero:
 
 1. build  — compile every CUDA source in csrc/ (one nvcc per source,
-            started together) and print ptxas's register/shared-memory
-            report.
+            started together) and print ptxas's register and spill report
+            for each kernel instantiation.
 2. check  — hold each of the eight kernels against its plain PyTorch
             version on the card, fp32 and bf16. At edge-6b head shapes
             (Hq=32, Hkv=2, hd=128, page 16): paged decode with -1 table
@@ -18,7 +18,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
             decode with -1 slots, a pad row, wrapped kv_pos, window 64 and
             8192; prompt chunks at q_start 0/16/300, C 1/37/64/128, over a
             1024-slot buffer with stale data past the chunk, K/V read
-            through the strides of a [B,Hkv,S,hd] buffer, with a window.
+            through the strides of a [B,Hkv,S,hd] buffer, with a window,
+            and chunks past the buffer's end whose rows that see no key
+            must give exact zeros. Each flash case names the body it ran
+            (bf16 at hd 64 and 128: the tensor-core body).
             The four attention kernels again at granite-moe (Hq=24, Hkv=8,
             hd=64) and hymba (Hq=25, Hkv=5, hd=64) head shapes. The SSD
             scan at mamba2-780m (H=48, P=64, N=128) and hymba (H=50, N=16)
@@ -66,7 +69,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
             gathers), at the shapes its serving run used (the paged
             kernels over a full batch of the run's first requests, each
             mid-way through its output; verify windows of depth+1
-            queries); the SSD scan over one median prompt of run (e), the
+            queries; flash prefill also at granite-moe's heads over run
+            (f)'s median prompt); the SSD scan over one median prompt of run (e), the
             SSD step over its full decode batch, the grouped-expert FFN
             over run (f)'s full decode batch (C = batch * top_k; no single
             PyTorch call computes these three: the MoE FFN's chain of
@@ -75,6 +79,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
             larger of bytes over 3.35 TB/s and flops over the type's peak
             (H100 SXM data sheet).
 
+Each entry of the kernels JSON also names its shape and the kernel body
+it ran ("tensor_core" or "cuda_core").
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 CUDA is not available or the repository's sources are not beside it.
@@ -93,7 +99,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}     # max |kernel - plain|
-SPIN_CYCLES = 200_000_000                       # ~0.1 s at the H100's clock
 # Non-realtime traffic only (--ratio 0): SLICE paces a realtime task at
 # exactly its SLO rate and drops it once it falls behind its deadline, and
 # this host-bound engine's steps vary around the probed l(b), so whether a
@@ -163,30 +168,6 @@ def fail(msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
-
-
-def time_ms(fn, iters: int = 30, warmup: int = 3,
-            queued: bool = True) -> float:
-    """Device time of one call: CUDA events around ``iters`` calls after
-    ``warmup`` ones. ``queued``: a spin kernel (``torch.cuda._sleep``,
-    ~0.1 s) goes first, so the host has enqueued the calls before the
-    device reaches them and the events time them back to back; without
-    it a call shorter than its wrapper's host path (checks and the ctypes
-    call take tens of microseconds) is timed at the host's pace."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # ----------------------------------------------------------------- inputs
@@ -333,21 +314,48 @@ def to_device(tree, dev):
 
 # ----------------------------------------------------------------- phases
 
+def demangle(names):
+    """C++ names of the given mangled symbols (cu++filt from the CUDA
+    toolkit beside nvcc), or the symbols themselves."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cu++filt")
+    if not names or not os.path.isfile(tool):
+        return names
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) else names
+
+
 def build_phase():
+    import re
     from repro_torch.kernels import build
     phase("build")
     took = build.build_all(force=True)
     for name in build.KERNELS:
         print(f"built {name} in {took[name]:.1f}s -> {build.library(name)}")
-        for line in build.build_log(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        lines = build.build_log(name).read_text().splitlines()
+        entries = [m.group(1) for m in (re.search(
+            r"Compiling entry function '([^']+)'", ln) for ln in lines) if m]
+        names = dict(zip(entries, demangle(entries)))
+        fn = "?"
+        for line in lines:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                # "void (anonymous namespace)::tc::kernel<(int)128>(...)"
+                # -> "tc::kernel<128>"
+                fn = re.sub(r"\((int|unsigned int|bool)\)|^void |"
+                            r"\(anonymous namespace\)::|<unnamed>::", "",
+                            names.get(m.group(1), m.group(1))).split("(")[0]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {fn}: {line.strip()}")
 
 
 def check_kernels():
     """Kernel against plain version on the same inputs; returns the worst
     error per kernel, each case printed against its tolerance."""
     import torch
+    from repro_torch.kernels import flash_prefill as _fp
     from repro_torch.kernels import ops, ref
     phase("check kernels against their plain versions")
     worst = {k: 0.0 for k in KERNELS}
@@ -412,7 +420,8 @@ def check_kernels():
             if not torch.isfinite(out.float()).all():
                 fail("flash_prefill: non-finite output")
             report("flash_prefill", f"B={B} S={S} causal={causal} "
-                   f"window={window}", dt, (out.float() - want).abs().max().item())
+                   f"window={window} ({_fp.body(q.dtype, 128)} body)", dt,
+                   (out.float() - want).abs().max().item())
 
     # ring-cache decode: an empty row and a pad row (every kv_pos -1), an
     # append-only row, a ring wrapped twice (slot p % S holds p), a row
@@ -447,6 +456,8 @@ def check_kernels():
 
     # prompt chunks over a 1024-slot buffer holding stale data past every
     # chunk; row 1 starts 3 positions after row 0
+    fp_body = {dt: _fp.body(getattr(torch, dt), 128)
+               for dt in ("float32", "bfloat16")}
     for dt in ("float32", "bfloat16"):
         for q0 in (0, 16, 300):
             for C in (1, 37, 64, 128):
@@ -463,8 +474,25 @@ def check_kernels():
                         fail("flash_prefill_chunk: non-finite output")
                     report("flash_prefill_chunk",
                            f"B=2 C={C} q_start={q0},{q0 + 3} S={S} strided "
-                           f"window={window}", dt,
+                           f"window={window} ({fp_body[dt]} body)", dt,
                            (out.float() - want).abs().max().item())
+        # rows that see no key: chunks starting past the buffer's end with
+        # a window; row 0's rows all see keys, row 1's first 11 rows do
+        q, k, v = chunk_inputs(2, 64, S, getattr(torch, dt), seed=7)
+        qs = torch.tensor([S - 34, S + 36], dtype=torch.int32, device="cuda")
+        out = ops.flash_prefill_chunk(q, k, v, qs, window=48)
+        torch.cuda.synchronize()
+        want = ref.flash_prefill_chunk_ref(q.float(), k.float(), v.float(),
+                                           qs, 48)
+        pos = qs[:, None] + torch.arange(64, device="cuda")
+        seen = pos - 47 <= S - 1                       # [B, C]
+        if not (torch.isfinite(out.float()).all() and seen[0].all()
+                and int(seen[1].sum()) == 11 and (out[~seen] == 0).all()):
+            fail("flash_prefill_chunk: rows that see no key must give zeros")
+        report("flash_prefill_chunk", f"B=2 C=64 q_start={S - 34},{S + 36} "
+               f"S={S} strided window=48, 53 rows without keys exact 0 "
+               f"({fp_body[dt]} body)", dt,
+               (out.float() - want)[seen].abs().max().item())
     check_hetero_kernels(report)
     return worst
 
@@ -474,6 +502,7 @@ def check_hetero_kernels(report):
     SSD scan, SSD decode step and grouped-expert FFN at the serving runs'
     widths, each against its plain version on the same inputs."""
     import torch
+    from repro_torch.kernels import flash_prefill as _fp
     from repro_torch.kernels import ops, ref
     lengths = [-1, 0, 15, 16, 100, 517, 1023]
     for Hq, Hkv in ((24, 8), (25, 5)):
@@ -505,14 +534,16 @@ def check_hetero_kernels(report):
             want = ref.flash_prefill_ref(q.float(), k.float(), v.float(),
                                          causal=True)
             report("flash_prefill", f"Hq={Hq} Hkv={Hkv} hd=64 B=2 S=300 "
-                   "causal", dt, (out.float() - want).abs().max().item())
+                   f"causal ({_fp.body(dtype, 64)} body)", dt,
+                   (out.float() - want).abs().max().item())
             q, k, v = chunk_inputs(2, 37, 1024, dtype, **heads)
             qs = torch.tensor([16, 19], dtype=torch.int32, device="cuda")
             out = ops.flash_prefill_chunk(q, k, v, qs)
             want = ref.flash_prefill_chunk_ref(q.float(), k.float(),
                                                v.float(), qs)
             report("flash_prefill_chunk", f"Hq={Hq} Hkv={Hkv} hd=64 B=2 C=37 "
-                   "q_start=16,19 S=1024 strided", dt,
+                   f"q_start=16,19 S=1024 strided ({_fp.body(dtype, 64)} "
+                   "body)", dt,
                    (out.float() - want).abs().max().item())
     torch.cuda.synchronize()
 
@@ -994,18 +1025,32 @@ def spec_probe(ex, L, b=4, depth=4, reps=3):
 def time_phase(runs, worst):
     """Time each kernel, its plain version and the library yardstick at the
     shapes its serving run gave it; bound from these inputs. ``runs`` maps
-    a run's name to (shapes, launches); a kernel's launches are the sum
-    over the serving runs."""
+    a run's name to (shapes, launches); a timed row's launches are the sum
+    over the serving runs at whose shapes it is timed (all of them, except
+    flash prefill: its edge-6b row counts the edge-6b runs, its granite-moe
+    row the granite run)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as _fp
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import time_ms
     from repro_torch.models import model as M
     phase("time kernels at the serving runs' shapes")
     dt = "bfloat16"
     dtype = torch.bfloat16
     elt = 2
-    launches = {k: sum(r[1][k] for r in runs.values()) for k in KERNELS}
     rows = []
+
+    def row(name, shape, kern, plain, plain_fp32, lib, nbytes, flops, *,
+            body="cuda_core", of_runs=None):
+        """One timed kernel: its call, plain versions (working type and
+        fp32), library yardstick or None, bytes and flops for the bound,
+        the body it runs, and the serving runs whose launches it reports
+        (default all)."""
+        rows.append(dict(name=name, shape=shape, kern=kern, plain=plain,
+                         plain_fp32=plain_fp32, lib=lib, nbytes=nbytes,
+                         flops=flops, body=body,
+                         of_runs=tuple(runs) if of_runs is None else of_runs))
 
     def lengths_of(shapes):
         """Cached tokens of a full batch over the workload's first requests,
@@ -1034,14 +1079,14 @@ def time_phase(runs, worst):
                                       psz=sh["page_size"], maxp=sh["maxp"],
                                       seed=1)
     live = sum(ln + 1 for ln in lengths)
-    rows.append(("paged_decode_attention",
-                 f"B={B} q_pos={lengths} maxp={sh['maxp']}",
-                 lambda: ops.paged_decode_attention(q, kp, vp, pt, qp),
-                 lambda: ref.paged_decode_attention_ref(q, kp, vp, pt, qp),
-                 lambda: ref.paged_decode_attention_ref(
-                     q.float(), kp.float(), vp.float(), pt, qp),
-                 None, 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
-                 + pt.numel() * 4 + B * 4, 4 * live * Hq * hd))
+    row("paged_decode_attention",
+        f"B={B} q_pos={lengths} maxp={sh['maxp']}",
+        lambda: ops.paged_decode_attention(q, kp, vp, pt, qp),
+        lambda: ref.paged_decode_attention_ref(q, kp, vp, pt, qp),
+        lambda: ref.paged_decode_attention_ref(
+            q.float(), kp.float(), vp.float(), pt, qp),
+        None, 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
+        + pt.numel() * 4 + B * 4, 4 * live * Hq * hd)
 
     # prefill: one prompt at the median effective length (run paged-atomic)
     S = sorted(eff)[len(eff) // 2]
@@ -1052,13 +1097,35 @@ def time_phase(runs, worst):
     def sdpa():
         return F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
 
-    rows.append(("flash_prefill", f"B=1 S={S} causal",
-                 lambda: ops.flash_prefill(qf, kf, vf, causal=True),
-                 lambda: ref.flash_prefill_ref(qf, kf, vf, causal=True),
-                 lambda: ref.flash_prefill_ref(qf.float(), kf.float(),
-                                               vf.float(), causal=True),
-                 sdpa, (2 * S * Hq + 2 * S * Hkv) * hd * elt,
-                 4 * (S * (S + 1) // 2) * Hq * hd))
+    row("flash_prefill", f"B=1 S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal",
+        lambda: ops.flash_prefill(qf, kf, vf, causal=True),
+        lambda: ref.flash_prefill_ref(qf, kf, vf, causal=True),
+        lambda: ref.flash_prefill_ref(qf.float(), kf.float(),
+                                      vf.float(), causal=True),
+        sdpa, (2 * S * Hq + 2 * S * Hkv) * hd * elt,
+        4 * (S * (S + 1) // 2) * Hq * hd, body=_fp.body(dtype, hd),
+        of_runs=("paged-atomic", "paged-spec"))
+
+    # the same at granite-moe's heads (hd 64, g 3): one prompt at run
+    # paged-moe's median effective length
+    sh = runs["paged-moe"][0]
+    gcfg = sh["cfg"]
+    gHq, gHkv, ghd = gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim
+    geff, _ = lengths_of(sh)
+    gS = sorted(geff)[len(geff) // 2]
+    gq, gk, gv = prefill_inputs(1, gS, dtype, Hq=gHq, Hkv=gHkv, hd=ghd,
+                                seed=10)
+    gqt, gkt, gvt = (x.transpose(1, 2) for x in (gq, gk, gv))
+    gkr, gvr = (x.repeat_interleave(gHq // gHkv, dim=1) for x in (gkt, gvt))
+    row("flash_prefill", f"B=1 S={gS} Hq={gHq} Hkv={gHkv} hd={ghd} causal",
+        lambda: ops.flash_prefill(gq, gk, gv, causal=True),
+        lambda: ref.flash_prefill_ref(gq, gk, gv, causal=True),
+        lambda: ref.flash_prefill_ref(gq.float(), gk.float(),
+                                      gv.float(), causal=True),
+        lambda: F.scaled_dot_product_attention(gqt, gkr, gvr, is_causal=True),
+        (2 * gS * gHq + 2 * gS * gHkv) * ghd * elt,
+        4 * (gS * (gS + 1) // 2) * gHq * ghd, body=_fp.body(dtype, ghd),
+        of_runs=("paged-moe",))
 
     # ring-cache decode over the whole slot array (run slot-chunked): every
     # slot holds a request mid-way through its output, append-only
@@ -1071,16 +1138,16 @@ def time_phase(runs, worst):
                                        Hkv=Hkv, hd=hd, seed=3)
     live = sum(ln + 1 for ln in lengths)
     keep = (dkp >= 0)[:, None, None, :]
-    rows.append(("decode_attention",
-                 f"B={B} S={Sbuf} q_pos={lengths} window={window}",
-                 lambda: ops.decode_attention(dq, dk, dv, dkp, dqp,
-                                              window=window),
-                 lambda: ref.decode_attention_ref(dq, dk, dv, dkp, dqp, window),
-                 lambda: ref.decode_attention_ref(dq.float(), dk.float(),
-                                                  dv.float(), dkp, dqp, window),
-                 masked_sdpa(dq[:, :, None], dk, dv, keep),
-                 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
-                 + dkp.numel() * 4 + B * 4, 4 * live * Hq * hd))
+    row("decode_attention",
+        f"B={B} S={Sbuf} q_pos={lengths} window={window}",
+        lambda: ops.decode_attention(dq, dk, dv, dkp, dqp,
+                                     window=window),
+        lambda: ref.decode_attention_ref(dq, dk, dv, dkp, dqp, window),
+        lambda: ref.decode_attention_ref(dq.float(), dk.float(),
+                                         dv.float(), dkp, dqp, window),
+        masked_sdpa(dq[:, :, None], dk, dv, keep),
+        2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
+        + dkp.numel() * 4 + B * 4, 4 * live * Hq * hd)
 
     # one full chunk of the median prompt, its last full one, over the
     # slot engine's [1,Hkv,S,hd] layer buffer read through its strides
@@ -1091,17 +1158,17 @@ def time_phase(runs, worst):
     cqs = torch.tensor([q0], dtype=torch.int32, device="cuda")
     q_pos = q0 + torch.arange(C, device="cuda")
     ckeep = (torch.arange(Sbuf, device="cuda")[None, :] <= q_pos[:, None])
-    rows.append(("flash_prefill_chunk",
-                 f"B=1 C={C} q_start={q0} S={Sbuf} strided window={window}",
-                 lambda: ops.flash_prefill_chunk(cq, ck, cv, cqs,
-                                                 window=window),
-                 lambda: ref.flash_prefill_chunk_ref(cq, ck, cv, cqs, window),
-                 lambda: ref.flash_prefill_chunk_ref(cq.float(), ck.float(),
-                                                     cv.float(), cqs, window),
-                 masked_sdpa(cq.transpose(1, 2), ck.transpose(1, 2),
-                             cv.transpose(1, 2), ckeep),
-                 (2 * C * Hq + 2 * (q0 + C) * Hkv) * hd * elt + 4,
-                 4 * Hq * hd * (C * q0 + C * (C + 1) // 2)))
+    row("flash_prefill_chunk",
+        f"B=1 C={C} q_start={q0} S={Sbuf} strided window={window}",
+        lambda: ops.flash_prefill_chunk(cq, ck, cv, cqs,
+                                        window=window),
+        lambda: ref.flash_prefill_chunk_ref(cq, ck, cv, cqs, window),
+        lambda: ref.flash_prefill_chunk_ref(cq.float(), ck.float(),
+                                            cv.float(), cqs, window),
+        masked_sdpa(cq.transpose(1, 2), ck.transpose(1, 2),
+                    cv.transpose(1, 2), ckeep),
+        (2 * C * Hq + 2 * (q0 + C) * Hkv) * hd * elt + 4,
+        4 * Hq * hd * (C * q0 + C * (C + 1) // 2), body=_fp.body(dtype, hd))
 
     # paged verify (run paged-spec): a full batch of the widest window the
     # run's depth grants, q_start as the paged-decode row's q_pos, over the
@@ -1117,15 +1184,15 @@ def time_phase(runs, worst):
                                            maxp=sh["maxp"], seed=5)
     keys = sum(s0 + C for s0 in starts)          # K/V rows the windows keep
     pairs = sum(C * s0 + C * (C + 1) // 2 for s0 in starts)   # (query, key)
-    rows.append(("paged_verify_attention",
-                 f"B={B} C={C} q_start={starts} maxp={sh['maxp']}",
-                 lambda: ops.paged_verify_attention(vq, vkp, vvp, vpt, vqs),
-                 lambda: ref.paged_verify_attention_ref(vq, vkp, vvp, vpt,
-                                                        vqs),
-                 lambda: ref.paged_verify_attention_ref(
-                     vq.float(), vkp.float(), vvp.float(), vpt, vqs),
-                 None, 2 * keys * Hkv * hd * elt + 2 * B * C * Hq * hd * elt
-                 + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd))
+    row("paged_verify_attention",
+        f"B={B} C={C} q_start={starts} maxp={sh['maxp']}",
+        lambda: ops.paged_verify_attention(vq, vkp, vvp, vpt, vqs),
+        lambda: ref.paged_verify_attention_ref(vq, vkp, vvp, vpt,
+                                               vqs),
+        lambda: ref.paged_verify_attention_ref(
+            vq.float(), vkp.float(), vvp.float(), vpt, vqs),
+        None, 2 * keys * Hkv * hd * elt + 2 * B * C * Hq * hd * elt
+        + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd)
 
     def f32(ts):
         return [t.float() for t in ts]
@@ -1141,14 +1208,14 @@ def time_phase(runs, worst):
     s_args = (sx, sdt, sprm[0], sb, sc, sprm[1], sprm[2])
     s_args32 = f32(s_args)
     pieces = [min(64, T - t0) for t0 in range(0, T, 64)]   # 64-step chunks
-    rows.append(("ssd_scan", f"B=1 T={T} H={H} P={P} N={N} strided",
-                 lambda: ops.ssd_scan(*s_args)[0],
-                 lambda: ref.ssd_scan_ref(*s_args)[0],
-                 lambda: ref.ssd_scan_ref(*s_args32)[0], None,
-                 (2 * T * H * P + T * H + 2 * T * N + 3 * H) * elt
-                 + H * P * N * 4,
-                 H * sum(n * (n + 1) * (N + P) + 4 * n * P * N
-                         for n in pieces)))
+    row("ssd_scan", f"B=1 T={T} H={H} P={P} N={N} strided",
+        lambda: ops.ssd_scan(*s_args)[0],
+        lambda: ref.ssd_scan_ref(*s_args)[0],
+        lambda: ref.ssd_scan_ref(*s_args32)[0], None,
+        (2 * T * H * P + T * H + 2 * T * N + 3 * H) * elt
+        + H * P * N * 4,
+        H * sum(n * (n + 1) * (N + P) + 4 * n * P * N
+                for n in pieces))
 
     # SSD decode step (run paged-ssm): the full decode batch, each row on
     # its own slot of a 2*batch-slot arena, every row active
@@ -1162,16 +1229,16 @@ def time_phase(runs, worst):
     arenas += [arenas[0].clone(), arenas[0].clone()]
     slots = torch.arange(0, 2 * B, 2, dtype=torch.int32, device="cuda")
     act = torch.ones(B, dtype=torch.bool, device="cuda")
-    rows.append(("ssd_decode_step", f"B={B} H={H} P={P} N={N} "
-                 f"arena={2 * B} in place",
-                 lambda: ops.ssd_decode_step(*d_args, arenas[0], slots, act),
-                 lambda: ref.ssd_decode_step_ref(*d_args, arenas[1], slots,
-                                                 act),
-                 lambda: ref.ssd_decode_step_ref(*d_args32, arenas[2], slots,
-                                                 act), None,
-                 2 * B * H * P * N * 4
-                 + (2 * B * H * P + B * H + 2 * B * N + 3 * H) * elt + 5 * B,
-                 5 * B * H * P * N))
+    row("ssd_decode_step", f"B={B} H={H} P={P} N={N} "
+        f"arena={2 * B} in place",
+        lambda: ops.ssd_decode_step(*d_args, arenas[0], slots, act),
+        lambda: ref.ssd_decode_step_ref(*d_args, arenas[1], slots,
+                                        act),
+        lambda: ref.ssd_decode_step_ref(*d_args32, arenas[2], slots,
+                                        act), None,
+        2 * B * H * P * N * 4
+        + (2 * B * H * P + B * H + 2 * B * N + 3 * H) * elt + 5 * B,
+        5 * B * H * P * N)
 
     # grouped-expert FFN (run paged-moe): the dispatch buffer of the full
     # decode batch, C = batch * top_k, rows placed by a random top-k
@@ -1192,43 +1259,49 @@ def time_phase(runs, worst):
     used = int((fill > 0).sum())
     live_rows = int(fill.sum())
     m_args32 = f32((mbuf, mwg, mwu, mwd))
-    rows.append(("moe_grouped_ffn", f"G=E={E} C={C} D={D} F={Fd}, {live_rows} "
-                 f"live rows over {used} experts",
-                 lambda: ops.moe_grouped_ffn(mbuf, mwg, mwu, mwd),
-                 lambda: ref.moe_grouped_ffn_ref(mbuf, mwg, mwu, mwd),
-                 lambda: ref.moe_grouped_ffn_ref(*m_args32), None,
-                 # the weights of experts with rows, the buffer in and out
-                 3 * used * D * Fd * elt + 2 * E * C * D * elt,
-                 6 * live_rows * D * Fd))
+    row("moe_grouped_ffn", f"G=E={E} C={C} D={D} F={Fd}, {live_rows} "
+        f"live rows over {used} experts",
+        lambda: ops.moe_grouped_ffn(mbuf, mwg, mwu, mwd),
+        lambda: ref.moe_grouped_ffn_ref(mbuf, mwg, mwu, mwd),
+        lambda: ref.moe_grouped_ffn_ref(*m_args32), None,
+        # the weights of experts with rows, the buffer in and out
+        3 * used * D * Fd * elt + 2 * E * C * D * elt,
+        6 * live_rows * D * Fd)
 
     out = []
-    for name, shape, kern, plain, plain_fp32, lib, nbytes, flops in rows:
+    for r in rows:
+        name, shape = r["name"], r["shape"]
         # held against the plain version at these shapes too
-        err = (kern().float() - plain_fp32()).abs().max().item()
-        print(f"{name} [{shape}, {dt}]: max_abs_err={err:.3e} tol={TOL[dt]:g}")
+        err = (r["kern"]().float() - r["plain_fp32"]()).abs().max().item()
+        print(f"{name} [{shape}, {dt}, {r['body']} body]: max_abs_err="
+              f"{err:.3e} tol={TOL[dt]:g}")
         if err > TOL[dt]:
             fail(f"{name} disagrees with its plain version at the timed shapes")
         worst[name] = max(worst[name], err)
-        ms = time_ms(kern)
-        paced_ms = time_ms(kern, queued=False)
-        plain_ms = time_ms(plain)
-        lib_ms = time_ms(lib) if lib is not None else None
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dt] * 1e3
+        ms = time_ms(r["kern"])
+        paced_ms = time_ms(r["kern"], queued=False)
+        plain_ms = time_ms(r["plain"])
+        lib_ms = time_ms(r["lib"]) if r["lib"] is not None else None
+        t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / PEAK_FLOPS[dt] * 1e3
         bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                                  "operations")
-        print(f"{name} [{shape}, {dt}]: kernel {ms:.4f} ms (launched at the "
-              f"host's pace: {paced_ms:.4f}), plain "
+        launches = sum(runs[run][1][name] for run in r["of_runs"])
+        print(f"{name} [{shape}, {dt}, {r['body']} body]: kernel {ms:.4f} ms "
+              f"(launched at the host's pace: {paced_ms:.4f}), plain "
               f"{plain_ms:.4f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-              f"{bound:.5f} ms by {by} ({nbytes} B, {flops} flop), launches "
-              + ", ".join(f"{r} {v[1][name]}" for r, v in runs.items()))
-        out.append({"name": name, "route": "cuda",
-                    "source": KERNELS[name]["source"],
-                    "replaces": KERNELS[name]["replaces"],
-                    "launches": launches[name], "max_abs_err": worst[name],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "library_ms": lib_ms})
+              f"{bound:.5f} ms by {by} ({r['nbytes']} B, {r['flops']} flop)"
+              + ", launches " + ", ".join(f"{run} {runs[run][1][name]}"
+                                          for run in r["of_runs"]))
+        entry = {"name": name, "route": "cuda",
+                 "source": KERNELS[name]["source"],
+                 "replaces": KERNELS[name]["replaces"],
+                 "launches": launches, "max_abs_err": worst[name],
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": by, "library_ms": lib_ms, "shape": shape,
+                 "body": r["body"]}
+        out.append(entry)
     # no single PyTorch call computes the grouped FFN: the chain of
     # batched matmuls over the same buffer is a yardstick, used nowhere
     chain_ms = time_ms(lambda: torch.bmm(

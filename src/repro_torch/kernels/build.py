@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc
 into its own shared library ``build/repro_torch/lib<name>.so`` under the
 repository root (``build/`` is git-ignored), then loaded with ctypes. The
 build runs at first use, from the sources alone, and again whenever a
-source is newer than its library. ``build_all`` starts one nvcc per stale
+source, or a header under ``csrc/`` that the sources share, is newer than
+its library. ``build_all`` starts one nvcc per stale
 source at once, so a fresh checkout builds in the time of the slowest
 file. Nothing here runs at import.
 """
@@ -59,9 +60,13 @@ def build_log(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """No library, or one older than its source or than any header under
+    csrc/ (the sources share them)."""
     lib = library(name)
-    return (not lib.is_file()
-            or lib.stat().st_mtime < source(name).stat().st_mtime)
+    if not lib.is_file():
+        return True
+    inputs = [source(name), *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build_all(names: Optional[Iterable[str]] = None,

@@ -142,6 +142,21 @@ def _check_heads(name: str, q: torch.Tensor, *kv: torch.Tensor,
            "fp32, bf16 expected")
 
 
+def _check_tensor_core(name: str, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> None:
+    """The flash-prefill tensor-core body reads q in 16-byte pieces and k/v
+    by TMA: base addresses and k/v's (batch, position, head) strides must
+    be multiples of 16 bytes."""
+    if _fp.body(q.dtype, q.shape[-1]) != _fp.TENSOR_CORE:
+        return
+    esz = q.element_size()
+    _check(name, all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+           and all(s * esz % 16 == 0 for t in (k, v) for s in t.stride()[:3]),
+           "the tensor-core body needs 16-byte aligned q/k/v and k/v "
+           f"strides in multiples of 16 bytes (k strides {k.stride()}, "
+           f"v strides {v.stride()})")
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_pos: torch.Tensor,
                      q_pos: torch.Tensor, *,
@@ -212,6 +227,7 @@ def flash_prefill_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(name, k.stride(3) == 1 and v.stride(3) == 1
            and min(k.stride() + v.stride()) >= 0,
            "k/v need a contiguous last dimension")
+    _check_tensor_core(name, q, k, v)
     out = torch.empty_like(q)
     if B == 0 or C == 0 or S == 0:
         return out.zero_()
@@ -241,6 +257,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(name, B <= 65535, f"batch {B} > 65535")
     _check(name, q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
            "tensors must be contiguous")
+    _check_tensor_core(name, q, k, v)
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out

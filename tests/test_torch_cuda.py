@@ -10,8 +10,11 @@ Inputs at edge-6b head shapes (Hq=32, Hkv=2, hd=128, page 16), with a pad
 row, -1 table entries and ragged prompt lengths; verify windows of C = 1,
 3 and 5 queries at and across page boundaries; for the slot-cache
 kernels, -1 slots, a wrapped ring, a window, chunk offsets and K/V read
-through the strides of a [B,Hkv,S,hd] buffer. The SSD scan and decode
-step at mamba2-780m and hymba-1.5b widths and a ragged T, with inputs as
+through the strides of a [B,Hkv,S,hd] buffer. The flash-prefill kernels
+also at query groups g = 1, 3, 5 and 16, head_dim 64 and 128 (the
+tensor-core body in bf16), over several 64-key tiles with ragged ends,
+windows whose edge falls inside a tile, non-causal rows, and chunk rows
+that see no key (exact zeros). The SSD scan and decode step at mamba2-780m and hymba-1.5b widths and a ragged T, with inputs as
 strided splits of one projection, pad and inactive rows over a shuffled
 state arena; the grouped-expert FFN at granite-moe-3b-a800m widths and a
 ragged shape with zero rows. Tolerances: fp32 1e-4 (summation order over
@@ -107,18 +110,37 @@ def test_paged_verify_kernel_matches_plain(dtype, C):
     torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)
 
 
+# (B, S, Hq, Hkv, hd, causal, window): edge-6b heads at ragged S, then
+# groups g = 1, 3, 5, 16 at hd 64 and 128 (the tensor-core body in bf16)
+# over several 64-key tiles with a ragged end, windows whose edge falls
+# inside a tile, and non-causal rows
+PREFILL_CASES = [
+    (2, 77, 32, 2, 128, True, None), (2, 300, 32, 2, 128, True, 64),
+    (2, 77, 32, 2, 128, False, None), (2, 1, 32, 2, 128, True, None),
+    (2, 77, 2, 2, 64, True, None), (2, 300, 2, 2, 128, True, 100),
+    (2, 1000, 6, 2, 64, True, None), (2, 300, 6, 2, 128, False, None),
+    (2, 77, 10, 2, 64, False, 37), (2, 1000, 10, 2, 128, True, 200),
+    (2, 300, 16, 1, 64, True, None), (2, 1000, 32, 2, 128, True, None),
+    (2, 77, 16, 1, 128, True, 50),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,causal,window", [(77, True, None), (300, True, 64),
-                                             (77, False, None), (1, True, None)])
-def test_flash_prefill_kernel_matches_plain(dtype, S, causal, window):
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window", PREFILL_CASES)
+def test_flash_prefill_kernel_matches_plain(dtype, B, S, Hq, Hkv, hd, causal,
+                                            window):
     _need_cuda()
-    rng = np.random.default_rng(S)
+    # the edge-6b cases keep the seed they had before the other heads came
+    rng = np.random.default_rng(S if (Hq, Hkv, hd) == (32, 2, 128)
+                                else S + Hq + hd)
     arrs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-            for s in ((2, S, 32, 128), (2, S, 2, 128), (2, S, 2, 128))]
+            for s in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
     dt = getattr(torch, dtype)
     dev = [x.to(dt).cuda() for x in arrs]
+    before = ops.LAUNCHES["flash_prefill"]
     got = ops.flash_prefill(*dev, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_prefill"] == before + 1
     assert got.dtype == dt
     want = ops.flash_prefill(*[x.cpu().float() for x in dev], causal=causal,
                              window=window)
@@ -162,18 +184,33 @@ def test_decode_attention_kernel_matches_plain(dtype, window):
     torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)
 
 
+# (C, q_start of row 0, window, Hq, Hkv, hd) over a 1024-slot buffer: the
+# edge-6b cases, the serving run's chunk (C 64 at 192), then g = 1, 3, 5,
+# 16 at hd 64 and 128 with chunks crossing several 64-key tiles, ragged
+# ends, windows inside a tile and a chunk ending near the buffer's end
+CHUNK_CASES = [
+    (1, 0, None, 32, 2, 128), (37, 16, None, 32, 2, 128),
+    (64, 300, 64, 32, 2, 128), (128, 0, None, 32, 2, 128),
+    (64, 192, None, 32, 2, 128), (77, 0, None, 2, 2, 64),
+    (300, 100, None, 6, 2, 128), (37, 500, 100, 10, 2, 64),
+    (1000, 0, None, 16, 1, 128), (64, 900, 77, 6, 2, 64),
+    (13, 1000, None, 10, 2, 128), (300, 33, 130, 2, 2, 128),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C,q_start,window", [(1, 0, None), (37, 16, None),
-                                              (64, 300, 64), (128, 0, None)])
-def test_flash_prefill_chunk_kernel_matches_plain(dtype, C, q_start, window):
+@pytest.mark.parametrize("C,q_start,window,Hq,Hkv,hd", CHUNK_CASES)
+def test_flash_prefill_chunk_kernel_matches_plain(dtype, C, q_start, window,
+                                                  Hq, Hkv, hd):
     """K/V as the strided view of a [B,Hkv,S,hd] buffer full of stale data
     past the chunk; row 1 starts 5 positions later than row 0."""
     _need_cuda()
-    rng = np.random.default_rng(C)
+    rng = np.random.default_rng(C if (Hq, Hkv, hd) == (32, 2, 128)
+                                else C + q_start + hd)
     S = 1024
     arrs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-            for s in ((2, C, 32, 128), (2, 2, S, 128), (2, 2, S, 128))]
+            for s in ((2, C, Hq, hd), (2, Hkv, S, hd), (2, Hkv, S, hd))]
     dt = getattr(torch, dtype)
     q, k, v = (x.to(dt).cuda() for x in arrs)
     qs = torch.tensor([q_start, q_start + 5], dtype=torch.int32).cuda()
@@ -187,6 +224,32 @@ def test_flash_prefill_chunk_kernel_matches_plain(dtype, C, q_start, window):
         v.float().cpu().transpose(1, 2), qs.cpu(), window=window)
     torch.testing.assert_close(got.float().cpu(), want, atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_prefill_chunk_rows_without_keys_give_zero(dtype, hd):
+    """Chunks that start past the buffer's end, with a window: rows whose
+    window holds no key write exact zeros, the others match the plain
+    version (which averages over every key for a row with none)."""
+    _need_cuda()
+    rng = np.random.default_rng(hd)
+    S, C, window = 1024, 64, 48
+    arrs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((2, C, 6, hd), (2, 2, S, hd), (2, 2, S, hd))]
+    dt = getattr(torch, dtype)
+    q, k, v = (x.to(dt).cuda() for x in arrs)
+    qs = torch.tensor([S - 34, S + 36], dtype=torch.int32)
+    got = ops.flash_prefill_chunk(q, k.transpose(1, 2), v.transpose(1, 2),
+                                  qs.cuda(), window=window).float().cpu()
+    want = ops.flash_prefill_chunk(
+        q.float().cpu(), k.float().cpu().transpose(1, 2),
+        v.float().cpu().transpose(1, 2), qs, window=window)
+    seen = qs[:, None] + torch.arange(C) - window + 1 <= S - 1
+    assert seen[0].all() and int(seen[1].sum()) == 11
+    assert torch.all(got[~seen] == 0)
+    torch.testing.assert_close(got[seen], want[seen], atol=TOL[dtype], rtol=0)
 
 
 @pytest.mark.cuda
@@ -209,6 +272,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="last dimension"):
         ops.flash_prefill_chunk(q[:, None], k_cols.transpose(1, 2),
                                 v.transpose(1, 2), qp)
+    # the tensor-core body reads K/V by TMA: a position stride of 132
+    # elements (264 bytes) is not a multiple of 16 bytes
+    qb = q[:, None].to(torch.bfloat16)
+    wide = torch.zeros(*k.shape[:3], 132, dtype=torch.bfloat16,
+                       device="cuda")[..., :128]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.flash_prefill_chunk(qb, wide.transpose(1, 2),
+                                wide.transpose(1, 2), qp)
 
 
 def _ssd_inputs(B, T, H, P, N, seed=0):

@@ -9,6 +9,7 @@ contract). The CUDA kernels themselves run only on a card:
 """
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_prefill as fp_launch  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
 ATOL = 1e-5
@@ -117,7 +119,7 @@ def _prefill_inputs(B, S, Hq, Hkv, hd=32, seed=0, dtype=np.float32):
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 5),
                                            (False, None), (False, 6)])
-@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (4, 1)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (4, 1), (6, 2), (10, 2)])
 def test_flash_prefill_plain_matches_pallas(causal, window, Hq, Hkv):
     arrs = _prefill_inputs(2, 16, Hq, Hkv)
     got = ops.flash_prefill(*_t(*arrs), causal=causal, window=window).numpy()
@@ -139,6 +141,19 @@ def test_flash_prefill_ragged_matches_jnp(S, causal, window):
     want = np.asarray(JL.attention(q, k, v,
                                    JL.band_mask(pos, pos, causal, window)))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 32, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
+    (torch.float32, 32, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
+def test_flash_prefill_body_rule(dtype, hd, want):
+    """bf16 at hd 64 and 128 runs the tensor-core body, everything else the
+    CUDA-core body; other types are refused."""
+    assert fp_launch.body(dtype, hd) == want
+    with pytest.raises(ValueError, match="type"):
+        fp_launch.body(torch.float16, hd)
 
 
 def test_bf16_inputs_match_jax_oracles():
@@ -338,3 +353,28 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         build.build_all(["flash_prefill"], force=True)
     assert not build.library("flash_prefill").exists()
     assert build.build_log("flash_prefill").read_text()
+
+
+def test_stale_counts_shared_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or any header under csrc/ is
+    newer than it."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    out.mkdir()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    src, hdr = csrc / "k.cu", csrc / "shared.cuh"
+    src.write_text("")
+    hdr.write_text("")
+    assert build._stale("k")                      # no library yet
+    lib = build.library("k")
+    lib.write_text("")
+    for p, t in ((src, 100), (hdr, 100), (lib, 200)):
+        os.utime(p, (t, t))
+    assert not build._stale("k")
+    os.utime(hdr, (300, 300))                     # a touched header
+    assert build._stale("k")
+    os.utime(lib, (400, 400))
+    assert not build._stale("k")
+    os.utime(src, (500, 500))
+    assert build._stale("k")
