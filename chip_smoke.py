@@ -10,7 +10,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
 2. check  — hold each of the eight kernels against its plain PyTorch
             version on the card, fp32 and bf16. At edge-6b head shapes
             (Hq=32, Hkv=2, hd=128, page 16): paged decode with -1 table
-            entries, a pad row and page-boundary positions; paged verify
+            entries (inside a row's table too), a pad row and
+            page-boundary positions up to 1023; paged verify
             windows of C = 1, 3, 5 queries (16 to 80 rows per KV head) at
             and across page boundaries, with -1 entries and a pad row;
             flash prefill
@@ -30,7 +31,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
             with a pad and an inactive row (arena after the step compared
             too); the grouped-expert FFN at granite-moe widths (E=40,
             D=1536, F=512) for one decode group (C=64) and two per-example
-            prefill groups, with zero rows.
+            prefill groups, with zero rows, then with live-row counts (a
+            skewed decode routing that leaves experts empty; per-example
+            groups empty, full and ragged) and NaN in every row past a
+            count. Before each checked call that must write exact zeros
+            (pad rows, rows past a count), a block of the output's size is
+            filled with NaN and freed, so the wrapper's torch.empty gets
+            poisoned memory back. Each paged and MoE case names its body.
             Then reduced engines on the card against the same engines on
             the CPU (prefill + decode logits, greedy streams): paged atomic,
             paged chunked, slot chunked (masked decode), slot compacted;
@@ -69,18 +76,23 @@ Phases, each printing its own lines; any failed check exits non-zero:
             gathers), at the shapes its serving run used (the paged
             kernels over a full batch of the run's first requests, each
             mid-way through its output; verify windows of depth+1
-            queries; flash prefill also at granite-moe's heads over run
-            (f)'s median prompt); the SSD scan over one median prompt of run (e), the
-            SSD step over its full decode batch, the grouped-expert FFN
-            over run (f)'s full decode batch (C = batch * top_k; no single
+            queries; paged decode and flash prefill also at granite-moe's
+            heads over run (f)'s batch and median prompt; each paged row
+            names its page splits); the SSD scan over one median prompt of
+            run (e), the SSD step over its full decode batch, the
+            grouped-expert FFN over run (f)'s full decode batch with its
+            routing's live-row counts passed and the bound counting only
+            live rows (C = batch * top_k; no single
             PyTorch call computes these three: the MoE FFN's chain of
             batched matmuls is printed as a yardstick, and its
             library_ms stays null); the bound is the
             larger of bytes over 3.35 TB/s and flops over the type's peak
             (H100 SXM data sheet).
 
-Each entry of the kernels JSON also names its shape and the kernel body
-it ran ("tensor_core" or "cuda_core").
+The kernels JSON has one entry per kernel; each also names its shape and
+the kernel body it ran ("tensor_core" or "cuda_core"), and a kernel timed
+at a second shape lists it under "other_shapes" (its launches then sum
+over every serving run).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 CUDA is not available or the repository's sources are not beside it.
@@ -170,14 +182,24 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
+def poison(shape, dtype):
+    """Fill a block of a kernel output's size with NaN and free it, so the
+    wrapper's torch.empty most likely gets that memory back: a row the
+    kernel fails to write reads NaN, not a stale zero."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+
+
 # ----------------------------------------------------------------- inputs
 
 def decode_inputs(lengths, dtype, n_pages=600, Hq=32, Hkv=2, hd=128, psz=16,
-                  maxp=64, seed=0):
+                  maxp=64, seed=0, holes=()):
     """Paged-decode inputs on the card: rows with q_pos = lengths[b] (a
     length < 0 gives a pad row: q_pos 0, every table entry -1), each live
     row's pages drawn without replacement from a shuffled arena, -1 past
-    its last page."""
+    its last page; the table entries ``holes`` of rows that reach past
+    them are -1 too (keys masked inside a row)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     B = len(lengths)
@@ -192,6 +214,7 @@ def decode_inputs(lengths, dtype, n_pages=600, Hq=32, Hkv=2, hd=128, psz=16,
             continue
         n = ln // psz + 1
         pt[b, :n] = torch.tensor([perm.pop() for _ in range(n)])
+        pt[b, [j for j in holes if j < n - 1]] = -1
         qpos[b] = ln
     return q, kp, vp, pt.cuda(), qpos.cuda()
 
@@ -357,6 +380,7 @@ def check_kernels():
     import torch
     from repro_torch.kernels import flash_prefill as _fp
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as _pa
     phase("check kernels against their plain versions")
     worst = {k: 0.0 for k in KERNELS}
 
@@ -377,7 +401,9 @@ def check_kernels():
     # and long rows, trailing -1 entries on every live row
     lengths = [-1, 0, 15, 16, 31, 32, 100, 517, 1000, 1023]
     for dt in ("float32", "bfloat16"):
-        q, kp, vp, pt, qp = decode_inputs(lengths, getattr(torch, dt))
+        q, kp, vp, pt, qp = decode_inputs(lengths, getattr(torch, dt),
+                                          holes=(3, 10, 31))
+        poison(q.shape, q.dtype)
         out = ops.paged_decode_attention(q, kp, vp, pt, qp)
         torch.cuda.synchronize()
         want = ref.paged_decode_attention_ref(q.float(), kp.float(),
@@ -387,8 +413,9 @@ def check_kernels():
         pad = out[~live].float()
         if not (torch.isfinite(out.float()).all() and (pad == 0).all()):
             fail("paged_decode_attention: pad rows must give finite zeros")
-        report("paged_decode_attention", f"B={len(lengths)} lengths={lengths}",
-               dt, err)
+        report("paged_decode_attention", f"B={len(lengths)} lengths={lengths}"
+               f" table holes 3,10,31 ({_pa.body(q.dtype, 128)} body)", dt,
+               err)
     # verify windows: a pad row, starts just before / at / past page
     # boundaries, a window ending at the table's last position (maxp 64)
     for dt in ("float32", "bfloat16"):
@@ -396,6 +423,7 @@ def check_kernels():
             starts = [-1, 0, 15, 16, 30, 517, 1024 - C]
             q, kp, vp, pt, qs = verify_inputs(starts, C, getattr(torch, dt),
                                               seed=C)
+            poison(q.shape, q.dtype)
             out = ops.paged_verify_attention(q, kp, vp, pt, qs)
             torch.cuda.synchronize()
             want = ref.paged_verify_attention_ref(q.float(), kp.float(),
@@ -406,7 +434,8 @@ def check_kernels():
                 fail("paged_verify_attention: pad rows must give finite "
                      "zeros")
             report("paged_verify_attention",
-                   f"B={len(starts)} C={C} R={C * 16} q_start={starts}", dt,
+                   f"B={len(starts)} C={C} R={C * 16} q_start={starts} "
+                   f"({_pa.body(q.dtype, 128)} body)", dt,
                    (out.float() - want)[live].abs().max().item())
     for dt in ("float32", "bfloat16"):
         for B, S, causal, window in ((2, 77, True, None), (1, 1000, True, None),
@@ -503,13 +532,17 @@ def check_hetero_kernels(report):
     widths, each against its plain version on the same inputs."""
     import torch
     from repro_torch.kernels import flash_prefill as _fp
+    from repro_torch.kernels import moe_dispatch as _moe
+    from repro_torch.kernels import paged_attention as _pa
     from repro_torch.kernels import ops, ref
     lengths = [-1, 0, 15, 16, 100, 517, 1023]
     for Hq, Hkv in ((24, 8), (25, 5)):
         heads = dict(Hq=Hq, Hkv=Hkv, hd=64)
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
-            q, kp, vp, pt, qp = decode_inputs(lengths, dtype, **heads)
+            q, kp, vp, pt, qp = decode_inputs(lengths, dtype, holes=(3, 10),
+                                              **heads)
+            poison(q.shape, q.dtype)
             out = ops.paged_decode_attention(q, kp, vp, pt, qp)
             want = ref.paged_decode_attention_ref(q.float(), kp.float(),
                                                   vp.float(), pt, qp)
@@ -518,16 +551,22 @@ def check_hetero_kernels(report):
                     and (out[~live].float() == 0).all()):
                 fail("paged_decode_attention: pad rows must give finite zeros")
             report("paged_decode_attention", f"Hq={Hq} Hkv={Hkv} hd=64 "
-                   f"lengths={lengths}", dt,
+                   f"lengths={lengths} table holes 3,10 "
+                   f"({_pa.body(dtype, 64)} body)", dt,
                    (out.float() - want)[live].abs().max().item())
             starts = [-1, 0, 15, 30, 517, 1024 - 5]
             q, kp, vp, pt, qs = verify_inputs(starts, 5, dtype, **heads)
+            poison(q.shape, q.dtype)
             out = ops.paged_verify_attention(q, kp, vp, pt, qs)
             want = ref.paged_verify_attention_ref(q.float(), kp.float(),
                                                   vp.float(), pt, qs)
             live = torch.tensor([s0 >= 0 for s0 in starts], device="cuda")
+            if not (torch.isfinite(out.float()).all()
+                    and (out[~live].float() == 0).all()):
+                fail("paged_verify_attention: pad rows must give finite "
+                     "zeros")
             report("paged_verify_attention", f"Hq={Hq} Hkv={Hkv} hd=64 C=5 "
-                   f"q_start={starts}", dt,
+                   f"q_start={starts} ({_pa.body(dtype, 64)} body)", dt,
                    (out.float() - want)[live].abs().max().item())
             q, k, v = prefill_inputs(2, 300, dtype, **heads)
             out = ops.flash_prefill(q, k, v, causal=True)
@@ -600,6 +639,7 @@ def check_hetero_kernels(report):
                    (st_k - st_p).abs().max().item() / scale, False)
         for G, C in ((40, 64), (80, 37)):
             buf, wg, wu, wd = moe_inputs(G, C, dtype, seed=C)
+            poison(buf.shape, dtype)
             out = ops.moe_grouped_ffn(buf, wg, wu, wd)
             torch.cuda.synchronize()
             want = ref.moe_grouped_ffn_ref(*f32((buf, wg, wu, wd)))
@@ -607,7 +647,41 @@ def check_hetero_kernels(report):
                     and (out[:, C // 2:] == 0).all()):
                 fail("moe_grouped_ffn: zero rows must give zero rows")
             report("moe_grouped_ffn", f"G={G} E=40 C={C} D=1536 F=512 "
-                   "zero rows", dt, (out.float() - want).abs().max().item())
+                   f"zero rows, no counts ({_moe.body(dtype)} body)", dt,
+                   (out.float() - want).abs().max().item())
+            # live-row counts: a skewed decode routing of 8 tokens (top-8
+            # of 40, five experts favoured: most experts empty), and
+            # per-example buffers with empty, full and ragged groups; rows
+            # past a count hold NaN (never read) and must come out 0
+            g = torch.Generator(device="cuda").manual_seed(G + C)
+            if G == 40:
+                logits = torch.randn(8, 40, generator=g, device="cuda")
+                logits[:, :5] += 3.0
+                picks = logits.topk(8).indices.flatten()
+                counts = torch.bincount(picks, minlength=40).int()
+                what = "skewed decode routing"
+            else:
+                counts = torch.randint(0, C + 1, (G,), generator=g,
+                                       device="cuda", dtype=torch.int32)
+                counts[::5] = 0
+                counts[1], counts[2] = C, 13
+                what = "per-example groups"
+            dead = (torch.arange(C, device="cuda")[None, :]
+                    >= counts[:, None])
+            buf = buf.masked_fill(dead[..., None], float("nan"))
+            poison(buf.shape, dtype)
+            out = ops.moe_grouped_ffn(buf, wg, wu, wd, counts)
+            torch.cuda.synchronize()
+            want = ref.moe_grouped_ffn_ref(*f32((buf, wg, wu, wd)), counts)
+            if not (torch.isfinite(out.float()).all()
+                    and (out[dead] == 0).all()):
+                fail("moe_grouped_ffn: rows past a count must give exact "
+                     "zeros")
+            report("moe_grouped_ffn", f"G={G} E=40 C={C} D=1536 F=512 "
+                   f"{what}: {int((counts == 0).sum())} empty groups, "
+                   f"{int(counts.sum())} live rows, NaN past each count "
+                   f"({_moe.body(dtype)} body)", dt,
+                   (out.float() - want)[~dead].abs().max().item())
             del buf, wg, wu, wd, out, want
 
 
@@ -1027,12 +1101,14 @@ def time_phase(runs, worst):
     shapes its serving run gave it; bound from these inputs. ``runs`` maps
     a run's name to (shapes, launches); a timed row's launches are the sum
     over the serving runs at whose shapes it is timed (all of them, except
-    flash prefill: its edge-6b row counts the edge-6b runs, its granite-moe
-    row the granite run)."""
+    paged decode and flash prefill: their edge-6b rows count the edge-6b
+    runs, their granite-moe rows the granite run)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as _fp
+    from repro_torch.kernels import moe_dispatch as _moe
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as _pa
     from repro_torch.launch.timing import time_ms
     from repro_torch.models import model as M
     phase("time kernels at the serving runs' shapes")
@@ -1079,14 +1155,46 @@ def time_phase(runs, worst):
                                       psz=sh["page_size"], maxp=sh["maxp"],
                                       seed=1)
     live = sum(ln + 1 for ln in lengths)
+
+    def splits(B, R, Hkv, hd, sh):
+        rows, pps, nsplit = _pa.plan(B, R, Hkv, hd, sh["page_size"],
+                                     sh["maxp"], dtype,
+                                     _pa.sm_count(q.device))
+        return f"{nsplit} splits of {pps} pages"
+
     row("paged_decode_attention",
-        f"B={B} q_pos={lengths} maxp={sh['maxp']}",
+        f"B={B} q_pos={lengths} maxp={sh['maxp']}, "
+        + splits(B, Hq // Hkv, Hkv, hd, sh),
         lambda: ops.paged_decode_attention(q, kp, vp, pt, qp),
         lambda: ref.paged_decode_attention_ref(q, kp, vp, pt, qp),
         lambda: ref.paged_decode_attention_ref(
             q.float(), kp.float(), vp.float(), pt, qp),
         None, 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
-        + pt.numel() * 4 + B * 4, 4 * live * Hq * hd)
+        + pt.numel() * 4 + B * 4, 4 * live * Hq * hd,
+        body=_pa.body(dtype, hd),
+        of_runs=("paged-atomic", "paged-chunked", "paged-spec"))
+
+    # the same at granite-moe's heads (hd 64, g 3), over run paged-moe's
+    # batch
+    gsh = runs["paged-moe"][0]
+    gcfg = gsh["cfg"]
+    gHq, gHkv, ghd = gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim
+    _, glengths = lengths_of(gsh)
+    gB = gsh["batch"]
+    gdq, gkp, gvp, gpt, gqp = decode_inputs(
+        glengths, dtype, n_pages=gsh["n_pages"], Hq=gHq, Hkv=gHkv, hd=ghd,
+        psz=gsh["page_size"], maxp=gsh["maxp"], seed=11)
+    glive = sum(ln + 1 for ln in glengths)
+    row("paged_decode_attention",
+        f"B={gB} q_pos={glengths} maxp={gsh['maxp']} Hq={gHq} Hkv={gHkv} "
+        f"hd={ghd}, " + splits(gB, gHq // gHkv, gHkv, ghd, gsh),
+        lambda: ops.paged_decode_attention(gdq, gkp, gvp, gpt, gqp),
+        lambda: ref.paged_decode_attention_ref(gdq, gkp, gvp, gpt, gqp),
+        lambda: ref.paged_decode_attention_ref(
+            gdq.float(), gkp.float(), gvp.float(), gpt, gqp),
+        None, 2 * glive * gHkv * ghd * elt + 2 * gB * gHq * ghd * elt
+        + gpt.numel() * 4 + gB * 4, 4 * glive * gHq * ghd,
+        body=_pa.body(dtype, ghd), of_runs=("paged-moe",))
 
     # prefill: one prompt at the median effective length (run paged-atomic)
     S = sorted(eff)[len(eff) // 2]
@@ -1185,14 +1293,16 @@ def time_phase(runs, worst):
     keys = sum(s0 + C for s0 in starts)          # K/V rows the windows keep
     pairs = sum(C * s0 + C * (C + 1) // 2 for s0 in starts)   # (query, key)
     row("paged_verify_attention",
-        f"B={B} C={C} q_start={starts} maxp={sh['maxp']}",
+        f"B={B} C={C} q_start={starts} maxp={sh['maxp']}, "
+        + splits(B, C * Hq // Hkv, Hkv, hd, sh),
         lambda: ops.paged_verify_attention(vq, vkp, vvp, vpt, vqs),
         lambda: ref.paged_verify_attention_ref(vq, vkp, vvp, vpt,
                                                vqs),
         lambda: ref.paged_verify_attention_ref(
             vq.float(), vkp.float(), vvp.float(), vpt, vqs),
         None, 2 * keys * Hkv * hd * elt + 2 * B * C * Hq * hd * elt
-        + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd)
+        + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd,
+        body=_pa.body(dtype, hd))
 
     def f32(ts):
         return [t.float() for t in ts]
@@ -1242,8 +1352,8 @@ def time_phase(runs, worst):
 
     # grouped-expert FFN (run paged-moe): the dispatch buffer of the full
     # decode batch, C = batch * top_k, rows placed by a random top-k
-    # routing of the batch's tokens, so most of each expert's capacity is
-    # zero rows, as in serving
+    # routing of the batch's tokens and each expert's count passed, so
+    # most of each expert's capacity is dead rows, as in serving
     sh = runs["paged-moe"][0]
     mcfg = sh["cfg"]
     E, D, Fd, K = mcfg.n_experts, mcfg.d_model, mcfg.d_ff, mcfg.top_k
@@ -1258,17 +1368,19 @@ def time_phase(runs, worst):
         fill[e] += 1
     used = int((fill > 0).sum())
     live_rows = int(fill.sum())
+    mcounts = fill.to(torch.int32).cuda()
     m_args32 = f32((mbuf, mwg, mwu, mwd))
     row("moe_grouped_ffn", f"G=E={E} C={C} D={D} F={Fd}, {live_rows} "
-        f"live rows over {used} experts",
-        lambda: ops.moe_grouped_ffn(mbuf, mwg, mwu, mwd),
-        lambda: ref.moe_grouped_ffn_ref(mbuf, mwg, mwu, mwd),
-        lambda: ref.moe_grouped_ffn_ref(*m_args32), None,
-        # the weights of experts with rows, the buffer in and out
-        3 * used * D * Fd * elt + 2 * E * C * D * elt,
-        6 * live_rows * D * Fd)
+        f"live rows over {used} experts, counts passed",
+        lambda: ops.moe_grouped_ffn(mbuf, mwg, mwu, mwd, mcounts),
+        lambda: ref.moe_grouped_ffn_ref(mbuf, mwg, mwu, mwd, mcounts),
+        lambda: ref.moe_grouped_ffn_ref(*m_args32, mcounts), None,
+        # the weights of experts with rows, the live rows in and out, the
+        # counts
+        3 * used * D * Fd * elt + 2 * live_rows * D * elt + E * 4,
+        6 * live_rows * D * Fd, body=_moe.body(dtype))
 
-    out = []
+    out, entries = [], {}
     for r in rows:
         name, shape = r["name"], r["shape"]
         # held against the plain version at these shapes too
@@ -1294,14 +1406,23 @@ def time_phase(runs, worst):
               f"{bound:.5f} ms by {by} ({r['nbytes']} B, {r['flops']} flop)"
               + ", launches " + ", ".join(f"{run} {runs[run][1][name]}"
                                           for run in r["of_runs"]))
-        entry = {"name": name, "route": "cuda",
-                 "source": KERNELS[name]["source"],
-                 "replaces": KERNELS[name]["replaces"],
-                 "launches": launches, "max_abs_err": worst[name],
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                  "bound_by": by, "library_ms": lib_ms, "shape": shape,
-                 "body": r["body"]}
-        out.append(entry)
+                 "body": r["body"], "launches": launches}
+        if name in entries:
+            # one entry per kernel: a further shape goes under it, and
+            # the entry's launches cover every serving run
+            entries[name]["other_shapes"].append(timed)
+            entries[name]["launches"] += launches
+            continue
+        entries[name] = {"name": name, "route": "cuda",
+                         "source": KERNELS[name]["source"],
+                         "replaces": KERNELS[name]["replaces"],
+                         "max_abs_err": worst[name], **timed,
+                         "other_shapes": []}
+        out.append(entries[name])
+    for e in out:
+        e["max_abs_err"] = worst[e["name"]]
     # no single PyTorch call computes the grouped FFN: the chain of
     # batched matmuls over the same buffer is a yardstick, used nowhere
     chain_ms = time_ms(lambda: torch.bmm(

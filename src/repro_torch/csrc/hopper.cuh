@@ -1,8 +1,8 @@
 // PTX building blocks for the port's sm_90a kernels: mbarriers, TMA tensor
 // loads, warpgroup matrix multiply (wgmma) and its shared-memory
-// descriptors, register rebalancing. Header only, device code and one host
-// helper (the TMA tensor-map encoder, resolved through the runtime so a
-// library needs no -lcuda).
+// descriptors, register rebalancing, cp.async, ldmatrix and mma.sync.
+// Header only, device code and one host helper (the TMA tensor-map
+// encoder, resolved through the runtime so a library needs no -lcuda).
 //
 // Conventions. Shared-memory addresses are 32-bit .shared addresses
 // (smem_addr). Operand tiles use the 128-byte swizzle that a TMA load with
@@ -236,6 +236,59 @@ __device__ __forceinline__ void reg_alloc() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ----------------------------------------------- cp.async and mma.sync
+
+// 16 bytes from global `src` to shared `dst` (both 16-byte aligned),
+// asynchronously; `src_bytes` < 16 fills the rest with zeros (0: nothing
+// is read, `src` need only be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices: lanes 8i..8i+7 give the shared addresses of
+// matrix i's eight 16-byte rows; register i of lane l receives (row l/4,
+// columns 2(l%4) and 2(l%4)+1) of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// Four 8x8 bf16 matrices, transposed on the way: lanes 8i..8i+7 give the
+// shared addresses of matrix i's eight 16-byte rows; register i of lane l
+// receives (row 2(l%4) and 2(l%4)+1, column l/4) of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d[16x8] += A[16x16] * B[16x8], bf16 in, fp32 out. Lane l, g = l/4,
+// t = l%4: a0 = A(g, 2t..2t+1), a1 = A(g+8, 2t..), a2 = A(g, 2t+8..),
+// a3 = A(g+8, 2t+8..); b0 = B(2t..2t+1, g), b1 = B(2t+8.., g); d0, d1 =
+// D(g, 2t..2t+1), d2, d3 = D(g+8, 2t..2t+1).
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------------------ host

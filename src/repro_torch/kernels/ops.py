@@ -79,6 +79,9 @@ def _check_paged(name: str, q: torch.Tensor, k_pages: torch.Tensor,
     _check(name, all(t.is_contiguous() for t in
                      (q, k_pages, v_pages, page_table, q_start)),
            "tensors must be contiguous")
+    _check(name, all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+           "q and k/v pages must be 16-byte aligned (the kernel copies 16 "
+           "bytes at a time)")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -364,16 +367,21 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def moe_grouped_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                    wd: torch.Tensor) -> torch.Tensor:
+                    wd: torch.Tensor,
+                    counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-group gated MLP silu(x Wg) * (x Wu) Wd over a dispatched buffer,
     fp32 inside. buf [G,C,D] with G a multiple of E, group g using expert
     g mod E (G = E for one dispatch group, B*E for per-example buffers);
-    wg/wu [E,D,F]; wd [E,F,D]. Returns [G,C,D] in buf's type; zero rows
-    give zero rows. The kernel's two passes (gate/up, down) count as one
-    launch."""
+    wg/wu [E,D,F]; wd [E,F,D]; counts [G] int32, the live rows of each
+    group (rows 0..counts[g]-1, clamped to [0, C]), or None for every row
+    live. Returns [G,C,D] in buf's type: rows at or past a group's count
+    are exact zeros (and on the card are never read), so zero rows give
+    zero rows either way. The kernel's two passes (gate/up, down) count
+    as one launch."""
     name = "moe_grouped_ffn"
-    if not _on_cuda(name, buf, wg, wu, wd):
-        return ref.moe_grouped_ffn_ref(buf, wg, wu, wd)
+    tensors = (buf, wg, wu, wd) + (() if counts is None else (counts,))
+    if not _on_cuda(name, *tensors):
+        return ref.moe_grouped_ffn_ref(buf, wg, wu, wd, counts)
     _check(name, buf.ndim == 3 and wg.ndim == 3 and wu.ndim == 3
            and wd.ndim == 3, "buf [G,C,D], wg/wu [E,D,F], wd [E,F,D] "
            "expected")
@@ -387,13 +395,22 @@ def moe_grouped_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
            and all(t.dtype == buf.dtype for t in (wg, wu, wd)),
            f"types {buf.dtype}/{wg.dtype}/{wu.dtype}/{wd.dtype}: one of "
            "fp32, bf16 expected")
-    _check(name, all(t.is_contiguous() for t in (buf, wg, wu, wd)),
+    _check(name, all(t.is_contiguous() for t in tensors),
            "tensors must be contiguous")
+    _check(name, counts is None or (counts.dtype == torch.int32
+                                    and counts.shape == (G,)),
+           f"counts must be int32 [{G}]")
     _check(name, G <= 65535, f"{G} groups > 65535")
+    if _moe.body(buf.dtype) == _moe.TENSOR_CORE:
+        _check(name, D % 8 == 0 and F % 8 == 0
+               and all(t.data_ptr() % 16 == 0 for t in (buf, wg, wu, wd)),
+               "the tensor-core body copies 16 bytes at a time: D and F "
+               f"must be multiples of 8 (D={D}, F={F}) and buf/wg/wu/wd "
+               "16-byte aligned")
     out = torch.empty_like(buf)
     if G == 0 or C == 0:
         return out
     hid = torch.empty((G, C, F), dtype=torch.float32, device=buf.device)
-    _moe.launch(buf, wg, wu, wd, hid, out)
+    _moe.launch(buf, wg, wu, wd, counts, hid, out)
     LAUNCHES[name] += 1
     return out

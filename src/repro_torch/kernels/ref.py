@@ -13,9 +13,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (attention, band_mask,
+from repro_torch.models.layers import (NEG_INF, attention, band_mask,
                                        chunk_decode_attention,
-                                       decode_attention)
+                                       decode_attention, gather_pages,
+                                       paged_kv_positions)
 from repro_torch.models.layers import paged_decode_attention as _paged
 from repro_torch.models.layers import paged_verify_attention as _verify
 
@@ -52,6 +53,51 @@ def paged_verify_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     0..q_start[b]+i. q [B,C,Hq,hd], k/v_pages [P,Hkv,psz,hd], page_table
     [B,maxp] int32 (-1 unused), q_start [B] int32 -> [B,C,Hq,hd]."""
     return _verify(q, k_pages, v_pages, page_table, q_start)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, page_table: torch.Tensor,
+                              q_start: torch.Tensor,
+                              pages_per_split: int) -> torch.Tensor:
+    """The split-and-combine form of csrc/paged_decode_attention.cu, in
+    fp32, for the tests: it pins the merge rule the CUDA combine pass
+    implements. q [B,C,Hq,hd] (decode: C = 1), pages, table and q_start
+    as ``paged_verify_attention_ref``. Split s covers the table's pages
+    s*pps..(s+1)*pps-1 and gives each row (m, l, acc) over the keys it
+    keeps there: m = -1e30, l = 0, acc = 0 where it keeps none, and a
+    split whose first position lies past the row's position is not read
+    at all. The row's output is sum_s acc_s e^(m_s - M) / max(L, 1e-30),
+    M = max_s m_s, L = sum_s l_s e^(m_s - M): a row with no live key gives
+    exact 0 (the unsplit plain version averages page 0 there)."""
+    B, C, Hq, hd = q.shape
+    _, Hkv, psz, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    g = Hq // Hkv
+    kc = gather_pages(k_pages, page_table).float()      # [B,Hkv,S,hd]
+    vc = gather_pages(v_pages, page_table).float()
+    kv_pos = paged_kv_positions(page_table, psz)        # [B,S]
+    q_pos = q_start[:, None] + torch.arange(C, device=q.device)     # [B,C]
+    qg = q.float().reshape(B, C, Hkv, g, hd)
+    sc = torch.einsum("bchgd,bhsd->bhcgs", qg, kc) * hd ** -0.5
+    keep = ((kv_pos[:, None, :] >= 0)
+            & (kv_pos[:, None, :] <= q_pos[:, :, None]))[:, None, :, None]
+    span = pages_per_split * psz
+    ms, ls, accs = [], [], []
+    for s0 in range(0, maxp * psz, span):
+        cut = slice(s0, s0 + span)
+        kp = keep[..., cut]
+        m = torch.where(kp, sc[..., cut], NEG_INF).amax(-1)   # [B,Hkv,C,g]
+        p = torch.where(kp, torch.exp(sc[..., cut] - m[..., None]), 0.0)
+        read = (s0 <= q_pos)[:, None, :, None]                # [B,1,C,1]
+        ms.append(torch.where(read, m, NEG_INF))
+        ls.append(torch.where(read, p.sum(-1), 0.0))
+        accs.append(torch.where(read[..., None], torch.einsum(
+            "bhcgs,bhsd->bhcgd", p, vc[:, :, cut]), 0.0))
+    m_all = torch.stack(ms)
+    w = torch.exp(m_all - m_all.amax(0))
+    den = (torch.stack(ls) * w).sum(0).clamp(min=1e-30)
+    out = (torch.stack(accs) * w[..., None]).sum(0) / den[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, C, Hq, hd)
 
 
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,16 +160,22 @@ def ssd_decode_step_ref(x: torch.Tensor, dt: torch.Tensor,
 
 
 def moe_grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor,
-                        wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+                        wu: torch.Tensor, wd: torch.Tensor,
+                        counts: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Same contract as csrc/moe_grouped_ffn.cu: per-group gated MLP
     silu(x Wg) * (x Wu) Wd over a dispatched buffer, f32 inside. buf
     [G,C,D] with G a multiple of E, group g using expert g mod E; wg/wu
-    [E,D,F]; wd [E,F,D] -> [G,C,D] in buf's type. Zero rows give zero
-    rows."""
+    [E,D,F]; wd [E,F,D]; counts [G] int32 live rows per group (None: all
+    C) -> [G,C,D] in buf's type, rows at or past a group's count zero.
+    Zero rows give zero rows."""
     E = wg.shape[0]
     G, C, D = buf.shape
     x = buf.reshape(G // E, E, C, D).float()
     h = torch.einsum("gecd,edf->gecf", x, wg.float())
     h = F.silu(h) * torch.einsum("gecd,edf->gecf", x, wu.float())
-    out = torch.einsum("gecf,efd->gecd", h, wd.float())
-    return out.reshape(G, C, D).to(buf.dtype)
+    out = torch.einsum("gecf,efd->gecd", h, wd.float()).reshape(G, C, D)
+    if counts is not None:
+        live = torch.arange(C, device=buf.device) < counts[:, None]
+        out = torch.where(live[..., None], out, torch.zeros_like(out))
+    return out.to(buf.dtype)

@@ -55,7 +55,9 @@ def route(router: torch.Tensor, x: torch.Tensor, top_k: int
 def _dispatch(e_flat: torch.Tensor, K: int, E: int):
     """Stable sort of a [G, M] block of expert ids: (order, sorted ids,
     token index, position of each assignment within its expert's
-    segment)."""
+    segment, assignments per expert [G, E] int32). The counts are the
+    differences of consecutive segment starts, the last segment ending at
+    M: tensor ops only, no host sync."""
     order = torch.argsort(e_flat, dim=-1, stable=True)
     es = torch.gather(e_flat, -1, order)
     ts = order // K
@@ -63,7 +65,9 @@ def _dispatch(e_flat: torch.Tensor, K: int, E: int):
     seg_start = torch.searchsorted(es.contiguous(), experts.contiguous())
     pos = (torch.arange(es.shape[-1], device=es.device)
            - torch.gather(seg_start, -1, es))
-    return order, es, ts, pos
+    ends = torch.cat([seg_start[:, 1:],
+                      torch.full_like(seg_start[:, :1], es.shape[-1])], 1)
+    return order, es, ts, pos, (ends - seg_start).to(torch.int32)
 
 
 def moe_ffn(p: MoEParams, x: torch.Tensor, top_k: int,
@@ -77,7 +81,7 @@ def moe_ffn(p: MoEParams, x: torch.Tensor, top_k: int,
     N = x2.shape[0]
     E, K = p["router"].shape[-1], top_k
     w, ids, aux = route(p["router"], x2, K)
-    order, es, ts, pos = _dispatch(ids.reshape(1, -1), K, E)
+    order, es, ts, pos, _ = _dispatch(ids.reshape(1, -1), K, E)
     es, ts, pos = es[0], ts[0], pos[0]
     ws = w.reshape(-1)[order[0]]
     C = max(int(N * K / E * capacity_factor + 0.999), K)
@@ -100,12 +104,14 @@ def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
     (GShard-style groups), capacity C = max(int(T*K/E*cf + 0.999), K) per
     example; assignments past it are dropped. x: [B,T,D], T > 1. The
     per-example buffers [B,E,C,D] go through ``ops.moe_grouped_ffn`` as
-    G = B*E groups in ONE launch, group g using expert g mod E."""
+    G = B*E groups in ONE launch, group g using expert g mod E, with each
+    group's kept assignments (its count clamped to C) as its live
+    rows."""
     B, T, D = x.shape
     E, K = p["router"].shape[-1], top_k
     w, ids, aux = route(p["router"], x.reshape(-1, D), K)
     C = max(int(T * K / E * capacity_factor + 0.999), K)
-    order, es, ts, pos = _dispatch(ids.reshape(B, T * K), K, E)
+    order, es, ts, pos, counts = _dispatch(ids.reshape(B, T * K), K, E)
     ws = torch.gather(w.reshape(B, T * K), 1, order)
     keep = pos < C
     bi = torch.arange(B, device=x.device)[:, None]
@@ -116,7 +122,8 @@ def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
     buf = torch.zeros((B * E * C + 1, D), dtype=x.dtype, device=x.device)
     buf[row] = x[bi, ts]
     out = ops.moe_grouped_ffn(buf[:-1].view(B * E, C, D), p["wg"], p["wu"],
-                              p["wd"]).view(B * E * C, D)
+                              p["wd"], counts.clamp(max=C).view(B * E)
+                              ).view(B * E * C, D)
     y_assign = out[row.clamp(max=B * E * C - 1)] * keep[..., None]
     y = torch.zeros((B * T, D), dtype=x.dtype, device=x.device)
     y.index_add_(0, (bi * T + ts).reshape(-1),
@@ -129,20 +136,21 @@ def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int
     """Decode-step dispatch: ONE token per row ([B,D] or [B,1,D]), the whole
     batch one group with capacity C = B*K, so nothing is dropped and each
     expert sees only its routed rows. The expert FFN runs through
-    ``ops.moe_grouped_ffn``."""
+    ``ops.moe_grouped_ffn`` with each expert's routed rows as its live
+    rows (at most B of its C), so empty experts read no weight."""
     orig_shape = x.shape
     D = orig_shape[-1]
     x2 = x.reshape(-1, D)
     B = x2.shape[0]
     E, K = p["router"].shape[-1], top_k
     w, ids, aux = route(p["router"], x2, K)
-    order, es, ts, pos = _dispatch(ids.reshape(1, B * K), K, E)
+    order, es, ts, pos, counts = _dispatch(ids.reshape(1, B * K), K, E)
     es, ts, pos = es[0], ts[0], pos[0]
     ws = w.reshape(-1)[order[0]]
     C = B * K                                            # lossless capacity
     buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
     buf[es, pos] = x2[ts]
-    out = ops.moe_grouped_ffn(buf, p["wg"], p["wu"], p["wd"])
+    out = ops.moe_grouped_ffn(buf, p["wg"], p["wu"], p["wd"], counts[0])
     y = torch.zeros((B, D), dtype=x.dtype, device=x.device)
     y.index_add_(0, ts, out[es, pos] * ws[:, None])
     return y.reshape(orig_shape), aux

@@ -17,7 +17,13 @@ windows whose edge falls inside a tile, non-causal rows, and chunk rows
 that see no key (exact zeros). The SSD scan and decode step at mamba2-780m and hymba-1.5b widths and a ragged T, with inputs as
 strided splits of one projection, pad and inactive rows over a shuffled
 state arena; the grouped-expert FFN at granite-moe-3b-a800m widths and a
-ragged shape with zero rows. Tolerances: fp32 1e-4 (summation order over
+ragged shape with zero rows, and with per-group live-row counts (empty
+groups, full ones, counts that are not multiples of 8 or 16, per-example
+buffers, NaN past each count); the paged kernels over contexts up to 1023
+at edge-6b, granite-moe and hymba heads, so rows span many page splits.
+Before a checked call that must write exact zeros, a block of the
+output's size is filled with NaN and freed, so the wrapper's torch.empty
+gets poisoned memory back. Tolerances: fp32 1e-4 (summation order over
 up to a few hundred terms), bf16 1.6e-2 (output rounding to bf16 of
 values below ~4: the SSD and MoE inputs are scaled so outputs stay
 there), against the plain version on the same inputs in fp32; fp32
@@ -401,3 +407,119 @@ def test_moe_grouped_ffn_kernel_matches_plain(dtype, G, E, C, D, F):
     assert torch.all(got[:, C // 2:] == 0)
     torch.testing.assert_close(got.float().cpu(), want, atol=TOL[dtype],
                                rtol=0)
+
+
+def _poison(shape, dtype):
+    """Fill a block of an output's size with NaN and free it, so that the
+    wrapper's torch.empty most likely gets that memory back: a row the
+    kernel fails to write then reads NaN, not a stale zero."""
+    torch.cuda.empty_cache()
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+
+
+def _moe_counts(G, C, rule, rng):
+    """Live rows per group: "skew" gives group 0 every row, most groups
+    none and a few 1-3 (a skewed decode routing); "mixed" draws counts in
+    [0, C] with every fifth group empty, one full and ones that are not
+    multiples of 8 or 16."""
+    if rule == "skew":
+        c = np.zeros(G, np.int32)
+        c[0] = C
+        c[[3, 7, 11]] = [1, 2, 3]
+        return c
+    c = rng.integers(0, C + 1, G).astype(np.int32)
+    c[::5] = 0
+    c[1], c[2], c[3] = C, min(13, C), min(37, C)
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,E,C,D,F,rule", [
+    (40, 40, 64, 1536, 512, "skew"),      # granite decode, empty experts
+    (40, 40, 64, 1536, 512, "mixed"),
+    (120, 40, 64, 1536, 512, "mixed"),    # per-example buffers G = B*E
+    (8, 4, 37, 96, 80, "mixed"),          # ragged
+    (4, 4, 130, 96, 80, "mixed")])        # more than 64 live rows a group
+def test_moe_grouped_ffn_counts_match_plain(dtype, G, E, C, D, F, rule):
+    """Rows at or past a group's count hold NaN in the buffer: the kernel
+    never reads them and writes them as exact zeros into a poisoned
+    output; live rows equal the plain version on the same inputs."""
+    _need_cuda()
+    rng = np.random.default_rng(G + C + D)
+    counts = _moe_counts(G, C, rule, rng)
+    buf = rng.standard_normal((G, C, D)).astype(np.float32)
+    dead = np.arange(C)[None, :] >= counts[:, None]
+    buf[dead] = np.nan
+    ws = [rng.standard_normal(s).astype(np.float32) * sc for s, sc in
+          (((E, D, F), D ** -0.5), ((E, D, F), D ** -0.5),
+           ((E, F, D), F ** -0.5))]
+    dt_ = getattr(torch, dtype)
+    dev = [torch.from_numpy(a).to(dt_).cuda() for a in (buf, *ws)]
+    cnt = torch.from_numpy(counts).cuda()
+    _poison((G, C, D), dt_)
+    before = ops.LAUNCHES["moe_grouped_ffn"]
+    got = ops.moe_grouped_ffn(*dev, cnt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_grouped_ffn"] == before + 1
+    got = got.float().cpu()
+    dead = torch.from_numpy(dead)
+    assert torch.all(got[dead] == 0)
+    want = ops.moe_grouped_ffn(*[t.float().cpu() for t in dev],
+                               torch.from_numpy(counts))
+    torch.testing.assert_close(got[~dead], want[~dead], atol=TOL[dtype],
+                               rtol=0)
+
+
+def _split_inputs(C, Hq, Hkv, hd, seed, psz=16, maxp=64, n_pages=700):
+    """Rows over a 64-page table (maxp x psz - 1 = 1023 the last
+    position): a pad row, one page, page boundaries, a long row with -1
+    entries inside its table, and windows ending at 1023."""
+    rng = np.random.default_rng(seed)
+    q_start = np.array([0, 0, psz - C, psz, 300, 517, 1000,
+                        maxp * psz - C], np.int32)
+    pt = np.full((len(q_start), maxp), -1, np.int32)
+    perm = list(rng.permutation(n_pages))
+    for b in range(1, len(q_start)):
+        n = (q_start[b] + C - 1) // psz + 1
+        pt[b, :n] = [perm.pop() for _ in range(n)]
+    pt[5, [3, 10, 31]] = -1
+    f = [rng.standard_normal(s).astype(np.float32)
+         for s in ((len(q_start), C, Hq, hd), (n_pages, Hkv, psz, hd),
+                   (n_pages, Hkv, psz, hd))]
+    return [torch.from_numpy(a) for a in (*f, pt, q_start)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,hd,psz", [
+    (32, 2, 128, 16), (24, 8, 64, 16), (25, 5, 64, 16),   # edge, granite,
+    (32, 2, 128, 8),                                      # hymba; pages
+    (8, 2, 32, 16), (16, 1, 256, 16)])                    # of 8; hd 32/256
+@pytest.mark.parametrize("C", [1, 5])
+def test_paged_split_kernels_match_plain(dtype, Hq, Hkv, hd, psz, C):
+    """Decode (C = 1) and verify (C = 5) at edge-6b, granite-moe and hymba
+    heads over contexts up to the table's last position, so rows span
+    many page splits and later splits are empty; pages of 8 tokens (half
+    a 16-key block of the tensor-core body) and hd 32 / 256 (bf16 on the
+    CUDA cores); the pad row reads exact 0 from a poisoned output."""
+    _need_cuda()
+    q, kp, vp, pt, qs = _split_inputs(C, Hq, Hkv, hd, seed=Hq + C, psz=psz,
+                                      maxp=1024 // psz, n_pages=1400)
+    dt = getattr(torch, dtype)
+    dev = [x.to(dt).cuda() for x in (q, kp, vp)] + [pt.cuda(), qs.cuda()]
+    if C == 1:
+        name, fn = "paged_decode_attention", ops.paged_decode_attention
+        dev[0] = dev[0][:, 0].contiguous()
+    else:
+        name, fn = "paged_verify_attention", ops.paged_verify_attention
+    _poison(dev[0].shape, dt)
+    before = ops.LAUNCHES[name]
+    got = fn(*dev)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1
+    got = got.float().cpu()
+    want = fn(*[x.cpu().float() for x in dev[:3]], pt, qs)
+    live = pt.max(dim=1).values >= 0
+    assert not live[0] and torch.all(got[0] == 0)
+    torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)
