@@ -23,11 +23,11 @@ Phases, each printing its own lines; any failed check exits non-zero:
             and chunks past the buffer's end whose rows that see no key
             must give exact zeros. Each flash case names the body it ran
             (bf16 at hd 64 and 128: the tensor-core body).
-            The four attention kernels again at granite-moe (Hq=24, Hkv=8,
-            hd=64) and hymba (Hq=25, Hkv=5, hd=64) head shapes. The SSD
-            scan at mamba2-780m (H=48, P=64, N=128) and hymba (H=50, N=16)
-            widths, T=256 and a ragged T=77, inputs as strided splits of
-            one projection; the SSD decode step over a shuffled state arena
+            The five attention kernels again at granite-moe (Hq=24, Hkv=8,
+            hd=64) and hymba (Hq=25, Hkv=5, hd=64) head shapes (the ring
+            over a ragged 1000-slot ring). The SSD scan at mamba2-780m
+            (H=48, P=64, N=128) and hymba (H=50, N=16) widths, T=1, 65,
+            77 and 256, inputs as strided splits of one projection; the SSD decode step over a shuffled state arena
             with a pad and an inactive row (arena after the step compared
             too); the grouped-expert FFN at granite-moe widths (E=40,
             D=1536, F=512) for one decode group (C=64) and two per-example
@@ -35,9 +35,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
             skewed decode routing that leaves experts empty; per-example
             groups empty, full and ragged) and NaN in every row past a
             count. Before each checked call that must write exact zeros
-            (pad rows, rows past a count), a block of the output's size is
-            filled with NaN and freed, so the wrapper's torch.empty gets
-            poisoned memory back. Each paged and MoE case names its body.
+            (pad rows, empty ring rows, rows past a count) and before each
+            SSD scan, a block of the output's size is filled with NaN and
+            freed, so the wrapper's torch.empty gets poisoned memory back.
+            Each paged, ring, SSD-scan and MoE case names its body.
             Then reduced engines on the card against the same engines on
             the CPU (prefill + decode logits, greedy streams): paged atomic,
             paged chunked, slot chunked (masked decode), slot compacted;
@@ -87,7 +88,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
             batched matmuls is printed as a yardstick, and its
             library_ms stays null); the bound is the
             larger of bytes over 3.35 TB/s and flops over the type's peak
-            (H100 SXM data sheet).
+            (H100 SXM data sheet). The multi-pass kernels' rows also print
+            each pass's device time (torch.profiler): the ring-cache
+            decode's split and combine, the SSD scan's chunk states, state
+            passing and chunk outputs (JSON key "passes_us").
 
 The kernels JSON has one entry per kernel; each also names its shape and
 the kernel body it ran ("tensor_core" or "cuda_core"), and a kernel timed
@@ -467,21 +471,8 @@ def check_kernels():
     kv_pos[4, ::7] = -1
     kv_pos[5] = np.arange(S)
     for dt in ("float32", "bfloat16"):
-        q, k, v, kp, qp = ring_inputs(q_pos, kv_pos, getattr(torch, dt), S)
-        for window in (None, 64, 8192):
-            out = ops.decode_attention(q, k, v, kp, qp, window=window)
-            torch.cuda.synchronize()
-            want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
-                                            kp, qp, window)
-            d = qp[:, None] - kp
-            live = ((kp >= 0) & (d >= 0)
-                    & (d < (window or 1 << 30))).any(dim=1)
-            if not (torch.isfinite(out.float()).all()
-                    and (out[~live].float() == 0).all() and live[2:].all()):
-                fail("decode_attention: empty rows must give finite zeros")
-            report("decode_attention", f"B={len(q_pos)} S={S} q_pos={q_pos} "
-                   f"window={window}", dt,
-                   (out.float() - want)[live].abs().max().item())
+        check_ring(report, q_pos, kv_pos, getattr(torch, dt), S,
+                   (None, 64, 8192))
 
     # prompt chunks over a 1024-slot buffer holding stale data past every
     # chunk; row 1 starts 3 positions after row 0
@@ -526,6 +517,36 @@ def check_kernels():
     return worst
 
 
+def check_ring(report, q_pos, kv_pos, dtype, S, windows, Hq=32, Hkv=2,
+               hd=128):
+    """Ring-cache decode attention against its plain version for each
+    window, into a NaN-poisoned output: rows that keep no slot must give
+    exact zeros, and rows 2.. must keep some."""
+    import torch
+    from repro_torch.kernels import decode_attention as _da
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as _pa
+    q, k, v, kp, qp = ring_inputs(q_pos, kv_pos, dtype, S, Hq=Hq, Hkv=Hkv,
+                                  hd=hd)
+    _, sps, nsplit = _da.plan(Hq // Hkv, hd, S, dtype)
+    for window in windows:
+        poison(q.shape, q.dtype)
+        out = ops.decode_attention(q, k, v, kp, qp, window=window)
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(), kp,
+                                        qp, window)
+        d = qp[:, None] - kp
+        live = ((kp >= 0) & (d >= 0) & (d < (window or 1 << 30))).any(dim=1)
+        if not (torch.isfinite(out.float()).all()
+                and (out[~live].float() == 0).all() and live[2:].all()):
+            fail("decode_attention: empty rows must give finite zeros")
+        report("decode_attention", f"Hq={Hq} Hkv={Hkv} hd={hd} "
+               f"B={len(q_pos)} S={S} q_pos={list(q_pos)} window={window} "
+               f"({_pa.body(dtype, hd)} body, {nsplit} splits of {sps} "
+               "slots)", str(dtype).split(".")[-1],
+               (out.float() - want)[live].abs().max().item())
+
+
 def check_hetero_kernels(report):
     """The attention kernels at granite-moe and hymba head shapes, and the
     SSD scan, SSD decode step and grouped-expert FFN at the serving runs'
@@ -535,11 +556,25 @@ def check_hetero_kernels(report):
     from repro_torch.kernels import moe_dispatch as _moe
     from repro_torch.kernels import paged_attention as _pa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as _ssd
+    import numpy as np
     lengths = [-1, 0, 15, 16, 100, 517, 1023]
+    # ring rows as in check_kernels, over a ragged 1000-slot ring
+    S = 1000
+    q_pos = [0, 0, 299, 2 * S + 100, 700, S - 1]
+    kv_pos = np.full((len(q_pos), S), -1, np.int32)
+    kv_pos[2, :300] = np.arange(300)
+    for p in range(q_pos[3] - S + 1, q_pos[3] + 1):
+        kv_pos[3, p % S] = p
+    kv_pos[4] = np.random.default_rng(1).integers(0, 900, S)
+    kv_pos[4, ::7] = -1
+    kv_pos[4, 1] = 690
+    kv_pos[5] = np.arange(S)
     for Hq, Hkv in ((24, 8), (25, 5)):
         heads = dict(Hq=Hq, Hkv=Hkv, hd=64)
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
+            check_ring(report, q_pos, kv_pos, dtype, S, (None, 64), **heads)
             q, kp, vp, pt, qp = decode_inputs(lengths, dtype, holes=(3, 10),
                                               **heads)
             poison(q.shape, q.dtype)
@@ -592,9 +627,11 @@ def check_hetero_kernels(report):
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         for B, T, H, P, N in ((1, 256, 48, 64, 128), (2, 77, 48, 64, 128),
-                              (1, 256, 50, 64, 16)):
+                              (1, 1, 48, 64, 128), (1, 256, 50, 64, 16),
+                              (2, 65, 50, 64, 16)):
             x, dtr, b, c, (a_log, d_skip, bias) = ssd_inputs(B, T, H, P, N,
                                                              dtype, seed=T)
+            poison((B, T, H, P), dtype)
             y, h = ops.ssd_scan(x, dtr, a_log, b, c, d_skip, bias)
             torch.cuda.synchronize()
             yw, hw = ref.ssd_scan_ref(*f32((x, dtr, a_log, b, c, d_skip,
@@ -602,7 +639,8 @@ def check_hetero_kernels(report):
             if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()
                     and y.shape == x.shape and h.shape == (B, H, P, N)):
                 fail("ssd_scan: non-finite or misshapen output")
-            case = f"B={B} T={T} H={H} P={P} N={N} strided"
+            case = (f"B={B} T={T} H={H} P={P} N={N} strided "
+                    f"({_ssd.body(dtype, P, N)} body)")
             report("ssd_scan", case + f" y (max |y| "
                    f"{yw.abs().max().item():.2f})", dt,
                    (y.float() - yw).abs().max().item())
@@ -1109,7 +1147,10 @@ def time_phase(runs, worst):
     from repro_torch.kernels import moe_dispatch as _moe
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as _pa
-    from repro_torch.launch.timing import time_ms
+    from repro_torch.kernels import decode_attention as _da
+    from repro_torch.kernels import ssd_scan as _ssd
+    from repro_torch.launch.timing import (ATTENTION_PASSES, SSD_PASSES,
+                                           passes_us, time_ms)
     from repro_torch.models import model as M
     phase("time kernels at the serving runs' shapes")
     dt = "bfloat16"
@@ -1118,14 +1159,15 @@ def time_phase(runs, worst):
     rows = []
 
     def row(name, shape, kern, plain, plain_fp32, lib, nbytes, flops, *,
-            body="cuda_core", of_runs=None):
+            body="cuda_core", of_runs=None, passes=None):
         """One timed kernel: its call, plain versions (working type and
         fp32), library yardstick or None, bytes and flops for the bound,
-        the body it runs, and the serving runs whose launches it reports
-        (default all)."""
+        the body it runs, the serving runs whose launches it reports
+        (default all), and for a multi-pass kernel the names of its
+        passes' kernels (``launch.timing``), each pass then timed apart."""
         rows.append(dict(name=name, shape=shape, kern=kern, plain=plain,
                          plain_fp32=plain_fp32, lib=lib, nbytes=nbytes,
-                         flops=flops, body=body,
+                         flops=flops, body=body, passes=passes,
                          of_runs=tuple(runs) if of_runs is None else of_runs))
 
     def lengths_of(shapes):
@@ -1246,8 +1288,10 @@ def time_phase(runs, worst):
                                        Hkv=Hkv, hd=hd, seed=3)
     live = sum(ln + 1 for ln in lengths)
     keep = (dkp >= 0)[:, None, None, :]
+    _, sps, nsplit = _da.plan(Hq // Hkv, hd, Sbuf, dtype)
     row("decode_attention",
-        f"B={B} S={Sbuf} q_pos={lengths} window={window}",
+        f"B={B} S={Sbuf} q_pos={lengths} window={window}, {nsplit} splits "
+        f"of {sps} slots",
         lambda: ops.decode_attention(dq, dk, dv, dkp, dqp,
                                      window=window),
         lambda: ref.decode_attention_ref(dq, dk, dv, dkp, dqp, window),
@@ -1255,7 +1299,8 @@ def time_phase(runs, worst):
                                          dv.float(), dkp, dqp, window),
         masked_sdpa(dq[:, :, None], dk, dv, keep),
         2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
-        + dkp.numel() * 4 + B * 4, 4 * live * Hq * hd)
+        + dkp.numel() * 4 + B * 4, 4 * live * Hq * hd,
+        body=_pa.body(dtype, hd), passes=ATTENTION_PASSES)
 
     # one full chunk of the median prompt, its last full one, over the
     # slot engine's [1,Hkv,S,hd] layer buffer read through its strides
@@ -1318,14 +1363,16 @@ def time_phase(runs, worst):
     s_args = (sx, sdt, sprm[0], sb, sc, sprm[1], sprm[2])
     s_args32 = f32(s_args)
     pieces = [min(64, T - t0) for t0 in range(0, T, 64)]   # 64-step chunks
-    row("ssd_scan", f"B=1 T={T} H={H} P={P} N={N} strided",
+    row("ssd_scan", f"B=1 T={T} H={H} P={P} N={N} strided, "
+        f"{_ssd.chunks(T)} chunks",
         lambda: ops.ssd_scan(*s_args)[0],
         lambda: ref.ssd_scan_ref(*s_args)[0],
         lambda: ref.ssd_scan_ref(*s_args32)[0], None,
         (2 * T * H * P + T * H + 2 * T * N + 3 * H) * elt
         + H * P * N * 4,
         H * sum(n * (n + 1) * (N + P) + 4 * n * P * N
-                for n in pieces))
+                for n in pieces), body=_ssd.body(dtype, P, N),
+        passes=SSD_PASSES)
 
     # SSD decode step (run paged-ssm): the full decode batch, each row on
     # its own slot of a 2*batch-slot arena, every row active
@@ -1399,6 +1446,11 @@ def time_phase(runs, worst):
         bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                                  "operations")
         launches = sum(runs[run][1][name] for run in r["of_runs"])
+        pass_us = (passes_us(r["kern"], r["passes"]) if r["passes"]
+                   else None)
+        if pass_us is not None:
+            print(f"{name} [{shape}] passes (torch.profiler, us a call): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in pass_us.items()))
         print(f"{name} [{shape}, {dt}, {r['body']} body]: kernel {ms:.4f} ms "
               f"(launched at the host's pace: {paced_ms:.4f}), plain "
               f"{plain_ms:.4f} ms, library "
@@ -1409,6 +1461,8 @@ def time_phase(runs, worst):
         timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                  "bound_by": by, "library_ms": lib_ms, "shape": shape,
                  "body": r["body"], "launches": launches}
+        if pass_us is not None:
+            timed["passes_us"] = pass_us
         if name in entries:
             # one entry per kernel: a further shape goes under it, and
             # the entry's launches cover every serving run

@@ -90,7 +90,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """GQA flash-decode over the paged arena. q [B,Hq,hd]; k/v_pages
     [P,Hkv,psz,hd]; page_table [B,maxp] int32 (-1 unused); q_pos [B] int32.
     Returns [B,Hq,hd] in q's type. A row with no live page gives 0 on the
-    card (the plain version averages page 0): callers ignore such rows."""
+    card (the plain version averages page 0): callers ignore such rows.
+    The kernel's two passes (page splits, combine) count as one launch."""
     name = "paged_decode_attention"
     if not _on_cuda(name, q, k_pages, v_pages, page_table, q_pos):
         return ref.paged_decode_attention_ref(q, k_pages, v_pages,
@@ -114,7 +115,8 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     0..q_start[b]+i); k/v_pages [P,Hkv,psz,hd]; page_table [B,maxp] int32
     (-1 unused); q_start [B] int32. Returns [B,C,Hq,hd] in q's type. A row
     with no live page gives 0 on the card (the plain version averages
-    page 0): callers ignore such rows."""
+    page 0): callers ignore such rows. The kernel's two passes (page
+    splits, combine) count as one launch."""
     name = "paged_verify_attention"
     if not _on_cuda(name, q, k_pages, v_pages, page_table, q_start):
         return ref.paged_verify_attention_ref(q, k_pages, v_pages,
@@ -168,7 +170,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     k/v_cache [B,Hkv,S,hd]; kv_pos [B,S] int32 (-1 empty); q_pos [B] int32;
     keeps 0 <= kv_pos <= q_pos (and q_pos - kv_pos < window). Returns
     [B,Hq,hd] in q's type. A row with nothing live gives 0 on the card
-    (the plain version averages every slot): callers ignore such rows."""
+    (the plain version averages every slot): callers ignore such rows.
+    The kernel's two passes (slot splits, combine) count as one launch."""
     name = "decode_attention"
     _check_window(name, window)
     if not _on_cuda(name, q, k_cache, v_cache, kv_pos, q_pos):
@@ -192,6 +195,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _check(name, all(t.is_contiguous() for t in
                      (q, k_cache, v_cache, kv_pos, q_pos)),
            "tensors must be contiguous")
+    _check(name, all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)),
+           "q and k/v_cache must be 16-byte aligned (the kernel copies 16 "
+           "bytes at a time)")
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out.zero_()
@@ -288,7 +294,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     views (the mixer passes splits of one projection) as long as their last
     dimension, and x's [H,P] block, are contiguous: the kernel reads them
     through their strides, nothing is copied. Returns (y [B,T,H,P]
-    contiguous in x's type, final state [B,H,P,N] fp32)."""
+    contiguous in x's type, final state [B,H,P,N] fp32). The kernel's
+    three passes (chunk states, state passing, chunk outputs) count as
+    one launch."""
     name = "ssd_scan"
     if not _on_cuda(name, x, dt, a_log, b, c, d_skip, dt_bias):
         return ref.ssd_scan_ref(x, dt, a_log, b, c, d_skip, dt_bias)

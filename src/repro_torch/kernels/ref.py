@@ -34,6 +34,49 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return decode_attention(q, k_cache, v_cache, kv_pos, q_pos, window)
 
 
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, kv_pos: torch.Tensor,
+                               q_pos: torch.Tensor, window: Optional[int],
+                               slots_per_split: int) -> torch.Tensor:
+    """The split-and-combine form of csrc/decode_attention.cu, in fp32,
+    for the tests: it pins the rule the CUDA combine pass implements.
+    Inputs as ``decode_attention_ref``. Split s covers slots
+    s*sps..(s+1)*sps-1, in slot order: a ring keeps position p in slot
+    p % S, so no split can be skipped by position and the combine reads
+    every split. A split gives each row (m, l, acc) over the slots it
+    keeps: m = -1e30, l = 0 where it keeps none, and then its acc is
+    never read (l = 0 is the flag). The splits are merged in one online
+    log-sum-exp pass, as the combine kernel does; the row's output is
+    O / max(L, 1e-30), so a row with nothing live gives exact 0 (the
+    unsplit plain version averages every slot there)."""
+    B, Hq, hd = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    qg = q.float().reshape(B, Hkv, g, hd)
+    sc = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * hd ** -0.5
+    keep = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        keep &= q_pos[:, None] - kv_pos < window
+    keep = keep[:, None, None, :]
+    M = torch.full((B, Hkv, g), NEG_INF, device=q.device)
+    L = torch.zeros((B, Hkv, g), device=q.device)
+    O = torch.zeros((B, Hkv, g, hd), device=q.device)
+    for s0 in range(0, S, slots_per_split):
+        cut = slice(s0, s0 + slots_per_split)
+        kp = keep[..., cut]
+        m = torch.where(kp, sc[..., cut], NEG_INF).amax(-1)
+        p = torch.where(kp, torch.exp(sc[..., cut] - m[..., None]), 0.0)
+        l = p.sum(-1)
+        acc = torch.einsum("bhgs,bhsd->bhgd", p, v_cache[:, :, cut].float())
+        acc = torch.where((l > 0)[..., None], acc, 0.0)
+        m_new = torch.maximum(M, m)
+        c, w = torch.exp(M - m_new), torch.exp(m - m_new)
+        L = L * c + l * w
+        O = O * c[..., None] + acc * w[..., None]
+        M = m_new
+    return (O / L.clamp(min=1e-30)[..., None]).reshape(B, Hq, hd)
+
+
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor, page_table: torch.Tensor,
                                q_pos: torch.Tensor) -> torch.Tensor:
@@ -136,6 +179,62 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     The chunked dual form with 64-step chunks, T padded with dt = -1e9."""
     from repro_torch.models.ssm import ssd_chunked
     return ssd_chunked(x, dt, a_log, b, c, d_skip, dt_bias, chunk=64)
+
+
+def ssd_scan_passes_ref(x: torch.Tensor, dt: torch.Tensor,
+                        a_log: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, d_skip: torch.Tensor,
+                        dt_bias: torch.Tensor, chunk: int = 64
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The three passes of csrc/ssd_scan.cu written plainly, in fp32, for
+    the tests. Inputs and outputs as ``ssd_scan_ref``. Within chunk n,
+    dt_k = softplus(dt + bias) (0 for rows past T, as the kernel does) and
+    cum the in-chunk cumulative sum of dt_k A.
+    1. Chunk states: S_n = sum_k exp(cum_last - cum_k) dt_k x_k B_k^T, the
+       state chunk n adds from a zero start, and its decay exp(cum_last).
+    2. State passing, over the chunks in order: h_in(n) is the state
+       entering chunk n, h_in(n+1) = decay_n h_in(n) + S_n; the last is
+       the final state.
+    3. Chunk outputs: y_q = sum_{k<=q} (C_q . B_k) exp(cum_q - cum_k) dt_k
+       x_k + exp(cum_q) C_q h_in(n) + D x_q, the decay masked before exp.
+    """
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    nc = -(-T // chunk)
+    pad = nc * chunk - T
+    f32 = torch.float32
+    A = -torch.exp(a_log.to(f32))                              # [H]
+    dtp = torch.logaddexp(dt.to(f32) + dt_bias.to(f32),
+                          torch.zeros((), dtype=f32, device=x.device))
+    dtq = F.pad(dtp, (0, 0, 0, pad)).reshape(B, nc, chunk, H)
+    xq = F.pad(x.to(f32), (0, 0, 0, 0, 0, pad)).reshape(B, nc, chunk, H, P)
+    bq = F.pad(b.to(f32), (0, 0, 0, pad)).reshape(B, nc, chunk, N)
+    cq = F.pad(c.to(f32), (0, 0, 0, pad)).reshape(B, nc, chunk, N)
+    cum = torch.cumsum(dtq * A, dim=2)                         # [B,nc,Q,H]
+    last = cum[:, :, -1]                                       # [B,nc,H]
+    # 1. chunk states and decays
+    w = dtq * torch.exp(last[:, :, None] - cum)
+    states = torch.einsum("bnkh,bnkhp,bnks->bnhps", w, xq, bq)
+    decay = torch.exp(last)
+    # 2. state passing
+    h = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+    h_in = []
+    for n in range(nc):
+        h_in.append(h)
+        h = decay[:, n, :, None, None] * h + states[:, n]
+    h_in = torch.stack(h_in, dim=1)                            # [B,nc,H,P,N]
+    # 3. chunk outputs
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [B,nc,q,k,H]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    seg = torch.where(causal[None, None, :, :, None], seg, float("-inf"))
+    att = (torch.einsum("bnqs,bnks->bnqk", cq, bq)[..., None]
+           * torch.exp(seg) * dtq[:, :, None])                 # [B,nc,q,k,H]
+    y = torch.einsum("bnqkh,bnkhp->bnqhp", att, xq)
+    y = y + torch.exp(cum)[..., None] * torch.einsum("bnqs,bnhps->bnqhp",
+                                                     cq, h_in)
+    y = y + xq * d_skip.to(f32)[:, None]
+    return y.reshape(B, nc * chunk, H, P)[:, :T].to(x.dtype), h
 
 
 def ssd_decode_step_ref(x: torch.Tensor, dt: torch.Tensor,

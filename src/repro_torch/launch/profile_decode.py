@@ -1,7 +1,9 @@
 """Where the port's serving step time goes on the card.
 
-Builds the paged engine (full width by default), prefills a batch of
-prompts, then times decode steps two ways: the engine's own clock (host
+Builds the paged engine (``--executor slot``: the slot engine, whose
+decode step runs the ring-cache attention kernel over all of its slots)
+at full width by default, prefills a batch of prompts, then times decode
+steps two ways: the engine's own clock (host
 time around a step that ends in a device synchronise, what l(b) reads) and
 torch.profiler (device time per kernel). Prints per-step host ms, device
 busy ms, the device's idle share, and the kernels ranked by device time;
@@ -9,6 +11,8 @@ then the same for one prefill.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
       --arch edge-6b --dtype bfloat16 --batch 8 --context 128
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --executor slot --batch 16 --context 128
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_config
 from repro_torch.core.task import qa_task
 from repro_torch.launch.serve import DTYPES
-from repro_torch.serving.executor import PagedTorchExecutor
+from repro_torch.serving.executor import (PagedTorchExecutor,
+                                          TorchExecutor)
 
 
 def _device_us(evt) -> float:
@@ -60,15 +65,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--executor", default="paged", choices=("paged", "slot"),
+                    help="slot: B slots of --max-seq, every one decoding")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     B = args.batch
-    ex = PagedTorchExecutor(
-        cfg, n_pages=(B + 1) * args.max_seq // args.page_size,
-        page_size=args.page_size, max_seq=args.max_seq, max_batch=B,
-        dtype=DTYPES[args.dtype], device=args.device)
+    if args.executor == "slot":
+        ex = TorchExecutor(cfg, max_slots=B, max_seq=args.max_seq,
+                           dtype=DTYPES[args.dtype], device=args.device)
+    else:
+        ex = PagedTorchExecutor(
+            cfg, n_pages=(B + 1) * args.max_seq // args.page_size,
+            page_size=args.page_size, max_seq=args.max_seq, max_batch=B,
+            dtype=DTYPES[args.dtype], device=args.device)
     tasks = [qa_task(prompt_len=args.context, output_len=args.max_seq // 2)
              for _ in range(B + 1)]
     batch, spare = tasks[:B], tasks[B]     # spare: the profiled prefill
@@ -77,7 +88,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for _ in range(3):                         # warm
         ex.decode(batch)
     steps = [ex.decode(batch) for _ in range(args.steps)]
-    print(f"{cfg.name} {args.dtype} decode batch {B} context "
+    print(f"{cfg.name} {args.dtype} {args.executor} engine, decode batch "
+          f"{B} context "
           f"~{args.context}: engine clock {min(steps):.3f} ms min, "
           f"{sum(steps) / len(steps):.3f} ms mean over {len(steps)} steps")
     with profile(activities=[ProfilerActivity.CPU,
@@ -87,6 +99,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             ex.decode(batch)
         wall = (time.perf_counter() - t0) * 1e3
     report(prof, wall, args.steps, args.top, "decode step (profiled)")
+    if args.executor == "slot":
+        ex.release(batch[-1])          # its slot takes the profiled prefill
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -22,11 +22,10 @@ import subprocess
 from typing import Optional, Sequence
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
-from repro_torch.launch.timing import time_ms
+from repro_torch.launch.timing import ATTENTION_PASSES, passes_us, time_ms
 
 TOL_BF16 = 1.6e-2
 
@@ -48,22 +47,6 @@ def _inputs(B, C, L, Hq, Hkv, hd, psz, maxp, seed):
         pt[b, :n] = torch.tensor([perm.pop() for _ in range(n)])
     return (q, kp, vp, pt.cuda(),
             torch.tensor(qs, dtype=torch.int32, device="cuda"))
-
-
-def _passes_us(fn, n=20):
-    """Device microseconds a call of the split and of the combine pass."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = {"split": 0.0, "combine": 0.0}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        t = float(t if t is not None else getattr(e, "self_cuda_time_total", 0))
-        for k in us:
-            if f"{k}_" in e.key:
-                us[k] += t / n
-    return us
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -114,8 +97,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                             raise SystemExit(f"{case} blocks/SM {bps} "
                                              f"disagrees ({err:.3e})")
                         ms = time_ms(lambda: launch(q, kp, vp, pt, qs, out))
-                        us = _passes_us(lambda: launch(q, kp, vp, pt, qs,
-                                                       out))
+                        us = passes_us(lambda: launch(q, kp, vp, pt, qs,
+                                                      out), ATTENTION_PASSES)
                         rows, pps, ns = pa.plan(B, C * Hq // Hkv, Hkv, hd,
                                                 psz, maxp, torch.bfloat16,
                                                 pa.sm_count(q.device))

@@ -20,7 +20,10 @@ state arena; the grouped-expert FFN at granite-moe-3b-a800m widths and a
 ragged shape with zero rows, and with per-group live-row counts (empty
 groups, full ones, counts that are not multiples of 8 or 16, per-example
 buffers, NaN past each count); the paged kernels over contexts up to 1023
-at edge-6b, granite-moe and hymba heads, so rows span many page splits.
+at edge-6b, granite-moe and hymba heads, so rows span many page splits;
+the ring-cache kernel's two split bodies (hd 32 to 256, rings of 77 to
+1024 slots, wrapped, with holes and windows, empty rows); the three-pass
+SSD scan from 1 to 1024 steps at mamba2-780m and hymba-1.5b widths.
 Before a checked call that must write exact zeros, a block of the
 output's size is filled with NaN and freed, so the wrapper's torch.empty
 gets poisoned memory back. Tolerances: fp32 1e-4 (summation order over
@@ -523,3 +526,90 @@ def test_paged_split_kernels_match_plain(dtype, Hq, Hkv, hd, psz, C):
     live = pt.max(dim=1).values >= 0
     assert not live[0] and torch.all(got[0] == 0)
     torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)
+
+
+def _ring_split_inputs(Hq, Hkv, hd, S, seed):
+    """Rows over an S-slot ring: an empty row (every slot -1), an
+    append-only row (later slot splits empty), a ring wrapped twice (slot
+    p % S holds p), random positions with -1 holes and many past q_pos,
+    a full ring, and a few live slots past the first split."""
+    rng = np.random.default_rng(seed)
+    q_pos = np.array([0, S // 3, 2 * S + 17, 700, S - 1, 40], np.int32)
+    kv = np.full((len(q_pos), S), -1, np.int32)
+    kv[1, :S // 3 + 1] = np.arange(S // 3 + 1)
+    for p in range(q_pos[2] - S + 1, q_pos[2] + 1):
+        kv[2, p % S] = p
+    kv[3] = rng.integers(0, 900, S)
+    kv[3, ::7] = -1
+    kv[3, 1] = 690                                # live under a window
+    kv[4] = np.arange(S)
+    kv[5, S // 2:S // 2 + 5] = np.arange(30, 35)
+    f = [rng.standard_normal(s).astype(np.float32)
+         for s in ((len(q_pos), Hq, hd), (len(q_pos), Hkv, S, hd),
+                   (len(q_pos), Hkv, S, hd))]
+    return [torch.from_numpy(a) for a in (*f, kv, q_pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,hd,S", [
+    (32, 2, 128, 1024), (24, 8, 64, 1024), (25, 5, 64, 1000),  # edge,
+    (8, 2, 32, 300), (16, 1, 256, 77)])           # granite, hymba; hd 32/256
+@pytest.mark.parametrize("window", [None, 64])
+def test_decode_attention_split_bodies_match_plain(dtype, Hq, Hkv, hd, S,
+                                                   window):
+    """Both split bodies of the ring-cache kernel (bf16 at hd 64/128 on
+    the tensor cores, the rest on the CUDA cores) over rings of 77 to 1024
+    slots, ragged last splits included: empty rows read exact 0 from a
+    poisoned output, the wrapped ring and the holes equal the plain
+    version, one launch a call."""
+    _need_cuda()
+    q, k, v, kv, qp = _ring_split_inputs(Hq, Hkv, hd, S, seed=Hq + S)
+    dt = getattr(torch, dtype)
+    dev = [x.to(dt).cuda() for x in (q, k, v)] + [kv.cuda(), qp.cuda()]
+    _poison(dev[0].shape, dt)
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(*dev, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    got = got.float().cpu()
+    want = ops.decode_attention(*[x.cpu().float() for x in dev[:3]], kv, qp,
+                                window=window)
+    d = qp[:, None] - kv
+    live = ((kv >= 0) & (d >= 0) & (d < (window or 1 << 30))).any(dim=1)
+    assert not live[0] and live[1:].all()
+    assert torch.all(got[~live] == 0)
+    torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,P,N", [(48, 64, 128), (50, 64, 16)])
+@pytest.mark.parametrize("B,T", [(1, 1), (2, 63), (1, 64), (2, 65),
+                                 (1, 200), (1, 1024)])
+def test_ssd_scan_passes_match_plain(dtype, H, P, N, B, T):
+    """The three-pass scan at mamba2-780m and hymba-1.5b widths, from one
+    step to 16 chunks, inputs as strided splits of one projection: y into
+    a poisoned output and the final state against the plain version (and
+    its three-pass form), one launch a call."""
+    _need_cuda()
+    from repro_torch.kernels import ref
+    proj, (a_log, d_skip, dt_bias) = _ssd_inputs(B, T, H, P, N, seed=T + N)
+    dt_ = getattr(torch, dtype)
+    proj_d = proj.to(dt_).cuda()
+    prm = [t.to(dt_).cuda() for t in (a_log, d_skip, dt_bias)]
+    x, dt, b, c = _ssd_split(proj_d, H, P, N)
+    _poison((B, T, H, P), dt_)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, h = ops.ssd_scan(x, dt, prm[0], b, c, prm[1], prm[2])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    xc, dtc, bc, cc = _ssd_split(proj_d.float().cpu(), H, P, N)
+    pc = [t.float().cpu() for t in prm]
+    y_w, h_w = ops.ssd_scan(xc, dtc, pc[0], bc, cc, pc[1], pc[2])
+    y_p, h_p = ref.ssd_scan_passes_ref(xc, dtc, pc[0], bc, cc, pc[1], pc[2])
+    atol_h = TOL["float32"] * max(1.0, h_w.abs().max())
+    for yw, hw in ((y_w, h_w), (y_p, h_p)):
+        torch.testing.assert_close(y.float().cpu(), yw, atol=TOL[dtype],
+                                   rtol=0)
+        torch.testing.assert_close(h.cpu(), hw, rtol=0, atol=atol_h)
