@@ -48,16 +48,34 @@ Phases, each printing its own lines; any failed check exits non-zero:
             equal to the never-suspended engine's); mamba2-780m, hymba-1.5b
             and granite-moe-3b-a800m (reduced) paged engines with prefill,
             decode steps and a suspend/resume that restores the SSM state,
-            the conv tail and the K/V pages bit for bit.
-3. serve  — SLICE through the serve entry point, edge-6b at full width in
-            bf16: measured l(b), a few Poisson voice/QA requests, in four
-            runs: (a) the paged engine with atomic prefill, (b) the slot
-            engine with --prefill-chunk 64, (c) the paged engine with
-            --prefill-chunk 64, (d) the paged engine with --spec-decode
-            --spec-depth 4 --prefix-cache --shared-prefix-frac 0.7. Every
-            task must finish, a paged pool must end empty (after the radix
-            index is cleared), run (d) must run verify steps and hit the
-            prefix cache, and each run must launch the kernels of its path.
+            the conv tail and the K/V pages bit for bit. Every reduced
+            engine on the card runs its decode-type steps captured as
+            CUDA graphs (the engines' default).
+3. graphs — each decode-type step the engines capture, at full width in
+            bf16, run by an eager engine (cuda_graphs=False) and a
+            captured one on the same weights and tasks: edge-6b's paged
+            decode at b = 1, 2, 4, 8, its verify step at b = 4, K = 4, the
+            slot engine's masked and compacted steps (16 slots), and the
+            paged decode of mamba2-780m and granite-moe-3b-a800m. 16 steps
+            each: logits within the bf16 tolerance, greedy streams
+            identical, launch counts equal. Prints both engines' l(b), the
+            spread of 20 steps at the largest batch and the peak memory
+            with and without graphs.
+4. serve  — SLICE through the serve entry point, edge-6b at full width in
+            bf16, decode-type steps captured: measured l(b), a few Poisson
+            requests, in five runs: (a) the paged engine with atomic
+            prefill, (a') the same with realtime tasks beside voice/QA
+            (--ratio 0.5, the CLI's default mix; every other run serves
+            voice/QA only), (b) the slot engine with --prefill-chunk 64,
+            (c) the paged engine with --prefill-chunk 64, (d) the paged
+            engine with --spec-decode --spec-depth 4 --prefix-cache
+            --shared-prefix-frac 0.7 at 4 requests/s (SLICE grants depth
+            only to lagging tasks). Every task must finish (none
+            dropped, realtime ones included; realtime and non-realtime
+            attainment printed), a paged pool must end empty (after the
+            radix index is cleared), run (d) must run verify steps and hit
+            the prefix cache, and each run must launch the kernels of its
+            path.
             Then (e) mamba2-780m and (f) granite-moe-3b-a800m at full width
             in bf16 on the paged engine, with the same workload: every task
             finishes, no page or state slot is left held, (e) launches the
@@ -67,7 +85,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
             just after; the engine is freed before the next run. Run (d)
             also prints a speculative iteration's engine clock beside a
             plain decode step's at the same batch.
-4. time   — each kernel (device time: CUDA events over 30 calls queued
+5. time   — each kernel (device time: CUDA events over 30 calls queued
             behind a spin kernel, so the calls run back to back; the
             kernel's time launched at the host's pace is printed beside
             it), its plain version and the library's
@@ -115,12 +133,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}     # max |kernel - plain|
-# Non-realtime traffic only (--ratio 0): SLICE paces a realtime task at
-# exactly its SLO rate and drops it once it falls behind its deadline, and
-# this host-bound engine's steps vary around the probed l(b), so whether a
-# realtime task survives is timing noise; voice/QA tasks always finish.
-# The realtime policy is held against the JAX package on a priced clock in
-# tests/test_torch_serving.py.
+# Non-realtime traffic (--ratio 0) in every run but paged-realtime, so the
+# runs stay comparable with earlier ones. SLICE paces a realtime task at
+# exactly its SLO rate and drops it once it falls behind its deadline, so
+# a realtime task survives only if the steps run as the probed l(b) says:
+# with the decode steps captured as CUDA graphs they do, and
+# paged-realtime serves the CLI's default mix (--ratio 0.5), every task to
+# the end. The realtime policy is also held against the JAX package on a
+# priced clock in tests/test_torch_serving.py.
 SERVE_ARGS = ["--arch", "edge-6b", "--dtype", "bfloat16", "--device", "cuda",
               "--scheduler", "slice", "--slots", "8", "--max-seq", "1024",
               "--rate", "2.0", "--duration", "4", "--ratio", "0",
@@ -131,15 +151,22 @@ SERVE_ARGS = ["--arch", "edge-6b", "--dtype", "bfloat16", "--device", "cuda",
 SERVE_RUNS = (
     ("paged-atomic", ["--executor", "paged"],
      ("paged_decode_attention", "flash_prefill")),
+    # realtime beside voice/QA, the CLI's default mix
+    ("paged-realtime", ["--executor", "paged", "--ratio", "0.5"],
+     ("paged_decode_attention", "flash_prefill")),
     ("slot-chunked", ["--executor", "slot", "--prefill-chunk", "64",
                       "--slots", "16"],
      ("decode_attention", "flash_prefill_chunk")),
     ("paged-chunked", ["--executor", "paged", "--prefill-chunk", "64"],
      ("paged_decode_attention", "flash_prefill_chunk")),
     # verify steps, plain decode steps, prefix-hit suffixes and the draft
-    # model's catch-up chunks and slot decode
+    # model's catch-up chunks and slot decode. SLICE grants depth only to
+    # tasks that lag their SLO; with captured steps the probed l(b) holds
+    # and at 2 requests/s none lags, so this run serves 4/s, where the
+    # prefills' stalls make tasks lag
     ("paged-spec", ["--executor", "paged", "--spec-decode", "--spec-depth",
-                    "4", "--prefix-cache", "--shared-prefix-frac", "0.7"],
+                    "4", "--prefix-cache", "--shared-prefix-frac", "0.7",
+                    "--rate", "4"],
      ("paged_verify_attention", "paged_decode_attention",
       "flash_prefill_chunk", "decode_attention")),
     # SSM and MoE serving (DESIGN.md §12): the later --arch overrides
@@ -1004,6 +1031,122 @@ def check_hetero_engines():
                  "changed a swapped task or leaked")
 
 
+# (case, arch, engine, engine arguments, batch sizes, verify depth): the
+# decode-type steps the serving engines capture, at full width in bf16
+GRAPH_CASES = (
+    ("edge-6b paged", "edge-6b", "paged", {}, (1, 2, 4, 8), None),
+    ("edge-6b verify", "edge-6b", "paged",
+     {"spec_decode": True, "max_spec_depth": 4}, (4,), 4),
+    ("edge-6b slot masked", "edge-6b", "slot", {}, (1, 2, 4, 8), None),
+    ("edge-6b slot compacted", "edge-6b", "slot", {"compact_buckets": True},
+     (1, 2, 4, 8), None),
+    ("mamba2-780m paged", "mamba2-780m", "paged", {}, (1, 2, 4, 8), None),
+    ("granite-moe paged", "granite-moe-3b-a800m", "paged", {}, (1, 2, 4, 8),
+     None),
+)
+GRAPH_STEPS = 16          # compared steps an engine, spread over its batches
+SPREAD_STEPS = 20         # timed steps at the case's largest batch
+
+
+def graphs_phase():
+    """Each decode-type step the engines capture (paged decode of edge-6b,
+    mamba2-780m and granite-moe at b = 1, 2, 4, 8; edge-6b's verify step
+    at b = 4, K = 4; the slot engine's masked and compacted steps over 16
+    slots) run by two engines on the same weights and tasks: one eager
+    (``cuda_graphs=False``), one captured. GRAPH_STEPS steps each: logits
+    within the bf16 TOL, greedy streams identical (dense, SSM, MoE: the
+    MoE combine has no atomics), launch counts equal; then SPREAD_STEPS
+    more at the largest batch for the step-time spread. Prints both
+    engines' l(b) (median of the steps at each b), the spread and the
+    peak memory with and without graphs."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor, TorchExecutor
+    phase("graphs: captured decode-type steps against eager, full width "
+          "(bf16)")
+    bf16 = torch.bfloat16
+    params, params_of = None, None
+    for case, arch, kind, kw, batches, depth in GRAPH_CASES:
+        cfg = get_config(arch)
+        if params_of != arch:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = M.init_params(cfg, seed=0, dtype=bf16, device="cuda")
+            params_of = arch
+        per_b = GRAPH_STEPS // len(batches)
+        plan = [b for b in batches for _ in range(per_b)]
+        out = {}
+        for graphs in (False, True):
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "slot":
+                ex = TorchExecutor(cfg, params=params, max_slots=16,
+                                   max_seq=1024, device="cuda",
+                                   cuda_graphs=graphs, **kw)
+            else:
+                ex = PagedTorchExecutor(cfg, params=params, n_pages=512,
+                                        page_size=16, max_seq=1024,
+                                        max_batch=8, device="cuda",
+                                        cuda_graphs=graphs, **kw)
+            tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=96 + 9 * i,
+                          output_len=512, task_id=9500 + i) for i in range(8)]
+            for t in tasks:
+                ex.prefill(t)
+            ops.reset_launches()
+            logits, ms = [], {}
+            for b in plan:
+                d = None if depth is None else [depth] * b
+                ms.setdefault(b, []).append(ex.decode(tasks[:b], d))
+                logits.append(ex.last_logits)
+            launches = dict(ops.LAUNCHES)
+            top = batches[-1]
+            d = None if depth is None else [depth] * top
+            spread = sorted(ex.decode(tasks[:top], d)
+                            for _ in range(SPREAD_STEPS))
+            torch.cuda.synchronize()
+            out[graphs] = dict(
+                logits=logits, launches=launches, spread=spread,
+                lb={b: float(np.median(v)) for b, v in ms.items()},
+                streams=[ex.generated_tokens(t) for t in tasks],
+                peak=torch.cuda.max_memory_allocated(),
+                steps=len(ex.graphs.steps))
+            del ex
+            gc.collect()
+            torch.cuda.empty_cache()
+        eager, cap = out[False], out[True]
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(eager["logits"], cap["logits"]))
+        same = eager["streams"] == cap["streams"]
+        print(f"{case}: {GRAPH_STEPS} steps, max |logit diff| captured vs "
+              f"eager {err:.3e} tol={TOL['bfloat16']:g}, streams_equal="
+              f"{same}, launches equal={eager['launches'] == cap['launches']}"
+              f" ({sum(cap['launches'].values())} launches, "
+              f"{cap['steps']} steps captured)")
+        print(f"{case}: l(b) eager / captured: " + " ".join(
+            f"l({b})={eager['lb'][b]:.3f}/{cap['lb'][b]:.3f}ms"
+            for b in batches) + (f" (verify K={depth})" if depth else ""))
+        for name, r in (("eager", eager), ("captured", cap)):
+            sp = r["spread"]
+            print(f"{case}: {name} step at b={batches[-1]} over "
+                  f"{SPREAD_STEPS} steps: min {sp[0]:.3f} median "
+                  f"{float(np.median(sp)):.3f} max {sp[-1]:.3f} ms; peak "
+                  f"memory {r['peak'] / 2**30:.2f} GiB")
+        if err > TOL["bfloat16"] or not same:
+            fail(f"{case}: the captured step disagrees with the eager step")
+        if eager["launches"] != cap["launches"]:
+            fail(f"{case}: launches captured {cap['launches']} != eager "
+                 f"{eager['launches']}")
+    params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_phase(run_name, extra, required):
     """One serving run through the serve entry point; returns what the time
     phase needs of it (the engine's shapes and the tasks) and the run's
@@ -1015,6 +1158,7 @@ def serve_phase(run_name, extra, required):
     from repro_torch.core.task import SLOSpec, Task
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.serving.metrics import summarize
     argv = SERVE_ARGS + extra
     args = serve.parse_args(argv)
     phase(f"serve {run_name}: {args.arch} at full width (bf16) under SLICE")
@@ -1034,6 +1178,10 @@ def serve_phase(run_name, extra, required):
           f"wall={wall:.1f}s max_memory_allocated={peak} "
           f"({peak / 2**30:.2f} GiB)")
     print(f"launches in the {run_name} run: {launches}")
+    att = summarize(res.tasks)
+    print(f"attainment: realtime {att['realtime'].slo:.1%} of "
+          f"{att['realtime'].n}, non-realtime {att['non_realtime'].slo:.1%} "
+          f"of {att['non_realtime'].n}")
     unfinished = [t.task_id for t in res.tasks if t.dropped or not t.finished]
     if not res.tasks or unfinished:
         fail(f"{run_name}: tasks not finished: {unfinished} of "
@@ -1214,7 +1362,8 @@ def time_phase(runs, worst):
         None, 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
         + pt.numel() * 4 + B * 4, 4 * live * Hq * hd,
         body=_pa.body(dtype, hd),
-        of_runs=("paged-atomic", "paged-chunked", "paged-spec"))
+        of_runs=("paged-atomic", "paged-realtime", "paged-chunked",
+                 "paged-spec"))
 
     # the same at granite-moe's heads (hd 64, g 3), over run paged-moe's
     # batch
@@ -1254,7 +1403,7 @@ def time_phase(runs, worst):
                                       vf.float(), causal=True),
         sdpa, (2 * S * Hq + 2 * S * Hkv) * hd * elt,
         4 * (S * (S + 1) // 2) * Hq * hd, body=_fp.body(dtype, hd),
-        of_runs=("paged-atomic", "paged-spec"))
+        of_runs=("paged-atomic", "paged-realtime", "paged-spec"))
 
     # the same at granite-moe's heads (hd 64, g 3): one prompt at run
     # paged-moe's median effective length
@@ -1504,6 +1653,7 @@ def main() -> None:
     check_engine()
     check_engine_features()
     check_hetero_engines()
+    graphs_phase()
     runs = {name: serve_phase(name, extra, required)
             for name, extra, required in SERVE_RUNS}
     kernels = time_phase(runs, worst)

@@ -9,11 +9,15 @@ CPU tensors it runs the plain version in ``kernels.ref`` (no launch, no
 count) — the path the CPU tests take.
 
 ``LAUNCHES`` counts kernel launches per wrapper so a run can show that it
-went through the kernels; ``reset_launches()`` zeroes it.
+went through the kernels; ``reset_launches()`` zeroes it. A CUDA graph's
+replay bypasses the wrappers, so ``serving.step_graphs`` records what a
+step's capture launched (``recorded_launches``: counted, then taken back
+out) and adds it on every replay (``add_launches``): a replayed step
+counts exactly as the eager step does.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, TypeVar
 
 import torch
 
@@ -29,11 +33,31 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "flash_prefill": 0,
                             "flash_prefill_chunk": 0, "decode_attention": 0,
                             "paged_verify_attention": 0, "ssd_scan": 0,
                             "ssd_decode_step": 0, "moe_grouped_ffn": 0}
+T = TypeVar("T")
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def recorded_launches(fn: Callable[[], T]) -> Tuple[T, Dict[str, int]]:
+    """Run ``fn`` and return (its result, the launches it made per wrapper),
+    leaving ``LAUNCHES`` as it was before the call, also if ``fn``
+    raises."""
+    before = dict(LAUNCHES)
+    try:
+        out = fn()
+        delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    finally:
+        LAUNCHES.update(before)
+    return out, delta
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Count the launches ``delta`` (from ``recorded_launches``) again."""
+    for k, n in delta.items():
+        LAUNCHES[k] += n
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:

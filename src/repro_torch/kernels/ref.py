@@ -253,8 +253,17 @@ def ssd_decode_step_ref(x: torch.Tensor, dt: torch.Tensor,
     live = slots >= 0
     rd = slots.long().clamp(min=0)
     y, h_new = ssd_step(x, dt, a_log, b, c, d_skip, dt_bias, state[rd])
-    w = (active & live).nonzero().squeeze(1)
-    state[rd[w]] = h_new[w]
+    # every row stores into the slot it read, so nothing is selected on
+    # the host: the value is that of the slot's writer (live rows' slots
+    # are distinct, so there is at most one), else the slot's own state,
+    # and rows that share a slot store the same value
+    S = state.shape[0]
+    owner = torch.full((S + 1,), -1, dtype=torch.long, device=state.device)
+    owner.scatter_(0, torch.where(active & live, rd, S),
+                   torch.arange(rd.shape[0], device=state.device))
+    o = owner[rd]
+    state[rd] = torch.where((o >= 0)[:, None, None, None],
+                            h_new[o.clamp(min=0)], state[rd])
     return y * live[:, None, None]
 
 

@@ -5,14 +5,16 @@ decode step runs the ring-cache attention kernel over all of its slots)
 at full width by default, prefills a batch of prompts, then times decode
 steps two ways: the engine's own clock (host
 time around a step that ends in a device synchronise, what l(b) reads) and
-torch.profiler (device time per kernel). Prints per-step host ms, device
-busy ms, the device's idle share, and the kernels ranked by device time;
-then the same for one prefill.
+torch.profiler (device time per kernel; a replayed CUDA graph's kernels
+show as the eager step's do). Prints per-step host ms, device busy ms,
+the device's idle share, and the kernels ranked by device time; then the
+same for one prefill. The decode steps are captured as CUDA graphs, as
+the engines run them; ``--eager`` runs them eagerly.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
       --arch edge-6b --dtype bfloat16 --batch 8 --context 128
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-      --executor slot --batch 16 --context 128
+      --executor slot --batch 16 --context 128 --eager
 """
 from __future__ import annotations
 
@@ -67,6 +69,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--executor", default="paged", choices=("paged", "slot"),
                     help="slot: B slots of --max-seq, every one decoding")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode steps eagerly, not as CUDA graphs")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -74,12 +78,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     B = args.batch
     if args.executor == "slot":
         ex = TorchExecutor(cfg, max_slots=B, max_seq=args.max_seq,
-                           dtype=DTYPES[args.dtype], device=args.device)
+                           dtype=DTYPES[args.dtype], device=args.device,
+                           cuda_graphs=not args.eager)
     else:
         ex = PagedTorchExecutor(
             cfg, n_pages=(B + 1) * args.max_seq // args.page_size,
             page_size=args.page_size, max_seq=args.max_seq, max_batch=B,
-            dtype=DTYPES[args.dtype], device=args.device)
+            dtype=DTYPES[args.dtype], device=args.device,
+            cuda_graphs=not args.eager)
     tasks = [qa_task(prompt_len=args.context, output_len=args.max_seq // 2)
              for _ in range(B + 1)]
     batch, spare = tasks[:B], tasks[B]     # spare: the profiled prefill
@@ -88,8 +94,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for _ in range(3):                         # warm
         ex.decode(batch)
     steps = [ex.decode(batch) for _ in range(args.steps)]
-    print(f"{cfg.name} {args.dtype} {args.executor} engine, decode batch "
-          f"{B} context "
+    mode = "eager" if args.eager or ex.device.type != "cuda" else "captured"
+    print(f"{cfg.name} {args.dtype} {args.executor} engine, {mode} decode "
+          f"steps, decode batch {B} context "
           f"~{args.context}: engine clock {min(steps):.3f} ms min, "
           f"{sum(steps) / len(steps):.3f} ms mean over {len(steps)} steps")
     with profile(activities=[ProfilerActivity.CPU,

@@ -231,15 +231,20 @@ def cache_window(cfg: ArchConfig, buf_len: int) -> Optional[int]:
 
 def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
                      dtype=torch.float32, device="cuda") -> Cache:
-    """Shared KV page arena: k/v_pages [L, n_pages, Hkv, page_size, hd].
-    Attention-free (pure SSM) archs get a zero-width arena (Hkv = hd = 0):
-    the page table stays the logical token-length ledger of every arch
-    (DESIGN.md §12) but the pages hold no bytes."""
+    """Shared KV page arena: k/v_pages [L, n_pages + 1, Hkv, page_size,
+    hd]. Pages 0..n_pages-1 are the pool's; page n_pages is the spare
+    (``spare_page``), which no page table names: the decode and verify
+    steps send the K/V of rows that must not write there, where JAX drops
+    them through the same out-of-bounds index, so every row writes and no
+    step syncs with the host. Attention-free (pure SSM) archs get a
+    zero-width arena (Hkv = hd = 0): the page table stays the logical
+    token-length ledger of every arch (DESIGN.md §12) but the pages hold
+    no bytes."""
     _check_causal(cfg)
     dev = resolve_device(device)
     hkv = cfg.n_kv_heads if cfg.has_attention else 0
     hd = cfg.head_dim if cfg.has_attention else 0
-    shape = (cfg.n_layers, n_pages, hkv, page_size, hd)
+    shape = (cfg.n_layers, n_pages + 1, hkv, page_size, hd)
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
             "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -248,20 +253,33 @@ def init_state_arena(cfg: ArchConfig, n_slots: int, dtype=torch.float32,
                      device="cuda") -> Cache:
     """Constant-size recurrent-state arena (DESIGN.md §12): per layer one
     [H, P, N] SSD state per slot (f32: the recurrence accumulates in f32)
-    and one [C, K-1] conv tail per slot in ``dtype``. Slot ownership lives
-    in serving.state_store.SSMStateStore."""
+    and one [C, K-1] conv tail per slot in ``dtype``, for n_slots + 1
+    slots: slot n_slots is the spare, which no row owns and the decode
+    step's rows that must not write send their conv tail to. Slot
+    ownership lives in serving.state_store.SSMStateStore."""
     if not cfg.has_ssm:
         raise ValueError(f"{cfg.name}: a state arena needs SSM layers")
     dev = resolve_device(device)
     return {
-        "ssm_state": torch.zeros((cfg.n_layers, n_slots, cfg.ssm_heads,
+        "ssm_state": torch.zeros((cfg.n_layers, n_slots + 1, cfg.ssm_heads,
                                   cfg.ssm_head_dim, cfg.ssm_state),
                                  dtype=torch.float32, device=dev),
-        "conv_state": torch.zeros((cfg.n_layers, n_slots,
+        "conv_state": torch.zeros((cfg.n_layers, n_slots + 1,
                                    cfg.ssm_inner + 2 * cfg.ssm_state,
                                    cfg.ssm_conv - 1), dtype=dtype,
                                   device=dev),
     }
+
+
+def spare_page(pages: Cache) -> int:
+    """Index of the KV arena's spare page (its last; ``init_paged_cache``)."""
+    return pages["k_pages"].shape[1] - 1
+
+
+def spare_slot(pages: Cache) -> int:
+    """Index of the state arena's spare slot (its last;
+    ``init_state_arena``)."""
+    return pages["conv_state"].shape[1] - 1
 
 
 # ------------------------------------------------------------------ blocks
@@ -535,10 +553,12 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     logical page (-1 unused; row b must cover lengths[b]+1 tokens);
     lengths: [B] int32 cached tokens per row (the new token is written at
     logical position lengths[b]); tokens: [B]; active: [B] bool — inactive
-    and untabled rows write nothing and their logits are garbage to be
-    ignored; state_slots: [B] int32 state-arena slot per row (-1 pad rows,
-    which write nothing), required for SSM/hybrid archs. The new K/V and
-    state are written in place. Returns (logits [B,V], pages).
+    and untabled rows write only the arena's spare page (and slot) and
+    their logits are garbage to be ignored; state_slots: [B] int32
+    state-arena slot per row (-1 pad rows, which write only the spare),
+    required for SSM/hybrid archs. The new K/V and state are written in
+    place. No host sync: the step can be captured as a CUDA graph.
+    Returns (logits [B,V], pages).
     """
     _check_causal(cfg)
     if cfg.has_ssm and state_slots is None:
@@ -557,14 +577,13 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
         # here would raise, so clamp the same way
         pt_row = page_table[rows, (q_pos // psz).clamp(max=maxp - 1).long()]
         # JAX drops the scatter of inactive/untabled rows through an
-        # out-of-bounds index; torch raises on one, so select the rows that
-        # write instead (one host sync per step)
-        w_rows = (active & (pt_row >= 0)).nonzero().squeeze(1)
-        w_page = pt_row[w_rows].long()
-        w_off = (q_pos[w_rows] % psz).long()
+        # out-of-bounds index; here every row writes and those rows write
+        # the spare page, so the step never syncs with the host
+        writes = active & (pt_row >= 0)
+        w_page = torch.where(writes, pt_row, spare_page(pages)).long()
+        w_off = torch.where(writes, q_pos % psz, 0).long()
     if cfg.has_ssm:
-        # rows that write their state (one host sync per step)
-        s_rows = (active & (state_slots >= 0)).nonzero().squeeze(1)
+        s_write = SSM.write_slots(state_slots, active, spare_slot(pages))
     blk = params["blocks"]
     for layer in range(cfg.n_layers):
         h = L.rms_norm(x, blk["ln1"][layer], cfg.norm_eps)
@@ -573,8 +592,8 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
             q, k, v = _proj_qkv(cfg, blk, layer, h)
             q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
             k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
-            k_all[layer, w_page, :, w_off] = k[w_rows]
-            v_all[layer, w_page, :, w_off] = v[w_rows]
+            k_all[layer, w_page, :, w_off] = k
+            v_all[layer, w_page, :, w_off] = v
             a = ops.paged_decode_attention(q, k_all[layer], v_all[layer],
                                            page_table, q_pos)
             parts.append(a.reshape(B, cfg.q_dim) @ blk["wo"][layer])
@@ -582,7 +601,7 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
             parts.append(SSM.ssm_mixer_step(
                 _ssm_params(blk, layer), h, cfg.ssm_inner, cfg.ssm_state,
                 cfg.ssm_head_dim, pages["ssm_state"][layer],
-                pages["conv_state"][layer], state_slots, active, s_rows))
+                pages["conv_state"][layer], state_slots, active, s_write))
         x = x + _mix(parts)
         x = x + _ffn(cfg, blk, layer, x)
     return unembed(cfg, params, x), pages
@@ -601,8 +620,9 @@ def verify_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     must already cover lengths+C tokens (the pool extends BEFORE the step;
     the caller rolls back pages of rejected drafts with pool.truncate).
     The window's K/V is written into its pages (tokens whose page-table
-    entry is -1, such as pad rows', write nothing), then query i attends
-    over positions 0..lengths[b]+i. Returns (logits [B,C,V], pages):
+    entry is -1, such as pad rows', write only the arena's spare page),
+    then query i attends over positions 0..lengths[b]+i. No host sync.
+    Returns (logits [B,C,V], pages):
     logits[:, i] is the next-token distribution after window token i. Pad
     rows' logits are garbage to be ignored, as inactive decode rows'.
     """
@@ -618,19 +638,18 @@ def verify_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     pt_row = page_table[barr, (q_pos // psz).clamp(max=maxp - 1).long()]
     # a bucket's pad positions can run past the table (q_pos >= maxp*psz):
     # they are untabled like -1 entries, never the clamped last page, whose
-    # committed K/V they would overwrite. Select the tokens that write
-    # (one host sync).
+    # committed K/V they would overwrite. Untabled tokens write the spare
+    # page, so no step syncs with the host.
     writes = (pt_row >= 0) & (q_pos < maxp * psz)
-    w_b, w_c = writes.nonzero(as_tuple=True)
-    w_page = pt_row[w_b, w_c].long()
-    w_off = (q_pos[w_b, w_c] % psz).long()
+    w_page = torch.where(writes, pt_row, spare_page(pages)).long()
+    w_off = torch.where(writes, q_pos % psz, 0).long()
     blk = params["blocks"]
     for layer in range(cfg.n_layers):
         q, k, v = _qkv(cfg, blk, layer, x)
         q = L.apply_rope(q, q_pos, cfg.rope_theta)
         k = L.apply_rope(k, q_pos, cfg.rope_theta)
-        k_all[layer, w_page, :, w_off] = k[w_b, w_c]
-        v_all[layer, w_page, :, w_off] = v[w_b, w_c]
+        k_all[layer, w_page, :, w_off] = k
+        v_all[layer, w_page, :, w_off] = v
         a = ops.paged_verify_attention(q, k_all[layer], v_all[layer],
                                        page_table, lengths)
         x = x + a.reshape(B, C, cfg.q_dim) @ blk["wo"][layer]

@@ -14,6 +14,12 @@ Routing must agree with JAX bit for bit, so the argsort is stable
 (``torch.argsort(..., stable=True)``, as ``jnp.argsort``) and segment
 starts come from a left ``torch.searchsorted``: capacity drops in
 ``moe_ffn_grouped`` depend on each assignment's position after that sort.
+
+The grouped paths combine a token's K expert outputs without atomics:
+the weighted outputs go back to (token, k) order through the sort's
+permutation and are summed over k, where JAX scatter-adds them. The sum
+is then the same on every run, on the card as on the CPU, so a step
+captured as a CUDA graph can be held to its eager run bit for bit.
 """
 from __future__ import annotations
 
@@ -125,10 +131,10 @@ def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
                               p["wd"], counts.clamp(max=C).view(B * E)
                               ).view(B * E * C, D)
     y_assign = out[row.clamp(max=B * E * C - 1)] * keep[..., None]
-    y = torch.zeros((B * T, D), dtype=x.dtype, device=x.device)
-    y.index_add_(0, (bi * T + ts).reshape(-1),
-                 (y_assign * ws[..., None]).reshape(-1, D))
-    return y.reshape(B, T, D), aux
+    # back to (token, k) order: sorted assignment j is assignment order[j]
+    y_tk = torch.empty_like(y_assign)
+    y_tk[bi, order] = y_assign * ws[..., None]
+    return y_tk.view(B, T, K, D).sum(2), aux
 
 
 def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int
@@ -151,9 +157,10 @@ def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int
     buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
     buf[es, pos] = x2[ts]
     out = ops.moe_grouped_ffn(buf, p["wg"], p["wu"], p["wd"], counts[0])
-    y = torch.zeros((B, D), dtype=x.dtype, device=x.device)
-    y.index_add_(0, ts, out[es, pos] * ws[:, None])
-    return y.reshape(orig_shape), aux
+    # back to (token, k) order: sorted assignment j is assignment order[j]
+    y_tk = torch.empty((B * K, D), dtype=x.dtype, device=x.device)
+    y_tk[order[0]] = out[es, pos] * ws[:, None]
+    return y_tk.view(B, K, D).sum(1).reshape(orig_shape), aux
 
 
 def moe_ffn_dense(p: MoEParams, x: torch.Tensor, top_k: int

@@ -204,19 +204,30 @@ def ssm_mixer_with_state(p: SSMParams, x: torch.Tensor, d_inner: int,
     return y @ p["out_proj"], h_last, conv_state
 
 
+def write_slots(slots: torch.Tensor, active: torch.Tensor,
+                spare: int) -> torch.Tensor:
+    """[B] int64: the state-arena slot each row of a decode step writes its
+    conv tail to: its own for rows that are active with a slot, the
+    arena's ``spare`` slot for the rest (inactive rows, slot -1), so every
+    row writes and nothing is selected on the host."""
+    return torch.where(active & (slots >= 0), slots, spare).long()
+
+
 def ssm_mixer_step(p: SSMParams, x: torch.Tensor, d_inner: int, n_state: int,
                    head_dim: int, ssm_state: torch.Tensor,
                    conv_state: torch.Tensor, slots: torch.Tensor,
                    active: torch.Tensor,
-                   writers: torch.Tensor) -> torch.Tensor:
+                   write_to: torch.Tensor) -> torch.Tensor:
     """One decode step over state arenas, in place. x: [B,D]; ssm_state
-    [S,H,P,N] f32 and conv_state [S,C,K-1] arenas; row b reads and writes
-    slot ``slots[b]`` ([B] int32). Rows that are inactive ([B] bool
-    ``active``) or whose slot is -1 write nothing; a slot -1 row's output
-    is garbage to be ignored. ``writers`` are the rows that write (active,
-    slot >= 0), found once by a caller stepping many layers (a host
-    sync). The SSD recurrence runs through ``ops.ssd_decode_step``, which
-    gathers, steps and writes back the slots itself. Returns y [B,D]."""
+    [S,H,P,N] f32 and conv_state [S,C,K-1] arenas; row b reads slot
+    ``slots[b]`` ([B] int32). Rows that are inactive ([B] bool
+    ``active``) or whose slot is -1 leave every owned slot as it was; a
+    slot -1 row's output is garbage to be ignored. ``write_to``
+    (``write_slots``, found once by a caller stepping many layers) is
+    where each row's conv tail goes: its own slot, or the arena's spare.
+    The SSD recurrence runs through ``ops.ssd_decode_step``, which
+    gathers, steps and writes back the slots itself. No host sync.
+    Returns y [B,D]."""
     B, D = x.shape
     H = d_inner // head_dim
     zxbcdt = x @ p["in_proj"]
@@ -225,7 +236,7 @@ def ssm_mixer_step(p: SSMParams, x: torch.Tensor, d_inner: int, n_state: int,
     xbc_c, conv_new = causal_conv_step(xbc, conv_state[rd], p["conv_w"],
                                        p["conv_b"])
     # the conv tail is kept in the arena's type, as JAX casts it
-    conv_state[rd[writers]] = conv_new[writers].to(conv_state.dtype)
+    conv_state[write_to] = conv_new.to(conv_state.dtype)
     xs = xbc_c[:, :d_inner].reshape(B, H, head_dim)
     b = xbc_c[:, d_inner:d_inner + n_state]
     c = xbc_c[:, d_inner + n_state:]

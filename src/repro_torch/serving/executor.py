@@ -28,6 +28,14 @@ The engines are synchronous and single-device. Tensor parallelism, async
 dispatch and SSM archs on the slot engine are still to port (ROADMAP.md);
 asking for one raises NotImplementedError.
 
+Decode-type steps (paged decode and verify, the slot engine's masked and
+compacted decode) run through ``serving.step_graphs``: on the card each
+static shape is captured once as a CUDA graph and replayed, as the JAX
+engines AOT-compile them (``cuda_graphs=False`` runs the same staged step
+eagerly); the argmax is fused into the step and only it is read to the
+host, the logits stay on the device until ``last_logits`` is read.
+Prefill and chunk steps run eagerly.
+
 Every timed operation ends in a device synchronise before its clock read,
 as the JAX engine's ``block_until_ready``: without it l(b) would time only
 the enqueue and every Eq. 7 feasibility check would be wrong.
@@ -52,6 +60,7 @@ from repro_torch.serving.spec_decode import (DraftModel, default_draft_config,
                                              pow2_pieces)
 from repro_torch.serving.state_store import (CacheStore, OutOfStates,
                                              SSMStateStore)
+from repro_torch.serving.step_graphs import LazyLogits, StepGraphs
 
 _PREFILL_PRIOR = [(64, 10.0), (512, 40.0)]   # prefill ms prior until measured
 
@@ -120,6 +129,14 @@ def _probe_latency_curve(executor: "Executor", warm_tasks, probes):
 class Executor:
     """Returns elapsed milliseconds for each operation."""
 
+    _last_logits: Optional[LazyLogits] = None
+
+    @property
+    def last_logits(self) -> Optional[np.ndarray]:
+        """Logits [tasks, V] (fp32) of the tasks the last decode-type step
+        served, read from the device at the first access."""
+        return None if self._last_logits is None else self._last_logits.numpy()
+
     def prefill(self, task: Task) -> float:
         raise NotImplementedError
 
@@ -152,6 +169,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _with_argmax(logits: torch.Tensor):
+    """A decode-type step's outputs: its logits and their argmax (int32),
+    fused into the step as JAX fuses it."""
+    return logits, logits.argmax(-1).to(torch.int32)
+
+
 class TorchExecutor(Executor):
     """Real PyTorch engine over a fixed slot array.
 
@@ -173,7 +196,8 @@ class TorchExecutor(Executor):
                  max_seq: int = 512, seed: int = 0,
                  compact_buckets: bool = False,
                  prefill_chunk_size: Optional[int] = None,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda",
+                 cuda_graphs: bool = True):
         if cfg.has_ssm or not cfg.has_attention:
             raise NotImplementedError(
                 f"TorchExecutor: {cfg.name} has SSM layers; the slot engine "
@@ -197,10 +221,11 @@ class TorchExecutor(Executor):
         self.tokens = np.zeros((max_slots,), np.int32)  # last token per slot
         self._chunk_progress: Dict[int, int] = {}
         self._gen: Dict[int, List[int]] = {}     # generated tokens per task
-        self.last_logits: Optional[np.ndarray] = None
         self.last_prefill_logits: Optional[np.ndarray] = None
         # (batch, ms) samples of the last latency_model() probe
         self.probe_samples: List[Tuple[int, float]] = []
+        # the masked step and the compacted buckets' steps (DESIGN.md §3)
+        self.graphs = StepGraphs(self.device, cuda_graphs)
 
     # -- observation surfaces --
     @property
@@ -293,6 +318,46 @@ class TorchExecutor(Executor):
             return ms, True
         return ms, False
 
+    def _arenas(self) -> List[torch.Tensor]:
+        return list(self.cache.values())
+
+    def _decode_step(self, b: Optional[int]):
+        """The masked step over every slot (``b`` None), or the compacted
+        step of bucket b: gather the bucket's slots ``idx`` from the cache,
+        step them, scatter them back, as JAX's ``_build_bucket_steps``.
+        Inputs: tokens and valid (the decode-mask column) per row, and
+        the bucket's slots; pads: inactive rows over distinct slots."""
+        cfg, params = self.cfg, self.params
+        if b is None:
+            S = self.max_slots
+            spec = {"tokens": ((S,), torch.int32, 0),
+                    "valid": ((S,), torch.bool, False)}
+
+            def masked(x):
+                logits, _ = M.decode_step(cfg, params, self.cache,
+                                          x["tokens"], x["valid"])
+                return _with_argmax(logits)
+
+            return self.graphs.step(("masked", S), spec, masked, self._arenas)
+        spec = {"idx": ((b,), torch.int64, np.arange(b)),
+                "tokens": ((b,), torch.int32, 0),
+                "valid": ((b,), torch.bool, False)}
+
+        def compacted(x):
+            idx = x["idx"]
+            sub = {k: v[:, idx] if k in ("k", "v") else v[idx]
+                   for k, v in self.cache.items()}
+            logits, sub = M.decode_step(cfg, params, sub, x["tokens"],
+                                        x["valid"])
+            for k, v in sub.items():
+                if k in ("k", "v"):
+                    self.cache[k][:, idx] = v
+                else:
+                    self.cache[k][idx] = v
+            return _with_argmax(logits)
+
+        return self.graphs.step(("compact", b), spec, compacted, self._arenas)
+
     def decode(self, tasks: Sequence[Task],
                depths: Optional[Sequence[int]] = None) -> float:
         if depths is not None and any(depths):
@@ -306,31 +371,21 @@ class TorchExecutor(Executor):
             taken = set(slots)
             pads = [s for s in range(self.max_slots) if s not in taken]
             idx = np.asarray(slots + pads[: b - len(slots)], np.int64)
+            step = self._decode_step(b)
+            host = {"idx": idx}
         else:
             idx = np.arange(self.max_slots)
-        valid = np.isin(idx, slots)
-        idx_t = torch.as_tensor(idx).to(self.device)
-        args = (torch.as_tensor(self.tokens[idx]).to(self.device),
-                torch.as_tensor(valid).to(self.device))
+            step = self._decode_step(None)
+            host = {}
+        host.update(tokens=self.tokens[idx], valid=np.isin(idx, slots))
         _sync(self.device)
         t0 = time.perf_counter()
-        if self.compact_buckets:
-            sub = {k: v[:, idx_t] if k in ("k", "v") else v[idx_t]
-                   for k, v in self.cache.items()}
-            logits, sub = M.decode_step(self.cfg, self.params, sub, *args)
-            for k, v in sub.items():
-                if k in ("k", "v"):
-                    self.cache[k][:, idx_t] = v
-                else:
-                    self.cache[k][idx_t] = v
-        else:
-            logits, self.cache = M.decode_step(self.cfg, self.params,
-                                               self.cache, *args)
-        new_toks = logits.argmax(-1).cpu().numpy()     # synchronises
-        ms = (time.perf_counter() - t0) * 1000.0
+        logits, argmax = step.run(host)
         row_of = {int(s): r for r, s in enumerate(idx)}
         rows = [row_of[s] for s in slots]
-        self.last_logits = logits[rows].float().cpu().numpy()
+        self._last_logits = LazyLogits(logits, rows=rows)
+        new_toks = argmax.cpu().numpy()                # synchronises
+        ms = (time.perf_counter() - t0) * 1000.0
         for t, s, r in zip(tasks, slots, rows):
             self.tokens[s] = new_toks[r]
             # setdefault: latency-model probes decode without a prefill
@@ -408,7 +463,8 @@ class PagedTorchExecutor(Executor):
                  spec_decode: bool = False, draft_cfg=None,
                  draft_params=None, max_spec_depth: int = 4, mesh=None,
                  async_dispatch: bool = False,
-                 n_state_slots: Optional[int] = None):
+                 n_state_slots: Optional[int] = None,
+                 cuda_graphs: bool = True):
         unported = [name for name, on in (
             ("mesh", mesh is not None),
             ("async_dispatch", async_dispatch)) if on]
@@ -470,8 +526,10 @@ class PagedTorchExecutor(Executor):
         self._gen: Dict[int, List[int]] = {}     # generated tokens per task
         self._toks_memo: Dict[int, np.ndarray] = {}
         self._gtoks: Dict[int, np.ndarray] = {}  # group -> prefix tokens
-        self.last_logits: Optional[np.ndarray] = None
         self.last_prefill_logits: Optional[np.ndarray] = None
+        # the decode steps per batch bucket and the verify steps per
+        # (batch, depth) bucket
+        self.graphs = StepGraphs(self.device, cuda_graphs)
         # (batch, ms) samples of the last latency_model() probe
         self.probe_samples: List[Tuple[int, float]] = []
         # speculative decoding (DESIGN.md §8)
@@ -555,14 +613,61 @@ class PagedTorchExecutor(Executor):
     def _tensor(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
 
-    def _table(self, ids: Sequence[int], b: int) -> torch.Tensor:
+    def _table_np(self, ids: Sequence[int], b: int) -> np.ndarray:
         """Page tables of ``ids`` padded to b rows and max_pages_per_seq
         columns with -1."""
         pt = np.full((b, self.max_pages_per_seq), -1, np.int32)
         for r, i in enumerate(ids):
             row = self.pool.page_table(i)
             pt[r, : len(row)] = row
-        return self._tensor(pt)
+        return pt
+
+    def _table(self, ids: Sequence[int], b: int) -> torch.Tensor:
+        return self._tensor(self._table_np(ids, b))
+
+    def _arenas(self) -> List[torch.Tensor]:
+        return list(self.pages.values())
+
+    def _decode_step(self, b: int):
+        """The decode step of batch bucket b (JAX's ``_build_steps``):
+        inputs page table, lengths, tokens, active and, for SSM/hybrid
+        archs, state slots; pad rows are inactive and untabled, slot -1.
+        Returns (logits [b,V], argmax [b] int32)."""
+        maxp, cfg, params = self.max_pages_per_seq, self.cfg, self.params
+        spec = {"page_table": ((b, maxp), torch.int32, -1),
+                "lengths": ((b,), torch.int32, 0),
+                "tokens": ((b,), torch.int32, 0),
+                "active": ((b,), torch.bool, False)}
+        if self.states is not None:
+            spec["state_slots"] = ((b,), torch.int32, -1)
+
+        def fn(x):
+            kw = ({"state_slots": x["state_slots"]} if "state_slots" in x
+                  else {})
+            logits, _ = M.decode_step_paged(
+                cfg, params, self.pages, x["page_table"], x["lengths"],
+                x["tokens"], x["active"], **kw)
+            return _with_argmax(logits)
+
+        return self.graphs.step(("decode", b), spec, fn, self._arenas)
+
+    def _verify_step(self, b: int, K: int):
+        """The verify step of batch bucket b and depth bucket K (JAX's
+        ``_build_verify_steps``): inputs page table, lengths and tokens
+        [b, K+1]; pad rows untabled. Returns (logits [b,K+1,V], argmax
+        [b,K+1] int32)."""
+        maxp, cfg, params = self.max_pages_per_seq, self.cfg, self.params
+        spec = {"page_table": ((b, maxp), torch.int32, -1),
+                "lengths": ((b,), torch.int32, 0),
+                "tokens": ((b, K + 1), torch.int32, 0)}
+
+        def fn(x):
+            logits, _ = M.verify_step_paged(cfg, params, self.pages,
+                                            x["page_table"], x["lengths"],
+                                            x["tokens"])
+            return _with_argmax(logits)
+
+        return self.graphs.step(("verify", b, K), spec, fn, self._arenas)
 
     def _set_first_token(self, tid: int, logits: torch.Tensor) -> None:
         """Record a completed prefill's logits and first output token."""
@@ -874,22 +979,21 @@ class PagedTorchExecutor(Executor):
         av[: len(ids)] = True
         tk = np.zeros((b,), np.int32)
         tk[: len(ids)] = [self._last_tok[i] for i in ids]
-        args = (self._table(ids, b), self._tensor(ln), self._tensor(tk),
-                self._tensor(av, torch.bool))
-        kw = {}
+        host = {"page_table": self._table_np(ids, b), "lengths": ln,
+                "tokens": tk, "active": av}
         if self.states is not None:
             # per-row recurrent-state slots; pad rows carry -1 and write
-            # nothing
+            # only the spare slot
             sl = np.full((b,), -1, np.int32)
             sl[: len(ids)] = [self.states.slot_of(i) for i in ids]
-            kw["state_slots"] = self._tensor(sl)
+            host["state_slots"] = sl
+        step = self._decode_step(b)
         _sync(self.device)
         t0 = time.perf_counter()
-        logits, self.pages = M.decode_step_paged(
-            self.cfg, self.params, self.pages, *args, **kw)
-        new_toks = logits.argmax(-1).cpu().numpy()     # synchronises
+        logits, argmax = step.run(host)
+        self._last_logits = LazyLogits(logits[: len(ids)])
+        new_toks = argmax.cpu().numpy()                # synchronises
         ms = (time.perf_counter() - t0) * 1000.0
-        self.last_logits = logits[: len(ids)].float().cpu().numpy()
         for i, tok in zip(ids, new_toks[: len(ids)]):
             self._last_tok[i] = int(tok)
             # setdefault: latency-model probes decode without a prefill
@@ -902,9 +1006,14 @@ class PagedTorchExecutor(Executor):
         """Draft-verify iteration: per-task windows drafted by the draft
         model, verified in ONE bucketed ``verify_step_paged`` call, the
         accepted prefix committed and rejected-draft pages rolled back.
-        The engine clock spans drafting, verify and acceptance."""
+        The engine clock spans drafting, verify and acceptance; every
+        (batch, depth) bucket's verify step is made before the first
+        iteration's clock starts, as JAX compiles them up front."""
         ids = [t.task_id for t in tasks]
         lengths = [self.pool.length(i) for i in ids]
+        for b in _pow2_buckets(self.max_batch):
+            for K in _pow2_buckets(self.spec_depth):
+                self._verify_step(b, K)
         _sync(self.device)
         t0 = time.perf_counter()
         # clamp each row's depth to the sequence cap, its remaining output
@@ -949,28 +1058,30 @@ class PagedTorchExecutor(Executor):
         for r, i in enumerate(ids):
             toks[r, 0] = self._last_tok[i]
             toks[r, 1: 1 + len(drafts[r])] = drafts[r]
+        step = self._verify_step(b, K)
         _sync(self.device)
         t_verify = time.perf_counter()
-        logits, self.pages = M.verify_step_paged(
-            self.cfg, self.params, self.pages, self._table(ids, b),
-            self._tensor(ln_arr), self._tensor(toks))
-        logits_np = logits[: len(ids)].float().cpu().numpy()  # synchronises
+        logits, argmax = step.run({"page_table": self._table_np(ids, b),
+                                   "lengths": ln_arr, "tokens": toks})
+        target = argmax[: len(ids)].cpu().numpy()      # synchronises
         self.last_verify = (K + 1, lengths,
                             (time.perf_counter() - t_verify) * 1000.0)
-        self._apply_verify(tasks, lengths, capped, drafts, logits_np)
+        accepted = self._apply_verify(tasks, lengths, capped, drafts, target)
+        self._last_logits = LazyLogits(logits[: len(ids)], pick=accepted)
         ms = (time.perf_counter() - t0) * 1000.0
         return ms
 
     def _apply_verify(self, tasks, lengths, capped, drafts,
-                      logits_np: np.ndarray) -> None:
-        """Host side of a verify window: greedy acceptance, page rollback,
-        committed-history updates."""
+                      target: np.ndarray) -> List[int]:
+        """Host side of a verify window: greedy acceptance against the
+        target's argmax ``target`` [rows, K+1], page rollback,
+        committed-history updates. Returns each row's accepted drafts."""
         commits: List[int] = []
-        last_rows = []
+        accepted: List[int] = []
         for r, (t, ln) in enumerate(zip(tasks, lengths)):
             i = t.task_id
             d = capped[r]
-            target_ids = np.argmax(logits_np[r, : d + 1], -1)
+            target_ids = target[r, : d + 1]
             n_acc = greedy_accept(drafts[r][:d], target_ids)
             bonus = int(target_ids[n_acc])
             new_len = ln + n_acc + 1
@@ -981,10 +1092,10 @@ class PagedTorchExecutor(Executor):
             self.draft.note_commit(i, new_len)
             self.accepted_tokens += n_acc
             commits.append(n_acc + 1)
-            last_rows.append(logits_np[r, n_acc])
+            accepted.append(n_acc)
         self.spec_steps += 1
-        self.last_logits = np.stack(last_rows)
         self.last_commits = commits
+        return accepted
 
     # -- host-offload KV swap (DESIGN.md §7) --
     def _restore_pages(self, positions, entries) -> None:

@@ -613,3 +613,173 @@ def test_ssd_scan_passes_match_plain(dtype, H, P, N, B, T):
         torch.testing.assert_close(y.float().cpu(), yw, atol=TOL[dtype],
                                    rtol=0)
         torch.testing.assert_close(h.cpu(), hw, rtol=0, atol=atol_h)
+
+
+# ------------------------------------------- captured decode-type steps
+
+def _tasks(lens, base, out=40):
+    from repro_torch.core.task import SLOSpec, Task
+    return [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n, output_len=out,
+                 task_id=base + i) for i, n in enumerate(lens)]
+
+
+def _eager_and_captured(arch, slot=False, self_draft=False, **kw):
+    """Two reduced fp32 engines on the card over the same weights: the
+    first runs its decode-type steps eagerly (``cuda_graphs=False``), the
+    second captures them. ``self_draft``: speculative decoding with the
+    target as its own draft."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor, TorchExecutor
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    if self_draft:
+        kw.update(spec_decode=True, draft_cfg=cfg, draft_params=params,
+                  max_spec_depth=4)
+    if slot:
+        make = lambda g: TorchExecutor(cfg, params=params, max_slots=4,  # noqa: E731
+                                       max_seq=128, device="cuda",
+                                       cuda_graphs=g, **kw)
+    else:
+        make = lambda g: PagedTorchExecutor(  # noqa: E731
+            cfg, params=params, n_pages=48, page_size=16, max_seq=128,
+            max_batch=4, device="cuda", cuda_graphs=g, **kw)
+    return cfg, make(False), make(True)
+
+
+def _run_both(engines, tasks, batches, depths=None):
+    """Prefill ``tasks`` on both engines, then the same decode calls on
+    each (eager first), launches counted per engine from zero. Returns
+    (per-step logits per engine, launches per engine, streams per
+    engine)."""
+    logits = ([], [])
+    launches = []
+    for e, ex in enumerate(engines):
+        for t in tasks:
+            ex.prefill(t)
+        ops.reset_launches()
+        for n, d in zip(batches, depths or [None] * len(batches)):
+            ex.decode(tasks[:n], d)
+            logits[e].append(ex.last_logits)
+        torch.cuda.synchronize()
+        launches.append(dict(ops.LAUNCHES))
+    streams = [[ex.generated_tokens(t) for t in tasks] for ex in engines]
+    return logits, launches, streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["edge-6b", "mamba2-780m",
+                                  "granite-moe-3b-a800m", "hymba-1.5b"])
+def test_captured_paged_decode_matches_eager(arch):
+    """The paged engine's decode steps captured against the same steps
+    run eagerly, over buckets 1, 2 and 4: dense, SSM and hybrid logits
+    bit for bit (the same kernels on the same inputs) and streams
+    identical; MoE logits within fp32's 1e-4 (its dispatch adds with
+    atomics, so two eager runs differ in the last bits too); launch
+    counts equal; every bucket captured once and replayed."""
+    _need_cuda()
+    cfg, eager, graphs = _eager_and_captured(arch)
+    tasks = _tasks((5, 17, 40), 8100)
+    batches = [3, 3, 2, 1, 3, 2, 1, 3]
+    logits, launches, streams = _run_both((eager, graphs), tasks, batches)
+    for a, b in zip(*logits):
+        if cfg.block_kind == "moe":
+            np.testing.assert_allclose(b, a, atol=TOL["float32"], rtol=0)
+        else:
+            np.testing.assert_array_equal(b, a)
+    if cfg.block_kind != "moe":
+        assert streams[0] == streams[1]
+    assert launches[0] == launches[1] and sum(launches[1].values()) > 0
+    steps = graphs.graphs.steps
+    assert set(steps) == {("decode", 1), ("decode", 2), ("decode", 4)}
+    assert all(s.graph is not None and s.runs > 0 for s in steps.values())
+    assert not any(s.graph is not None for s in eager.graphs.steps.values())
+
+
+@pytest.mark.cuda
+def test_captured_verify_matches_eager():
+    """Speculative decoding with a self-draft: the verify steps captured
+    per (batch, depth) bucket against the same steps run eagerly: logits
+    bit for bit, commits, streams and launch counts equal."""
+    _need_cuda()
+    _, eager, graphs = _eager_and_captured("edge-6b", self_draft=True)
+    tasks = _tasks((5, 17, 40), 8200)
+    batches = [3, 3, 2, 1, 3, 2]
+    depths = [[4, 0, 2], [1, 3, 0], [2, 2], [3], [0, 4, 1], [1, 1]]
+    logits, launches, streams = _run_both((eager, graphs), tasks, batches,
+                                          depths)
+    for a, b in zip(*logits):
+        np.testing.assert_array_equal(b, a)
+    assert streams[0] == streams[1]
+    assert launches[0] == launches[1]
+    assert launches[1]["paged_verify_attention"] > 0
+    verify = [s for k, s in graphs.graphs.steps.items() if k[0] == "verify"]
+    assert verify and all(s.graph is not None for s in verify)
+    assert any(s.runs for s in verify)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True], ids=["masked", "compact"])
+def test_captured_slot_decode_matches_eager(compact):
+    """The slot engine's masked step and compacted bucket steps captured
+    against eager: logits bit for bit, streams and launch counts
+    equal."""
+    _need_cuda()
+    _, eager, graphs = _eager_and_captured("edge-6b", slot=True,
+                                           compact_buckets=compact)
+    tasks = _tasks((5, 17, 40), 8300)
+    logits, launches, streams = _run_both((eager, graphs), tasks,
+                                          [3, 1, 2, 3, 2, 1])
+    for a, b in zip(*logits):
+        np.testing.assert_array_equal(b, a)
+    assert streams[0] == streams[1]
+    assert launches[0] == launches[1]
+    assert launches[1]["decode_attention"] > 0
+    want = ({("compact", 1), ("compact", 2), ("compact", 4)} if compact
+            else {("masked", 4)})
+    assert set(graphs.graphs.steps) == want
+    assert all(s.graph is not None and s.runs > 0
+               for s in graphs.graphs.steps.values())
+
+
+@pytest.mark.cuda
+def test_refused_launch_under_capture_raises_without_fallback(monkeypatch):
+    """A kernel launch refused while the step is captured raises out of
+    decode, the launch counter is as it was, and the next decode raises
+    again: nothing falls back to the eager step."""
+    _need_cuda()
+    from repro_torch.kernels import paged_attention as _pa
+    _, _, ex = _eager_and_captured("edge-6b")
+    tasks = _tasks((5, 17), 8400)
+    for t in tasks:
+        ex.prefill(t)
+    launch = _pa.launch
+
+    def refusing(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_decode_attention kernel launch "
+                               "failed: refused under capture")
+        return launch(*a, **k)
+
+    monkeypatch.setattr(_pa, "launch", refusing)
+    ops.reset_launches()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="refused under capture"):
+            ex.decode(tasks)
+        assert sum(ops.LAUNCHES.values()) == 0
+    assert ("decode", 2) not in ex.graphs.steps
+
+
+@pytest.mark.cuda
+def test_replay_on_a_rebound_arena_raises():
+    """The captured step checks that the arena tensors it writes are still
+    the engine's: rebinding one makes the next decode raise."""
+    _need_cuda()
+    _, _, ex = _eager_and_captured("edge-6b")
+    tasks = _tasks((5, 17), 8500)
+    for t in tasks:
+        ex.prefill(t)
+    ex.decode(tasks)
+    ex.pages["k_pages"] = ex.pages["k_pages"].clone()
+    with pytest.raises(RuntimeError, match="arena"):
+        ex.decode(tasks)

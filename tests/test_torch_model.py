@@ -95,8 +95,9 @@ def _splice_torch(pages, cache, phys, psz):
 def test_prefill_then_paged_decode_match_jax(pair):
     """Two prompts (5 and 11 tokens) prefilled, then 3 decode steps over a
     3-row batch: row 0 always active, row 1 inactive on the middle step,
-    row 2 a pad row (table all -1). Active rows' logits and the whole page
-    arena (inactive and pad rows write nothing) match JAX."""
+    row 2 a pad row (table all -1). Active rows' logits and the pool's
+    pages of the arena (inactive and pad rows write only the spare page
+    past them, where JAX drops their writes) match JAX."""
     jcfg, cfg, jp, _, tp = pair
     psz, n_pages, maxp, buf = 4, 12, 6, 24
     rng = np.random.default_rng(11)
@@ -137,7 +138,8 @@ def test_prefill_then_paged_decode_match_jax(pair):
         assert_logits_close(tl.numpy()[av], np.asarray(jl)[av],
                             err_msg=f"decode step {step}")
         for name in ("k_pages", "v_pages"):
-            assert_logits_close(tpages[name].numpy(), np.asarray(jpages[name]))
+            assert_logits_close(tpages[name][:, :n_pages].numpy(),
+                                np.asarray(jpages[name]))
         nxt = np.asarray(jl).argmax(-1)
         for r in range(2):
             if act[r]:
@@ -204,7 +206,8 @@ def test_prefill_chunk_paged_matches_jax(pair):
     take two chunks of 6 together at unequal lengths (pages crossed
     mid-chunk), with a pad row (table all -1) riding along. The tables
     cover every chunk, as the pool guarantees. Logits of the real rows
-    and the whole arena (the pad row writes nothing) match JAX."""
+    and the pool's pages of the arena (the pad row writes nothing) match
+    JAX."""
     jcfg, cfg, jp, _, tp = pair
     psz, n_pages, maxp = 4, 10, 6
     rng = np.random.default_rng(9)
@@ -230,14 +233,16 @@ def test_prefill_chunk_paged_matches_jax(pair):
         assert_logits_close(tl.numpy()[real], np.asarray(jl)[real],
                             err_msg=f"chunk {step}")
         for name in ("k_pages", "v_pages"):
-            assert_logits_close(tpages[name].numpy(), np.asarray(jpages[name]))
+            assert_logits_close(tpages[name][:, :n_pages].numpy(),
+                                np.asarray(jpages[name]))
 
 
 def test_verify_step_paged_matches_jax(pair):
     """Verify windows over a seeded arena: rows of C = 3 and C = 5 queries
     at unequal lengths (a window crossing a page boundary), a pad row
     (table all -1) riding along. Logits of every position of the real
-    rows and the whole arena match JAX."""
+    rows and the pool's pages of the arena (the pad row writes only the
+    spare page past them) match JAX."""
     jcfg, cfg, jp, _, tp = pair
     psz, n_pages, maxp = 4, 12, 6
     rng = np.random.default_rng(11)
@@ -268,15 +273,17 @@ def test_verify_step_paged_matches_jax(pair):
         assert_logits_close(tl.numpy()[:2], np.asarray(jl)[:2],
                             err_msg=f"C={C}")
         for name in ("k_pages", "v_pages"):
-            assert_logits_close(tpages[name].numpy(), np.asarray(jpages[name]))
+            assert_logits_close(tpages[name][:, :n_pages].numpy(),
+                                np.asarray(jpages[name]))
 
 
 def test_verify_pad_positions_past_table_write_nothing(pair):
     """A bucketed window near max_seq runs past the table: with 3 pages of
     4 and 10 cached tokens, a C = 4 window covers positions 10..13, and
     12, 13 have no page. They must write nothing, not wrap onto the last
-    page's committed positions 8, 9: the arena outside positions 10, 11
-    stays bit for bit, and the tabled queries' logits equal a C = 2 window."""
+    page's committed positions 8, 9: the pool's pages outside positions
+    10, 11 stay bit for bit (the untabled positions write the spare page
+    past them), and the tabled queries' logits equal a C = 2 window."""
     _, cfg, _, _, tp = pair
     pages = [TM.init_paged_cache(cfg, 5, 4, device="cpu") for _ in range(2)]
     pt = torch.tensor([[3, 0, 4]], dtype=torch.int32)
@@ -293,8 +300,9 @@ def test_verify_pad_positions_past_table_write_nothing(pair):
                                    tokens[:, :2])
     assert_logits_close(got[:, :2].numpy(), want.numpy())
     for name in ("k_pages", "v_pages"):
-        assert torch.equal(pages[0][name], pages[1][name])
-        changed = pages[0][name] != before[name]
+        pool = slice(0, 5)                        # the spare page is 5
+        assert torch.equal(pages[0][name][:, pool], pages[1][name][:, pool])
+        changed = pages[0][name][:, pool] != before[name][:, pool]
         changed[:, 4, :, 2:] = False              # positions 10, 11
         assert not changed.any()
 

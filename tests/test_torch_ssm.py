@@ -152,32 +152,34 @@ def test_ssm_mixer_carried_state_matches_jax():
 
 
 def test_ssm_mixer_step_over_arena_matches_jax():
-    """Rows over a shuffled arena of 6 slots: two live rows, an inactive
-    row and a pad row (slot -1). Live rows' outputs equal JAX's step on
-    their gathered state; the arena afterwards holds JAX's new state in
-    the live rows' slots and is unchanged everywhere else."""
+    """Rows over a shuffled arena of 6 slots and a spare: two live rows,
+    an inactive row and a pad row (slot -1). Live rows' outputs equal
+    JAX's step on their gathered state; the arena's 6 slots afterwards
+    hold JAX's new state in the live rows' slots and are unchanged
+    everywhere else (the other rows' conv tails go to the spare)."""
     jp, tp = _mixer_params(2)
     rng = np.random.default_rng(10)
     H = DI // HD
-    arena = rng.standard_normal((6, H, HD, NS)).astype(np.float32)
-    conv = rng.standard_normal((6, DI + 2 * NS, K - 1)).astype(np.float32)
+    arena = rng.standard_normal((7, H, HD, NS)).astype(np.float32)
+    conv = rng.standard_normal((7, DI + 2 * NS, K - 1)).astype(np.float32)
     x = rng.standard_normal((4, D)).astype(np.float32)
     slots = np.array([4, 1, 3, -1], np.int32)
     active = np.array([True, True, False, False])
     s_t, c_t = torch.from_numpy(arena.copy()), torch.from_numpy(conv.copy())
+    slots_t, active_t = torch.from_numpy(slots), torch.from_numpy(active)
     yt = TS.ssm_mixer_step(tp, torch.from_numpy(x), DI, NS, HD, s_t, c_t,
-                           torch.from_numpy(slots), torch.from_numpy(active),
-                           torch.tensor([0, 1]))
+                           slots_t, active_t,
+                           TS.write_slots(slots_t, active_t, 6))
     rd = np.clip(slots, 0, None)
     yj, hj, cj = JS.ssm_mixer_step(jp, jnp.asarray(x), DI, NS, HD,
                                    jnp.asarray(arena[rd]),
                                    jnp.asarray(conv[rd]))
     _close(yt[:3], np.asarray(yj)[:3])
-    want_s, want_c = arena.copy(), conv.copy()
+    want_s, want_c = arena[:6].copy(), conv[:6].copy()
     want_s[[4, 1]] = np.asarray(hj)[:2]
     want_c[[4, 1]] = np.asarray(cj)[:2]
-    _close(s_t, want_s)
-    _close(c_t, want_c)
+    _close(s_t[:6], want_s)
+    _close(c_t[:6], want_c)
     np.testing.assert_array_equal(s_t.numpy()[[0, 2, 3, 5]],
                                   arena[[0, 2, 3, 5]])
 
