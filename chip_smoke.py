@@ -51,31 +51,40 @@ Phases, each printing its own lines; any failed check exits non-zero:
             the conv tail and the K/V pages bit for bit. Every reduced
             engine on the card runs its decode-type steps captured as
             CUDA graphs (the engines' default).
-3. graphs — each decode-type step the engines capture, at full width in
-            bf16, run by an eager engine (cuda_graphs=False) and a
-            captured one on the same weights and tasks: edge-6b's paged
-            decode at b = 1, 2, 4, 8, its verify step at b = 4, K = 4, the
-            slot engine's masked and compacted steps (16 slots), and the
-            paged decode of mamba2-780m and granite-moe-3b-a800m. 16 steps
-            each: logits within the bf16 tolerance, greedy streams
-            identical, launch counts equal. Prints both engines' l(b), the
+3. graphs — each step the engines capture, at full width in bf16, run
+            by an eager engine (cuda_graphs=False) and a captured one on
+            the same weights and tasks. Decode-type: edge-6b's paged
+            decode at b = 1, 2, 4, 8, its speculative iteration at b = 4,
+            K = 4 (verify step and the draft's catch-up and masked decode),
+            the slot engine's masked and compacted steps (16 slots), and
+            the paged decode of mamba2-780m and granite-moe-3b-a800m; 16
+            steps each. Prefill-type: the whole prompt at 64, 128 and 256
+            tokens (edge-6b, mamba2-780m, granite-moe-3b-a800m on the
+            paged engine; edge-6b's slot engine at 256), a 256-token
+            prompt in chunks of 64 on the paged and the slot engine, and
+            a prefix hit's suffix in power-of-two pieces; 5 prompts a
+            length, then 4 decode steps. Logits within the bf16
+            tolerance, greedy streams identical, launch counts equal.
+            Prints both engines' l(b) and prefill engine clock, the
             spread of 20 steps at the largest batch and the peak memory
             with and without graphs.
 4. serve  — SLICE through the serve entry point, edge-6b at full width in
-            bf16, decode-type steps captured: measured l(b), a few Poisson
-            requests, in five runs: (a) the paged engine with atomic
+            bf16, every step captured: measured l(b), a few Poisson
+            requests, in seven runs: (a) the paged engine with atomic
             prefill, (a') the same with realtime tasks beside voice/QA
-            (--ratio 0.5, the CLI's default mix; every other run serves
-            voice/QA only), (b) the slot engine with --prefill-chunk 64,
-            (c) the paged engine with --prefill-chunk 64, (d) the paged
-            engine with --spec-decode --spec-depth 4 --prefix-cache
+            (--ratio 0.5, the CLI's default mix; every other run but (c')
+            serves voice/QA only), (b) the slot engine with
+            --prefill-chunk 64, (c) the paged engine with --prefill-chunk
+            64, (c') the same with --ratio 0.5, (d) the paged engine with
+            --spec-decode --spec-depth 4 --prefix-cache
             --shared-prefix-frac 0.7 at 4 requests/s (SLICE grants depth
-            only to lagging tasks). Every task must finish (none
-            dropped, realtime ones included; realtime and non-realtime
-            attainment printed), a paged pool must end empty (after the
-            radix index is cleared), run (d) must run verify steps and hit
-            the prefix cache, and each run must launch the kernels of its
-            path.
+            only to lagging tasks), (d') the same at 8 requests/s, more
+            prefilled tasks than the draft has slots. Every task must
+            finish (none dropped, realtime ones included; realtime and
+            non-realtime attainment printed), a paged pool must end empty
+            (after the radix index is cleared), runs (d) and (d') must run
+            verify steps and hit the prefix cache, and each run must
+            launch the kernels of its path.
             Then (e) mamba2-780m and (f) granite-moe-3b-a800m at full width
             in bf16 on the paged engine, with the same workload: every task
             finishes, no page or state slot is left held, (e) launches the
@@ -159,6 +168,11 @@ SERVE_RUNS = (
      ("decode_attention", "flash_prefill_chunk")),
     ("paged-chunked", ["--executor", "paged", "--prefill-chunk", "64"],
      ("paged_decode_attention", "flash_prefill_chunk")),
+    # realtime beside voice/QA with chunked prefill: every chunk step
+    # captured, so a prompt's pieces cost near what the whole prompt does
+    ("paged-chunked-realtime", ["--executor", "paged", "--prefill-chunk",
+                                "64", "--ratio", "0.5"],
+     ("paged_decode_attention", "flash_prefill_chunk")),
     # verify steps, plain decode steps, prefix-hit suffixes and the draft
     # model's catch-up chunks and slot decode. SLICE grants depth only to
     # tasks that lag their SLO; with captured steps the probed l(b) holds
@@ -167,6 +181,14 @@ SERVE_RUNS = (
     ("paged-spec", ["--executor", "paged", "--spec-decode", "--spec-depth",
                     "4", "--prefix-cache", "--shared-prefix-frac", "0.7",
                     "--rate", "4"],
+     ("paged_verify_attention", "paged_decode_attention",
+      "flash_prefill_chunk", "decode_attention")),
+    # the same at 8 requests/s: more prefilled tasks than the draft's 8
+    # slots, each drafted in turn (the draft reclaims the slot of the task
+    # it drafted least recently; the JAX draft raises here)
+    ("paged-spec-rate8", ["--executor", "paged", "--spec-decode",
+                          "--spec-depth", "4", "--prefix-cache",
+                          "--shared-prefix-frac", "0.7", "--rate", "8"],
      ("paged_verify_attention", "paged_decode_attention",
       "flash_prefill_chunk", "decode_attention")),
     # SSM and MoE serving (DESIGN.md §12): the later --arch overrides
@@ -1046,6 +1068,28 @@ GRAPH_CASES = (
 )
 GRAPH_STEPS = 16          # compared steps an engine, spread over its batches
 SPREAD_STEPS = 20         # timed steps at the case's largest batch
+# (case, arch, engine, engine arguments, how, prompt lengths): the
+# prefill-type steps the serving engines capture, at full width in bf16.
+# "whole": one step per prompt length; "chunk": prefill_chunk over the
+# whole prompt in pieces of 64; "suffix": a prompt whose first 192
+# tokens (12 pages) another task of its prefix group left in the radix
+# cache, so its 58-token suffix runs in pieces 32, 16, 8 and 2
+PREFILL_CASES = (
+    ("edge-6b whole prefill", "edge-6b", "paged", {}, "whole",
+     (64, 128, 256)),
+    ("mamba2-780m whole prefill", "mamba2-780m", "paged", {}, "whole",
+     (64, 128, 256)),
+    ("granite-moe whole prefill", "granite-moe-3b-a800m", "paged", {},
+     "whole", (64, 128, 256)),
+    ("edge-6b slot whole prefill", "edge-6b", "slot", {}, "whole", (256,)),
+    ("edge-6b paged chunks of 64", "edge-6b", "paged",
+     {"prefill_chunk_size": 64}, "chunk", (256,)),
+    ("edge-6b slot chunks of 64", "edge-6b", "slot",
+     {"prefill_chunk_size": 64}, "chunk", (256,)),
+    ("edge-6b prefix suffix", "edge-6b", "paged", {"prefix_cache": True},
+     "suffix", (250,)),
+)
+PREFILL_REPS = 5          # timed prompts an engine at each length
 
 
 def graphs_phase():
@@ -1068,7 +1112,7 @@ def graphs_phase():
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serving.executor import PagedTorchExecutor, TorchExecutor
-    phase("graphs: captured decode-type steps against eager, full width "
+    phase("graphs: captured steps against eager, full width "
           "(bf16)")
     bf16 = torch.bfloat16
     params, params_of = None, None
@@ -1115,7 +1159,9 @@ def graphs_phase():
                 lb={b: float(np.median(v)) for b, v in ms.items()},
                 streams=[ex.generated_tokens(t) for t in tasks],
                 peak=torch.cuda.max_memory_allocated(),
-                steps=len(ex.graphs.steps))
+                steps=len(ex.graphs.steps) + len(
+                    ex.draft.graphs.steps if getattr(ex, "draft", None)
+                    else ()))
             del ex
             gc.collect()
             torch.cuda.empty_cache()
@@ -1142,9 +1188,117 @@ def graphs_phase():
         if eager["launches"] != cap["launches"]:
             fail(f"{case}: launches captured {cap['launches']} != eager "
                  f"{eager['launches']}")
+    for case in PREFILL_CASES:
+        if params_of != case[1]:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = M.init_params(get_config(case[1]), seed=0, dtype=bf16,
+                                   device="cuda")
+            params_of = case[1]
+        prefill_graph_case(params, *case)
     params = None
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def prefill_graph_case(params, case, arch, kind, kw, how, lengths):
+    """One prefill-type case of the graphs phase: an eager engine and a
+    captured one on the same weights run PREFILL_REPS prompts of each
+    length ``how`` ("whole", "chunk" or "suffix"), then 4 decode steps
+    over the first 8 of them. Logits of every prefill within the bf16
+    TOL, greedy streams identical, launch counts equal; prints each
+    length's engine clock (min / median of the reps; a captured step is
+    captured at its first prompt, before the clock) and the peak memory
+    with and without graphs."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.kernels import ops
+    from repro_torch.serving.executor import PagedTorchExecutor, TorchExecutor
+    cfg = get_config(arch)
+    out = {}
+    for graphs in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "slot":
+            ex = TorchExecutor(cfg, params=params, max_slots=16,
+                               max_seq=1024, device="cuda",
+                               cuda_graphs=graphs, **kw)
+        else:
+            ex = PagedTorchExecutor(cfg, params=params, n_pages=512,
+                                    page_size=16, max_seq=1024,
+                                    max_batch=8, device="cuda",
+                                    cuda_graphs=graphs, **kw)
+        tasks, logits, ms = [], [], {}
+        ops.reset_launches()
+        if how == "suffix":         # the prefix group's first task, untimed
+            first = Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=lengths[0],
+                         output_len=64, task_id=9699)
+            first.prefix_group, first.prefix_len = 5, 192
+            ex.prefill(first)
+            ex.release(first)
+        for L in lengths:
+            for r in range(PREFILL_REPS):
+                t = Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=L,
+                         output_len=64, task_id=9700 + len(tasks))
+                if how == "suffix":
+                    t.prefix_group, t.prefix_len = 5, 192
+                if how == "chunk":
+                    took, done = ex.prefill_chunk(t, L)
+                    if not done:
+                        fail(f"{case}: prefill_chunk({L}) left the prompt "
+                             "unfinished")
+                else:
+                    took = ex.prefill(t)
+                ms.setdefault(L, []).append(took)
+                logits.append(ex.last_prefill_logits)
+                tasks.append(t)
+        for t in tasks[8:]:
+            ex.release(t)
+        tasks = tasks[:8]
+        for _ in range(4):
+            ex.decode(tasks)
+        torch.cuda.synchronize()
+        out[graphs] = dict(
+            logits=logits, ms=ms, launches=dict(ops.LAUNCHES),
+            streams=[ex.generated_tokens(t) for t in tasks],
+            peak=torch.cuda.max_memory_allocated(),
+            steps=sorted(k for k in ex.graphs.steps if k[0] in (
+                "prefill", "chunk")),
+            hits=getattr(getattr(ex, "prefix_cache", None), "hits", None))
+        del ex
+        gc.collect()
+        torch.cuda.empty_cache()
+    eager, cap = out[False], out[True]
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(eager["logits"], cap["logits"]))
+    same = eager["streams"] == cap["streams"]
+    print(f"{case}: {len(cap['logits'])} prompts, max |logit diff| captured "
+          f"vs eager {err:.3e} tol={TOL['bfloat16']:g}, streams_equal={same}"
+          f", launches equal={eager['launches'] == cap['launches']} "
+          f"({sum(cap['launches'].values())} launches), steps captured "
+          f"{cap['steps']}" + (f", prefix hits {cap['hits']}"
+                               if cap["hits"] is not None else ""))
+    for L in lengths:
+        e, c = sorted(eager["ms"][L]), sorted(cap["ms"][L])
+        print(f"{case}: {how} prefill of {L} tokens, engine clock eager / "
+              f"captured: min {e[0]:.3f} / {c[0]:.3f} ms, median "
+              f"{float(np.median(e)):.3f} / {float(np.median(c)):.3f} ms "
+              f"(of {PREFILL_REPS})")
+    print(f"{case}: peak memory eager / captured "
+          f"{eager['peak'] / 2**30:.2f} / {cap['peak'] / 2**30:.2f} GiB")
+    if err > TOL["bfloat16"] or not same:
+        fail(f"{case}: the captured steps disagree with the eager steps")
+    if eager["launches"] != cap["launches"]:
+        fail(f"{case}: launches captured {cap['launches']} != eager "
+             f"{eager['launches']}")
+    if how == "suffix" and not (eager["hits"] == cap["hits"]
+                                == PREFILL_REPS):
+        fail(f"{case}: prefix hits {eager['hits']} / {cap['hits']}, "
+             f"{PREFILL_REPS} expected")
 
 
 def serve_phase(run_name, extra, required):
@@ -1233,7 +1387,8 @@ def serve_phase(run_name, extra, required):
     if args.spec_decode:
         print(f"speculative decoding: verify steps={ex.spec_steps} "
               f"spec_extra={res.spec_extra_tokens} "
-              f"accepted/drafted={res.accepted_tokens}/{res.drafted_tokens}")
+              f"accepted/drafted={res.accepted_tokens}/{res.drafted_tokens}"
+              f" draft slots reclaimed={ex.draft.reclaimed_slots}")
         if ex.spec_steps == 0 or ex.last_verify is None:
             fail(f"{run_name}: SLICE granted no depth: no verify step ran")
         C, rows, verify_ms = ex.last_verify
@@ -1363,7 +1518,7 @@ def time_phase(runs, worst):
         + pt.numel() * 4 + B * 4, 4 * live * Hq * hd,
         body=_pa.body(dtype, hd),
         of_runs=("paged-atomic", "paged-realtime", "paged-chunked",
-                 "paged-spec"))
+                 "paged-chunked-realtime", "paged-spec", "paged-spec-rate8"))
 
     # the same at granite-moe's heads (hd 64, g 3), over run paged-moe's
     # batch
@@ -1403,7 +1558,8 @@ def time_phase(runs, worst):
                                       vf.float(), causal=True),
         sdpa, (2 * S * Hq + 2 * S * Hkv) * hd * elt,
         4 * (S * (S + 1) // 2) * Hq * hd, body=_fp.body(dtype, hd),
-        of_runs=("paged-atomic", "paged-realtime", "paged-spec"))
+        of_runs=("paged-atomic", "paged-realtime", "paged-spec",
+                 "paged-spec-rate8"))
 
     # the same at granite-moe's heads (hd 64, g 3): one prompt at run
     # paged-moe's median effective length

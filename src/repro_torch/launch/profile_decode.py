@@ -2,19 +2,31 @@
 
 Builds the paged engine (``--executor slot``: the slot engine, whose
 decode step runs the ring-cache attention kernel over all of its slots)
-at full width by default, prefills a batch of prompts, then times decode
-steps two ways: the engine's own clock (host
-time around a step that ends in a device synchronise, what l(b) reads) and
+at full width by default and times one kind of step (``--step``) two
+ways: the engine's own clock (host time around a step that ends in a
+device synchronise, what l(b) and the prefill prior read) and
 torch.profiler (device time per kernel; a replayed CUDA graph's kernels
 show as the eager step's do). Prints per-step host ms, device busy ms,
-the device's idle share, and the kernels ranked by device time; then the
-same for one prefill. The decode steps are captured as CUDA graphs, as
-the engines run them; ``--eager`` runs them eagerly.
+the device's idle share, and the kernels ranked by device time.
+
+- ``decode`` (default): decode steps over a batch of ``--batch``
+  prefilled prompts of ``--context`` tokens, then one prefill the same
+  way.
+- ``prefill``: whole prompts of ``--context`` tokens, each a new task,
+  released after its prefill.
+- ``chunk``: the same prompts through ``prefill_chunk`` in pieces of
+  ``--chunk`` tokens (one call a prompt).
+
+The steps are captured as CUDA graphs, as the engines run them (a step
+is captured at its first use, which is not timed); ``--eager`` runs them
+eagerly.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
       --arch edge-6b --dtype bfloat16 --batch 8 --context 128
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --executor slot --batch 16 --context 128 --eager
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --step chunk --context 256 --chunk 64
 """
 from __future__ import annotations
 
@@ -54,6 +66,36 @@ def report(prof, wall_ms: float, n: int, top: int, label: str) -> None:
               f"{100 * us / 1e3 / busy_ms:5.1f}%  {key[:100]}")
 
 
+def profile_prefill(ex, args, mode: str) -> None:
+    """``--step prefill|chunk``: the engine clock of prompts of
+    ``--context`` tokens, whole or in chunks, each a new task released
+    after it, over ``--steps`` prompts after 3 untimed ones (the first
+    captures the steps), then ``--steps`` more under the profiler."""
+    def one() -> float:
+        t = qa_task(prompt_len=args.context, output_len=1)
+        ms = (ex.prefill(t) if args.step == "prefill"
+              else ex.prefill_chunk(t, args.context)[0])
+        ex.release(t)
+        return ms
+
+    for _ in range(3):                         # warm
+        one()
+    clock = [one() for _ in range(args.steps)]
+    how = ("whole" if args.step == "prefill"
+           else f"in chunks of {args.chunk}")
+    print(f"{ex.cfg.name} {args.dtype} {args.executor} engine, {mode} "
+          f"steps, prefill of {args.context} tokens {how}: engine clock "
+          f"{min(clock):.3f} ms min, {sum(clock) / len(clock):.3f} ms mean "
+          f"over {len(clock)} prompts")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            one()
+        wall = (time.perf_counter() - t0) * 1e3
+    report(prof, wall, args.steps, args.top, f"prefill {how} (profiled)")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="edge-6b")
@@ -70,22 +112,33 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--executor", default="paged", choices=("paged", "slot"),
                     help="slot: B slots of --max-seq, every one decoding")
     ap.add_argument("--eager", action="store_true",
-                    help="run the decode steps eagerly, not as CUDA graphs")
+                    help="run the steps eagerly, not as CUDA graphs")
+    ap.add_argument("--step", default="decode",
+                    choices=("decode", "prefill", "chunk"),
+                    help="the step timed and profiled")
+    ap.add_argument("--chunk", type=int, default=64,
+                    help="--step chunk: prompt tokens a piece")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     B = args.batch
+    chunk = args.chunk if args.step == "chunk" else None
     if args.executor == "slot":
         ex = TorchExecutor(cfg, max_slots=B, max_seq=args.max_seq,
                            dtype=DTYPES[args.dtype], device=args.device,
+                           prefill_chunk_size=chunk,
                            cuda_graphs=not args.eager)
     else:
         ex = PagedTorchExecutor(
             cfg, n_pages=(B + 1) * args.max_seq // args.page_size,
             page_size=args.page_size, max_seq=args.max_seq, max_batch=B,
             dtype=DTYPES[args.dtype], device=args.device,
-            cuda_graphs=not args.eager)
+            prefill_chunk_size=chunk, cuda_graphs=not args.eager)
+    mode = "eager" if args.eager or ex.device.type != "cuda" else "captured"
+    if args.step != "decode":
+        profile_prefill(ex, args, mode)
+        return
     tasks = [qa_task(prompt_len=args.context, output_len=args.max_seq // 2)
              for _ in range(B + 1)]
     batch, spare = tasks[:B], tasks[B]     # spare: the profiled prefill
@@ -94,7 +147,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for _ in range(3):                         # warm
         ex.decode(batch)
     steps = [ex.decode(batch) for _ in range(args.steps)]
-    mode = "eager" if args.eager or ex.device.type != "cuda" else "captured"
     print(f"{cfg.name} {args.dtype} {args.executor} engine, {mode} decode "
           f"steps, decode batch {B} context "
           f"~{args.context}: engine clock {min(steps):.3f} ms min, "

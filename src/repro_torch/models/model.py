@@ -451,11 +451,12 @@ def prefill_chunk_paged(cfg: ArchConfig, params: Params, pages: Cache,
     tokens: [B,C] appended at logical positions lengths[b]+i; the page
     table [B,maxp] must already cover lengths+C tokens (the pool extends
     BEFORE the chunk). The chunk's K/V is written into its pages (tokens
-    whose page-table entry is -1 write nothing), then its queries attend
-    over the gathered page view in the flash-prefill-chunk kernel:
-    untabled entries gather page 0 at positions past the chunk end, so
-    causal masking covers them. Returns (logits of the chunk's last
-    position [B,V], pages); lengths and tables are the caller's.
+    whose page-table entry is -1, or whose position lies past the table,
+    write only the arena's spare page), then its queries attend over the
+    gathered page view in the flash-prefill-chunk kernel: untabled
+    entries gather page 0 at positions past the chunk end, so causal
+    masking covers them. No host sync. Returns (logits of the chunk's
+    last position [B,V], pages); lengths and tables are the caller's.
     """
     _check_kv_only(cfg, "prefill_chunk_paged")
     B, C = tokens.shape
@@ -469,17 +470,18 @@ def prefill_chunk_paged(cfg: ArchConfig, params: Params, pages: Cache,
     # the JAX gather clamps an out-of-range logical page; clamp the same way
     pt_row = page_table[barr, (q_pos // psz).clamp(max=maxp - 1).long()]
     # JAX drops untabled tokens' scatter through an out-of-bounds index;
-    # torch raises on one, so select the tokens that write (one host sync)
-    w_b, w_c = (pt_row >= 0).nonzero(as_tuple=True)
-    w_page = pt_row[w_b, w_c].long()
-    w_off = (q_pos[w_b, w_c] % psz).long()
+    # here they write the spare page, as the verify step's do, so each
+    # pool target has one writer and the step never syncs with the host
+    writes = (pt_row >= 0) & (q_pos < maxp * psz)
+    w_page = torch.where(writes, pt_row, spare_page(pages)).long()
+    w_off = torch.where(writes, q_pos % psz, 0).long()
     blk = params["blocks"]
     for layer in range(cfg.n_layers):
         q, k, v = _qkv(cfg, blk, layer, x)
         q = L.apply_rope(q, q_pos, cfg.rope_theta)
         k = L.apply_rope(k, q_pos, cfg.rope_theta)
-        k_all[layer, w_page, :, w_off] = k[w_b, w_c]
-        v_all[layer, w_page, :, w_off] = v[w_b, w_c]
+        k_all[layer, w_page, :, w_off] = k
+        v_all[layer, w_page, :, w_off] = v
         kc = L.gather_pages(k_all[layer], page_table)     # [B,Hkv,maxp*psz,hd]
         vc = L.gather_pages(v_all[layer], page_table)
         a = ops.flash_prefill_chunk(q, kc.transpose(1, 2), vc.transpose(1, 2),

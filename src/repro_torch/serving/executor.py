@@ -28,13 +28,19 @@ The engines are synchronous and single-device. Tensor parallelism, async
 dispatch and SSM archs on the slot engine are still to port (ROADMAP.md);
 asking for one raises NotImplementedError.
 
-Decode-type steps (paged decode and verify, the slot engine's masked and
-compacted decode) run through ``serving.step_graphs``: on the card each
-static shape is captured once as a CUDA graph and replayed, as the JAX
-engines AOT-compile them (``cuda_graphs=False`` runs the same staged step
-eagerly); the argmax is fused into the step and only it is read to the
-host, the logits stay on the device until ``last_logits`` is read.
-Prefill and chunk steps run eagerly.
+Every step runs through ``serving.step_graphs``: on the card each step
+kind and static shape is captured once as a CUDA graph and replayed, as
+the JAX engines AOT-compile them (``cuda_graphs=False`` runs the same
+staged step eagerly). Decode-type steps: paged decode and verify, the
+slot engine's masked and compacted decode, the draft model's masked
+decode. Prefill-type steps: the whole prompt per exact length (with its
+splice into the task's pages, state slot or cache row inside the step),
+chunks per piece size on both engines (the paged engine's prefix-hit
+suffixes too) and the draft's catch-up pieces. The argmax is fused into
+each step and only it is read to the host; the logits stay on the
+device until ``last_logits`` or ``last_prefill_logits`` is read. A
+step's graph is captured when the step is first asked for, before the
+engine's clock starts.
 
 Every timed operation ends in a device synchronise before its clock read,
 as the JAX engine's ``block_until_ready``: without it l(b) would time only
@@ -60,7 +66,9 @@ from repro_torch.serving.spec_decode import (DraftModel, default_draft_config,
                                              pow2_pieces)
 from repro_torch.serving.state_store import (CacheStore, OutOfStates,
                                              SSMStateStore)
-from repro_torch.serving.step_graphs import LazyLogits, StepGraphs
+from repro_torch.serving.step_graphs import (LazyLogits, StepGraphs,
+                                             chunk_step, masked_step,
+                                             slot_cache, with_argmax)
 
 _PREFILL_PRIOR = [(64, 10.0), (512, 40.0)]   # prefill ms prior until measured
 
@@ -130,12 +138,20 @@ class Executor:
     """Returns elapsed milliseconds for each operation."""
 
     _last_logits: Optional[LazyLogits] = None
+    _last_prefill: Optional[LazyLogits] = None
 
     @property
     def last_logits(self) -> Optional[np.ndarray]:
         """Logits [tasks, V] (fp32) of the tasks the last decode-type step
         served, read from the device at the first access."""
         return None if self._last_logits is None else self._last_logits.numpy()
+
+    @property
+    def last_prefill_logits(self) -> Optional[np.ndarray]:
+        """Last-position logits [1, V] (fp32) of the last completed
+        prefill, read from the device at the first access."""
+        return (None if self._last_prefill is None
+                else self._last_prefill.numpy())
 
     def prefill(self, task: Task) -> float:
         raise NotImplementedError
@@ -169,12 +185,6 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _with_argmax(logits: torch.Tensor):
-    """A decode-type step's outputs: its logits and their argmax (int32),
-    fused into the step as JAX fuses it."""
-    return logits, logits.argmax(-1).to(torch.int32)
-
-
 class TorchExecutor(Executor):
     """Real PyTorch engine over a fixed slot array.
 
@@ -186,7 +196,12 @@ class TorchExecutor(Executor):
     slots, decoded, and scattered back, so step cost falls with column
     sparsity (DESIGN.md §3 adaptation #1). With ``prefill_chunk_size``,
     ``prefill_chunk`` appends the next pieces of a prompt to its slot
-    through model.prefill_chunk on a view of that slot's rows.
+    through model.prefill_chunk, one staged step per piece size that
+    gathers the slot's row, chunks it and scatters it back (JAX's
+    ``_build_chunk_steps``). A whole prompt runs in one staged step per
+    prompt length that splices the prompt's cache into its slot. The
+    cache holds one spare row past the slots (``step_graphs.slot_cache``),
+    which the steps' pad inputs write.
 
     Prompts are capped at max_seq // 2; decode wraps the ring past
     max_seq, as in the JAX engine.
@@ -213,18 +228,17 @@ class TorchExecutor(Executor):
         self.seed = seed
         self.compact_buckets = compact_buckets
         self.prefill_chunk_size = prefill_chunk_size
-        self.cache = M.init_cache(cfg, max_slots, max_seq,
-                                  dtype=self.params["embed"].dtype,
-                                  device=self.device)
+        self.cache = slot_cache(cfg, max_slots, max_seq,
+                                self.params["embed"].dtype, self.device)
         self.slot_of: Dict[int, int] = {}
         self.free = list(range(max_slots))
         self.tokens = np.zeros((max_slots,), np.int32)  # last token per slot
         self._chunk_progress: Dict[int, int] = {}
         self._gen: Dict[int, List[int]] = {}     # generated tokens per task
-        self.last_prefill_logits: Optional[np.ndarray] = None
         # (batch, ms) samples of the last latency_model() probe
         self.probe_samples: List[Tuple[int, float]] = []
-        # the masked step and the compacted buckets' steps (DESIGN.md §3)
+        # the masked step, the compacted buckets' steps (DESIGN.md §3),
+        # the chunk steps and the whole-prompt steps
         self.graphs = StepGraphs(self.device, cuda_graphs)
 
     # -- observation surfaces --
@@ -239,9 +253,9 @@ class TorchExecutor(Executor):
     def _effective_prompt(self, task: Task) -> int:
         return min(task.prompt_len, self.max_seq // 2)
 
-    def _set_first_token(self, tid: int, s: int, logits: torch.Tensor) -> None:
-        self.last_prefill_logits = logits.float().cpu().numpy()
-        tok = int(self.last_prefill_logits[0].argmax())
+    def _set_first_token(self, tid: int, s: int, logits: torch.Tensor,
+                         tok: int) -> None:
+        self._last_prefill = LazyLogits(logits)
         self.tokens[s] = tok
         self._gen[tid] = [tok]
 
@@ -265,80 +279,85 @@ class TorchExecutor(Executor):
             self.cache["kv_pos"][s] = -1
 
     # -- ops --
+    def _prefill_step(self, L: int):
+        """The whole-prompt step of length L (JAX's ``_prefill_jit[(L,)]``):
+        model.prefill, then the prompt's cache spliced into the slot
+        ``idx``. Inputs idx [1] and tokens [1, L]; the pad is the spare
+        row. Returns (logits [1,V], argmax [1] int32)."""
+        cfg, params = self.cfg, self.params
+        spec = {"idx": ((1,), torch.int64, self.max_slots),
+                "tokens": ((1, L), torch.int32, 0)}
+
+        def prefill(x):
+            last, cache1 = M.prefill(cfg, params, x["tokens"],
+                                     buf_len=self.max_seq)
+            idx = x["idx"]
+            for k in ("k", "v"):
+                self.cache[k][:, idx] = cache1[k]
+            for k in ("kv_pos", "length"):
+                self.cache[k][idx] = cache1[k]
+            return with_argmax(last)
+
+        return self.graphs.step(("prefill", L), spec, prefill, self._arenas)
+
     def prefill(self, task: Task) -> float:
-        s = self._assign_slot(task)
         L = self._effective_prompt(task)
-        toks = torch.as_tensor(_prompt_tokens(self.seed, task,
-                                              self.cfg.vocab_size, L),
-                               dtype=torch.long).to(self.device)
+        # made (on the card: captured) before the clock starts and before
+        # the task takes a slot, so a refused capture leaves it without one
+        step = self._prefill_step(L)
+        s = self._assign_slot(task)
+        toks = _prompt_tokens(self.seed, task, self.cfg.vocab_size, L)
         _sync(self.device)
         t0 = time.perf_counter()
-        last, cache1 = M.prefill(self.cfg, self.params, toks,
-                                 buf_len=self.max_seq)
-        _sync(self.device)
+        logits, argmax = step.run({"idx": np.asarray([s]), "tokens": toks})
+        tok = int(argmax.cpu()[0])                     # synchronises
         ms = (time.perf_counter() - t0) * 1000.0
-        # splice the single-row cache into slot s (untimed, as in JAX)
-        for k in ("k", "v"):
-            self.cache[k][:, s] = cache1[k][:, 0]
-        self.cache["kv_pos"][s] = cache1["kv_pos"][0]
-        self.cache["length"][s] = cache1["length"][0]
-        self._set_first_token(task.task_id, s, last)
+        self._set_first_token(task.task_id, s, logits, tok)
         return ms
 
     def prefill_chunk(self, task: Task, n_tokens: int) -> Tuple[float, bool]:
         """Append the next ``n_tokens`` of the task's prompt to its slot,
-        piece by piece (``_chunk_pieces``), on a view of the slot's rows of
-        the cache: nothing of the cache is copied."""
+        piece by piece (``_chunk_pieces``), each through the staged chunk
+        step of its size (``step_graphs.chunk_step``)."""
         if self.prefill_chunk_size is None:
             raise RuntimeError("executor built without prefill_chunk_size")
-        s = self._assign_slot(task)
         L = self._effective_prompt(task)
         done = self._chunk_progress.get(task.task_id, 0)
         if done >= L:     # progress kept until release: appending again
             raise RuntimeError(f"task {task.task_id} already prefilled")
-        n = min(n_tokens, L - done)
+        pieces = _chunk_pieces(min(n_tokens, L - done),
+                               self.prefill_chunk_size)
+        steps = [chunk_step(self, c) for c in pieces]  # before the clock
+        s = self._assign_slot(task)
         toks_full = _prompt_tokens(self.seed, task, self.cfg.vocab_size, L)
-        row = {k: self.cache[k][:, s:s + 1] for k in ("k", "v")}
-        row["length"] = self.cache["length"][s:s + 1]
-        row["kv_pos"] = self.cache["kv_pos"][s:s + 1]
-        ms = 0.0
-        logits = None
-        for c in _chunk_pieces(n, self.prefill_chunk_size):
-            piece = torch.as_tensor(toks_full[:, done:done + c],
-                                    dtype=torch.long).to(self.device)
-            _sync(self.device)
-            t0 = time.perf_counter()
-            logits, _ = M.prefill_chunk(self.cfg, self.params, row, piece)
-            _sync(self.device)
-            ms += (time.perf_counter() - t0) * 1000.0
+        _sync(self.device)
+        t0 = time.perf_counter()
+        for c, step in zip(pieces, steps):
+            logits, argmax = step.run({
+                "idx": np.asarray([s]), "length": np.asarray([done]),
+                "tokens": toks_full[:, done:done + c]})
             done += c
         self._chunk_progress[task.task_id] = done
         if done >= L:
-            self._set_first_token(task.task_id, s, logits)
-            return ms, True
-        return ms, False
+            self._set_first_token(task.task_id, s, logits,
+                                  int(argmax.cpu()[0]))  # synchronises
+        else:
+            _sync(self.device)
+        return (time.perf_counter() - t0) * 1000.0, done >= L
 
     def _arenas(self) -> List[torch.Tensor]:
         return list(self.cache.values())
 
     def _decode_step(self, b: Optional[int]):
-        """The masked step over every slot (``b`` None), or the compacted
-        step of bucket b: gather the bucket's slots ``idx`` from the cache,
-        step them, scatter them back, as JAX's ``_build_bucket_steps``.
-        Inputs: tokens and valid (the decode-mask column) per row, and
-        the bucket's slots; pads: inactive rows over distinct slots."""
+        """The masked step over every slot (``b`` None,
+        ``step_graphs.masked_step``), or the compacted step of bucket b:
+        gather the bucket's slots ``idx`` from the cache, step them,
+        scatter them back, as JAX's ``_build_bucket_steps``. Inputs:
+        tokens and valid (the decode-mask column) per row, and the
+        bucket's slots; pads: inactive rows over distinct slots."""
         cfg, params = self.cfg, self.params
         if b is None:
-            S = self.max_slots
-            spec = {"tokens": ((S,), torch.int32, 0),
-                    "valid": ((S,), torch.bool, False)}
-
-            def masked(x):
-                logits, _ = M.decode_step(cfg, params, self.cache,
-                                          x["tokens"], x["valid"])
-                return _with_argmax(logits)
-
-            return self.graphs.step(("masked", S), spec, masked, self._arenas)
+            return masked_step(self)
         spec = {"idx": ((b,), torch.int64, np.arange(b)),
                 "tokens": ((b,), torch.int32, 0),
                 "valid": ((b,), torch.bool, False)}
@@ -354,7 +373,7 @@ class TorchExecutor(Executor):
                     self.cache[k][:, idx] = v
                 else:
                     self.cache[k][idx] = v
-            return _with_argmax(logits)
+            return with_argmax(logits)
 
         return self.graphs.step(("compact", b), spec, compacted, self._arenas)
 
@@ -418,7 +437,11 @@ class PagedTorchExecutor(Executor):
 
     With ``prefill_chunk_size`` set, ``prefill_chunk`` runs the next
     piece of a prompt through model.prefill_chunk_paged, allocating its
-    pages as each piece arrives (never the prompt's peak up front).
+    pages as each piece arrives (never the prompt's peak up front). A
+    whole prompt runs in one staged step per prompt length that splices
+    the prompt's K/V into the task's pages (and its final recurrent state
+    into its state slot) inside the step; chunk pieces and prefix-hit
+    suffix pieces share one staged chunk step per piece size.
 
     With ``prefix_cache=True`` a radix index over page-aligned prompt
     blocks (serving.prefix_cache, DESIGN.md §6) dedups shared prompt
@@ -526,9 +549,9 @@ class PagedTorchExecutor(Executor):
         self._gen: Dict[int, List[int]] = {}     # generated tokens per task
         self._toks_memo: Dict[int, np.ndarray] = {}
         self._gtoks: Dict[int, np.ndarray] = {}  # group -> prefix tokens
-        self.last_prefill_logits: Optional[np.ndarray] = None
-        # the decode steps per batch bucket and the verify steps per
-        # (batch, depth) bucket
+        # the decode steps per batch bucket, the verify steps per (batch,
+        # depth) bucket, the chunk steps per piece size and the prefill
+        # steps per prompt length
         self.graphs = StepGraphs(self.device, cuda_graphs)
         # (batch, ms) samples of the last latency_model() probe
         self.probe_samples: List[Tuple[int, float]] = []
@@ -550,7 +573,7 @@ class PagedTorchExecutor(Executor):
                 else default_draft_config(cfg),
                 params=draft_params, max_slots=max_batch, max_seq=max_seq,
                 seed=seed, dtype=self.params["embed"].dtype,
-                device=self.device)
+                device=self.device, cuda_graphs=cuda_graphs)
             if self.draft.cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(
                     f"draft vocab {self.draft.cfg.vocab_size} != target "
@@ -610,9 +633,6 @@ class PagedTorchExecutor(Executor):
         return np.concatenate(
             [prompt, np.asarray(gen, dtype=prompt.dtype)])[:L]
 
-    def _tensor(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=dtype).to(self.device)
-
     def _table_np(self, ids: Sequence[int], b: int) -> np.ndarray:
         """Page tables of ``ids`` padded to b rows and max_pages_per_seq
         columns with -1."""
@@ -621,9 +641,6 @@ class PagedTorchExecutor(Executor):
             row = self.pool.page_table(i)
             pt[r, : len(row)] = row
         return pt
-
-    def _table(self, ids: Sequence[int], b: int) -> torch.Tensor:
-        return self._tensor(self._table_np(ids, b))
 
     def _arenas(self) -> List[torch.Tensor]:
         return list(self.pages.values())
@@ -647,7 +664,7 @@ class PagedTorchExecutor(Executor):
             logits, _ = M.decode_step_paged(
                 cfg, params, self.pages, x["page_table"], x["lengths"],
                 x["tokens"], x["active"], **kw)
-            return _with_argmax(logits)
+            return with_argmax(logits)
 
         return self.graphs.step(("decode", b), spec, fn, self._arenas)
 
@@ -665,14 +682,70 @@ class PagedTorchExecutor(Executor):
             logits, _ = M.verify_step_paged(cfg, params, self.pages,
                                             x["page_table"], x["lengths"],
                                             x["tokens"])
-            return _with_argmax(logits)
+            return with_argmax(logits)
 
         return self.graphs.step(("verify", b, K), spec, fn, self._arenas)
 
-    def _set_first_token(self, tid: int, logits: torch.Tensor) -> None:
+    def _chunk_step(self, c: int):
+        """The chunk step of c tokens on one row (JAX's
+        ``_build_chunk_steps`` and ``_suffix_step``): inputs page table
+        [1, maxp], length [1] and tokens [1, c]; the pad row is untabled
+        and writes only the spare page. Returns (logits [1,V], argmax [1]
+        int32)."""
+        maxp, cfg, params = self.max_pages_per_seq, self.cfg, self.params
+        spec = {"page_table": ((1, maxp), torch.int32, -1),
+                "lengths": ((1,), torch.int32, 0),
+                "tokens": ((1, c), torch.int32, 0)}
+
+        def fn(x):
+            logits, _ = M.prefill_chunk_paged(cfg, params, self.pages,
+                                              x["page_table"], x["lengths"],
+                                              x["tokens"])
+            return with_argmax(logits)
+
+        return self.graphs.step(("chunk", c), spec, fn, self._arenas)
+
+    def _prefill_step(self, L: int):
+        """The whole-prompt step of length L (JAX's ``_prefill_jit[(L,)]``):
+        model.prefill, then the prompt's K/V spliced into its
+        ceil(L / page_size) pages and, for SSM/hybrid archs, its final
+        recurrent state into its state slot, all inside the step, so only
+        the logits and their argmax outlive it. Inputs tokens [1, L],
+        page_ids [ceil(L / page_size)] (attention archs) and state_slot
+        [1] (SSM archs); the pads are the spare page and slot. Returns
+        (logits [1,V], argmax [1] int32)."""
+        cfg, params, psz = self.cfg, self.params, self.page_size
+        n = -(-L // psz)
+        spec = {"tokens": ((1, L), torch.int32, 0)}
+        if cfg.has_attention:
+            spec["page_ids"] = ((n,), torch.int64, M.spare_page(self.pages))
+        if self.states is not None:
+            spec["state_slot"] = ((1,), torch.int64,
+                                  M.spare_slot(self.pages))
+
+        def fn(x):
+            last, cache1 = M.prefill(cfg, params, x["tokens"],
+                                     buf_len=n * psz)
+            if cfg.has_attention:
+                # [L,1,Hkv,n*psz,hd] -> the pages' [L,n,Hkv,psz,hd]
+                for name, key in (("k_pages", "k"), ("v_pages", "v")):
+                    src = cache1[key][:, 0]
+                    self.pages[name][:, x["page_ids"]] = src.reshape(
+                        src.shape[0], src.shape[1], n, psz, -1).transpose(1, 2)
+            if self.states is not None:
+                # the whole per-task state is one fixed-size "page"
+                for name, key in (("ssm_state", "ssm"),
+                                  ("conv_state", "conv")):
+                    self.pages[name][:, x["state_slot"]] = cache1[key].to(
+                        self.pages[name].dtype)
+            return with_argmax(last)
+
+        return self.graphs.step(("prefill", L), spec, fn, self._arenas)
+
+    def _set_first_token(self, tid: int, logits: torch.Tensor,
+                         tok: int) -> None:
         """Record a completed prefill's logits and first output token."""
-        self.last_prefill_logits = logits.float().cpu().numpy()
-        tok = int(self.last_prefill_logits[0].argmax())
+        self._last_prefill = LazyLogits(logits)
         self._last_tok[tid] = tok
         self._gen[tid] = [tok]
 
@@ -843,7 +916,9 @@ class PagedTorchExecutor(Executor):
                 raise
             self._insert_prefix(task, toks_np)
             return ms
-        toks = self._tensor(toks_np, torch.long)
+        # made (on the card: captured) before the clock starts and before
+        # the pages are taken, so a refused capture leaves the pool as it was
+        step = self._prefill_step(L)
         phys = self._reserve(lambda: self.pool.alloc(tid, L))
         slot = -1
         if self.states is not None:
@@ -854,30 +929,19 @@ class PagedTorchExecutor(Executor):
                 # reservation so the deferred task re-enters prefill cleanly
                 self.pool.free(tid)
                 raise
+        host = {"tokens": toks_np}
+        if self.cfg.has_attention:
+            host["page_ids"] = np.asarray(phys)
+        if self.states is not None:
+            host["state_slot"] = np.asarray([slot])
+        # the splice into the pages and state slot is inside the step and
+        # its clock (the JAX engine splices after its clock)
         _sync(self.device)
         t0 = time.perf_counter()
-        last, cache1 = M.prefill(self.cfg, self.params, toks,
-                                 buf_len=self.max_seq)
-        _sync(self.device)
+        logits, argmax = step.run(host)
+        tok = int(argmax.cpu()[0])                     # synchronises
         ms = (time.perf_counter() - t0) * 1000.0
-        # write the single-row cache [L,1,Hkv,max_seq,hd] into the task's
-        # pages [L,n_alloc,Hkv,psz,hd] (untimed, as in the JAX engine)
-        n_alloc, psz = len(phys), self.page_size
-        idx = torch.as_tensor(phys, dtype=torch.long, device=self.device)
-        if self.cfg.has_attention:
-            for name, src in (("k_pages", cache1["k"]),
-                              ("v_pages", cache1["v"])):
-                view = (src[:, 0, :, :n_alloc * psz, :]
-                        .reshape(src.shape[0], src.shape[2], n_alloc, psz, -1)
-                        .transpose(1, 2))
-                self.pages[name][:, idx] = view
-        if self.states is not None:
-            # the prompt's final recurrent state goes into the task's slot:
-            # the whole per-task state is one fixed-size "page"
-            for name, key in (("ssm_state", "ssm"), ("conv_state", "conv")):
-                self.pages[name][:, slot] = cache1[key][:, 0].to(
-                    self.pages[name].dtype)
-        self._set_first_token(tid, last)
+        self._set_first_token(tid, logits, tok)
         self._insert_prefix(task, toks_np)
         return ms
 
@@ -889,28 +953,21 @@ class PagedTorchExecutor(Executor):
         tid = task.task_id
         self._reserve(lambda: self.pool.extend(tid, L))
         self._ensure_range_writable(tid, start, L)
-        pt = self._table([tid], 1)
-        done, ms = start, 0.0
-        for c in pow2_pieces(L - start):
-            logits, piece_ms = self._paged_chunk(pt, done,
-                                                 toks_np[:, done:done + c])
-            ms += piece_ms
-            done += c
-        self._set_first_token(tid, logits)
-        return ms
-
-    def _paged_chunk(self, pt: torch.Tensor, start: int,
-                     toks: np.ndarray) -> Tuple[torch.Tensor, float]:
-        """One model.prefill_chunk_paged call of a single row appending
-        ``toks`` [1,c] at ``start``; returns (last logits, engine ms)."""
-        args = (pt, self._tensor(np.asarray([start])),
-                self._tensor(toks, torch.long))
+        pt = self._table_np([tid], 1)
+        pieces = pow2_pieces(L - start)
+        steps = [self._chunk_step(c) for c in pieces]  # before the clock
         _sync(self.device)
         t0 = time.perf_counter()
-        logits, self.pages = M.prefill_chunk_paged(
-            self.cfg, self.params, self.pages, *args)
-        _sync(self.device)
-        return logits, (time.perf_counter() - t0) * 1000.0
+        done = start
+        for c, step in zip(pieces, steps):
+            logits, argmax = step.run({"page_table": pt,
+                                       "lengths": np.asarray([done]),
+                                       "tokens": toks_np[:, done:done + c]})
+            done += c
+        tok = int(argmax.cpu()[0])                     # synchronises
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._set_first_token(tid, logits, tok)
+        return ms
 
     def prompt_progress(self, task: Task) -> int:
         """Prompt tokens cached so far by chunked prefill, prefix-cache
@@ -936,25 +993,30 @@ class PagedTorchExecutor(Executor):
             done = self._acquire_prefix(task, toks_full)
             if done:
                 self._chunk_progress[tid] = done
-        n = min(n_tokens, L - done)
-        ms = 0.0
-        logits = None
-        for c in _chunk_pieces(n, self.prefill_chunk_size):
+        pieces = _chunk_pieces(min(n_tokens, L - done),
+                               self.prefill_chunk_size)
+        steps = [self._chunk_step(c) for c in pieces]  # before the clock
+        _sync(self.device)
+        t0 = time.perf_counter()
+        for c, step in zip(pieces, steps):
             if self.pool.holds(tid):
                 self._reserve(lambda e=done + c: self.pool.extend(tid, e))
             else:
                 self._reserve(lambda e=c: self.pool.alloc(tid, e))
             self._ensure_range_writable(tid, done, done + c)
-            logits, piece_ms = self._paged_chunk(
-                self._table([tid], 1), done, toks_full[:, done:done + c])
-            ms += piece_ms
+            logits, argmax = step.run({"page_table": self._table_np([tid], 1),
+                                       "lengths": np.asarray([done]),
+                                       "tokens": toks_full[:, done:done + c]})
             done += c
             self._chunk_progress[tid] = done
             self._insert_prefix(task, toks_full, upto=done)
-        if done >= L:
-            self._set_first_token(tid, logits)
-            return ms, True
-        return ms, False
+        if done < L:
+            _sync(self.device)
+            return (time.perf_counter() - t0) * 1000.0, False
+        tok = int(argmax.cpu()[0])                     # synchronises
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._set_first_token(tid, logits, tok)
+        return ms, True
 
     def decode(self, tasks: Sequence[Task],
                depths: Optional[Sequence[int]] = None) -> float:
@@ -1014,6 +1076,7 @@ class PagedTorchExecutor(Executor):
         for b in _pow2_buckets(self.max_batch):
             for K in _pow2_buckets(self.spec_depth):
                 self._verify_step(b, K)
+        self.draft.make_steps()
         _sync(self.device)
         t0 = time.perf_counter()
         # clamp each row's depth to the sequence cap, its remaining output

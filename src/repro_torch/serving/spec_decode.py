@@ -13,20 +13,26 @@ committed stream is identical to non-speculative greedy decode.
 ``greedy_accept``, ``depth_bucket``, ``default_draft_config`` and
 ``draft_config_from_registry`` are copies of ``repro.serving.spec_decode``
 with imports pointed at the port. ``DraftModel`` runs on the port's slot
-cache (``model.init_cache``) with masked decode over the slot array in
-place, where the JAX model gathers the drafting rows into a compiled
-batch bucket and scatters them back: the drafting rows compute the same
-tokens either way.
+cache (``step_graphs.slot_cache``) through the staged slot steps: the
+masked decode over the slot array in place, where the JAX model gathers
+the drafting rows into a compiled batch bucket and scatters them back
+(the drafting rows compute the same tokens either way), and one catch-up
+chunk step per power-of-two piece, as JAX's ``_chunk_jit[c]``; on the
+card both are CUDA graphs. Where every slot is held, the draft reclaims
+the slot of the task drafted least recently outside the current
+``propose`` call; the JAX draft raises there (ROADMAP.md Queue C).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Collection, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.serving.step_graphs import (StepGraphs, chunk_step,
+                                             masked_step, slot_cache)
 
 
 def greedy_accept(drafts: Sequence[int], target_ids: Sequence[int]) -> int:
@@ -86,18 +92,18 @@ class DraftModel:
 
     The draft keeps its own K/V for each task's committed prefix
     (``valid_len``). ``propose`` first catches a task up — feeding the
-    committed tokens the draft has not cached through ``prefill_chunk`` in
+    committed tokens the draft has not cached through the chunk step in
     power-of-two pieces (empty after an all-accepted window, whose K/V the
     draft wrote itself) — then drafts ``max(depths)`` tokens for the whole
-    batch in lockstep, a masked ``decode_step`` over the slot array per
-    token. Draft state is disposable: ``drop`` forgets a task
-    (suspend/release) and the next propose re-prefills its committed
-    prefix.
+    batch in lockstep, a masked decode step over the slot array per
+    token, whose fused argmax is read once a token. Draft state is
+    disposable: ``drop`` forgets a task (suspend/release, or a reclaimed
+    slot) and the next propose re-prefills its committed prefix.
     """
 
     def __init__(self, cfg, params=None, max_slots: int = 16,
                  max_seq: int = 512, seed: int = 0, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", cuda_graphs: bool = True):
         if not cfg.has_attention or cfg.has_ssm:
             raise ValueError("DraftModel needs a pure-attention arch "
                              "(slot KV cache + chunked catch-up)")
@@ -107,20 +113,42 @@ class DraftModel:
             cfg, seed=seed + 101, dtype=dtype, device=self.device)
         self.max_slots = max_slots
         self.max_seq = max_seq
-        self.cache = M.init_cache(cfg, max_slots, max_seq,
-                                  dtype=self.params["embed"].dtype,
-                                  device=self.device)
+        self.cache = slot_cache(cfg, max_slots, max_seq,
+                                self.params["embed"].dtype, self.device)
         self.slot_of: Dict[int, int] = {}
         self.free: List[int] = list(range(max_slots))
         self.valid_len: Dict[int, int] = {}   # tid -> committed tokens cached
         self.drafted_tokens = 0
+        self.reclaimed_slots = 0              # slots taken from idle tasks
+        self._proposals = 0                   # propose calls so far
+        self._drafted_at: Dict[int, int] = {}  # tid -> its last propose call
+        # the masked decode step and the catch-up chunk steps
+        self.graphs = StepGraphs(self.device, cuda_graphs)
+
+    def make_steps(self) -> None:
+        """Make (on the card: capture) every step ``propose`` can run: the
+        masked decode step and a chunk step per power of two below
+        max_seq. Idempotent; the engine calls it before its clock."""
+        masked_step(self)
+        c = 1
+        while c < self.max_seq:
+            chunk_step(self, c)
+            c *= 2
 
     # -- slots --
-    def _assign_slot(self, tid: int) -> int:
+    def _assign_slot(self, tid: int, protect: Collection[int]) -> int:
+        """The task's slot, assigning a free one. With every slot held,
+        the slot of the task drafted least recently among those not in
+        ``protect`` (the current call's tasks) is reclaimed through
+        ``drop``: its next propose re-prefills it."""
         if tid in self.slot_of:
             return self.slot_of[tid]
         if not self.free:
-            raise RuntimeError("draft model out of KV slots")
+            idle = [t for t in self.slot_of if t not in protect]
+            if not idle:
+                raise RuntimeError("draft model out of KV slots")
+            self.drop(min(idle, key=lambda t: self._drafted_at.get(t, -1)))
+            self.reclaimed_slots += 1
         s = self.free.pop(0)
         self.slot_of[tid] = s
         return s
@@ -130,6 +158,7 @@ class DraftModel:
         recycled and the next propose re-prefills from the committed
         prefix. Idempotent."""
         self.valid_len.pop(tid, None)
+        self._drafted_at.pop(tid, None)
         s = self.slot_of.pop(tid, None)
         if s is not None:
             self.free.append(s)
@@ -145,22 +174,23 @@ class DraftModel:
             self.valid_len[tid] = committed_len
 
     # -- drafting --
-    def _catch_up(self, tid: int, committed: np.ndarray) -> None:
-        s = self._assign_slot(tid)
+    def _catch_up(self, tid: int, committed: np.ndarray,
+                  protect: Collection[int]) -> None:
+        s = self._assign_slot(tid, protect)
         L = int(committed.shape[0])
         have = min(self.valid_len.get(tid, 0), L)
         # reset the row to the committed prefix: a stale draft tail beyond
         # it is abandoned (its kv_pos entries lie past the new length, so
-        # attention masks them until they are overwritten)
-        self.cache["length"][s] = have
-        row = {k: self.cache[k][:, s:s + 1] for k in ("k", "v")}
-        row["length"] = self.cache["length"][s:s + 1]
-        row["kv_pos"] = self.cache["kv_pos"][s:s + 1]
+        # attention masks them until they are overwritten); the first
+        # piece's staged length does it, or, with nothing to feed, a write
+        pieces = pow2_pieces(L - have)
+        if not pieces:
+            self.cache["length"][s] = have
         done = have
-        for c in pow2_pieces(L - have):
-            piece = torch.as_tensor(committed[None, done:done + c],
-                                    dtype=torch.long).to(self.device)
-            M.prefill_chunk(self.cfg, self.params, row, piece)
+        for c in pieces:
+            chunk_step(self, c).run({
+                "idx": np.asarray([s]), "length": np.asarray([done]),
+                "tokens": committed[None, done:done + c]})
             done += c
         self.valid_len[tid] = L
 
@@ -173,21 +203,21 @@ class DraftModel:
         deeper draft K/V that the next catch-up abandons."""
         assert len(items) == len(depths) and items
         K = max(depths)
+        self._proposals += 1
+        protect = {tid for tid, _, _ in items}
         for (tid, committed, _last) in items:
-            self._catch_up(tid, committed)
+            self._catch_up(tid, committed, protect)
+            self._drafted_at[tid] = self._proposals
         slots = [self.slot_of[tid] for tid, _, _ in items]
-        active = np.zeros((self.max_slots,), bool)
-        active[slots] = True
-        toks = np.zeros((self.max_slots,), np.int64)
+        valid = np.zeros((self.max_slots,), bool)
+        valid[slots] = True
+        toks = np.zeros((self.max_slots,), np.int32)
         toks[slots] = [last for _, _, last in items]
-        active_t = torch.as_tensor(active).to(self.device)
-        slots_t = torch.as_tensor(slots, dtype=torch.long).to(self.device)
+        step_fn = masked_step(self)
         drafts: List[List[int]] = [[] for _ in items]
         for step in range(K):
-            logits, _ = M.decode_step(self.cfg, self.params, self.cache,
-                                      torch.as_tensor(toks).to(self.device),
-                                      active_t)
-            nxt = logits[slots_t].argmax(-1).cpu().numpy()
+            _, argmax = step_fn.run({"tokens": toks, "valid": valid})
+            nxt = argmax.cpu().numpy()[slots]          # synchronises
             for i, d in enumerate(depths):
                 if step < d:
                     drafts[i].append(int(nxt[i]))

@@ -1,8 +1,10 @@
-"""Compiled decode-type steps: each step kind and static shape captured
-once as a CUDA graph and replayed after. The port's counterpart of the
-JAX executor's AOT-compiled steps (``repro.serving.executor``:
-``_lower``, ``_build_steps``, ``_build_verify_steps``,
-``_build_bucket_steps``).
+"""Compiled steps: each step kind and static shape captured once as a
+CUDA graph and replayed after. The port's counterpart of the JAX
+executor's AOT-compiled steps (``repro.serving.executor``: ``_lower``,
+``_build_steps``, ``_build_verify_steps``, ``_build_bucket_steps``,
+``_build_chunk_steps``, ``_suffix_step``, ``_prefill_jit``) and of the
+JAX draft model's (``repro.serving.spec_decode.DraftModel``:
+``_decode_jit``, ``_chunk_jit``).
 
 An engine owns one ``StepGraphs`` and asks it for a ``Step`` per key (a
 step kind and its static shape, such as ``("decode", 8)``), giving the
@@ -21,8 +23,9 @@ holds) and its function of them. A ``Step`` owns:
   libraries, runs their one-time attribute calls and initialises cuBLAS
   outside capture; then it is captured into the engine's one memory pool
   (``torch.cuda.graph_pool_handle()``; an engine's replays never
-  overlap); every ``run`` replays it and returns the static outputs the
-  capture allocated, which the next replay overwrites;
+  overlap), with Python's garbage collector off for the capture; every
+  ``run`` replays it and returns the static outputs the capture
+  allocated, which the next replay overwrites;
 - the launches the capture made through ``kernels.ops`` (recorded, then
   taken back out of ``ops.LAUNCHES``, so warm-up and capture count
   nothing), added to ``ops.LAUNCHES`` on every replay: a replayed step
@@ -35,9 +38,15 @@ function on the static inputs at every ``run``, uncaptured: the CPU tests
 exercise everything but the capture itself. There is no fallback: a
 capture that fails raises and leaves no step behind (the next request
 tries again), and a replay that fails raises.
+
+The slot cache's steps are here too (``slot_cache``, ``masked_step``,
+``chunk_step``), shared by the slot engine and the draft model: both own
+a slot cache with one spare row past their slots, which the pad inputs
+of these steps write.
 """
 from __future__ import annotations
 
+import gc
 from typing import (Callable, Dict, Hashable, List, Optional, Sequence,
                     Tuple, Union)
 
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import model as M
 
 # name -> (shape, type, pad value: a scalar or an array of the shape)
 InputSpec = Dict[str, Tuple[Tuple[int, ...], torch.dtype,
@@ -114,7 +124,16 @@ class Step:
             with torch.cuda.graph(graph, pool=self.pool):
                 return self.fn(self.inputs)
 
-        self.outputs, self.launches = ops.recorded_launches(capture)
+        # the collector stays off while the stream captures: collecting an
+        # engine that died in a reference cycle destroys its graphs and
+        # frees its buffers, which invalidates the capture in progress
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self.outputs, self.launches = ops.recorded_launches(capture)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
         self._arena_ptrs = [t.data_ptr() for t in self.arenas()]
 
@@ -192,3 +211,70 @@ class LazyLogits:
                 a = a[np.arange(a.shape[0]), np.asarray(self._pick)]
             self._host, self._dev = a, None
         return self._host
+
+
+def with_argmax(logits: torch.Tensor):
+    """A step's outputs: its logits and their argmax (int32), fused into
+    the step as JAX fuses it, so only the argmax is read to the host."""
+    return logits, logits.argmax(-1).to(torch.int32)
+
+
+# ------------------------------------------------------ slot-cache steps
+
+def slot_cache(cfg, n_slots: int, max_seq: int, dtype, device) -> M.Cache:
+    """A slot cache of ``n_slots`` rows (model.init_cache) and one spare
+    row past them (row ``n_slots``), which no task holds: a slot step's
+    pad inputs write only there."""
+    return M.init_cache(cfg, n_slots + 1, max_seq, dtype=dtype,
+                        device=device)
+
+
+def _slot_arenas(eng) -> Callable[[], List[torch.Tensor]]:
+    return lambda: list(eng.cache.values())
+
+
+def masked_step(eng) -> Step:
+    """The masked decode step over the ``eng.max_slots`` rows of
+    ``eng.cache`` (the spare row excluded), in place: inputs tokens and
+    valid (the decode-mask column) per row; pads are inactive rows,
+    which write nothing. Returns (logits [S,V], argmax [S] int32).
+    ``eng`` is a slot engine or a draft model: it has ``cfg``, ``params``,
+    ``cache``, ``max_slots`` and ``graphs``."""
+    S, cfg, params = eng.max_slots, eng.cfg, eng.params
+    spec = {"tokens": ((S,), torch.int32, 0),
+            "valid": ((S,), torch.bool, False)}
+
+    def masked(x):
+        rows = {k: v[:, :S] if k in ("k", "v") else v[:S]
+                for k, v in eng.cache.items()}
+        logits, _ = M.decode_step(cfg, params, rows, x["tokens"], x["valid"])
+        return with_argmax(logits)
+
+    return eng.graphs.step(("masked", S), spec, masked, _slot_arenas(eng))
+
+
+def chunk_step(eng, c: int) -> Step:
+    """The chunk step of ``c`` tokens on one row of ``eng.cache`` (JAX's
+    slot ``_build_chunk_steps`` and the draft's ``_chunk_step``): gather
+    the row ``idx``, append the tokens at ``length`` (the row's cached
+    tokens, staged by the host) through model.prefill_chunk, scatter the
+    row back. Inputs: idx [1], length [1], tokens [1, c]; the pad is the
+    spare row at length 0. Returns (logits [1,V], argmax [1] int32)."""
+    cfg, params = eng.cfg, eng.params
+    spec = {"idx": ((1,), torch.int64, eng.max_slots),
+            "length": ((1,), torch.int32, 0),
+            "tokens": ((1, c), torch.int32, 0)}
+
+    def chunk(x):
+        cache, idx = eng.cache, x["idx"]
+        row = {k: cache[k][:, idx] for k in ("k", "v")}
+        row["kv_pos"] = cache["kv_pos"][idx]
+        row["length"] = x["length"].clone()     # prefill_chunk adds c to it
+        logits, row = M.prefill_chunk(cfg, params, row, x["tokens"])
+        for k in ("k", "v"):
+            cache[k][:, idx] = row[k]
+        for k in ("kv_pos", "length"):
+            cache[k][idx] = row[k]
+        return with_argmax(logits)
+
+    return eng.graphs.step(("chunk", c), spec, chunk, _slot_arenas(eng))

@@ -690,7 +690,7 @@ def test_captured_paged_decode_matches_eager(arch):
     if cfg.block_kind != "moe":
         assert streams[0] == streams[1]
     assert launches[0] == launches[1] and sum(launches[1].values()) > 0
-    steps = graphs.graphs.steps
+    steps = {k: s for k, s in graphs.graphs.steps.items() if k[0] == "decode"}
     assert set(steps) == {("decode", 1), ("decode", 2), ("decode", 4)}
     assert all(s.graph is not None and s.runs > 0 for s in steps.values())
     assert not any(s.graph is not None for s in eager.graphs.steps.values())
@@ -737,6 +737,7 @@ def test_captured_slot_decode_matches_eager(compact):
     assert launches[1]["decode_attention"] > 0
     want = ({("compact", 1), ("compact", 2), ("compact", 4)} if compact
             else {("masked", 4)})
+    want |= {("prefill", 5), ("prefill", 17), ("prefill", 40)}
     assert set(graphs.graphs.steps) == want
     assert all(s.graph is not None and s.runs > 0
                for s in graphs.graphs.steps.values())
@@ -783,3 +784,186 @@ def test_replay_on_a_rebound_arena_raises():
     ex.pages["k_pages"] = ex.pages["k_pages"].clone()
     with pytest.raises(RuntimeError, match="arena"):
         ex.decode(tasks)
+
+
+# ------------------------------------------- captured prefill-type steps
+
+def _prefill_both(engines, tasks, how):
+    """``how(ex, task)`` each task on both engines (eager first), launches
+    counted per engine from zero, then two decode steps of every task.
+    Returns (prefill logits per engine, launches per engine, streams per
+    engine)."""
+    logits = ([], [])
+    launches = []
+    for e, ex in enumerate(engines):
+        ops.reset_launches()
+        for t in tasks:
+            how(ex, t)
+            logits[e].append(ex.last_prefill_logits)
+        for _ in range(2):
+            ex.decode(tasks)
+        torch.cuda.synchronize()
+        launches.append(dict(ops.LAUNCHES))
+    streams = [[ex.generated_tokens(t) for t in tasks] for ex in engines]
+    return logits, launches, streams
+
+
+def _assert_same(cfg, logits, launches, streams):
+    for a, b in zip(*logits):
+        if cfg.block_kind == "moe":
+            np.testing.assert_allclose(b, a, atol=TOL["float32"], rtol=0)
+        else:
+            np.testing.assert_array_equal(b, a)
+    if cfg.block_kind != "moe":
+        assert streams[0] == streams[1]
+    assert launches[0] == launches[1] and sum(launches[1].values()) > 0
+
+
+def _chunked(ex, t, n=16):
+    while not ex.prefill_chunk(t, n)[1]:
+        pass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["edge-6b", "mamba2-780m",
+                                  "granite-moe-3b-a800m", "hymba-1.5b"])
+def test_captured_paged_prefill_matches_eager(arch):
+    """The paged engine's whole-prompt steps (one per prompt length, the
+    splice into pages and state slot inside) captured against the same
+    steps run eagerly: prefill logits bit for bit (MoE within 1e-4),
+    streams, launch counts and the pool's part of every arena equal; one
+    graph per length, a second prompt of a length replaying it."""
+    _need_cuda()
+    cfg, eager, graphs = _eager_and_captured(arch)
+    tasks = _tasks((5, 17, 40, 17), 8600)
+    logits, launches, streams = _prefill_both(
+        (eager, graphs), tasks, lambda ex, t: ex.prefill(t))
+    _assert_same(cfg, logits, launches, streams)
+    n = eager.n_pages
+    for name, arena in eager.pages.items():
+        cut = n if name.endswith("pages") else eager.n_state_slots
+        if cfg.block_kind == "moe":
+            torch.testing.assert_close(graphs.pages[name][:, :cut],
+                                       arena[:, :cut], atol=TOL["float32"],
+                                       rtol=0)
+        else:
+            assert torch.equal(graphs.pages[name][:, :cut], arena[:, :cut])
+    steps = {k: s for k, s in graphs.graphs.steps.items() if k[0] == "prefill"}
+    assert set(steps) == {("prefill", 5), ("prefill", 17), ("prefill", 40)}
+    assert all(s.graph is not None for s in steps.values())
+    assert steps[("prefill", 17)].runs == 2
+
+
+@pytest.mark.cuda
+def test_captured_paged_chunk_and_suffix_match_eager():
+    """Prefix-cache engines with chunks of 16: a whole prompt, a prefix
+    hit whose suffix runs in power-of-two pieces, a chunked prompt and a
+    chunked prefix hit, captured against eager: logits bit for bit,
+    streams, hits and launch counts equal; every chunk step a graph."""
+    _need_cuda()
+    cfg, eager, graphs = _eager_and_captured(
+        "edge-6b", prefill_chunk_size=16, prefix_cache=True)
+    tasks = _tasks((40, 45, 37, 43), 8700)
+    for t, g in zip(tasks, (0, 0, None, 0)):
+        t.prefix_group, t.prefix_len = g, (32 if g is not None else 0)
+
+    def how(ex, t):
+        if t.task_id in (8700, 8701):
+            ex.prefill(t)
+        else:
+            _chunked(ex, t)
+
+    logits, launches, streams = _prefill_both((eager, graphs), tasks, how)
+    _assert_same(cfg, logits, launches, streams)
+    assert launches[1]["flash_prefill_chunk"] > 0
+    assert graphs.prefix_cache.hits == eager.prefix_cache.hits >= 2
+    chunks = [s for k, s in graphs.graphs.steps.items() if k[0] == "chunk"]
+    assert chunks and all(s.graph is not None and s.runs for s in chunks)
+
+
+@pytest.mark.cuda
+def test_captured_slot_prefill_and_chunk_match_eager():
+    """The slot engine's whole-prompt and chunk steps (gather the row,
+    chunk, scatter back) captured against eager: logits bit for bit,
+    streams and launch counts equal, the slot rows of the cache equal."""
+    _need_cuda()
+    cfg, eager, graphs = _eager_and_captured("edge-6b", slot=True,
+                                             prefill_chunk_size=16)
+    tasks = _tasks((5, 40, 23), 8800)
+
+    def how(ex, t):
+        if t.prompt_len == 5:
+            ex.prefill(t)
+        else:
+            _chunked(ex, t)
+
+    logits, launches, streams = _prefill_both((eager, graphs), tasks, how)
+    _assert_same(cfg, logits, launches, streams)
+    S = eager.max_slots
+    for k, v in eager.cache.items():
+        rows = (slice(None), slice(0, S)) if k in ("k", "v") else (
+            slice(0, S),)
+        assert torch.equal(graphs.cache[k][rows], v[rows]), k
+    assert all(s.graph is not None for s in graphs.graphs.steps.values())
+    assert {k[0] for k in graphs.graphs.steps} == {"prefill", "chunk",
+                                                   "masked"}
+
+
+@pytest.mark.cuda
+def test_captured_draft_steps_match_eager():
+    """Speculative decoding with the default one-layer draft: its
+    catch-up chunks and masked decode captured (made with the verify
+    buckets, before the first iteration) against eager: drafted and
+    accepted counts, logits bit for bit, streams and launches equal."""
+    _need_cuda()
+    _, eager, graphs = _eager_and_captured("edge-6b", spec_decode=True,
+                                           max_spec_depth=4)
+    tasks = _tasks((5, 17, 40), 8900)
+    batches = [3, 2, 3, 1, 3]
+    depths = [[4, 2, 1], [3, 3], [2, 4, 4], [4], [1, 1, 2]]
+    logits, launches, streams = _run_both((eager, graphs), tasks, batches,
+                                          depths)
+    for a, b in zip(*logits):
+        np.testing.assert_array_equal(b, a)
+    assert streams[0] == streams[1]
+    assert launches[0] == launches[1]
+    assert graphs.drafted_tokens == eager.drafted_tokens > 0
+    assert graphs.accepted_tokens == eager.accepted_tokens
+    draft = graphs.draft.graphs.steps
+    assert ("masked", 4) in draft and ("chunk", 64) in draft
+    assert all(s.graph is not None for s in draft.values())
+    assert draft[("masked", 4)].runs > 0
+    assert not any(s.graph is not None
+                   for s in eager.draft.graphs.steps.values())
+
+
+@pytest.mark.cuda
+def test_refused_prefill_capture_raises_without_fallback(monkeypatch):
+    """A flash-prefill launch refused while a whole-prompt step is
+    captured raises out of prefill with nothing left behind: no step, no
+    page taken, the launch counter as it was; the next prefill of that
+    length raises again (nothing falls back to the eager step), and one
+    of another length is unaffected once the launch is allowed."""
+    _need_cuda()
+    from repro_torch.kernels import flash_prefill as _fp
+    _, _, ex = _eager_and_captured("edge-6b")
+    launch = _fp.launch
+
+    def refusing(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_prefill kernel launch failed: "
+                               "refused under capture")
+        return launch(*a, **k)
+
+    monkeypatch.setattr(_fp, "launch", refusing)
+    ops.reset_launches()
+    task = _tasks((17,), 9000)[0]
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="refused under capture"):
+            ex.prefill(task)
+        assert sum(ops.LAUNCHES.values()) == 0
+        assert ("prefill", 17) not in ex.graphs.steps
+        assert ex.pool.used_pages == 0 and not ex.pool.holds(task.task_id)
+    monkeypatch.setattr(_fp, "launch", launch)
+    ex.prefill(task)
+    assert ex.graphs.steps[("prefill", 17)].graph is not None

@@ -306,7 +306,23 @@ def test_unported_arch_kinds_raise():
         TorchExecutor(get_config("mamba2-780m").reduced(), device="cpu")
 
 
-def test_slot_chunked_serving_run():
+@pytest.fixture
+def one_cpu_thread():
+    """PyTorch's CPU ops on one intra-op thread for a run on the real
+    clock. With its default pool (a thread per core) beside the other test
+    processes, a reduced decode step that takes ~3 ms alone took ~1.4 s:
+    the pool's threads wait on each other at every op while the cores are
+    taken. The probed l(1) then exceeds SLICE's 1000 ms period, Eq. 7
+    admits no task, and none finishes. On one thread the step slows only
+    by the share of a core the process gets (~40 ms beside ten busy
+    processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_slot_chunked_serving_run(one_cpu_thread):
     """The CLI over the slot engine with chunked prefill, on the CPU: every
     task finishes, chunks ran, and every slot is free at the end."""
     run = tserve.run(tserve.parse_args([

@@ -349,3 +349,57 @@ def test_spec_engine_refusals(weights):
     with pytest.raises(ValueError, match="vocab"):
         PagedTorchExecutor(cfg, params=tp, spec_decode=True, draft_cfg=other,
                            device="cpu", **ENGINE)
+
+
+# ------------------------------------------- more prefilled tasks than slots
+
+def _over_slot_tasks(mod):
+    return [_task(mod, n, 24, 4500 + i) for i, n in enumerate((5, 9, 7))]
+
+
+def test_jax_draft_runs_out_of_slots(weights):
+    """The reference's fault: three prefilled tasks on an engine of two
+    decode slots, drafted two, then one: JAX's draft holds a slot per
+    drafted task until it is dropped, so the third raises."""
+    jcfg, _, jp, _ = weights
+    jx = PagedJaxExecutor(jcfg, params=jp, spec_decode=True,
+                          max_spec_depth=2, **dict(ENGINE, max_batch=2))
+    jt = _over_slot_tasks(jtask)
+    for t in jt:
+        jx.prefill(t)
+    jx.decode(jt[:2], [2, 2])
+    with pytest.raises(RuntimeError, match="draft model out of KV slots"):
+        jx.decode(jt[2:], [2])
+
+
+def test_draft_reclaims_a_slot_and_keeps_the_greedy_streams(weights):
+    """The same run on the port, with a self-draft, over every subset of
+    the three tasks: drafting a task beyond the two slots reclaims the
+    slot of the task drafted least recently outside the call (its next
+    propose re-prefills it), windows are still accepted, and every
+    committed stream equals the target-only greedy stream."""
+    _, cfg, _, tree = weights
+    tp = _tp(cfg, tree)
+    eng = dict(ENGINE, max_batch=2)
+    tx = PagedTorchExecutor(cfg, params=tp, spec_decode=True, draft_cfg=cfg,
+                            draft_params=tp, max_spec_depth=2, device="cpu",
+                            **eng)
+    plain = PagedTorchExecutor(cfg, params=tp, device="cpu", **eng)
+    tt = _over_slot_tasks(ttask)
+    for t in tt:
+        tx.prefill(t)
+        plain.prefill(t)
+    for t in tt:                        # 4500 is drafted least recently
+        tx.decode([t], [2])
+    assert sorted(tx.draft.slot_of) == [4501, 4502]
+    assert tx.draft.reclaimed_slots == 1
+    for sel in ((0, 1), (1, 2), (0,), (2, 0), (1,)):
+        tx.decode([tt[i] for i in sel], [2] * len(sel))
+    assert tx.accepted_tokens > 0
+    assert len(tx.draft.slot_of) == 2 and not tx.draft.free
+    for _ in range(max(len(tx.generated_tokens(t)) for t in tt)):
+        plain.decode(tt[:2])
+        plain.decode(tt[2:])
+    for t in tt:
+        got = tx.generated_tokens(t)
+        assert len(got) > 3 and got == plain.generated_tokens(t)[:len(got)]

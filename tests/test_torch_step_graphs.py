@@ -17,7 +17,16 @@ contract: a capture's launches are recorded and taken back out of
 ``ops.LAUNCHES``, and added again on every replay, through the replay
 hook with a recorded delta (nothing can be captured here); a replay on a
 rebound arena raises. (e) ``last_logits`` is a device-side copy read
-lazily: it equals the eager values even after later steps.
+lazily: it equals the eager values even after later steps. (f) The
+prefill-type steps: ``prefill_chunk_paged`` (dense and MoE) with every
+host sync raising, equal to JAX's, its untabled tokens writing only the
+spare page; each engine's staged steps (the whole prompt per length with
+its splice for every arch, the paged and slot chunk pieces, the paged
+prefix-hit suffix, the draft's catch-up and masked decode) run with their
+step functions under the same guard and equal the JAX engines (logits
+within 1e-5, identical streams, arenas equal on the pool's part); their
+pad inputs, which a capture's warm-up runs, write only the spare page,
+state slot or slot-cache row.
 """
 from __future__ import annotations
 
@@ -36,11 +45,13 @@ from helpers import assert_logits_close  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.core import task as jtask  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.serving import spec_decode as jspec  # noqa: E402
 from repro.serving.executor import JaxExecutor, PagedJaxExecutor  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import task as ttask  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.serving import spec_decode as tspec  # noqa: E402
 from repro_torch.serving import step_graphs as SG  # noqa: E402
 from repro_torch.serving.executor import (PagedTorchExecutor,  # noqa: E402
                                           TorchExecutor)
@@ -314,7 +325,8 @@ def test_paged_executor_staged_steps_match_jax(weights):
             == [jx.generated_tokens(t) for t in jt])
     ran = {k for k, st in tx.graphs.steps.items() if st.runs}
     assert ran == {("decode", 1), ("decode", 2), ("decode", 4),
-                   ("verify", 4, 1), ("verify", 2, 4), ("verify", 1, 4)}
+                   ("verify", 4, 1), ("verify", 2, 4), ("verify", 1, 4),
+                   ("prefill", 5), ("prefill", 17), ("prefill", 9)}
     # every verify bucket is made before the first verify is timed
     assert {k for k in tx.graphs.steps if k[0] == "verify"} == {
         ("verify", b, K) for b in (1, 2, 4) for K in (1, 2, 4)}
@@ -351,6 +363,7 @@ def test_slot_executor_staged_steps_match_jax(weights, compact):
     assert [tx.generated_tokens(t) for t in tt] == want
     want = ({("compact", 1), ("compact", 2), ("compact", 4)} if compact
             else {("masked", 4)})
+    want |= {("prefill", 5), ("prefill", 17), ("prefill", 9)}
     assert set(tx.graphs.steps) == want
     assert all(st.runs for st in tx.graphs.steps.values())
 
@@ -482,7 +495,7 @@ def test_executor_last_logits_are_the_eager_values(weights):
     for ex in twins:
         ex.decode(tasks)
     # the table the step used: the pool extends before the step
-    pt = twins[0]._table([t.task_id for t in tasks], 2)
+    pt = torch.from_numpy(twins[0]._table_np([t.task_id for t in tasks], 2))
     eager, _ = TM.decode_step_paged(cfg, twins[0].params, pages, pt,
                                     lengths, toks)
     now = twins[1].last_logits
@@ -491,3 +504,273 @@ def test_executor_last_logits_are_the_eager_values(weights):
     twins[0].decode(tasks)
     np.testing.assert_array_equal(held.numpy(), now)
     np.testing.assert_array_equal(now, eager.numpy())
+
+
+# ------------------------------------------------------ prefill-type steps
+
+CHUNK_ARCHS = ["edge-6b", "granite-moe-3b-a800m"]   # attention-only archs
+
+
+def _guard_steps(graphs):
+    """Run the function of every step ``graphs`` holds under
+    ``no_host_sync``: the staging (host work) stays outside the guard, the
+    step itself (what a capture records) inside."""
+    def guarded(fn):
+        def run(x):
+            with no_host_sync():
+                return fn(x)
+        return run
+
+    for st in graphs.steps.values():
+        st.fn = guarded(st.fn)
+
+
+@pytest.mark.parametrize("arch", CHUNK_ARCHS)
+def test_prefill_chunk_paged_has_no_host_sync(arch):
+    """Chunks of C = 3, then 5, over two prefilled rows, a row whose table
+    ends mid-chunk (its later tokens untabled) and a pad row (table all
+    -1), every host sync raising: the two prefilled rows' last logits and
+    the arena equal JAX's (JAX drops the untabled tokens' writes, the port
+    sends them to the spare page), and their greedy argmax is identical."""
+    jcfg, cfg, jp, tp, jpages, tpages, _ = _prefilled(
+        arch, tables=((3, 7, 4), (0, 9, 2, 5)))
+    rng = np.random.default_rng(4)
+    pt = np.full((4, MAXP), -1, np.int32)
+    pt[0, :4], pt[1, :5], pt[2, :2] = [3, 7, 4, 6], [0, 9, 2, 5, 8], [10, 11]
+    for C, lengths in ((3, [5, 11, 6, 0]), (5, [8, 14, 9, 0])):
+        tk = rng.integers(0, cfg.vocab_size, (4, C)).astype(np.int32)
+        args = [pt, np.asarray(lengths, np.int32), tk]
+        jl, jpages = JM.prefill_chunk_paged(jcfg, jp, jpages,
+                                            *map(jnp.asarray, args))
+        targs = list(map(torch.from_numpy, args))
+        with no_host_sync():
+            tl, tpages = TM.prefill_chunk_paged(cfg, tp, tpages, *targs)
+        assert_logits_close(tl.numpy()[:2], np.asarray(jl)[:2],
+                            err_msg=f"{arch} C={C}")
+        _close_arenas(tpages, jpages)
+        assert (tl[:2].argmax(-1).numpy()
+                == np.asarray(jl)[:2].argmax(-1)).all()
+
+
+def test_untabled_chunk_tokens_write_only_the_spare():
+    """A chunk of C = 6 at position 5 for a row whose table covers 8
+    positions, beside a pad row: positions 5-7 write their page, the three
+    untabled ones and the pad row only the spare page."""
+    _, cfg, _, tp, _, tpages, _ = _prefilled("edge-6b")
+    before = {k: v.clone() for k, v in tpages.items()}
+    pt = np.full((2, MAXP), -1, np.int32)
+    pt[0, :2] = [3, 7]
+    TM.prefill_chunk_paged(cfg, tp, tpages, torch.from_numpy(pt),
+                           torch.tensor([5, 0], dtype=torch.int32),
+                           torch.ones((2, 6), dtype=torch.int32))
+    for name in ("k_pages", "v_pages"):
+        changed = tpages[name] != before[name]
+        assert changed[:, 7, :, 1:4].any(-1).any(1).all()
+        changed[:, 7, :, 1:4] = False
+        assert changed[:, N_PAGES].any()              # the spare page
+        changed[:, N_PAGES] = False
+        assert not changed.any(), name
+
+
+SMALL = dict(n_pages=32, page_size=8, max_seq=64, max_batch=4)
+
+
+def _paged_pair(arch, **kw):
+    jcfg, cfg, jp, tp = _pair(arch)
+    return (PagedJaxExecutor(jcfg, params=jp, **SMALL, **kw),
+            PagedTorchExecutor(cfg, params=tp, device="cpu", **SMALL, **kw))
+
+
+def _drive(jx, tx, jt, tt, prefill, decodes=3):
+    """``prefill(ex, task)`` each task on both engines (prefill logits
+    within 1e-5), then ``decodes`` decode steps of every task; the greedy
+    streams read from each engine's logits identical, decode logits within
+    1e-5 and the arenas equal on the pool's part."""
+    streams = {"jax": [], "torch": []}
+    for a, b in zip(jt, tt):
+        prefill(jx, a)
+        prefill(tx, b)
+        assert_logits_close(tx.last_prefill_logits, jx.last_prefill_logits,
+                            err_msg=f"prefill {b.task_id}")
+        for name, ex in (("jax", jx), ("torch", tx)):
+            streams[name].append([int(ex.last_prefill_logits[0].argmax())])
+    for step in range(decodes):
+        jx.decode(jt)
+        tx.decode(tt)
+        assert_logits_close(tx.last_logits, jx.last_logits,
+                            err_msg=f"decode {step}")
+        for name, ex in (("jax", jx), ("torch", tx)):
+            for row, logits in zip(streams[name], ex.last_logits):
+                row.append(int(logits.argmax()))
+    assert streams["torch"] == streams["jax"]
+    if hasattr(tx, "pages"):
+        _close_arenas(tx.pages, jx.pages)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_prefill_step_has_no_host_sync(arch):
+    """The paged engine's whole-prompt steps (one per prompt length, the
+    splice into the task's pages and state slot inside), their functions
+    run with every host sync raising: prefill logits, the decode after
+    them, the streams and the page and state arenas equal
+    ``PagedJaxExecutor``'s; one step per length."""
+    jx, tx = _paged_pair(arch)
+    lens = (5, 17)
+    for n in lens:
+        tx._prefill_step(n)
+    _guard_steps(tx.graphs)
+    _drive(jx, tx, _tasks(jtask, lens, 5400), _tasks(ttask, lens, 5400),
+           lambda ex, t: ex.prefill(t))
+    assert {k for k in tx.graphs.steps if k[0] == "prefill"} == {
+        ("prefill", 5), ("prefill", 17)}
+
+
+@pytest.mark.parametrize("arch", CHUNK_ARCHS)
+def test_slot_prefill_and_chunk_steps_have_no_host_sync(arch):
+    """The slot engine's whole-prompt step and chunk steps (pieces 8, 4,
+    2, 1: a 15-token prompt in chunks of 8), their functions run with
+    every host sync raising: logits, the decode after them, the streams
+    and the cache's slot rows equal ``JaxExecutor``'s."""
+    jcfg, cfg, jp, tp = _pair(arch)
+    kw = dict(max_slots=3, max_seq=64, prefill_chunk_size=8)
+    jx = JaxExecutor(jcfg, params=jp, **kw)
+    tx = TorchExecutor(cfg, params=tp, device="cpu", **kw)
+    tx._prefill_step(9)
+    for c in (8, 4, 2, 1):
+        SG.chunk_step(tx, c)
+    _guard_steps(tx.graphs)
+
+    def prefill(ex, t):
+        if t.prompt_len == 9:
+            ex.prefill(t)
+        else:
+            while not ex.prefill_chunk(t, 8)[1]:
+                pass
+
+    _drive(jx, tx, _tasks(jtask, (9, 15), 5500), _tasks(ttask, (9, 15), 5500),
+           prefill)
+    S = tx.max_slots
+    for k, v in tx.cache.items():
+        rows = (v[:, :S] if k in ("k", "v") else v[:S]).numpy()
+        assert_logits_close(rows, np.asarray(jx.cache[k]), err_msg=k)
+    assert all(tx.graphs.steps[("chunk", c)].runs for c in (8, 4, 2, 1))
+
+
+def test_paged_chunk_and_suffix_steps_match_jax():
+    """Prefix-cache engines with chunks of 8: a whole prompt, a prefix
+    hit whose suffix runs in power-of-two pieces, a chunked prompt and a
+    chunked prefix hit, every chunk-step function run with every host sync
+    raising: logits, streams, hits and the arena equal JAX's."""
+    jx, tx = _paged_pair("edge-6b", prefill_chunk_size=8, prefix_cache=True)
+    for c in (1, 2, 4, 8):
+        tx._chunk_step(c)
+    _guard_steps(tx.graphs)
+    lens, groups = (20, 23, 19, 22), (0, 0, None, 0)
+    jt, tt = _tasks(jtask, lens, 5600), _tasks(ttask, lens, 5600)
+    for t, g in zip(jt + tt, groups + groups):
+        t.prefix_group, t.prefix_len = g, (16 if g is not None else 0)
+
+    def prefill(ex, t):
+        if t.task_id in (5600, 5601):
+            ex.prefill(t)
+        else:
+            while not ex.prefill_chunk(t, 8)[1]:
+                pass
+
+    _drive(jx, tx, jt, tt, prefill, decodes=2)
+    assert tx.prefix_cache.hits == jx.prefix_cache.hits >= 2
+    assert {k for k in tx.graphs.steps if k[0] == "chunk"} == {
+        ("chunk", c) for c in (1, 2, 4, 8)}
+    assert all(tx.graphs.steps[("chunk", c)].runs for c in (1, 2, 4, 8))
+
+
+def test_staged_draft_matches_jax_without_host_sync():
+    """The draft model's staged steps (the masked decode over its slots
+    and the catch-up chunk per power of two), every step function run
+    with every host sync raising: drafts, the slots and the cache's slot
+    rows equal JAX's ``DraftModel`` over a catch-up from scratch, a
+    partial one after ``note_commit`` and a re-prefill after ``drop``."""
+    jcfg, cfg, jp, tp = _pair("edge-6b")
+    jd = jspec.DraftModel(jcfg, params=jp, max_slots=3, max_seq=64)
+    td = tspec.DraftModel(cfg, params=tp, max_slots=3, max_seq=64,
+                          device="cpu")
+    td.make_steps()
+    assert set(td.graphs.steps) == {("masked", 3)} | {
+        ("chunk", c) for c in (1, 2, 4, 8, 16, 32)}
+    _guard_steps(td.graphs)
+    rng = np.random.default_rng(5)
+    hist = {i: rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+            for i, n in ((1, 13), (2, 6))}
+
+    def both(ids, depths):
+        items = [(i, hist[i], int(hist[i][-1])) for i in ids]
+        out = td.propose(items, depths)
+        assert out == jd.propose(items, depths)
+        return out
+
+    for i, d in zip((1, 2), both([1, 2], [3, 2])):
+        hist[i] = np.concatenate([hist[i], np.asarray(d[:1] + [7], np.int32)])
+        jd.note_commit(i, len(hist[i]) - 1)
+        td.note_commit(i, len(hist[i]) - 1)
+    both([2, 1], [2, 4])
+    jd.drop(2)
+    td.drop(2)
+    both([2], [3])
+    assert td.slot_of == jd.slot_of
+    for k, v in td.cache.items():
+        rows = (v[:, :3] if k in ("k", "v") else v[:3]).numpy()
+        assert_logits_close(rows, np.asarray(jd.cache[k]), err_msg=k)
+
+
+def _run_at_pads(st):
+    """Run a step's function on its pad inputs, as a capture's warm-up."""
+    st.stage({name: np.array(pad) for name, pad in st.pads.items()})
+    st.fn(st.inputs)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_step_pads_write_only_the_spare(arch):
+    """A capture's warm-up runs a step on its pad inputs: the paged
+    whole-prompt step and chunk step at their pads change only the spare
+    page and state slot, never a task's pages or slot."""
+    _, tx = _paged_pair(arch)
+    tx.prefill(_tasks(ttask, (11,), 5700)[0])
+    before = {k: v.clone() for k, v in tx.pages.items()}
+    steps = [tx._prefill_step(11)]
+    if not tx.cfg.has_ssm:
+        steps.append(tx._chunk_step(4))
+    for st in steps:
+        _run_at_pads(st)
+    for name, spare in (("k_pages", TM.spare_page), ("v_pages", TM.spare_page),
+                        ("ssm_state", TM.spare_slot),
+                        ("conv_state", TM.spare_slot)):
+        if name not in tx.pages:
+            continue
+        same = (tx.pages[name] == before[name]).flatten(2).all(-1)
+        same[:, spare(tx.pages)] = True
+        assert same.all(), name
+
+
+def test_slot_step_pads_write_only_the_spare_row():
+    """The slot engine's and the draft's steps at their pad inputs (the
+    whole prompt, a chunk, the masked decode) change only the spare row of
+    their slot cache."""
+    _, cfg, _, tp = _pair("edge-6b")
+    tx = TorchExecutor(cfg, params=tp, max_slots=3, max_seq=64,
+                       prefill_chunk_size=4, device="cpu")
+    td = tspec.DraftModel(cfg, params=tp, max_slots=3, max_seq=64,
+                          device="cpu")
+    for t in _tasks(ttask, (9, 6), 5800):
+        tx.prefill(t)
+        td.propose([(t.task_id, np.arange(6, dtype=np.int32), 1)], [2])
+    for eng, steps in ((tx, [tx._prefill_step(9), SG.chunk_step(tx, 4),
+                             SG.masked_step(tx)]),
+                       (td, [SG.chunk_step(td, 4), SG.masked_step(td)])):
+        before = {k: v.clone() for k, v in eng.cache.items()}
+        for st in steps:
+            _run_at_pads(st)
+        S = eng.max_slots
+        for k, v in eng.cache.items():
+            rows = (slice(None), slice(0, S)) if k in ("k", "v") else (
+                slice(0, S),)
+            assert torch.equal(v[rows], before[k][rows]), k
