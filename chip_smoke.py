@@ -134,6 +134,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -191,6 +192,12 @@ SERVE_RUNS = (
                           "--shared-prefix-frac", "0.7", "--rate", "8"],
      ("paged_verify_attention", "paged_decode_attention",
       "flash_prefill_chunk", "decode_attention")),
+    # the async pipelined engine (DESIGN.md §10), traced (DESIGN.md §13),
+    # on the CLI's default mix: realtime beside voice/QA
+    ("paged-async-traced", ["--executor", "paged", "--ratio", "0.5",
+                            "--async-pipeline", "--trace", "{trace}",
+                            "--metrics-every", "16"],
+     ("paged_decode_attention", "flash_prefill")),
     # SSM and MoE serving (DESIGN.md §12): the later --arch overrides
     # SERVE_ARGS's
     ("paged-ssm", ["--executor", "paged", "--arch", "mamba2-780m"],
@@ -1053,6 +1060,163 @@ def check_hetero_engines():
                  "changed a swapped task or leaked")
 
 
+def async_drive(ex, tasks, spare, observe):
+    """The scripted sequence the sync and async engines both run: prefill
+    three tasks, decode across the batch buckets 4 -> 1 -> 4, a suspend
+    issued while a decode is in flight, then (when the engine chunks) a
+    chunked prefill of ``spare``, whose chunk step is captured while the
+    suspension's copy may still be in flight, decode the others, resume,
+    one speculative iteration (when the engine drafts), then decode all.
+    ``observe`` is called at a few points (each commits what is
+    pending)."""
+    for t in tasks:
+        ex.prefill(t)
+    observe("prefill", ex.last_prefill_logits)
+    for n in (3, 3, 1, 1, 3, 3):
+        ex.decode(tasks[:n])
+    observe("bucket change", ex.last_logits)
+    ex.decode(tasks)
+    ex.suspend(tasks[0])                     # behind the in-flight decode
+    if ex.prefill_chunk_size is not None:
+        while not ex.prefill_chunk(spare, ex.prefill_chunk_size)[1]:
+            pass
+        observe("chunked prefill", ex.last_prefill_logits)
+    for _ in range(2):
+        ex.decode(tasks[1:])
+    ex.resume(tasks[0])
+    ex.decode(tasks)
+    observe("suspend/resume", ex.last_logits)
+    if ex.prefill_chunk_size is not None:
+        tasks = tasks + [spare]
+    if ex.draft is not None:
+        ex.decode(tasks, [2] * len(tasks))
+        observe("spec decode", ex.last_logits)
+    for _ in range(3):
+        ex.decode(tasks)
+    ex.drain()
+    observe("end", ex.last_logits)
+    return tasks
+
+
+def check_async_engines():
+    """The async pipelined engine against the synchronous one on the card
+    (reduced edge-6b, fp32, steps captured, same weights, chunked prefill
+    and speculative decoding on): one scripted sequence (``async_drive``),
+    logits bit for bit at every observed point, greedy streams equal, the
+    pool consistent and the ledger idle after drain()."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    phase("check the async engine against the sync engine on the card")
+    cfg = get_config("edge-6b").reduced()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    out = {}
+    for async_dispatch in (False, True):
+        ex = PagedTorchExecutor(cfg, params=params, n_pages=64, page_size=16,
+                                max_seq=128, max_batch=4, device="cuda",
+                                prefill_chunk_size=16, spec_decode=True,
+                                max_spec_depth=2,
+                                async_dispatch=async_dispatch)
+        tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n,
+                      output_len=40, task_id=7600 + i)
+                 for i, n in enumerate((5, 17, 40, 29))]
+        seen = []
+        tasks = async_drive(ex, tasks[:3], tasks[3],
+                            lambda what, a: seen.append((what, a)))
+        ex.pool.check()
+        ex.ledger.check()
+        out[async_dispatch] = dict(
+            seen=seen, streams=[ex.generated_tokens(t) for t in tasks],
+            stalls=ex.gap_stats.stalls, idle=ex.ledger.outstanding() == 0,
+            swaps=ex.ledger.started, stage_waits=ex.graphs.stage_waits)
+    sync, asy = out[False], out[True]
+    same = all(np.array_equal(a, b) for (_, a), (_, b) in
+               zip(sync["seen"], asy["seen"]))
+    print(f"engine async vs sync (reduced edge-6b, captured): logits bit for "
+          f"bit at {[w for w, _ in asy['seen']]}: {same}; streams_equal="
+          f"{sync['streams'] == asy['streams']}; stalls {asy['stalls']}, "
+          f"transfers {asy['swaps']}, staging waits {asy['stage_waits']}, "
+          f"ledger idle {asy['idle']}")
+    if (not same or sync["streams"] != asy["streams"] or not asy["idle"]
+            or asy["stalls"] == 0 or asy["swaps"] != 1):
+        fail("the async engine on the card disagrees with the sync engine")
+
+
+ASYNC_STEPS = 32          # timed steady-state decode steps at b=8
+
+
+def async_graphs_phase():
+    """The async engine at full width (edge-6b paged, bf16, captured)
+    against the synchronous one on the same weights: the scripted drive
+    (``async_drive`` over 3 tasks, no chunking or drafting) and then
+    ASYNC_STEPS decode steps at b=8 over 8 tasks, greedy streams bit for
+    bit; prints both modes' engine clock per step (the host time of the
+    steps, the async drive's ending in drain()), the async dispatch ms,
+    staging waits (must be 0) and commit waits (at most one a stall) per
+    step."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    phase("graphs: the async engine against the sync engine, full width "
+          "(bf16)")
+    cfg = get_config("edge-6b")
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    out = {}
+    for async_dispatch in (False, True):
+        ex = PagedTorchExecutor(cfg, params=params, n_pages=512, page_size=16,
+                                max_seq=1024, max_batch=8, device="cuda",
+                                async_dispatch=async_dispatch)
+        tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=96 + 9 * i,
+                      output_len=512, task_id=9800 + i) for i in range(8)]
+        async_drive(ex, tasks[:3], None, lambda what, a: None)
+        for t in tasks[3:]:
+            ex.prefill(t)
+        for _ in range(3):                   # warm the b=8 step
+            ex.decode(tasks)
+        ex.drain()
+        torch.cuda.synchronize()
+        g = ex.graphs
+        w0 = (g.stage_waits, g.commit_waits, ex.gap_stats.stalls)
+        t0 = time.perf_counter()
+        disp = sum(ex.decode(tasks) for _ in range(ASYNC_STEPS))
+        # the waits of the dispatch loop; the drain's commits come after
+        w1 = (g.stage_waits, g.commit_waits, ex.gap_stats.stalls)
+        ex.drain()
+        wall = (time.perf_counter() - t0) * 1e3
+        out[async_dispatch] = dict(
+            ms=wall / ASYNC_STEPS, disp=disp / ASYNC_STEPS,
+            stage=w1[0] - w0[0], commit=w1[1] - w0[1],
+            stalls=w1[2] - w0[2], drained=g.commit_waits - w1[1],
+            streams=[ex.generated_tokens(t) for t in tasks])
+        del ex
+        gc.collect()
+        torch.cuda.empty_cache()
+    params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync, asy = out[False], out[True]
+    same = sync["streams"] == asy["streams"]
+    print(f"edge-6b paged b=8, {ASYNC_STEPS} steps: engine clock sync "
+          f"{sync['ms']:.3f} ms/step, async {asy['ms']:.3f} ms/step "
+          f"(dispatch {asy['disp']:.3f} ms/step); async host waits per step "
+          f"while dispatching: staging {asy['stage'] / ASYNC_STEPS:.2f}, "
+          f"commits {asy['commit'] / ASYNC_STEPS:.2f} ({asy['commit']} over "
+          f"{asy['stalls']} stalls), then {asy['drained']} in the drain; "
+          f"streams_equal={same} ({sum(map(len, asy['streams']))} tokens)")
+    if not same:
+        fail("full-width async engine: streams differ from the sync engine")
+    if asy["stage"] or asy["commit"] > asy["stalls"]:
+        fail("full-width async engine: host waits beyond the commits its "
+             "queue's depth forces")
+
+
 # (case, arch, engine, engine arguments, batch sizes, verify depth): the
 # decode-type steps the serving engines capture, at full width in bf16
 GRAPH_CASES = (
@@ -1313,16 +1477,21 @@ def serve_phase(run_name, extra, required):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serving.metrics import summarize
-    argv = SERVE_ARGS + extra
-    args = serve.parse_args(argv)
-    phase(f"serve {run_name}: {args.arch} at full width (bf16) under SLICE")
-    print("serve args:", " ".join(argv))
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    ops.reset_launches()
-    run = serve.run(args)
-    launches = dict(ops.LAUNCHES)
-    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "trace.json")
+        argv = SERVE_ARGS + [a.replace("{trace}", trace_path) for a in extra]
+        args = serve.parse_args(argv)
+        phase(f"serve {run_name}: {args.arch} at full width (bf16) under "
+              "SLICE")
+        print("serve args:", " ".join(argv))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        run = serve.run(args)
+        launches = dict(ops.LAUNCHES)
+        wall = time.perf_counter() - t0
+        if run.trace is not None:
+            check_trace(run, trace_path)
     ex, res = run.executor, run.result
     peak = torch.cuda.max_memory_allocated()
     print("l(b) curve: " + " ".join(f"l({b})={ms:.3f}ms" for b, ms in run.probes))
@@ -1375,8 +1544,12 @@ def serve_phase(run_name, extra, required):
     for i in range(3):
         t = Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=L, output_len=1,
                  task_id=9000 + i)
+        t1 = time.perf_counter()
         probe_ms.append(ex.prefill(t) if args.prefill_chunk is None
                         else ex.prefill_chunk(t, L)[0])
+        if getattr(ex, "async_dispatch", False):   # dispatch ms: drain
+            ex.drain()
+            probe_ms[-1] = (time.perf_counter() - t1) * 1e3
         ex.release(t)
     how = ("whole" if args.prefill_chunk is None
            else f"in chunks of {args.prefill_chunk}")
@@ -1405,6 +1578,34 @@ def serve_phase(run_name, extra, required):
     gc.collect()
     torch.cuda.empty_cache()
     return shapes, launches
+
+
+def check_trace(run, path):
+    """The traced async serve run: the replay ledger reproduces the loop's
+    counters, the Perfetto file loads back, the pipeline counters are
+    there (stalls, a positive dispatch time) and the engine is idle."""
+    from repro_torch.serving.trace import events_conserved, replay_counters
+    tr, res, ex = run.trace, run.result, run.executor
+    conserved = events_conserved(tr.events, res)
+    with open(path) as f:
+        doc = json.load(f)
+    rows = len(doc["traceEvents"])
+    kinds = sorted({e.kind for e in tr.events})
+    print(f"trace: {len(tr)} events ({tr.dropped} dropped), {rows} Perfetto "
+          f"rows read back, {len(tr.snapshots)} snapshots, kinds {kinds}; "
+          f"events_conserved={conserved}; replayed "
+          f"{replay_counters(tr.events)['decode_iterations']} decode steps")
+    print(f"pipeline: stalls={res.pipeline_stalls} dispatch_ms="
+          f"{res.dispatch_ms:.3f} wait_ms={res.wait_ms:.3f} schedule_ms="
+          f"{res.schedule_ms:.3f} swap_overlap_ms={res.swap_overlap_ms:.3f} "
+          f"host_gap_ms={res.dispatch_ms + res.wait_ms:.3f}; staging waits "
+          f"{ex.graphs.stage_waits}, commit waits {ex.graphs.commit_waits}")
+    if not conserved or tr.dropped or not rows:
+        fail("traced run: the event stream does not reproduce the loop's "
+             "counters, or the Perfetto file is empty")
+    if res.dispatch_ms <= 0 or len(ex._queue) or ex.ledger.outstanding():
+        fail("async run: no dispatch time booked, or steps or transfers "
+             "left in flight")
 
 
 def spec_probe(ex, L, b=4, depth=4, reps=3):
@@ -1518,7 +1719,8 @@ def time_phase(runs, worst):
         + pt.numel() * 4 + B * 4, 4 * live * Hq * hd,
         body=_pa.body(dtype, hd),
         of_runs=("paged-atomic", "paged-realtime", "paged-chunked",
-                 "paged-chunked-realtime", "paged-spec", "paged-spec-rate8"))
+                 "paged-chunked-realtime", "paged-spec", "paged-spec-rate8",
+                 "paged-async-traced"))
 
     # the same at granite-moe's heads (hd 64, g 3), over run paged-moe's
     # batch
@@ -1559,7 +1761,7 @@ def time_phase(runs, worst):
         sdpa, (2 * S * Hq + 2 * S * Hkv) * hd * elt,
         4 * (S * (S + 1) // 2) * Hq * hd, body=_fp.body(dtype, hd),
         of_runs=("paged-atomic", "paged-realtime", "paged-spec",
-                 "paged-spec-rate8"))
+                 "paged-spec-rate8", "paged-async-traced"))
 
     # the same at granite-moe's heads (hd 64, g 3): one prompt at run
     # paged-moe's median effective length
@@ -1809,7 +2011,9 @@ def main() -> None:
     check_engine()
     check_engine_features()
     check_hetero_engines()
+    check_async_engines()
     graphs_phase()
+    async_graphs_phase()
     runs = {name: serve_phase(name, extra, required)
             for name, extra, required in SERVE_RUNS}
     kernels = time_phase(runs, worst)

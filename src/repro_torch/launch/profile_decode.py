@@ -21,12 +21,27 @@ The steps are captured as CUDA graphs, as the engines run them (a step
 is captured at its first use, which is not timed); ``--eager`` runs them
 eagerly.
 
+A decode run ends with the device time of the decode step's graph
+replayed alone on an idle stream (CUDA events): the floor an engine
+clock per step can reach without fusing kernels.
+
+``--async`` (``--step decode``, paged engine): the async pipelined engine
+(DESIGN.md §10). It dispatches ``--steps`` decode steps without
+observing them, drains, and prints the engine clock per step (the whole
+drive's host time over the steps), the host's dispatch ms per step, the
+host waits per step (``StepGraphs``' stage waits, which must be 0, and
+commit waits, at most one a stall: the commits the queue's depth
+forces) and the stalls; then the device busy and idle
+share over as many more steps under the profiler.
+
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
       --arch edge-6b --dtype bfloat16 --batch 8 --context 128
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --executor slot --batch 16 --context 128 --eager
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --step chunk --context 256 --chunk 64
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --batch 8 --steps 32 --async
 """
 from __future__ import annotations
 
@@ -49,9 +64,36 @@ def _device_us(evt) -> float:
     return float(t if t is not None else getattr(evt, "self_cuda_time_total", 0))
 
 
+def device_gaps(prof, short_us: float = 10.0):
+    """The device's idle time between the profiled device operations:
+    (ms in gaps up to ``short_us``, how many such gaps, ms in longer
+    gaps). A captured step's kernels run back to back, a launch gap of a
+    microsecond or less between each; a longer gap is the device waiting
+    on the host. None when the profile holds no device events."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    short = long = 0.0
+    n_short = 0
+    end = spans[0][1]
+    for start, stop in spans[1:]:
+        if start > end:
+            gap = start - end
+            if gap <= short_us:
+                short += gap
+                n_short += 1
+            else:
+                long += gap
+        end = max(end, stop)
+    return short / 1e3, n_short, long / 1e3
+
+
 def report(prof, wall_ms: float, n: int, top: int, label: str) -> None:
     """Per-op device time from the profile over ``n`` operations that took
-    ``wall_ms`` host time in all."""
+    ``wall_ms`` host time in all, and the device's idle time between
+    operations, split into launch gaps and waits on the host."""
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(us for _, _, us in rows) / 1e3
@@ -61,6 +103,14 @@ def report(prof, wall_ms: float, n: int, top: int, label: str) -> None:
     print(f"{label}: host {wall_ms / n:.3f} ms/op, device busy "
           f"{busy_ms / n:.3f} ms/op, device idle share "
           f"{1 - busy_ms / wall_ms:.3f} ({n} ops profiled)")
+    gaps = device_gaps(prof)
+    if gaps is not None:
+        short, n_short, long = gaps
+        print(f"{label}: device idle between its operations "
+              f"{short / n:.3f} ms/op in {n_short / n:.0f} gaps/op up to "
+              f"10 us (mean {1e3 * short / max(n_short, 1):.3f} us: launch "
+              f"gaps between back-to-back kernels), {long / n:.3f} ms/op in "
+              "longer gaps (waiting on the host)")
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:top]:
         print(f"  {us / 1e3 / n:9.4f} ms/op  {count / n:7.1f} calls/op  "
               f"{100 * us / 1e3 / busy_ms:5.1f}%  {key[:100]}")
@@ -96,6 +146,65 @@ def profile_prefill(ex, args, mode: str) -> None:
     report(prof, wall, args.steps, args.top, f"prefill {how} (profiled)")
 
 
+def graph_alone(ex, reps: int = 10) -> None:
+    """The device time of one replay of the engine's most-run captured
+    step on an idle stream (CUDA events around the replay, median of
+    ``reps``): its kernels and the launch gaps between them, no host in
+    the way. A replay rewrites what the step's last run wrote from the
+    same inputs (a recurrent state steps once more), so it runs last."""
+    steps = [st for st in ex.graphs.steps.values() if st.graph is not None]
+    if not steps:                              # the CPU, or --eager
+        return
+    st = max(steps, key=lambda x: x.runs)
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        st.graph.replay()
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    print(f"the most-run step's graph replayed alone: "
+          f"{sorted(ms)[reps // 2]:.3f} ms on the device (CUDA events "
+          f"around one replay on an idle stream, median of {reps}: its "
+          "kernels and the launch gaps between them)")
+
+
+def profile_async_decode(ex, batch, args) -> None:
+    """``--async``: ``--steps`` decode steps dispatched ahead and drained
+    once, timed on the host clock; then as many more under the
+    profiler."""
+    def drive():
+        g = ex.graphs
+        w0 = (g.stage_waits, g.commit_waits, ex.gap_stats.stalls)
+        t0 = time.perf_counter()
+        disp = sum(ex.decode(batch) for _ in range(args.steps))
+        ex.drain()
+        wall = (time.perf_counter() - t0) * 1e3
+        return (wall, disp, g.stage_waits - w0[0], g.commit_waits - w0[1],
+                ex.gap_stats.stalls - w0[2])
+
+    for _ in range(3):                         # warm
+        ex.decode(batch)
+    ex.drain()
+    n = args.steps
+    for rep in (1, 2):                         # the second: nothing new
+        wall, disp, stage_w, commit_w, stalls = drive()
+        print(f"{ex.cfg.name} {args.dtype} paged engine, async dispatch "
+              f"(max_in_flight {ex._queue.max_in_flight}), decode batch "
+              f"{len(batch)} context ~{args.context}, drive {rep}: engine "
+              f"clock {wall / n:.3f} ms/step over {n} steps dispatched "
+              f"ahead and drained; dispatch {disp / n:.3f} ms/step; host "
+              f"waits {(stage_w + commit_w) / n:.2f}/step (staging "
+              f"{stage_w}, commits {commit_w}); stalls {stalls}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, *_ = drive()
+    report(prof, wall, n, args.top, "async decode step (profiled)")
+    graph_alone(ex)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="edge-6b")
@@ -118,7 +227,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="the step timed and profiled")
     ap.add_argument("--chunk", type=int, default=64,
                     help="--step chunk: prompt tokens a piece")
+    ap.add_argument("--async", dest="async_dispatch", action="store_true",
+                    help="--step decode on the paged engine: the async "
+                         "pipelined engine, steps dispatched ahead")
     args = ap.parse_args(argv)
+    if args.async_dispatch and (args.step != "decode"
+                                or args.executor != "paged"):
+        raise SystemExit("--async profiles --step decode on the paged "
+                         "engine")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -134,7 +250,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             cfg, n_pages=(B + 1) * args.max_seq // args.page_size,
             page_size=args.page_size, max_seq=args.max_seq, max_batch=B,
             dtype=DTYPES[args.dtype], device=args.device,
-            prefill_chunk_size=chunk, cuda_graphs=not args.eager)
+            prefill_chunk_size=chunk, cuda_graphs=not args.eager,
+            async_dispatch=args.async_dispatch)
     mode = "eager" if args.eager or ex.device.type != "cuda" else "captured"
     if args.step != "decode":
         profile_prefill(ex, args, mode)
@@ -144,6 +261,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     batch, spare = tasks[:B], tasks[B]     # spare: the profiled prefill
     for t in batch:
         ex.prefill(t)
+    if args.async_dispatch:
+        profile_async_decode(ex, batch, args)
+        return
     for _ in range(3):                         # warm
         ex.decode(batch)
     steps = [ex.decode(batch) for _ in range(args.steps)]
@@ -167,6 +287,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         wall = (time.perf_counter() - t0) * 1e3
     print(f"prefill of {args.context} tokens: engine clock {ms:.3f} ms")
     report(prof, wall, 1, args.top, "prefill (profiled)")
+    graph_alone(ex)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,11 @@ kernel versions on the CPU), over the paged engine by default
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-3b-a800m --dtype bfloat16 --max-seq 1024
 
+  # async pipelined engine (DESIGN.md §10), traced (DESIGN.md §13): a
+  # Perfetto/Chrome-trace timeline and a metrics snapshot every 16 cycles
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch edge-6b \\
+      --dtype bfloat16 --async-pipeline --trace out.json --metrics-every 16
+
   # tiny CPU run
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --duration 3 --slots 4 --max-seq 128
@@ -47,8 +52,9 @@ from repro_torch.data.workload import poisson_workload
 from repro_torch.serving.executor import (Executor, PagedTorchExecutor,
                                           TorchExecutor)
 from repro_torch.serving.loop import LoopResult, run_serving_loop
-from repro_torch.serving.metrics import summarize
+from repro_torch.serving.metrics import slo_attribution, summarize
 from repro_torch.serving.spec_decode import draft_config_from_registry
+from repro_torch.serving.trace import TraceRecorder
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,6 +65,7 @@ class ServeRun:
     lat: object                  # MeasuredLatencyModel
     probes: List[tuple]          # measured (batch, ms) samples of l(b)
     result: LoopResult
+    trace: Optional[TraceRecorder] = None    # with --trace
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -98,6 +105,26 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="registry arch for the draft model (reduced, "
                          "reshaped to the target vocab); default: the "
                          "target architecture cut to one layer")
+    ap.add_argument("--async-pipeline", action="store_true",
+                    help="paged executor: dispatch-ahead pipelining "
+                         "(DESIGN.md §10) — decode cycles are enqueued "
+                         "without blocking on device results; sampling "
+                         "and bookkeeping land at commit time, KV-swap "
+                         "transfers overlap decode on a background "
+                         "worker. Streams and metrics stay byte-"
+                         "identical to the synchronous engine")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record the per-request lifecycle stream "
+                         "(DESIGN.md §13) and write a Perfetto/Chrome-"
+                         "trace JSON timeline here — open in "
+                         "ui.perfetto.dev or chrome://tracing. Composes "
+                         "with every mode incl. --async-pipeline "
+                         "(commit-time spans)")
+    ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
+                    help="with --trace: also sample a counters/gauges "
+                         "MetricsSnapshot (pages in use, resident tasks, "
+                         "defers, spec accept rate) every N loop cycles "
+                         "(default 0 = off)")
     ap.add_argument("--rate", type=float, default=1.0)
     ap.add_argument("--duration", type=float, default=20.0)
     ap.add_argument("--ratio", type=float, default=0.5)
@@ -131,6 +158,26 @@ def shape_workload(tasks, lat, slots: int, max_seq: int) -> None:
         t.prompt_len = min(t.prompt_len, max_seq // 4)
         t.prefix_len = min(t.prefix_len, t.prompt_len)
         t.output_len = min(t.output_len, max_seq // 2)
+
+
+def _make_trace(args) -> Optional[TraceRecorder]:
+    """TraceRecorder for --trace, or None (the zero-overhead default)."""
+    if args.trace is None:
+        return None
+    return TraceRecorder(capacity=1 << 20, metrics_every=args.metrics_every)
+
+
+def _export_trace(tr, args, tasks, events) -> None:
+    """Write the Perfetto JSON + print the observability summary line
+    (events, snapshots, SLO-violation attribution buckets)."""
+    if tr is None:
+        return
+    rows = tr.export_perfetto(args.trace)
+    att = slo_attribution(tasks, events)
+    buckets = {k: v for k, v in att["buckets"].items() if v}
+    print(f"trace: {len(tr)} events ({tr.dropped} dropped) "
+          f"{len(tr.snapshots)} snapshots -> {args.trace} ({rows} rows); "
+          f"violations={att['violations']} attribution={buckets or '{}'}")
 
 
 def run(args: argparse.Namespace) -> ServeRun:
@@ -173,6 +220,9 @@ def run(args: argparse.Namespace) -> ServeRun:
     if args.spec_decode and args.scheduler != "slice":
         raise SystemExit("--spec-decode requires --scheduler slice "
                          "(depth grants come from the Eq. 7 headroom)")
+    if args.async_pipeline and args.executor != "paged":
+        raise SystemExit("--async-pipeline requires --executor paged "
+                         "(the dispatch queue rides the paged engine)")
     n_pages = args.pages or (args.slots * args.max_seq) // args.page_size
     page_budget = None
     prefix_hint = None
@@ -189,7 +239,8 @@ def run(args: argparse.Namespace) -> ServeRun:
                                 prefix_cache=args.prefix_cache,
                                 spec_decode=args.spec_decode,
                                 draft_cfg=draft_cfg,
-                                max_spec_depth=args.spec_depth)
+                                max_spec_depth=args.spec_depth,
+                                async_dispatch=args.async_pipeline)
         page_budget = ex.page_budget()
         if args.prefix_cache:
             prefix_hint = ex.cached_prompt_tokens
@@ -232,7 +283,8 @@ def run(args: argparse.Namespace) -> ServeRun:
                  max_batch=baseline_batch,
                  page_budget=page_budget if args.kv_swap else None,
                  kv_swap=args.kv_swap)}[args.scheduler]()
-    res = run_serving_loop(sched, ex, tasks, max_ms=3e7)
+    tr = _make_trace(args)
+    res = run_serving_loop(sched, ex, tasks, max_ms=3e7, trace=tr)
     s = summarize(res.tasks)
     swap_note = (f" suspends={res.suspends} resumes={res.resumes} "
                  f"swapped={res.swapped_bytes / 1e6:.1f}MB"
@@ -240,12 +292,18 @@ def run(args: argparse.Namespace) -> ServeRun:
     spec_note = (f" spec_extra={res.spec_extra_tokens} "
                  f"accepted={res.accepted_tokens}/{res.drafted_tokens}"
                  if args.spec_decode else "")
+    pipe_note = (f" host_gap={res.dispatch_ms + res.wait_ms:.1f}ms "
+                 f"(dispatch={res.dispatch_ms:.1f} wait={res.wait_ms:.1f} "
+                 f"swap_overlap={res.swap_overlap_ms:.1f}) "
+                 f"stalls={res.pipeline_stalls}"
+                 if args.async_pipeline else "")
     print(f"{args.scheduler}: n={s['all'].n} SLO={s['all'].slo:.1%} "
           f"RT={s['realtime'].slo:.1%} nRT={s['non_realtime'].slo:.1%} "
           f"decode_iters={res.decode_iterations} prefills={res.prefills} "
           f"prefill_chunks={res.prefill_chunks} defers={dict(res.defers_by_reason)}"
-          f"{swap_note}{spec_note}")
-    return ServeRun(executor=ex, lat=lat, probes=probes, result=res)
+          f"{swap_note}{spec_note}{pipe_note}")
+    _export_trace(tr, args, res.tasks, tr.events if tr is not None else [])
+    return ServeRun(executor=ex, lat=lat, probes=probes, result=res, trace=tr)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -24,9 +24,14 @@ Both measure l(b) for SLICE's Eq. 7 feasibility test, and both take
 FFN run in the hand-written CUDA kernels on the card and in their plain
 versions on the CPU.
 
-The engines are synchronous and single-device. Tensor parallelism, async
-dispatch and SSM archs on the slot engine are still to port (ROADMAP.md);
-asking for one raises NotImplementedError.
+The engines are single-device. The paged engine runs synchronously by
+default and, with ``async_dispatch=True``, as the JAX engine's async
+pipeline (DESIGN.md §10): each op dispatches its step on the compute
+stream and returns, and the step is observed at its commit, in dispatch
+order, through ``serving.pipeline.DispatchQueue`` (at most
+``max_in_flight`` steps in flight). Tensor parallelism and SSM archs on
+the slot engine are still to port (ROADMAP.md); asking for one raises
+NotImplementedError.
 
 Every step runs through ``serving.step_graphs``: on the card each step
 kind and static shape is captured once as a CUDA graph and replayed, as
@@ -42,14 +47,19 @@ device until ``last_logits`` or ``last_prefill_logits`` is read. A
 step's graph is captured when the step is first asked for, before the
 engine's clock starts.
 
-Every timed operation ends in a device synchronise before its clock read,
-as the JAX engine's ``block_until_ready``: without it l(b) would time only
-the enqueue and every Eq. 7 feasibility check would be wrong.
+Every timed operation of a synchronous engine ends in a wait on the
+device before its clock read, as the JAX engine's ``block_until_ready``:
+without it l(b) would time only the enqueue and every Eq. 7 feasibility
+check would be wrong. An async engine's ops return the host's dispatch
+time and the serving loop adds the commit waits to its clock
+(``GapStats``); its ``latency_model()`` probes synchronously.
 """
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,15 +70,18 @@ from repro_torch.core.task import Task, qa_task
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVPagePool, OutOfPages
 from repro_torch.serving.kv_swap import HostArenaFull, KVSwapArena
+from repro_torch.serving.pipeline import (DispatchQueue, GapStats,
+                                          PendingStep, TransferLedger)
 from repro_torch.serving.prefix_cache import RadixPrefixCache
 from repro_torch.serving.spec_decode import (DraftModel, default_draft_config,
                                              depth_bucket, greedy_accept,
                                              pow2_pieces)
 from repro_torch.serving.state_store import (CacheStore, OutOfStates,
                                              SSMStateStore)
-from repro_torch.serving.step_graphs import (LazyLogits, StepGraphs,
-                                             chunk_step, masked_step,
-                                             slot_cache, with_argmax)
+from repro_torch.serving.step_graphs import (LazyLogits, Snapshot,
+                                             StepGraphs, chunk_step,
+                                             masked_step, slot_cache,
+                                             wait_event, with_argmax)
 
 _PREFILL_PRIOR = [(64, 10.0), (512, 40.0)]   # prefill ms prior until measured
 
@@ -452,9 +465,8 @@ class PagedTorchExecutor(Executor):
     reclaimable headroom, evicted under pressure (``_reserve``).
 
     ``suspend``/``resume`` swap a task's private pages to the host arena
-    (serving.kv_swap, DESIGN.md §7) and back, synchronously; with
-    ``host_arena_bytes`` the arena is bounded and a suspension past it is
-    rolled back.
+    (serving.kv_swap, DESIGN.md §7) and back; with ``host_arena_bytes``
+    the arena is bounded and a suspension past it is rolled back.
 
     With ``spec_decode=True``, ``decode(tasks, depths)`` runs a draft-verify
     iteration (DESIGN.md §8): the draft model (serving.spec_decode)
@@ -473,6 +485,31 @@ class PagedTorchExecutor(Executor):
     chunked prefill need per-token state and raise for these archs, as in
     the JAX engine.
 
+    With ``async_dispatch=True`` the engine pipelines as the JAX engine
+    does (DESIGN.md §10), on one compute stream. Every op makes its host
+    reservations and dispatches its step at once, then returns the host's
+    dispatch ms; what the step computed is observed at its commit, in
+    dispatch order (``DispatchQueue``: a push past ``max_in_flight``
+    steps commits the oldest first, a stall). A commit waits on the event
+    recorded after that step's argmax copy only (``step_graphs.Snapshot``),
+    never on later steps. The next decode's tokens are chained on the
+    device from the argmax of steps not yet committed. ``suspend`` commits
+    first, gathers the task's pages (and state slot) into a device copy on
+    the compute stream, before any later step can reuse them, and copies
+    that to pinned host memory on a side stream; a worker thread retires
+    the copy in the ``TransferLedger``, and ``resume`` and ``release``
+    wait for it. A speculative iteration commits what is pending before
+    it drafts (the draft runs synchronously); its verify step is
+    committed lazily like a decode. Reading an observation surface
+    (``last_tok``, ``last_logits``, ``last_prefill_logits``,
+    ``last_commits``, ``generated_tokens``, ``accepted_tokens``,
+    ``drafted_tokens``) commits what is pending, so callers see exactly
+    the synchronous engine's values; ``drain()`` commits everything and
+    waits out the transfers. A commit that raises rolls the uncommitted
+    steps' reservations back, newest first, and the error propagates;
+    nothing falls back to the synchronous engine. The synchronous engine
+    runs the same code and commits each step as it is dispatched.
+
     Sequences are hard-capped at max_seq (the paged cache is append-only)
     and prompts at max_seq // 2, as in the JAX engine.
     """
@@ -485,16 +522,12 @@ class PagedTorchExecutor(Executor):
                  host_arena_bytes: Optional[int] = None,
                  spec_decode: bool = False, draft_cfg=None,
                  draft_params=None, max_spec_depth: int = 4, mesh=None,
-                 async_dispatch: bool = False,
+                 async_dispatch: bool = False, max_in_flight: int = 2,
                  n_state_slots: Optional[int] = None,
                  cuda_graphs: bool = True):
-        unported = [name for name, on in (
-            ("mesh", mesh is not None),
-            ("async_dispatch", async_dispatch)) if on]
-        if unported:
+        if mesh is not None:
             raise NotImplementedError(
-                f"PagedTorchExecutor: {', '.join(unported)} still to port "
-                "(ROADMAP.md)")
+                "PagedTorchExecutor: mesh still to port (ROADMAP.md)")
         if not (cfg.has_attention or cfg.has_ssm):
             raise ValueError("PagedTorchExecutor needs an attention and/or "
                              "SSM mixer")
@@ -549,20 +582,44 @@ class PagedTorchExecutor(Executor):
         self._gen: Dict[int, List[int]] = {}     # generated tokens per task
         self._toks_memo: Dict[int, np.ndarray] = {}
         self._gtoks: Dict[int, np.ndarray] = {}  # group -> prefix tokens
+        # async pipelining (DESIGN.md §10): the queue, ledger and stats
+        # exist in both modes (a synchronous op commits its step at once
+        # and books its time as wait), so the loop reads one surface
+        self.async_dispatch = async_dispatch
+        self._sync_depth = 0          # _sync_mode() nesting
+        self.gap_stats = GapStats()
+        self.ledger = TransferLedger()
+        self._queue = DispatchQueue(self._commit_step,
+                                    max_in_flight=max_in_flight,
+                                    rollback=self._rollback_step,
+                                    stats=self.gap_stats)
+        # chain links: task -> (snapshot of an uncommitted step's argmax,
+        # row), the source of that task's next decode token on the device
+        self._tok_dev: Dict[int, Tuple[Snapshot, int]] = {}
+        self._verify_queued = False   # a verify step awaits its commit
+        self._pushing: Optional[PendingStep] = None   # during _push
+        self._swap_stream = None                      # side stream, lazy
+        self._swap_worker: Optional[ThreadPoolExecutor] = None
+        self._landing: Dict[int, List[Future]] = {}  # task -> transfers
         # the decode steps per batch bucket, the verify steps per (batch,
         # depth) bucket, the chunk steps per piece size and the prefill
-        # steps per prompt length
-        self.graphs = StepGraphs(self.device, cuda_graphs)
+        # steps per prompt length; staging and snapshot rings one deeper
+        # than the steps in flight; no capture while a transfer is
+        # outstanding (the worker waits on a CUDA event)
+        self.graphs = StepGraphs(
+            self.device, cuda_graphs,
+            ring=max_in_flight + 1 if async_dispatch else 1,
+            quiesce=self.ledger.wait)
         # (batch, ms) samples of the last latency_model() probe
         self.probe_samples: List[Tuple[int, float]] = []
         # speculative decoding (DESIGN.md §8)
         self.draft = None
         self.spec_depth = 0
         self.spec_steps = 0
-        self.accepted_tokens = 0
-        self.last_commits: Optional[List[int]] = None
-        # (window C, the rows' cached lengths, verify-call ms) of the last
-        # verify step
+        self._accepted_tokens = 0
+        self._last_commits: Optional[List[int]] = None
+        # (window C, the rows' cached lengths, ms from the verify step's
+        # dispatch to its commit) of the last committed verify step
         self.last_verify: Optional[Tuple[int, List[int], float]] = None
         if spec_decode:
             if max_spec_depth < 1:
@@ -574,24 +631,49 @@ class PagedTorchExecutor(Executor):
                 params=draft_params, max_slots=max_batch, max_seq=max_seq,
                 seed=seed, dtype=self.params["embed"].dtype,
                 device=self.device, cuda_graphs=cuda_graphs)
+            self.draft.graphs.quiesce = self.ledger.wait
             if self.draft.cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(
                     f"draft vocab {self.draft.cfg.vocab_size} != target "
                     f"vocab {cfg.vocab_size}: proposals would not be "
                     "valid target token ids")
 
-    # -- observation surfaces --
+    # -- observation surfaces: each commits what is pending first, so an
+    # async engine answers exactly as the synchronous one --
     @property
     def last_tok(self) -> Dict[int, int]:
+        self._commit_pending()
         return self._last_tok
+
+    @property
+    def last_logits(self) -> Optional[np.ndarray]:
+        self._commit_pending()
+        return super().last_logits
+
+    @property
+    def last_prefill_logits(self) -> Optional[np.ndarray]:
+        self._commit_pending()
+        return super().last_prefill_logits
+
+    @property
+    def last_commits(self) -> Optional[List[int]]:
+        self._commit_pending()
+        return self._last_commits
+
+    @property
+    def accepted_tokens(self) -> int:
+        self._commit_pending()
+        return self._accepted_tokens
 
     def generated_tokens(self, task: Task) -> List[int]:
         """Committed generated token ids so far, the first (from prefill)
         included."""
+        self._commit_pending()
         return list(self._gen.get(task.task_id, []))
 
     @property
     def drafted_tokens(self) -> int:
+        self._commit_pending()
         return self.draft.drafted_tokens if self.draft is not None else 0
 
     @property
@@ -742,10 +824,10 @@ class PagedTorchExecutor(Executor):
 
         return self.graphs.step(("prefill", L), spec, fn, self._arenas)
 
-    def _set_first_token(self, tid: int, logits: torch.Tensor,
+    def _set_first_token(self, tid: int, logits: LazyLogits,
                          tok: int) -> None:
         """Record a completed prefill's logits and first output token."""
-        self._last_prefill = LazyLogits(logits)
+        self._last_prefill = logits
         self._last_tok[tid] = tok
         self._gen[tid] = [tok]
 
@@ -899,6 +981,198 @@ class PagedTorchExecutor(Executor):
             g["states_total"] = self.n_state_slots
         return g
 
+    # -- async pipelining (DESIGN.md §10) --
+    def _async_on(self) -> bool:
+        return self.async_dispatch and self._sync_depth == 0
+
+    @contextlib.contextmanager
+    def _sync_mode(self):
+        """Synchronous semantics for a block: latency probes must time
+        whole steps, not their dispatch."""
+        self._commit_pending()
+        self._sync_depth += 1
+        try:
+            yield
+        finally:
+            self._sync_depth -= 1
+
+    def _commit_pending(self) -> None:
+        if len(self._queue):
+            self._queue.commit_all()
+
+    def _push(self, step: PendingStep) -> float:
+        """Enqueue a dispatched step; returns the ms the push spent
+        committing older steps (a stall). The queue books that time as
+        wait, so the dispatch clock subtracts it. When a stall's commit
+        raises, the step being pushed is the newest uncommitted one: it
+        is rolled back first (``_rollback_step``), then the queue's."""
+        w0 = self.gap_stats.wait_ms
+        self._pushing = step
+        try:
+            self._queue.push(step)
+        except BaseException:
+            self._undo_pushing()
+            raise
+        finally:
+            self._pushing = None
+        return self.gap_stats.wait_ms - w0
+
+    def _undo_pushing(self) -> None:
+        if self._pushing is not None:
+            step, self._pushing = self._pushing, None
+            self._undo_step(step)
+
+    def drain(self) -> None:
+        """Commit every in-flight step and wait out the host transfers:
+        the end-of-run barrier of the serving loop."""
+        self._commit_pending()
+        self.ledger.wait()
+        for tid in list(self._landing):
+            self._landed(tid)
+
+    def _clock(self, async_on: bool, t_disp: float) -> float:
+        """Start of an op's clock: its dispatch start under async
+        dispatch, else now, once the device has finished earlier work."""
+        if async_on:
+            return t_disp
+        _sync(self.device)
+        return time.perf_counter()
+
+    def _finish(self, step: PendingStep, t0: float, async_on: bool) -> float:
+        """End of an op that dispatched a step: under async dispatch push
+        it and book the dispatch time; else commit it now (the commit
+        waits on the step) and book the whole time as wait."""
+        if async_on:
+            waited = self._push(step)
+            ms = max(0.0, (time.perf_counter() - t0) * 1000.0 - waited)
+            self.gap_stats.dispatch_ms += ms
+            return ms
+        self._commit_step(step)
+        ms = (time.perf_counter() - t0) * 1000.0
+        self.gap_stats.wait_ms += ms
+        self.gap_stats.cycles += 1
+        return ms
+
+    def _book(self, t0: float, async_on: bool) -> float:
+        """End of an op with nothing to commit (a prompt's non-final
+        chunks, a swap): synchronously after the device finishes."""
+        if not async_on:
+            _sync(self.device)
+        ms = (time.perf_counter() - t0) * 1000.0
+        if async_on:
+            self.gap_stats.dispatch_ms += ms
+        else:
+            self.gap_stats.wait_ms += ms
+        return ms
+
+    def _commit_step(self, step: PendingStep) -> None:
+        """Observe one dispatched step (waiting on its argmax copy only)
+        and apply its host-side updates. Runs in dispatch order."""
+        p = step.payload
+        if step.kind == "prefill":
+            tid = p["tid"]
+            self._set_first_token(tid, p["logits"], int(p["snap"].read()[0]))
+            self._pop_tok_dev(tid, p["tok_dev"].get(tid))
+        elif step.kind == "decode":
+            ids = step.task_ids
+            toks = p["snap"].read()[: len(ids)]
+            self._last_logits = p["logits"]
+            for i, tok in zip(ids, toks):
+                self._last_tok[i] = int(tok)
+                self._pop_tok_dev(i, p["tok_dev"].get(i))
+                # setdefault: latency-model probes decode without a prefill
+                self._gen.setdefault(i, []).append(int(tok))
+            self._last_commits = [1] * len(ids)
+        else:                                    # verify
+            target = p["snap"].read()[: len(step.task_ids)]
+            self.last_verify = (target.shape[1], p["lengths"],
+                                (time.perf_counter() - p["t0"]) * 1000.0)
+            accepted = self._apply_verify(p["tasks"], p["lengths"],
+                                          p["capped"], p["drafts"], target)
+            p["logits"].pick = accepted
+            self._last_logits = p["logits"]
+            self._verify_queued = False
+
+    def _pop_tok_dev(self, tid: int, entry) -> None:
+        """Drop the chain link a step registered, unless a later step has
+        replaced it."""
+        if entry is not None and self._tok_dev.get(tid) is entry:
+            del self._tok_dev[tid]
+
+    def _rollback_step(self, step: PendingStep) -> None:
+        """The queue's rollback, called newest first for every queued step
+        behind a commit that raised."""
+        self._undo_pushing()
+        self._undo_step(step)
+
+    def _undo_step(self, step: PendingStep) -> None:
+        """Undo an uncommitted step's reservations: a prefill that took the
+        task's pages and state slot gives them back, a chunked prefill's
+        last call is cut back to where it started, a decode or verify
+        step's pages are cut back to the lengths before it. What the
+        device computed is dropped with the step."""
+        p = step.payload
+        if step.kind == "prefill":
+            tid = p["tid"]
+            if p.get("fresh"):
+                if self.pool.holds(tid):
+                    self.pool.free(tid)
+                if self.states is not None:
+                    self.states.free(tid)
+                self._chunk_progress.pop(tid, None)
+            elif "pre_len" in p and self.pool.holds(tid):
+                self.pool.truncate(tid, p["pre_len"])
+                self._chunk_progress[tid] = p["pre_progress"]
+            self._pop_tok_dev(tid, p["tok_dev"].get(tid))
+            return
+        for i, ln in p["pre_lengths"].items():
+            if self.pool.holds(i):
+                self.pool.truncate(i, ln)
+            self._pop_tok_dev(i, p["tok_dev"].get(i))
+            if step.kind == "verify" and self.draft is not None:
+                self.draft.drop(i)
+        if step.kind == "verify":
+            self._verify_queued = False
+
+    def _chain_tokens(self, ids: Sequence[int], b: int):
+        """A decode step's token input: the host array (committed tokens,
+        0 in chained rows and pad rows) and, for the rows whose last token
+        an uncommitted step computed, that step's argmax rows on the
+        device, grouped by step (``Step.stage``'s ``dev``). Rows 0..n-1
+        chained from rows 0..n-1 of one step are one slice copy."""
+        tk = np.zeros((b,), np.int32)
+        groups: Dict[int, Tuple[Snapshot, List[int], List[int]]] = {}
+        for r, i in enumerate(ids):
+            link = self._tok_dev.get(i)
+            if link is None:
+                tk[r] = self._last_tok[i]
+            else:
+                snap, row = link
+                g = groups.setdefault(id(snap), (snap, [], []))
+                g[1].append(r)
+                g[2].append(row)
+        if not groups:
+            return tk, None
+        return tk, {"tokens": [(snap.dev.reshape(-1), np.asarray(d),
+                                np.asarray(s))
+                               for snap, d, s in groups.values()]}
+
+    def _upload(self, a, dtype=torch.long) -> torch.Tensor:
+        """A small host array on the device without a host wait: through
+        pinned memory and a non-blocking copy on the card (a pageable copy
+        would synchronise the stream)."""
+        t = torch.as_tensor(np.asarray(a)).to(dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _h2d(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return t
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     # -- ops --
     def prefill(self, task: Task) -> float:
         tid = task.task_id
@@ -916,9 +1190,11 @@ class PagedTorchExecutor(Executor):
                 raise
             self._insert_prefix(task, toks_np)
             return ms
+        async_on = self._async_on()
         # made (on the card: captured) before the clock starts and before
         # the pages are taken, so a refused capture leaves the pool as it was
         step = self._prefill_step(L)
+        t_disp = time.perf_counter()
         phys = self._reserve(lambda: self.pool.alloc(tid, L))
         slot = -1
         if self.states is not None:
@@ -936,14 +1212,23 @@ class PagedTorchExecutor(Executor):
             host["state_slot"] = np.asarray([slot])
         # the splice into the pages and state slot is inside the step and
         # its clock (the JAX engine splices after its clock)
-        _sync(self.device)
-        t0 = time.perf_counter()
+        t0 = self._clock(async_on, t_disp)
         logits, argmax = step.run(host)
-        tok = int(argmax.cpu()[0])                     # synchronises
-        ms = (time.perf_counter() - t0) * 1000.0
-        self._set_first_token(tid, logits, tok)
+        ms = self._finish(self._prefill_pending(tid, logits, argmax,
+                                                fresh=True), t0, async_on)
         self._insert_prefix(task, toks_np)
         return ms
+
+    def _prefill_pending(self, tid: int, logits: torch.Tensor,
+                         argmax: torch.Tensor, **undo) -> PendingStep:
+        """The pending step of a prefill's last piece: its argmax
+        snapshot, which the task's first decode chains from, and its
+        logits."""
+        snap = self.graphs.snapshot(argmax)
+        link = self._tok_dev[tid] = (snap, 0)
+        return PendingStep("prefill", [tid], {
+            "tid": tid, "logits": LazyLogits(logits), "snap": snap,
+            "tok_dev": {tid: link}, **undo})
 
     def _prefill_suffix(self, task: Task, toks_np: np.ndarray, start: int,
                         L: int) -> float:
@@ -951,23 +1236,22 @@ class PagedTorchExecutor(Executor):
         attending over the shared prefix pages, in power-of-two
         prefill_chunk_paged pieces, largest first."""
         tid = task.task_id
+        async_on = self._async_on()
+        pieces = pow2_pieces(L - start)
+        steps = [self._chunk_step(c) for c in pieces]  # before the clock
+        t_disp = time.perf_counter()
         self._reserve(lambda: self.pool.extend(tid, L))
         self._ensure_range_writable(tid, start, L)
         pt = self._table_np([tid], 1)
-        pieces = pow2_pieces(L - start)
-        steps = [self._chunk_step(c) for c in pieces]  # before the clock
-        _sync(self.device)
-        t0 = time.perf_counter()
+        t0 = self._clock(async_on, t_disp)
         done = start
         for c, step in zip(pieces, steps):
             logits, argmax = step.run({"page_table": pt,
                                        "lengths": np.asarray([done]),
                                        "tokens": toks_np[:, done:done + c]})
             done += c
-        tok = int(argmax.cpu()[0])                     # synchronises
-        ms = (time.perf_counter() - t0) * 1000.0
-        self._set_first_token(tid, logits, tok)
-        return ms
+        return self._finish(self._prefill_pending(tid, logits, argmax,
+                                                  fresh=True), t0, async_on)
 
     def prompt_progress(self, task: Task) -> int:
         """Prompt tokens cached so far by chunked prefill, prefix-cache
@@ -988,16 +1272,19 @@ class PagedTorchExecutor(Executor):
         done = self._chunk_progress.get(tid, 0)
         if done >= L or (done == 0 and self.pool.holds(tid)):
             raise RuntimeError(f"task {tid} already prefilled")
+        async_on = self._async_on()
         toks_full = self._task_tokens(task)
         if done == 0:
             done = self._acquire_prefix(task, toks_full)
             if done:
                 self._chunk_progress[tid] = done
+        fresh = not self.pool.holds(tid)
+        undo = {"fresh": fresh, "pre_len": 0 if fresh else
+                self.pool.length(tid), "pre_progress": done}
         pieces = _chunk_pieces(min(n_tokens, L - done),
                                self.prefill_chunk_size)
         steps = [self._chunk_step(c) for c in pieces]  # before the clock
-        _sync(self.device)
-        t0 = time.perf_counter()
+        t0 = self._clock(async_on, time.perf_counter())
         for c, step in zip(pieces, steps):
             if self.pool.holds(tid):
                 self._reserve(lambda e=done + c: self.pool.extend(tid, e))
@@ -1011,12 +1298,9 @@ class PagedTorchExecutor(Executor):
             self._chunk_progress[tid] = done
             self._insert_prefix(task, toks_full, upto=done)
         if done < L:
-            _sync(self.device)
-            return (time.perf_counter() - t0) * 1000.0, False
-        tok = int(argmax.cpu()[0])                     # synchronises
-        ms = (time.perf_counter() - t0) * 1000.0
-        self._set_first_token(tid, logits, tok)
-        return ms, True
+            return self._book(t0, async_on), False
+        return self._finish(self._prefill_pending(tid, logits, argmax,
+                                                  **undo), t0, async_on), True
 
     def decode(self, tasks: Sequence[Task],
                depths: Optional[Sequence[int]] = None) -> float:
@@ -1028,19 +1312,24 @@ class PagedTorchExecutor(Executor):
                 raise RuntimeError("executor built without spec_decode=True")
             return self._decode_spec(tasks, [int(d) for d in depths])
         ids = [t.task_id for t in tasks]
+        if self._verify_queued:
+            # a verify step's acceptance sets the lengths and last tokens
+            self._commit_pending()
+        async_on = self._async_on()
+        b = next(x for x in _pow2_buckets(self.max_batch) if x >= len(tasks))
+        step = self._decode_step(b)                     # before the clock
+        t_disp = time.perf_counter()
         lengths = [self.pool.length(i) for i in ids]
         for i, ln in zip(ids, lengths):
             if ln + 1 > self.max_seq:
                 raise RuntimeError(f"task {i} exceeds max_seq {self.max_seq}")
             self._reserve(lambda i=i, ln=ln: self.pool.extend(i, ln + 1))
             self._ensure_range_writable(i, ln, ln + 1)
-        b = next(x for x in _pow2_buckets(self.max_batch) if x >= len(tasks))
         ln = np.zeros((b,), np.int32)
         ln[: len(ids)] = lengths
         av = np.zeros((b,), bool)
         av[: len(ids)] = True
-        tk = np.zeros((b,), np.int32)
-        tk[: len(ids)] = [self._last_tok[i] for i in ids]
+        tk, dev = self._chain_tokens(ids, b)
         host = {"page_table": self._table_np(ids, b), "lengths": ln,
                 "tokens": tk, "active": av}
         if self.states is not None:
@@ -1049,19 +1338,16 @@ class PagedTorchExecutor(Executor):
             sl = np.full((b,), -1, np.int32)
             sl[: len(ids)] = [self.states.slot_of(i) for i in ids]
             host["state_slots"] = sl
-        step = self._decode_step(b)
-        _sync(self.device)
-        t0 = time.perf_counter()
-        logits, argmax = step.run(host)
-        self._last_logits = LazyLogits(logits[: len(ids)])
-        new_toks = argmax.cpu().numpy()                # synchronises
-        ms = (time.perf_counter() - t0) * 1000.0
-        for i, tok in zip(ids, new_toks[: len(ids)]):
-            self._last_tok[i] = int(tok)
-            # setdefault: latency-model probes decode without a prefill
-            self._gen.setdefault(i, []).append(int(tok))
-        self.last_commits = [1] * len(ids)
-        return ms
+        t0 = self._clock(async_on, t_disp)
+        logits, argmax = step.run(host, dev)
+        snap = self.graphs.snapshot(argmax)
+        links = {}
+        for r, i in enumerate(ids):
+            links[i] = self._tok_dev[i] = (snap, r)
+        return self._finish(PendingStep("decode", ids, {
+            "logits": LazyLogits(logits[: len(ids)]), "snap": snap,
+            "tok_dev": links, "pre_lengths": dict(zip(ids, lengths))}),
+            t0, async_on)
 
     # -- speculative decoding (DESIGN.md §8) --
     def _decode_spec(self, tasks: Sequence[Task], depths: List[int]) -> float:
@@ -1070,15 +1356,19 @@ class PagedTorchExecutor(Executor):
         accepted prefix committed and rejected-draft pages rolled back.
         The engine clock spans drafting, verify and acceptance; every
         (batch, depth) bucket's verify step is made before the first
-        iteration's clock starts, as JAX compiles them up front."""
+        iteration's clock starts, as JAX compiles them up front. Drafting
+        replays committed history, so the iteration first commits what is
+        pending (a pipeline barrier); under async dispatch its verify step
+        is then pushed like a decode and accepted at its commit."""
+        self._commit_pending()
+        async_on = self._async_on()
         ids = [t.task_id for t in tasks]
         lengths = [self.pool.length(i) for i in ids]
         for b in _pow2_buckets(self.max_batch):
             for K in _pow2_buckets(self.spec_depth):
                 self._verify_step(b, K)
         self.draft.make_steps()
-        _sync(self.device)
-        t0 = time.perf_counter()
+        t0 = self._clock(async_on, time.perf_counter())
         # clamp each row's depth to the sequence cap, its remaining output
         # (a window past the last needed token is wasted) and the buckets
         capped = []
@@ -1122,17 +1412,18 @@ class PagedTorchExecutor(Executor):
             toks[r, 0] = self._last_tok[i]
             toks[r, 1: 1 + len(drafts[r])] = drafts[r]
         step = self._verify_step(b, K)
-        _sync(self.device)
+        if not async_on:
+            _sync(self.device)
         t_verify = time.perf_counter()
         logits, argmax = step.run({"page_table": self._table_np(ids, b),
                                    "lengths": ln_arr, "tokens": toks})
-        target = argmax[: len(ids)].cpu().numpy()      # synchronises
-        self.last_verify = (K + 1, lengths,
-                            (time.perf_counter() - t_verify) * 1000.0)
-        accepted = self._apply_verify(tasks, lengths, capped, drafts, target)
-        self._last_logits = LazyLogits(logits[: len(ids)], pick=accepted)
-        ms = (time.perf_counter() - t0) * 1000.0
-        return ms
+        self._verify_queued = True     # at most one: the barrier above
+        return self._finish(PendingStep("verify", ids, {
+            "logits": LazyLogits(logits[: len(ids)]),
+            "snap": self.graphs.snapshot(argmax), "tasks": list(tasks),
+            "lengths": lengths, "capped": capped, "drafts": drafts,
+            "tok_dev": {}, "pre_lengths": dict(zip(ids, lengths)),
+            "t0": t_verify}), t0, async_on)
 
     def _apply_verify(self, tasks, lengths, capped, drafts,
                       target: np.ndarray) -> List[int]:
@@ -1153,11 +1444,11 @@ class PagedTorchExecutor(Executor):
             self._last_tok[i] = bonus
             self._gen[i].extend(drafts[r][:n_acc] + [bonus])
             self.draft.note_commit(i, new_len)
-            self.accepted_tokens += n_acc
+            self._accepted_tokens += n_acc
             commits.append(n_acc + 1)
             accepted.append(n_acc)
         self.spec_steps += 1
-        self.last_commits = commits
+        self._last_commits = commits
         return accepted
 
     # -- host-offload KV swap (DESIGN.md §7) --
@@ -1169,74 +1460,141 @@ class PagedTorchExecutor(Executor):
             return
         assert [li for li, _ in positions] == [li for li, _ in entries], (
             positions, [li for li, _ in entries])
-        idx = torch.as_tensor([p for _, p in positions], dtype=torch.long,
-                              device=self.device)
+        idx = self._upload([p for _, p in positions])
         for name, key in (("k_pages", "k"), ("v_pages", "v")):
             host = torch.stack([blob[key] for _, blob in entries], dim=1)
-            self.pages[name][:, idx] = host.to(self.device)
+            self.pages[name][:, idx] = self._h2d(host)
 
-    def suspend(self, task: Task) -> float:
-        """Swap the task's private pages, and for SSM/hybrid archs its
-        recurrent state, to the host arena: copy their device contents to
-        host memory, then release them to the pool's free list and the
-        state store; shared prefix pages stay resident. The copy completes
-        before this returns: the arenas are updated in place, so a freed
-        page or slot may be handed out and overwritten by the next step.
-        The state swaps as ONE blob {"ssm","conv"} at logical index -1,
-        below every page index, as in the JAX engine. On HostArenaFull the
-        swap is rolled back (contents restored into re-allocated pages and
-        slot) and the error propagates with the task still resident."""
-        tid = task.task_id
-        _sync(self.device)
-        t0 = time.perf_counter()
-        released = self.pool.swap_out(tid)
-        entries = []
+    def _snapshot_swapped(self, tid: int, released):
+        """Device copies of what a suspension releases, taken on the
+        compute stream right after the release, so no later step can
+        have reused a page or slot first: {"k","v"} [L, n, ...] of the
+        released pages, {"ssm","conv"} of the state slot."""
+        snaps: Dict[str, torch.Tensor] = {}
         if released:
-            idx = torch.as_tensor([p for _, p in released], dtype=torch.long,
-                                  device=self.device)
-            k_host = self.pages["k_pages"][:, idx].cpu()   # synchronous
-            v_host = self.pages["v_pages"][:, idx].cpu()
-            entries = [(li, {"k": k_host[:, n], "v": v_host[:, n]})
-                       for n, (li, _) in enumerate(released)]
-        stashed = entries
-        blob = None
+            idx = self._upload([p for _, p in released])
+            snaps["k"] = self.pages["k_pages"][:, idx]
+            snaps["v"] = self.pages["v_pages"][:, idx]
         if (self.states is not None and self.states.holds(tid)
                 and not self.states.is_swapped(tid)):
             slot = self.states.slot_of(tid)
-            blob = {"ssm": self.pages["ssm_state"][:, slot].cpu(),
-                    "conv": self.pages["conv_state"][:, slot].cpu()}
+            snaps["ssm"] = self.pages["ssm_state"][:, slot].clone()
+            snaps["conv"] = self.pages["conv_state"][:, slot].clone()
             self.states.swap_out(tid)
-            stashed = [(-1, blob)] + entries
+        return snaps
+
+    def _copy_out(self, snaps: Dict[str, torch.Tensor]):
+        """Host tensors for the snapshots and the event after their copy:
+        on the card pinned buffers, filled by non-blocking copies on the
+        side stream once the compute stream has taken the snapshots; on
+        the CPU the snapshots themselves (no event)."""
+        if self.device.type != "cuda":
+            return dict(snaps), None
+        hosts = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                 for k, v in snaps.items()}
+        if self._swap_stream is None:
+            self._swap_stream = torch.cuda.Stream(self.device)
+        taken = torch.cuda.Event()
+        taken.record()
+        with torch.cuda.stream(self._swap_stream):
+            self._swap_stream.wait_event(taken)
+            for k, v in snaps.items():
+                hosts[k].copy_(v, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._swap_stream)
+        return hosts, done
+
+    def suspend(self, task: Task) -> float:
+        """Swap the task's private pages, and for SSM/hybrid archs its
+        recurrent state, to the host arena: snapshot their device
+        contents on the compute stream, release them to the pool's free
+        list and the state store, and copy the snapshot to host memory on
+        a side stream; shared prefix pages stay resident. The state swaps
+        as ONE blob {"ssm","conv"} at logical index -1, below every page
+        index, as in the JAX engine. Steps in flight are committed first
+        (the swapped contents hold every committed token). A synchronous
+        engine waits for the copy; an async one returns and a worker
+        retires the copy in the ledger. On HostArenaFull the swap is
+        rolled back (the snapshot written into re-allocated pages and
+        slot) and the error propagates with the task still resident."""
+        tid = task.task_id
+        self._commit_pending()
+        async_on = self._async_on()
+        t0 = self._clock(async_on, time.perf_counter())
+        released = self.pool.swap_out(tid)
+        snaps = self._snapshot_swapped(tid, released)
+        hosts, done = self._copy_out(snaps) if snaps else ({}, None)
+        entries = [(li, {"k": hosts["k"][:, n], "v": hosts["v"][:, n]})
+                   for n, (li, _) in enumerate(released)]
+        stashed = entries
+        if "ssm" in hosts:
+            stashed = [(-1, {"ssm": hosts["ssm"], "conv": hosts["conv"]})
+                       ] + entries
         try:
             self.arena.put(tid, stashed)
         except HostArenaFull:
             # the released pages and slot are still free (nothing allocated
             # since), so swap_in cannot fail here
-            if blob is not None:
-                self._restore_state(self.states.swap_in(tid), blob)
-            self._restore_pages(self.pool.swap_in(tid), entries)
+            if "ssm" in snaps:
+                slot = self.states.swap_in(tid)
+                self.pages["ssm_state"][:, slot] = snaps["ssm"]
+                self.pages["conv_state"][:, slot] = snaps["conv"]
+            back = self.pool.swap_in(tid)
+            if back:
+                idx = self._upload([p for _, p in back])
+                self.pages["k_pages"][:, idx] = snaps["k"]
+                self.pages["v_pages"][:, idx] = snaps["v"]
             raise
         if self.draft is not None:
             # the draft state is dropped: the committed history survives in
             # _gen, and the first propose after resume re-prefills it
             self.draft.drop(tid)
-        _sync(self.device)
-        return (time.perf_counter() - t0) * 1000.0
+        if async_on and stashed:
+            handle = self.ledger.begin(tid, [p for _, p in released])
+            if self._swap_worker is None:
+                self._swap_worker = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="kv-swap")
+            self._landing.setdefault(tid, []).append(self._swap_worker.submit(
+                self._land, handle, done, snaps))
+        elif done is not None:
+            wait_event(done, self.graphs, "commit_waits")
+        return self._book(t0, async_on)
+
+    def _land(self, handle: int, done, snaps) -> None:
+        """The worker's half of an async suspension: wait for the copy to
+        host, then retire it in the ledger. ``snaps`` keeps the device
+        snapshot alive until the copy has read it."""
+        t0 = time.perf_counter()
+        try:
+            if done is not None:
+                done.synchronize()
+        finally:
+            self.gap_stats.add_swap_overlap(
+                (time.perf_counter() - t0) * 1000.0)
+            self.ledger.complete(handle)
+
+    def _landed(self, tid: int) -> None:
+        """Wait for the task's transfers and raise what one raised."""
+        self.ledger.wait(tid)
+        for f in self._landing.pop(tid, ()):
+            f.result()
 
     def _restore_state(self, slot: int, blob) -> None:
         """Write a host state blob {"ssm","conv"} into a state slot."""
         for name, key in (("ssm_state", "ssm"), ("conv_state", "conv")):
-            self.pages[name][:, slot] = blob[key].to(self.device)
+            self.pages[name][:, slot] = self._h2d(blob[key])
 
     def resume(self, task: Task) -> float:
         """Re-allocate the task's state slot (SSM/hybrid archs) and device
         pages for the swapped-out positions (evicting idle prefix-cache
-        pages under pressure) and restore the host contents. OutOfStates or
-        OutOfPages propagates with pool, store and arena unchanged: the
-        task stays suspended."""
+        pages under pressure) and restore the host contents, once the
+        task's copy to host has landed. OutOfStates or OutOfPages
+        propagates with pool, store and arena unchanged: the task stays
+        suspended."""
         tid = task.task_id
-        _sync(self.device)
-        t0 = time.perf_counter()
+        self._landed(tid)
+        async_on = self._async_on()
+        t0 = self._clock(async_on, time.perf_counter())
         slot = -1
         if self.states is not None and self.states.is_swapped(tid):
             slot = self.states.swap_in(tid)   # OutOfStates: nothing changed
@@ -1251,24 +1609,31 @@ class PagedTorchExecutor(Executor):
         self._restore_pages(restored, [e for e in entries if e[0] >= 0])
         if state:
             self._restore_state(slot, state[0])
-        _sync(self.device)
-        return (time.perf_counter() - t0) * 1000.0
+        return self._book(t0, async_on)
 
     def release(self, task: Task) -> None:
         tid = task.task_id
+        # a finished task can still have steps in flight (the loop knows
+        # "finished" from host-side token counts): commit through them
+        while self._queue.pending_for(tid):
+            self._queue.commit_oldest()
+        self._landed(tid)
         self.pool.free(tid)
         if self.states is not None:
             self.states.free(tid)
         self.arena.drop(tid)
         self._chunk_progress.pop(tid, None)
         self._last_tok.pop(tid, None)
+        self._tok_dev.pop(tid, None)
         self._toks_memo.pop(tid, None)
         self._gen.pop(tid, None)
         if self.draft is not None:
             self.draft.drop(tid)
 
     def latency_model(self) -> LatencyModel:
-        """Measure l(b) on the live engine (warm) — MeasuredLatencyModel."""
+        """Measure l(b) on the live engine (warm) — MeasuredLatencyModel.
+        The probes run synchronously (``_sync_mode``): dispatch-only
+        timings would price every step near 0 ms in Eq. 7."""
         # each warm task may grow ~32 tokens across the probe decodes;
         # reserve that many pages so probing never exhausts the pool
         nmax = min(self.max_batch,
@@ -1277,13 +1642,14 @@ class PagedTorchExecutor(Executor):
             nmax = min(nmax, max(1, self.states.free_slots))
         probes = sorted({b for b in (1, 2, 4, 8, nmax) if b <= nmax})
         warm = [qa_task() for _ in range(nmax)]
-        for t in warm:
-            self.pool.alloc(t.task_id, 1)
-            if self.states is not None:
-                self.states.alloc(t.task_id)
-            self._last_tok[t.task_id] = 0
-        lat = _probe_latency_curve(self, warm, probes)
-        for t in warm:
-            self.release(t)
+        with self._sync_mode():
+            for t in warm:
+                self.pool.alloc(t.task_id, 1)
+                if self.states is not None:
+                    self.states.alloc(t.task_id)
+                self._last_tok[t.task_id] = 0
+            lat = _probe_latency_curve(self, warm, probes)
+            for t in warm:
+                self.release(t)
         self.probe_samples = [(b, lat.decode_ms(b)) for b in probes]
         return lat

@@ -967,3 +967,123 @@ def test_refused_prefill_capture_raises_without_fallback(monkeypatch):
     monkeypatch.setattr(_fp, "launch", launch)
     ex.prefill(task)
     assert ex.graphs.steps[("prefill", 17)].graph is not None
+
+
+# ------------------------------------------- the async pipelined engine
+
+def _sync_and_async(arch, **kw):
+    """Two reduced fp32 paged engines on the card over the same weights,
+    both capturing their steps: one synchronous, one async."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    return [PagedTorchExecutor(cfg, params=params, n_pages=64, page_size=16,
+                               max_seq=128, max_batch=4, device="cuda",
+                               async_dispatch=a, **kw) for a in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["edge-6b", "mamba2-780m"])
+def test_async_engine_matches_sync_on_the_card(arch):
+    """The async engine against the synchronous one on the card, both
+    captured: prefill, a bucket change 3 -> 1 -> 3 with steps in flight,
+    a suspend issued behind an in-flight decode and a resume; logits bit
+    for bit and streams equal, no staging wait, the pool consistent and
+    the ledger idle after drain()."""
+    _need_cuda()
+    engines = _sync_and_async(arch)
+    tasks = _tasks((5, 17, 40), 8500)
+    logits = ([], [])
+    for e, ex in enumerate(engines):
+        for t in tasks:
+            ex.prefill(t)
+        logits[e].append(ex.last_prefill_logits)
+        for n in (3, 3, 1, 1, 3):
+            ex.decode(tasks[:n])
+        ex.suspend(tasks[2])
+        for _ in range(2):
+            ex.decode(tasks[:2])
+        ex.resume(tasks[2])
+        for _ in range(3):
+            ex.decode(tasks)
+        logits[e].append(ex.last_logits)
+        ex.drain()
+    for a, b in zip(*logits):
+        np.testing.assert_array_equal(b, a)
+    sync, asy = engines
+    assert [sync.generated_tokens(t) for t in tasks] == \
+        [asy.generated_tokens(t) for t in tasks]
+    assert asy.gap_stats.stalls > 0 and asy.graphs.stage_waits == 0
+    assert asy.ledger.outstanding() == 0 and asy.ledger.started == 1
+    asy.ledger.check()
+    asy.pool.check()
+
+
+@pytest.mark.cuda
+def test_async_suspend_copy_lands_before_resume():
+    """An async suspension behind an in-flight decode, while later steps
+    reuse the freed pages: once the ledger has retired the side-stream
+    copy, the host blobs equal the synchronous twin's (which copied before
+    returning), and after resume the task's pages are bit for bit the
+    twin's."""
+    _need_cuda()
+    engines = _sync_and_async("edge-6b")
+    tasks = _tasks((33, 20), 8600)
+    tid = tasks[0].task_id
+    blobs = []
+    for ex in engines:
+        for t in tasks:
+            ex.prefill(t)
+        for _ in range(4):
+            ex.decode(tasks)
+        ex.suspend(tasks[0])
+        for _ in range(4):
+            ex.decode(tasks[1:])
+        ex.ledger.wait(tid)
+        assert ex.ledger.outstanding(tid) == 0
+        blobs.append([{k: v.clone() for k, v in blob.items()}
+                      for _, blob in ex.arena._entries[tid]])
+        ex.resume(tasks[0])
+        ex.drain()
+    assert len(blobs[1]) == len(blobs[0]) > 1
+    for a, b in zip(*blobs):
+        for k in ("k", "v"):
+            assert torch.equal(a[k], b[k])
+    pages = [[ex.pages[n][:, torch.as_tensor(ex.pool.page_table(tid),
+                                                device="cuda")]
+              for n in ("k_pages", "v_pages")] for ex in engines]
+    for a, b in zip(*pages):
+        assert torch.equal(a, b)
+    assert engines[1].ledger.started == 1
+
+
+@pytest.mark.cuda
+def test_async_capture_while_a_transfer_is_outstanding():
+    """A prompt length first seen right after an async suspension: its
+    step is captured while the side-stream copy may still be in flight
+    (the capture first waits out the ledger). Nothing raises, and the
+    streams and the resumed task's pages equal the synchronous twin's."""
+    _need_cuda()
+    engines = _sync_and_async("edge-6b")
+    tasks = _tasks((33, 20), 8700)
+    late = _tasks((27,), 8750)[0]             # a length not yet captured
+    for ex in engines:
+        for t in tasks:
+            ex.prefill(t)
+        for _ in range(3):
+            ex.decode(tasks)
+        ex.suspend(tasks[0])
+        ex.prefill(late)
+        assert ("prefill", 27) in ex.graphs.steps
+        for _ in range(2):
+            ex.decode([tasks[1], late])
+        ex.resume(tasks[0])
+        ex.decode(tasks + [late])
+        ex.drain()
+    sync, asy = engines
+    assert [sync.generated_tokens(t) for t in tasks + [late]] == \
+        [asy.generated_tokens(t) for t in tasks + [late]]
+    assert asy.ledger.started == 1 and asy.ledger.outstanding() == 0
+    asy.pool.check()

@@ -278,8 +278,7 @@ def test_cuda_request_raises_without_gpu():
         TM.init_params(cfg, device="cuda")
 
 
-@pytest.mark.parametrize("option", [{"mesh": object()},
-                                    {"async_dispatch": True}])
+@pytest.mark.parametrize("option", [{"mesh": object()}])
 def test_unported_options_raise(option):
     cfg = get_config("edge-6b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -353,7 +352,9 @@ def test_cli_refuses_chunking_without_slice(argv):
     (["--prefix-cache", "--executor", "slot"], "requires --executor paged"),
     (["--kv-swap", "--executor", "slot"], "requires --executor paged"),
     (["--kv-swap", "--scheduler", "orca"],
-     "requires --scheduler slice or fastserve")])
+     "requires --scheduler slice or fastserve"),
+    (["--async-pipeline", "--executor", "slot"],
+     "requires --executor paged")])
 def test_cli_refuses_spec_prefix_swap_where_jax_does(argv, match):
     """The JAX CLI's refusals, raised before any engine is built."""
     with pytest.raises(SystemExit, match=match):
