@@ -24,8 +24,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
             must give exact zeros. Each flash case names the body it ran
             (bf16 at hd 64 and 128: the tensor-core body).
             The five attention kernels again at granite-moe (Hq=24, Hkv=8,
-            hd=64) and hymba (Hq=25, Hkv=5, hd=64) head shapes (the ring
-            over a ragged 1000-slot ring). The SSD scan at mamba2-780m
+            hd=64), hymba (Hq=25, Hkv=5, hd=64) and smollm-360m (Hq=15,
+            Hkv=5, hd=64) head shapes (the ring over a ragged 1000-slot
+            ring). The SSD scan at mamba2-780m
             (H=48, P=64, N=128) and hymba (H=50, N=16) widths, T=1, 65,
             77 and 256, inputs as strided splits of one projection; the SSD decode step over a shuffled state arena
             with a pad and an inactive row (arena after the step compared
@@ -48,19 +49,32 @@ Phases, each printing its own lines; any failed check exits non-zero:
             equal to the never-suspended engine's); mamba2-780m, hymba-1.5b
             and granite-moe-3b-a800m (reduced) paged engines with prefill,
             decode steps and a suspend/resume that restores the SSM state,
-            the conv tail and the K/V pages bit for bit. Every reduced
-            engine on the card runs its decode-type steps captured as
-            CUDA graphs (the engines' default).
+            the conv tail and the K/V pages bit for bit; mamba2-780m and
+            hymba-1.5b (reduced) slot engines, masked and compacted,
+            with a 2-token prompt (shorter than the conv width) and a
+            slot reused after a release; the ring prefill (a prompt of
+            100 or 200 tokens into the reduced configs' 64-slot window)
+            of hymba-1.5b and smollm-360m and four decode steps after it
+            (K/V within 1e-4, kv_pos exact); a reduced heterogeneous
+            fleet (mamba2-780m, granite-moe-3b-a800m) through
+            engine_fleet under the structural gate of
+            benchmarks/fleet_routing.py. The SSD decode step also over
+            the slot engine's layout (row b at slot b, a spare row,
+            inactive rows) at both SSD widths. Every reduced engine on
+            the card runs its steps captured as CUDA graphs (the
+            engines' default).
 3. graphs — each step the engines capture, at full width in bf16, run
             by an eager engine (cuda_graphs=False) and a captured one on
             the same weights and tasks. Decode-type: edge-6b's paged
             decode at b = 1, 2, 4, 8, its speculative iteration at b = 4,
             K = 4 (verify step and the draft's catch-up and masked decode),
-            the slot engine's masked and compacted steps (16 slots), and
-            the paged decode of mamba2-780m and granite-moe-3b-a800m; 16
-            steps each. Prefill-type: the whole prompt at 64, 128 and 256
-            tokens (edge-6b, mamba2-780m, granite-moe-3b-a800m on the
-            paged engine; edge-6b's slot engine at 256), a 256-token
+            the slot engine's masked and compacted steps (16 slots) of
+            edge-6b, mamba2-780m and hymba-1.5b, and the paged decode of
+            mamba2-780m and granite-moe-3b-a800m; 16 steps each.
+            Prefill-type: the whole prompt at 64, 128 and 256 tokens
+            (edge-6b, mamba2-780m, granite-moe-3b-a800m on the paged
+            engine; mamba2-780m and hymba-1.5b on the slot engine;
+            edge-6b's slot engine at 256), a 256-token
             prompt in chunks of 64 on the paged and the slot engine, and
             a prefix hit's suffix in power-of-two pieces; 5 prompts a
             length, then 4 decode steps. Logits within the bf16
@@ -90,8 +104,19 @@ Phases, each printing its own lines; any failed check exits non-zero:
             finishes, no page or state slot is left held, (e) launches the
             SSD scan and decode-step kernels, (f) the grouped-expert FFN,
             paged decode and flash prefill at head_dim 64, group 3.
+            Then (h) the fleet (--fleet smollm-360m,edge-6b, --ratio 0.5,
+            traced): every task finishes, the per-instance results
+            partition the tasks, both pools end empty, each QA task is
+            served on tier 1 or counted among the degraded routings, the
+            event stream replays the merged result and each instance's
+            track its own; (i) mamba2-780m and (j) hymba-1.5b on the slot
+            engine (16 slots): every task finishes, every slot is free,
+            (i) launches the SSD kernels, (j) those and the ring-cache
+            decode and flash prefill at hymba's heads.
             Kernel launch counts are zeroed just before each run and read
-            just after; the engine is freed before the next run. Run (d)
+            just after; the engine is freed before the next run. In run
+            (h) the launches are also tallied by the instance whose engine
+            made them, and the tallies must sum to the run's. Run (d)
             also prints a speculative iteration's engine clock beside a
             plain decode step's at the same batch.
 5. time   — each kernel (device time: CUDA events over 30 calls queued
@@ -105,9 +130,14 @@ Phases, each printing its own lines; any failed check exits non-zero:
             kernels over a full batch of the run's first requests, each
             mid-way through its output; verify windows of depth+1
             queries; paged decode and flash prefill also at granite-moe's
-            heads over run (f)'s batch and median prompt; each paged row
-            names its page splits); the SSD scan over one median prompt of
-            run (e), the SSD step over its full decode batch, the
+            heads over run (f)'s batch and median prompt and at
+            smollm-360m's over run (h)'s smollm instance's; each paged row
+            names its page splits); ring-cache decode over run (b)'s slot
+            array and over run (j)'s at hymba's heads and window; the SSD
+            scan over one median prompt of run (e) and of run (j); the SSD
+            step over the full decode batch of runs (e), (i) and (j), each
+            on its own arena layout; flash prefill also at hymba's heads
+            over run (j)'s median prompt; the
             grouped-expert FFN over run (f)'s full decode batch with its
             routing's live-row counts passed and the bound counting only
             live rows (C = batch * top_k; no single
@@ -123,13 +153,18 @@ Phases, each printing its own lines; any failed check exits non-zero:
 The kernels JSON has one entry per kernel; each also names its shape and
 the kernel body it ran ("tensor_core" or "cuda_core"), and a kernel timed
 at a second shape lists it under "other_shapes" (its launches then sum
-over every serving run).
+over every serving run). Each run's launches of a kernel stand under the
+one row timed at that run's shapes (heads, state widths, arena layout):
+the script fails if a run's launches stand under no row or under two.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 CUDA is not available or the repository's sources are not beside it.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import inspect
 import json
 import os
 import subprocess
@@ -143,6 +178,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}     # max |kernel - plain|
+L2_BYTES = 50 * 2**20                           # H100 SXM data sheet
 # Non-realtime traffic (--ratio 0) in every run but paged-realtime, so the
 # runs stay comparable with earlier ones. SLICE paces a realtime task at
 # exactly its SLO rate and drops it once it falls behind its deadline, so
@@ -204,6 +240,19 @@ SERVE_RUNS = (
      ("ssd_scan", "ssd_decode_step")),
     ("paged-moe", ["--executor", "paged", "--arch", "granite-moe-3b-a800m"],
      ("moe_grouped_ffn", "paged_decode_attention", "flash_prefill")),
+    # the fleet tier (DESIGN.md §11): smollm-360m (tier 0) and edge-6b
+    # (tier 1) behind one router on the CLI's default mix, traced; QA
+    # traffic wants tier 1
+    ("fleet-traced", ["--fleet", "smollm-360m,edge-6b", "--ratio", "0.5",
+                      "--trace", "{trace}", "--metrics-every", "16"],
+     ("paged_decode_attention", "flash_prefill")),
+    # SSM and hybrid archs on the slot engine: the state in the slot cache
+    ("slot-ssm", ["--executor", "slot", "--slots", "16", "--arch",
+                  "mamba2-780m"],
+     ("ssd_scan", "ssd_decode_step")),
+    ("slot-hybrid", ["--executor", "slot", "--slots", "16", "--arch",
+                     "hymba-1.5b"],
+     ("decode_attention", "flash_prefill", "ssd_scan", "ssd_decode_step")),
 )
 KERNELS = {
     "paged_decode_attention": {
@@ -238,8 +287,12 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's header line, with the seconds since the script started."""
+    print(f"== {name} (at {time.perf_counter() - _START:.1f}s)", flush=True)
 
 
 def poison(shape, dtype):
@@ -604,7 +657,8 @@ def check_ring(report, q_pos, kv_pos, dtype, S, windows, Hq=32, Hkv=2,
 
 
 def check_hetero_kernels(report):
-    """The attention kernels at granite-moe and hymba head shapes, and the
+    """The attention kernels at granite-moe, hymba and smollm head shapes
+    (Hq/Hkv 24/8, 25/5, 15/5 at hd 64), and the
     SSD scan, SSD decode step and grouped-expert FFN at the serving runs'
     widths, each against its plain version on the same inputs."""
     import torch
@@ -626,7 +680,7 @@ def check_hetero_kernels(report):
     kv_pos[4, ::7] = -1
     kv_pos[4, 1] = 690
     kv_pos[5] = np.arange(S)
-    for Hq, Hkv in ((24, 8), (25, 5)):
+    for Hq, Hkv in ((24, 8), (25, 5), (15, 5)):
         heads = dict(Hq=Hq, Hkv=Hkv, hd=64)
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
@@ -727,6 +781,34 @@ def check_hetero_kernels(report):
             case = f"B={B} H={H} P={P} N={N} arena={S} pad+inactive rows"
             report("ssd_decode_step", case + " y", dt,
                    (y.float() - yw)[live].abs().max().item())
+            scale = max(1.0, st_p.abs().max().item())
+            report("ssd_decode_step", case + " arena after, fp32, over "
+                   "max(1, |h|)", "float32",
+                   (st_k - st_p).abs().max().item() / scale, False)
+            # the slot engine's layout: the arena is one layer of its slot
+            # cache, row b at slot b, the spare row past them untouched,
+            # some rows inactive
+            B = 16
+            x, dtr, b, c, _ = ssd_inputs(B, 1, H, P, N, dtype, seed=H + 1)
+            args = (x[:, 0], dtr[:, 0], a_log, b[:, 0], c[:, 0], d_skip, bias)
+            arena = 0.5 * torch.randn(B + 1, H, P, N, generator=g,
+                                      device="cuda")
+            slots = torch.arange(B, dtype=torch.int32, device="cuda")
+            active = torch.ones(B, dtype=torch.bool, device="cuda")
+            active[1::3] = False
+            st_k, st_p = arena.clone(), arena.clone()
+            y = ops.ssd_decode_step(*args, st_k, slots, active)
+            torch.cuda.synchronize()
+            yw = ref.ssd_decode_step_ref(*f32(args), st_p, slots, active)
+            keep = torch.cat([~active, torch.ones(1, dtype=torch.bool,
+                                                  device="cuda")])
+            if not torch.equal(st_k[keep], arena[keep]):
+                fail("ssd_decode_step: an inactive row or the spare row of "
+                     "the slot layout changed")
+            case = (f"B={B} H={H} P={P} N={N} slot-cache layout (row b at "
+                    f"slot b, spare row) {int((~active).sum())} inactive rows")
+            report("ssd_decode_step", case + " y", dt,
+                   (y.float() - yw).abs().max().item())
             scale = max(1.0, st_p.abs().max().item())
             report("ssd_decode_step", case + " arena after, fp32, over "
                    "max(1, |h|)", "float32",
@@ -1060,6 +1142,179 @@ def check_hetero_engines():
                  "changed a swapped task or leaked")
 
 
+def check_slot_ssm_engines():
+    """Reduced mamba2-780m (SSM) and hymba-1.5b (hybrid) slot engines on
+    the card against the same engines on the CPU (fp32, same weights,
+    same tasks), masked and compacted decode: prefill (one prompt of 2
+    tokens, shorter than the conv width), decode steps under a changing
+    active set, a release and a new task in the freed slot; prefill and
+    decode logits within 1e-4, greedy streams identical, every slot free
+    at the end. Steps captured on the card (the engines' default)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import TorchExecutor
+    phase("check SSM and hybrid slot engines on the card against the CPU")
+    for arch in ("mamba2-780m", "hymba-1.5b"):
+        cfg = get_config(arch).reduced()
+        params = M.init_params(cfg, seed=0, device="cpu")
+        for compact in (False, True):
+            on = {d: TorchExecutor(cfg, params=to_device(params, d),
+                                   max_slots=3, max_seq=128, device=d,
+                                   compact_buckets=compact)
+                  for d in ("cpu", "cuda")}
+            tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n,
+                          output_len=16, task_id=7500 + i)
+                     for i, n in enumerate((2, 17, 40, 9))]
+            worst = 0.0
+
+            def diff(attr):
+                return float(np.abs(getattr(on["cuda"], attr)
+                                    - getattr(on["cpu"], attr)).max())
+
+            for t in tasks[:3]:
+                for ex in on.values():
+                    ex.prefill(t)
+                worst = max(worst, diff("last_prefill_logits"))
+            live = tasks[:3]
+            for step, sel in enumerate(((0, 1, 2), (1, 2), (2,), (0, 2),
+                                        (0, 1, 2), "reuse", (0, 1, 2),
+                                        (0, 2))):
+                if sel == "reuse":      # task 3 takes task 0's slot
+                    for ex in on.values():
+                        ex.release(live[0])
+                        ex.prefill(tasks[3])
+                    worst = max(worst, diff("last_prefill_logits"))
+                    live = [tasks[3]] + live[1:]
+                    continue
+                batch = [live[i] for i in sel]
+                for ex in on.values():
+                    ex.decode(batch)
+                got = on["cuda"].last_logits
+                if (got.shape != (len(batch), cfg.vocab_size)
+                        or not np.isfinite(got).all()):
+                    fail(f"{arch} slot: logits shape {got.shape} or "
+                         "non-finite values")
+                worst = max(worst, diff("last_logits"))
+            streams = {d: [ex.generated_tokens(t) for t in live]
+                       for d, ex in on.items()}
+            reused = on["cuda"].slot_of[tasks[3].task_id] == 0
+            for ex in on.values():
+                for t in live:
+                    ex.release(t)
+            name = f"{arch}-smoke slot {'compacted' if compact else 'masked'}"
+            print(f"engine {name} cuda vs cpu: max |logit diff|={worst:.3e} "
+                  f"tol=1e-4 streams_equal="
+                  f"{streams['cuda'] == streams['cpu']}; slot reused: "
+                  f"{reused}; free after release "
+                  f"{sorted(on['cuda'].free)}")
+            if (worst > 1e-4 or streams["cuda"] != streams["cpu"]
+                    or not reused or sorted(on["cuda"].free) != [0, 1, 2]):
+                fail(f"reduced {name} engine on the card disagrees with the "
+                     "CPU or kept a slot")
+
+
+def check_ring_prefill():
+    """The ring branch of prefill (a prompt longer than its 64-slot buffer,
+    the reduced configs' sliding window) on the card against the CPU,
+    reduced hymba-1.5b and smollm-360m at S = 100 and 200 over two rows,
+    then four decode steps on the ring: logits, K/V within 1e-4, kv_pos
+    exact (the tail's positions at p % 64)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    phase("check the ring prefill on the card against the CPU")
+    ring = 64
+    for arch in ("hymba-1.5b", "smollm-360m"):
+        cfg = get_config(arch).reduced()
+        if cfg.sliding_window != ring:
+            fail(f"{arch} reduced: window {cfg.sliding_window}, {ring} "
+                 "expected")
+        params = {d: to_device(M.init_params(cfg, seed=0, device="cpu"), d)
+                  for d in ("cpu", "cuda")}
+        for S in (100, 200):
+            toks = torch.from_numpy(np.random.default_rng(S).integers(
+                0, cfg.vocab_size, (2, S))).int()
+            out = {d: M.prefill(cfg, params[d], toks.to(d), buf_len=ring)
+                   for d in ("cpu", "cuda")}
+            worst, kv_err, pos_ok = 0.0, 0.0, True
+            for step in range(5):
+                (lc, cc), (lg, cg) = out["cpu"], out["cuda"]
+                worst = max(worst, (lg.cpu() - lc).abs().max().item())
+                for k in ("k", "v"):
+                    kv_err = max(kv_err, (cg[k].cpu() - cc[k]).abs().max()
+                                 .item())
+                pos_ok &= torch.equal(cg["kv_pos"].cpu(), cc["kv_pos"])
+                if step == 0:
+                    want = np.full(ring, -1)
+                    for pp in range(S - ring, S):
+                        want[pp % ring] = pp
+                    pos_ok &= bool((cc["kv_pos"][0].numpy() == want).all())
+                if step == 4:
+                    break
+                tok = lc.argmax(-1).int()
+                out = {d: M.decode_step(cfg, params[d], out[d][1],
+                                        tok.to(d)) for d in ("cpu", "cuda")}
+            print(f"ring prefill {arch}-smoke S={S} buf_len={ring} + 4 "
+                  f"decode steps, cuda vs cpu: max |logit diff|={worst:.3e} "
+                  f"max |K/V diff|={kv_err:.3e} tol=1e-4 kv_pos equal and "
+                  f"the tail's: {pos_ok}")
+            if worst > 1e-4 or kv_err > 1e-4 or not pos_ok:
+                fail(f"ring prefill of {arch} on the card disagrees with the "
+                     "CPU")
+
+
+def check_fleet_gate():
+    """``engine_fleet`` of reduced mamba2-780m and granite-moe-3b-a800m
+    on the card (fp32, steps captured) under the structural gate of
+    ``benchmarks/fleet_routing.py``: each instance keeps its cache kind,
+    every request served exactly once, no page or state slot left held, no
+    quality request served below its tier floor."""
+    from repro_torch.core.task import SLOSpec, control_task, qa_task
+    from repro_torch.kernels import ops
+    from repro_torch.serving.fleet import engine_fleet, run_fleet_loop
+    phase("check a reduced heterogeneous fleet on the card (the structural "
+          "gate)")
+    router = engine_fleet(["mamba2-780m", "granite-moe-3b-a800m"],
+                          n_pages=48, page_size=8, max_seq=96, max_batch=4,
+                          seed=0, device="cuda")
+    kinds = tuple(i.executor.store.kinds for i in router.instances)
+    scale = max(max(i.lat.decode_ms(2) for i in router.instances) / 50.0,
+                0.02)
+    tasks = []
+    for k in range(3):
+        tasks.append(control_task(arrival_ms=40.0 * k, prompt_len=10,
+                                  output_len=8))
+        q = qa_task(arrival_ms=70.0 * k, prompt_len=14, output_len=10)
+        q.min_tier = 1
+        tasks.append(q)
+    for t in tasks:                       # the benchmark's relaxation
+        t.slo.tpot_ms *= scale * 4
+        t.slo.ttft_ms *= max(scale, 1.0)
+        if t.slo.deadline_ms:
+            t.slo = SLOSpec.realtime_deadline(
+                t.slo.deadline_ms * max(scale, 1.0) * 4, t.output_len)
+    ops.reset_launches()
+    res = run_fleet_loop(router, tasks, max_ms=3e7)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    unserved = sum(1 for t in res.tasks if not t.finished and not t.dropped)
+    n_inst = sum(len(lr.tasks) for lr in res.per_instance.values())
+    leaked = 0
+    for inst in router.instances:
+        inst.executor.store.check()
+        leaked += inst.executor.store.leaked()
+    floor_ok = all(t.served_tier >= 1 for t in tasks if t.min_tier >= 1)
+    print(f"hetero fleet (mamba2-780m, granite-moe-3b-a800m reduced) on the "
+          f"card: kinds {kinds}, unserved {unserved}, per-instance tasks "
+          f"{n_inst} of {len(tasks)}, leaked {leaked}, spills {res.spills}, "
+          f"quality served at tier >= 1: {floor_ok}; launches {launches}")
+    if (kinds != (("state",), ("kv",)) or unserved or n_inst != len(tasks)
+            or leaked or not floor_ok):
+        fail("the reduced heterogeneous fleet failed the structural gate")
+
+
 def async_drive(ex, tasks, spare, observe):
     """The scripted sequence the sync and async engines both run: prefill
     three tasks, decode across the batch buckets 4 -> 1 -> 4, a suspend
@@ -1227,8 +1482,15 @@ GRAPH_CASES = (
     ("edge-6b slot compacted", "edge-6b", "slot", {"compact_buckets": True},
      (1, 2, 4, 8), None),
     ("mamba2-780m paged", "mamba2-780m", "paged", {}, (1, 2, 4, 8), None),
+    ("mamba2-780m slot masked", "mamba2-780m", "slot", {}, (1, 2, 4, 8),
+     None),
+    ("mamba2-780m slot compacted", "mamba2-780m", "slot",
+     {"compact_buckets": True}, (1, 2, 4, 8), None),
     ("granite-moe paged", "granite-moe-3b-a800m", "paged", {}, (1, 2, 4, 8),
      None),
+    ("hymba-1.5b slot masked", "hymba-1.5b", "slot", {}, (1, 2, 4, 8), None),
+    ("hymba-1.5b slot compacted", "hymba-1.5b", "slot",
+     {"compact_buckets": True}, (1, 2, 4, 8), None),
 )
 GRAPH_STEPS = 16          # compared steps an engine, spread over its batches
 SPREAD_STEPS = 20         # timed steps at the case's largest batch
@@ -1252,6 +1514,10 @@ PREFILL_CASES = (
      {"prefill_chunk_size": 64}, "chunk", (256,)),
     ("edge-6b prefix suffix", "edge-6b", "paged", {"prefix_cache": True},
      "suffix", (250,)),
+    ("mamba2-780m slot whole prefill", "mamba2-780m", "slot", {}, "whole",
+     (64, 128, 256)),
+    ("hymba-1.5b slot whole prefill", "hymba-1.5b", "slot", {}, "whole",
+     (64, 128, 256)),
 )
 PREFILL_REPS = 5          # timed prompts an engine at each length
 
@@ -1466,9 +1732,11 @@ def prefill_graph_case(params, case, arch, kind, kw, how, lengths):
 
 
 def serve_phase(run_name, extra, required):
-    """One serving run through the serve entry point; returns what the time
-    phase needs of it (the engine's shapes and the tasks) and the run's
-    launch counts, and frees the engine."""
+    """One serving run through the serve entry point; returns, by run
+    name, what the time phase needs of it (the engine's shapes and the
+    tasks) and the run's launch counts, and frees the engine. A fleet run
+    gives one entry per instance, ``run/arch``, with the launches made
+    inside that instance's engine."""
     import gc
 
     import numpy as np
@@ -1481,15 +1749,24 @@ def serve_phase(run_name, extra, required):
         trace_path = os.path.join(tmp, "trace.json")
         argv = SERVE_ARGS + [a.replace("{trace}", trace_path) for a in extra]
         args = serve.parse_args(argv)
-        phase(f"serve {run_name}: {args.arch} at full width (bf16) under "
-              "SLICE")
+        phase(f"serve {run_name}: {args.fleet or args.arch} at full width "
+              "(bf16) under SLICE")
         print("serve args:", " ".join(argv))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ops.reset_launches()
-        run = serve.run(args)
+        with (launches_by_engine() if args.fleet
+              else contextlib.nullcontext({})) as by_engine:
+            run = serve.run(args)
         launches = dict(ops.LAUNCHES)
         wall = time.perf_counter() - t0
+        if isinstance(run, serve.FleetRun):
+            out = check_fleet_run(run_name, run, launches, by_engine, wall,
+                                  trace_path, required)
+            del run                      # the engines: reference cycles
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out
         if run.trace is not None:
             check_trace(run, trace_path)
     ex, res = run.executor, run.result
@@ -1577,7 +1854,143 @@ def serve_phase(run_name, extra, required):
     del run, ex, res, pool, cache
     gc.collect()
     torch.cuda.empty_cache()
-    return shapes, launches
+    return {run_name: (shapes, launches)}
+
+
+@contextlib.contextmanager
+def launches_by_engine():
+    """Tally the growth of ``ops.LAUNCHES`` by the paged engine whose
+    constructor or public method (the outermost, if they nest) was
+    running: yields {id(engine): {kernel: n}}, filled as the engines run.
+    Every launch of a serving run happens inside one of these calls: the
+    steps are dispatched there, captured graphs replayed there."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.executor import PagedTorchExecutor as cls
+    by, depth, saved = {}, [0], {}
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(self, *a, **kw):
+            if depth[0]:
+                return fn(self, *a, **kw)
+            before = dict(ops.LAUNCHES)
+            depth[0] += 1
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                depth[0] -= 1
+                tally = by.setdefault(id(self), dict.fromkeys(ops.LAUNCHES, 0))
+                for k, n in ops.LAUNCHES.items():
+                    tally[k] += n - before[k]
+        return inner
+
+    names = {n for k in cls.__mro__[:-1] for n, f in vars(k).items()
+             if inspect.isfunction(f) and (n == "__init__"
+                                           or not n.startswith("_"))}
+    for n in names:
+        saved[n] = vars(cls).get(n)
+        setattr(cls, n, wrap(getattr(cls, n)))
+    try:
+        yield by
+    finally:
+        for n, f in saved.items():
+            if f is None:
+                delattr(cls, n)
+            else:
+                setattr(cls, n, f)
+
+
+def check_fleet_run(run_name, run, launches, by_engine, wall, path,
+                    required):
+    """The traced fleet run: every task finishes; the per-instance results
+    partition the tasks; each instance's pool ends empty; each QA task is
+    served on the top tier or counted among the degraded routings; the
+    event stream replays the merged result and each instance's track its
+    own; the Perfetto file loads back; the run's kernels launched; the
+    launches made inside each instance's engine sum to the run's. Prints
+    each instance's l(b), its share of the traffic and its launches.
+    Returns what the time phase reads of each instance, as ``run/arch``:
+    its engine's shapes, the tasks it served and its launches."""
+    import torch
+    from repro_torch.serving.metrics import per_tier, summarize
+    from repro_torch.serving.trace import events_conserved, replay_counters
+    router, res, tr = run.router, run.result, run.trace
+    peak = torch.cuda.max_memory_allocated()
+    for inst in router.instances:
+        print(f"l(b) curve of {inst.name} (tier {inst.tier}, quality "
+              f"{inst.quality:g}): " + " ".join(
+                  f"l({b})={ms:.3f}ms" for b, ms in run.probes[inst.name]))
+    m = res.merged
+    print(f"served n={len(res.tasks)} prefills={m.prefills} "
+          f"decode_iters={m.decode_iterations} loop_clock={res.end_ms:.1f}ms "
+          f"wall={wall:.1f}s max_memory_allocated={peak} "
+          f"({peak / 2**30:.2f} GiB); admissions {res.admissions}, spills "
+          f"{res.spills}, degraded {res.degraded}, defers "
+          f"{dict(m.defers_by_reason)}")
+    att = summarize(res.tasks)
+    print(f"attainment: realtime {att['realtime'].slo:.1%} of "
+          f"{att['realtime'].n}, non-realtime {att['non_realtime'].slo:.1%} "
+          f"of {att['non_realtime'].n}; per serving instance " + ", ".join(
+              f"{n} {a.n} tasks {a.slo:.1%}"
+              for n, a in per_tier(res.tasks).items()))
+    print(f"launches in the {run_name} run: {launches}")
+    unfinished = [t.task_id for t in res.tasks if t.dropped or not t.finished]
+    if not res.tasks or unfinished:
+        fail(f"{run_name}: tasks not finished: {unfinished} of "
+             f"{len(res.tasks)}")
+    ids = sorted(t.task_id for r in res.per_instance.values()
+                 for t in r.tasks)
+    if ids != sorted(t.task_id for t in res.tasks):
+        fail(f"{run_name}: the per-instance results do not partition the "
+             "tasks")
+    top = max(i.tier for i in router.instances)
+    low_qa = sum(1 for t in res.tasks
+                 if t.kind == "qa" and t.served_tier < top)
+    if low_qa > res.degraded:
+        fail(f"{run_name}: {low_qa} QA tasks served below tier {top}, only "
+             f"{res.degraded} routings degraded")
+    for inst in router.instances:
+        ex = inst.executor
+        ex.store.check()
+        if ex.pool.used_pages or ex.pool.owners() or ex.store.leaked():
+            fail(f"{run_name}: {inst.name} leaked {ex.pool.used_pages} "
+                 f"pages held by {ex.pool.owners()}")
+    conserved = events_conserved(tr.events, m)
+    tracks = sorted(i for i in tr.instances() if i != "fleet")
+    per = [replay_counters(tr.events, instance=i) for i in tr.instances()]
+    merged = replay_counters(tr.events)
+    tracks_sum = all(merged[k] == sum(q[k] for q in per)
+                     for k in ("finished", "decode_iterations", "prefills"))
+    with open(path) as f:
+        rows = len(json.load(f)["traceEvents"])
+    print(f"trace: {len(tr)} events ({tr.dropped} dropped), {rows} Perfetto "
+          f"rows read back, {len(tr.snapshots)} snapshots, tracks {tracks}; "
+          f"events_conserved={conserved}; per-track replays sum to the "
+          f"merged one: {tracks_sum}; QA served below tier {top}: {low_qa}")
+    if (not conserved or not tracks_sum or tr.dropped or not rows
+            or tracks != sorted(i.name for i in router.instances)):
+        fail(f"{run_name}: the event stream does not reproduce the fleet's "
+             "counters, or the Perfetto file is empty")
+    for name in required:
+        if launches[name] <= 0:
+            fail(f"{run_name}: kernel {name} was not launched on its path")
+    out = {}
+    for inst in router.instances:
+        ex = inst.executor
+        own = by_engine.get(id(ex), dict.fromkeys(launches, 0))
+        print(f"launches inside {inst.name}'s engine: "
+              f"{ {k: n for k, n in own.items() if n} }")
+        out[f"{run_name}/{inst.name}"] = (
+            {"cfg": ex.cfg, "max_seq": ex.max_seq, "chunk": None,
+             "tasks": res.per_instance[inst.name].tasks or res.tasks,
+             "batch": ex.max_batch, "n_pages": ex.n_pages,
+             "page_size": ex.page_size, "maxp": ex.max_pages_per_seq}, own)
+    if len(by_engine) != len(router.instances) or any(
+            sum(o[1][k] for o in out.values()) != launches[k]
+            for k in launches):
+        fail(f"{run_name}: the launches inside the instances' engines do "
+             f"not sum to the run's {launches}")
+    return out
 
 
 def check_trace(run, path):
@@ -1641,10 +2054,10 @@ def spec_probe(ex, L, b=4, depth=4, reps=3):
 def time_phase(runs, worst):
     """Time each kernel, its plain version and the library yardstick at the
     shapes its serving run gave it; bound from these inputs. ``runs`` maps
-    a run's name to (shapes, launches); a timed row's launches are the sum
-    over the serving runs at whose shapes it is timed (all of them, except
-    paged decode and flash prefill: their edge-6b rows count the edge-6b
-    runs, their granite-moe rows the granite run)."""
+    a run's name (a fleet instance's as ``run/arch``) to (shapes,
+    launches); a timed row's launches are the sum over the serving runs
+    at whose shapes (heads, state widths, cache layout) it is timed, and
+    each run's launches of a kernel stand under exactly one of its rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as _fp
@@ -1663,16 +2076,17 @@ def time_phase(runs, worst):
     rows = []
 
     def row(name, shape, kern, plain, plain_fp32, lib, nbytes, flops, *,
-            body="cuda_core", of_runs=None, passes=None):
+            of_runs, body="cuda_core", passes=None):
         """One timed kernel: its call, plain versions (working type and
         fp32), library yardstick or None, bytes and flops for the bound,
-        the body it runs, the serving runs whose launches it reports
-        (default all), and for a multi-pass kernel the names of its
-        passes' kernels (``launch.timing``), each pass then timed apart."""
+        the serving runs at whose shapes it is timed and whose launches it
+        reports, the body it runs, and for a multi-pass kernel the names
+        of its passes' kernels (``launch.timing``), each pass then timed
+        apart."""
         rows.append(dict(name=name, shape=shape, kern=kern, plain=plain,
                          plain_fp32=plain_fp32, lib=lib, nbytes=nbytes,
                          flops=flops, body=body, passes=passes,
-                         of_runs=tuple(runs) if of_runs is None else of_runs))
+                         of_runs=of_runs))
 
     def lengths_of(shapes):
         """Cached tokens of a full batch over the workload's first requests,
@@ -1690,127 +2104,203 @@ def time_phase(runs, worst):
         return lambda: F.scaled_dot_product_attention(q, kr, vr,
                                                       attn_mask=keep)
 
-    # paged decode (run paged-atomic)
-    sh = runs["paged-atomic"][0]
-    cfg = sh["cfg"]
-    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    eff, lengths = lengths_of(sh)
-    B = sh["batch"]
-    q, kp, vp, pt, qp = decode_inputs(lengths, dtype, n_pages=sh["n_pages"],
-                                      Hq=Hq, Hkv=Hkv, hd=hd,
-                                      psz=sh["page_size"], maxp=sh["maxp"],
-                                      seed=1)
-    live = sum(ln + 1 for ln in lengths)
+    def heads(cfg):
+        return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def splits(B, R, Hkv, hd, sh):
-        rows, pps, nsplit = _pa.plan(B, R, Hkv, hd, sh["page_size"],
-                                     sh["maxp"], dtype,
-                                     _pa.sm_count(q.device))
+        _, pps, nsplit = _pa.plan(B, R, Hkv, hd, sh["page_size"],
+                                  sh["maxp"], dtype,
+                                  _pa.sm_count(torch.device("cuda")))
         return f"{nsplit} splits of {pps} pages"
 
-    row("paged_decode_attention",
-        f"B={B} q_pos={lengths} maxp={sh['maxp']}, "
-        + splits(B, Hq // Hkv, Hkv, hd, sh),
-        lambda: ops.paged_decode_attention(q, kp, vp, pt, qp),
-        lambda: ref.paged_decode_attention_ref(q, kp, vp, pt, qp),
-        lambda: ref.paged_decode_attention_ref(
-            q.float(), kp.float(), vp.float(), pt, qp),
-        None, 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
-        + pt.numel() * 4 + B * 4, 4 * live * Hq * hd,
-        body=_pa.body(dtype, hd),
-        of_runs=("paged-atomic", "paged-realtime", "paged-chunked",
-                 "paged-chunked-realtime", "paged-spec", "paged-spec-rate8",
-                 "paged-async-traced"))
+    def paged_decode_row(run, seed, of_runs):
+        """A full batch of ``run``'s engine over its arena shape, at its
+        arch's heads."""
+        sh = runs[run][0]
+        Hq, Hkv, hd = heads(sh["cfg"])
+        _, lengths = lengths_of(sh)
+        B = sh["batch"]
+        q, kp, vp, pt, qp = decode_inputs(
+            lengths, dtype, n_pages=sh["n_pages"], Hq=Hq, Hkv=Hkv, hd=hd,
+            psz=sh["page_size"], maxp=sh["maxp"], seed=seed)
+        live = sum(ln + 1 for ln in lengths)
+        row("paged_decode_attention",
+            f"B={B} q_pos={lengths} maxp={sh['maxp']} Hq={Hq} Hkv={Hkv} "
+            f"hd={hd}, " + splits(B, Hq // Hkv, Hkv, hd, sh),
+            lambda: ops.paged_decode_attention(q, kp, vp, pt, qp),
+            lambda: ref.paged_decode_attention_ref(q, kp, vp, pt, qp),
+            lambda: ref.paged_decode_attention_ref(
+                q.float(), kp.float(), vp.float(), pt, qp),
+            None, 2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
+            + pt.numel() * 4 + B * 4, 4 * live * Hq * hd,
+            body=_pa.body(dtype, hd), of_runs=of_runs)
 
-    # the same at granite-moe's heads (hd 64, g 3), over run paged-moe's
-    # batch
-    gsh = runs["paged-moe"][0]
-    gcfg = gsh["cfg"]
-    gHq, gHkv, ghd = gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim
-    _, glengths = lengths_of(gsh)
-    gB = gsh["batch"]
-    gdq, gkp, gvp, gpt, gqp = decode_inputs(
-        glengths, dtype, n_pages=gsh["n_pages"], Hq=gHq, Hkv=gHkv, hd=ghd,
-        psz=gsh["page_size"], maxp=gsh["maxp"], seed=11)
-    glive = sum(ln + 1 for ln in glengths)
-    row("paged_decode_attention",
-        f"B={gB} q_pos={glengths} maxp={gsh['maxp']} Hq={gHq} Hkv={gHkv} "
-        f"hd={ghd}, " + splits(gB, gHq // gHkv, gHkv, ghd, gsh),
-        lambda: ops.paged_decode_attention(gdq, gkp, gvp, gpt, gqp),
-        lambda: ref.paged_decode_attention_ref(gdq, gkp, gvp, gpt, gqp),
-        lambda: ref.paged_decode_attention_ref(
-            gdq.float(), gkp.float(), gvp.float(), gpt, gqp),
-        None, 2 * glive * gHkv * ghd * elt + 2 * gB * gHq * ghd * elt
-        + gpt.numel() * 4 + gB * 4, 4 * glive * gHq * ghd,
-        body=_pa.body(dtype, ghd), of_runs=("paged-moe",))
+    def prefill_row(run, seed, of_runs):
+        """One prompt of ``run``'s median effective length, at its arch's
+        heads."""
+        sh = runs[run][0]
+        Hq, Hkv, hd = heads(sh["cfg"])
+        eff, _ = lengths_of(sh)
+        S = sorted(eff)[len(eff) // 2]
+        q, k, v = prefill_inputs(1, S, dtype, Hq=Hq, Hkv=Hkv, hd=hd,
+                                 seed=seed)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kr, vr = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
+        row("flash_prefill", f"B=1 S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal",
+            lambda: ops.flash_prefill(q, k, v, causal=True),
+            lambda: ref.flash_prefill_ref(q, k, v, causal=True),
+            lambda: ref.flash_prefill_ref(q.float(), k.float(), v.float(),
+                                          causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kr, vr,
+                                                   is_causal=True),
+            (2 * S * Hq + 2 * S * Hkv) * hd * elt,
+            4 * (S * (S + 1) // 2) * Hq * hd, body=_fp.body(dtype, hd),
+            of_runs=of_runs)
 
-    # prefill: one prompt at the median effective length (run paged-atomic)
-    S = sorted(eff)[len(eff) // 2]
-    qf, kf, vf = prefill_inputs(1, S, dtype, Hq=Hq, Hkv=Hkv, hd=hd, seed=2)
-    qt, kt, vt = (x.transpose(1, 2) for x in (qf, kf, vf))
-    kr, vr = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
+    def ring_decode_row(run, seed, of_runs):
+        """Ring-cache decode over ``run``'s whole slot array at its arch's
+        heads and window: every slot holds a request mid-way through its
+        output, append-only."""
+        sh = runs[run][0]
+        Hq, Hkv, hd = heads(sh["cfg"])
+        _, lengths = lengths_of(sh)
+        Sbuf, B = sh["max_seq"], sh["batch"]
+        window = M.cache_window(sh["cfg"], Sbuf)
+        kv_pos = appended_kv_pos([ln + 1 for ln in lengths], Sbuf)
+        dq, dk, dv, dkp, dqp = ring_inputs(lengths, kv_pos, dtype, Sbuf,
+                                           Hq=Hq, Hkv=Hkv, hd=hd, seed=seed)
+        live = sum(ln + 1 for ln in lengths)
+        keep = (dkp >= 0)[:, None, None, :]
+        _, sps, nsplit = _da.plan(Hq // Hkv, hd, Sbuf, dtype)
+        row("decode_attention",
+            f"B={B} S={Sbuf} q_pos={lengths} window={window} Hq={Hq} "
+            f"Hkv={Hkv} hd={hd}, {nsplit} splits of {sps} slots",
+            lambda: ops.decode_attention(dq, dk, dv, dkp, dqp,
+                                         window=window),
+            lambda: ref.decode_attention_ref(dq, dk, dv, dkp, dqp, window),
+            lambda: ref.decode_attention_ref(dq.float(), dk.float(),
+                                             dv.float(), dkp, dqp, window),
+            masked_sdpa(dq[:, :, None], dk, dv, keep),
+            2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
+            + dkp.numel() * 4 + B * 4, 4 * live * Hq * hd,
+            body=_pa.body(dtype, hd), passes=ATTENTION_PASSES,
+            of_runs=of_runs)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
+    def f32(ts):
+        return [t.float() for t in ts]
 
-    row("flash_prefill", f"B=1 S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal",
-        lambda: ops.flash_prefill(qf, kf, vf, causal=True),
-        lambda: ref.flash_prefill_ref(qf, kf, vf, causal=True),
-        lambda: ref.flash_prefill_ref(qf.float(), kf.float(),
-                                      vf.float(), causal=True),
-        sdpa, (2 * S * Hq + 2 * S * Hkv) * hd * elt,
-        4 * (S * (S + 1) // 2) * Hq * hd, body=_fp.body(dtype, hd),
-        of_runs=("paged-atomic", "paged-realtime", "paged-spec",
-                 "paged-spec-rate8", "paged-async-traced"))
+    def ssd_scan_row(run, seed, of_runs):
+        """One prompt of ``run``'s median effective length through its
+        arch's SSD heads, inputs as strided splits of one projection, as
+        the mixer passes them."""
+        sh = runs[run][0]
+        c = sh["cfg"]
+        eff, _ = lengths_of(sh)
+        T = sorted(eff)[len(eff) // 2]
+        H, P, N = c.ssm_heads, c.ssm_head_dim, c.ssm_state
+        sx, sdt, sb, sc, sprm = ssd_inputs(1, T, H, P, N, dtype, seed=seed)
+        s_args = (sx, sdt, sprm[0], sb, sc, sprm[1], sprm[2])
+        s_args32 = f32(s_args)
+        pieces = [min(64, T - t0) for t0 in range(0, T, 64)]   # chunks
+        row("ssd_scan", f"B=1 T={T} H={H} P={P} N={N} strided, "
+            f"{_ssd.chunks(T)} chunks",
+            lambda: ops.ssd_scan(*s_args)[0],
+            lambda: ref.ssd_scan_ref(*s_args)[0],
+            lambda: ref.ssd_scan_ref(*s_args32)[0], None,
+            (2 * T * H * P + T * H + 2 * T * N + 3 * H) * elt
+            + H * P * N * 4,
+            H * sum(n * (n + 1) * (N + P) + 4 * n * P * N
+                    for n in pieces), body=_ssd.body(dtype, P, N),
+            passes=SSD_PASSES, of_runs=of_runs)
 
-    # the same at granite-moe's heads (hd 64, g 3): one prompt at run
-    # paged-moe's median effective length
-    sh = runs["paged-moe"][0]
-    gcfg = sh["cfg"]
-    gHq, gHkv, ghd = gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim
-    geff, _ = lengths_of(sh)
-    gS = sorted(geff)[len(geff) // 2]
-    gq, gk, gv = prefill_inputs(1, gS, dtype, Hq=gHq, Hkv=gHkv, hd=ghd,
-                                seed=10)
-    gqt, gkt, gvt = (x.transpose(1, 2) for x in (gq, gk, gv))
-    gkr, gvr = (x.repeat_interleave(gHq // gHkv, dim=1) for x in (gkt, gvt))
-    row("flash_prefill", f"B=1 S={gS} Hq={gHq} Hkv={gHkv} hd={ghd} causal",
-        lambda: ops.flash_prefill(gq, gk, gv, causal=True),
-        lambda: ref.flash_prefill_ref(gq, gk, gv, causal=True),
-        lambda: ref.flash_prefill_ref(gq.float(), gk.float(),
-                                      gv.float(), causal=True),
-        lambda: F.scaled_dot_product_attention(gqt, gkr, gvr, is_causal=True),
-        (2 * gS * gHq + 2 * gS * gHkv) * ghd * elt,
-        4 * (gS * (gS + 1) // 2) * gHq * ghd, body=_fp.body(dtype, ghd),
-        of_runs=("paged-moe",))
+    def ssd_step_row(run, seed, of_runs):
+        """The full decode batch of ``run``'s engine, every row active, on
+        its arena's layout: the paged engine's state arena (2 * batch
+        slots, row b at slot 2b) or the slot engine's (a layer of its slot
+        cache, row b at slot b, the spare row past them). The kernel and
+        its plain version each step the next of n copies of the arena a
+        call, the n copies' live rows twice the L2, so no call finds its
+        state there, as in serving, where every layer steps its own
+        arena; the first kernel call's copy is the one the fp32 check
+        starts from."""
+        sh = runs[run][0]
+        c = sh["cfg"]
+        H, P, N = c.ssm_heads, c.ssm_head_dim, c.ssm_state
+        B = sh["batch"]
+        dx, ddt, dbm, dcm, dprm = ssd_inputs(B, 1, H, P, N, dtype, seed=seed)
+        d_args = (dx[:, 0], ddt[:, 0], dprm[0], dbm[:, 0], dcm[:, 0],
+                  dprm[1], dprm[2])
+        d_args32 = f32(d_args)
+        if "n_pages" in sh:
+            n_arena, layout = 2 * B, f"arena={2 * B}"
+            slots = torch.arange(0, 2 * B, 2, dtype=torch.int32,
+                                 device="cuda")
+        else:
+            n_arena, layout = B + 1, f"slot-cache layout arena={B + 1}"
+            slots = torch.arange(B, dtype=torch.int32, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(seed + 2)
+        base = 0.5 * torch.randn(n_arena, H, P, N, generator=g,
+                                 device="cuda")
+        n = max(2, -(-2 * L2_BYTES // (B * H * P * N * 4)))
+        kern_arenas = [base.clone() for _ in range(n)]
+        plain_arenas = [base.clone() for _ in range(n)]
+        calls = {"kern": 0, "plain": 0}
 
-    # ring-cache decode over the whole slot array (run slot-chunked): every
-    # slot holds a request mid-way through its output, append-only
-    sh = runs["slot-chunked"][0]
-    eff, lengths = lengths_of(sh)
-    Sbuf, B = sh["max_seq"], sh["batch"]
-    window = M.cache_window(cfg, Sbuf)
-    kv_pos = appended_kv_pos([ln + 1 for ln in lengths], Sbuf)
-    dq, dk, dv, dkp, dqp = ring_inputs(lengths, kv_pos, dtype, Sbuf, Hq=Hq,
-                                       Hkv=Hkv, hd=hd, seed=3)
-    live = sum(ln + 1 for ln in lengths)
-    keep = (dkp >= 0)[:, None, None, :]
-    _, sps, nsplit = _da.plan(Hq // Hkv, hd, Sbuf, dtype)
-    row("decode_attention",
-        f"B={B} S={Sbuf} q_pos={lengths} window={window}, {nsplit} splits "
-        f"of {sps} slots",
-        lambda: ops.decode_attention(dq, dk, dv, dkp, dqp,
-                                     window=window),
-        lambda: ref.decode_attention_ref(dq, dk, dv, dkp, dqp, window),
-        lambda: ref.decode_attention_ref(dq.float(), dk.float(),
-                                         dv.float(), dkp, dqp, window),
-        masked_sdpa(dq[:, :, None], dk, dv, keep),
-        2 * live * Hkv * hd * elt + 2 * B * Hq * hd * elt
-        + dkp.numel() * 4 + B * 4, 4 * live * Hq * hd,
-        body=_pa.body(dtype, hd), passes=ATTENTION_PASSES)
+        def rotating(fn, arenas, key, *args):
+            def call():
+                arena = arenas[calls[key] % n]
+                calls[key] += 1
+                return fn(*args, arena, slots, act)
+            return call
+
+        act = torch.ones(B, dtype=torch.bool, device="cuda")
+        row("ssd_decode_step", f"B={B} H={H} P={P} N={N} {layout} in place, "
+            f"{n} arenas in turn",
+            rotating(ops.ssd_decode_step, kern_arenas, "kern", *d_args),
+            rotating(ref.ssd_decode_step_ref, plain_arenas, "plain",
+                     *d_args),
+            lambda: ref.ssd_decode_step_ref(*d_args32, base, slots, act),
+            None,
+            2 * B * H * P * N * 4
+            + (2 * B * H * P + B * H + 2 * B * N + 3 * H) * elt + 5 * B,
+            5 * B * H * P * N, of_runs=of_runs)
+
+    # paged decode: edge-6b's heads over run paged-atomic's batch (its
+    # runs and the fleet's edge-6b instance), granite-moe's over run
+    # paged-moe's, smollm-360m's over the fleet's smollm instance's
+    paged_decode_row("paged-atomic", 1, (
+        "paged-atomic", "paged-realtime", "paged-chunked",
+        "paged-chunked-realtime", "paged-spec", "paged-spec-rate8",
+        "paged-async-traced", "fleet-traced/edge-6b"))
+    paged_decode_row("paged-moe", 11, ("paged-moe",))
+    paged_decode_row("fleet-traced/smollm-360m", 15,
+                     ("fleet-traced/smollm-360m",))
+
+    # whole-prompt prefill, the same way, and hymba-1.5b's heads over run
+    # slot-hybrid's prompts
+    prefill_row("paged-atomic", 2, (
+        "paged-atomic", "paged-realtime", "paged-spec", "paged-spec-rate8",
+        "paged-async-traced", "fleet-traced/edge-6b"))
+    prefill_row("paged-moe", 10, ("paged-moe",))
+    prefill_row("slot-hybrid", 12, ("slot-hybrid",))
+    prefill_row("fleet-traced/smollm-360m", 16,
+                ("fleet-traced/smollm-360m",))
+
+    # ring-cache decode: edge-6b's heads over run slot-chunked's slot array
+    # (the draft model of the spec runs is edge-6b cut to one layer),
+    # hymba-1.5b's over run slot-hybrid's
+    ring_decode_row("slot-chunked", 3,
+                    ("slot-chunked", "paged-spec", "paged-spec-rate8"))
+    ring_decode_row("slot-hybrid", 17, ("slot-hybrid",))
 
     # one full chunk of the median prompt, its last full one, over the
     # slot engine's [1,Hkv,S,hd] layer buffer read through its strides
+    # (run slot-chunked)
+    sh = runs["slot-chunked"][0]
+    Hq, Hkv, hd = heads(sh["cfg"])
+    eff, _ = lengths_of(sh)
+    Sbuf = sh["max_seq"]
+    window = M.cache_window(sh["cfg"], Sbuf)
     C = sh["chunk"]
     S_med = sorted(eff)[len(eff) // 2]
     q0 = C * max(0, S_med // C - 1)
@@ -1828,12 +2318,15 @@ def time_phase(runs, worst):
         masked_sdpa(cq.transpose(1, 2), ck.transpose(1, 2),
                     cv.transpose(1, 2), ckeep),
         (2 * C * Hq + 2 * (q0 + C) * Hkv) * hd * elt + 4,
-        4 * Hq * hd * (C * q0 + C * (C + 1) // 2), body=_fp.body(dtype, hd))
+        4 * Hq * hd * (C * q0 + C * (C + 1) // 2), body=_fp.body(dtype, hd),
+        of_runs=("slot-chunked", "paged-chunked", "paged-chunked-realtime",
+                 "paged-spec", "paged-spec-rate8"))
 
     # paged verify (run paged-spec): a full batch of the widest window the
     # run's depth grants, q_start as the paged-decode row's q_pos, over the
     # engine's arena shape
     sh = runs["paged-spec"][0]
+    Hq, Hkv, hd = heads(sh["cfg"])
     C = sh["window"]
     _, starts = lengths_of(sh)
     psz = sh["page_size"]
@@ -1854,55 +2347,17 @@ def time_phase(runs, worst):
             vq.float(), vkp.float(), vvp.float(), vpt, vqs),
         None, 2 * keys * Hkv * hd * elt + 2 * B * C * Hq * hd * elt
         + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd,
-        body=_pa.body(dtype, hd))
+        body=_pa.body(dtype, hd), of_runs=("paged-spec", "paged-spec-rate8"))
 
-    def f32(ts):
-        return [t.float() for t in ts]
+    # SSD scan: mamba2-780m's heads (runs paged-ssm and slot-ssm give it
+    # the same prompts), hymba-1.5b's over run slot-hybrid's prompts
+    ssd_scan_row("paged-ssm", 6, ("paged-ssm", "slot-ssm"))
+    ssd_scan_row("slot-hybrid", 18, ("slot-hybrid",))
 
-    # SSD scan (run paged-ssm): one prompt of the median effective length,
-    # inputs as strided splits of one projection, as the mixer passes them
-    sh = runs["paged-ssm"][0]
-    scfg = sh["cfg"]
-    eff, _ = lengths_of(sh)
-    T = sorted(eff)[len(eff) // 2]
-    H, P, N = scfg.ssm_heads, scfg.ssm_head_dim, scfg.ssm_state
-    sx, sdt, sb, sc, sprm = ssd_inputs(1, T, H, P, N, dtype, seed=6)
-    s_args = (sx, sdt, sprm[0], sb, sc, sprm[1], sprm[2])
-    s_args32 = f32(s_args)
-    pieces = [min(64, T - t0) for t0 in range(0, T, 64)]   # 64-step chunks
-    row("ssd_scan", f"B=1 T={T} H={H} P={P} N={N} strided, "
-        f"{_ssd.chunks(T)} chunks",
-        lambda: ops.ssd_scan(*s_args)[0],
-        lambda: ref.ssd_scan_ref(*s_args)[0],
-        lambda: ref.ssd_scan_ref(*s_args32)[0], None,
-        (2 * T * H * P + T * H + 2 * T * N + 3 * H) * elt
-        + H * P * N * 4,
-        H * sum(n * (n + 1) * (N + P) + 4 * n * P * N
-                for n in pieces), body=_ssd.body(dtype, P, N),
-        passes=SSD_PASSES)
-
-    # SSD decode step (run paged-ssm): the full decode batch, each row on
-    # its own slot of a 2*batch-slot arena, every row active
-    B = sh["batch"]
-    dx, ddt, dbm, dcm, dprm = ssd_inputs(B, 1, H, P, N, dtype, seed=7)
-    d_args = (dx[:, 0], ddt[:, 0], dprm[0], dbm[:, 0], dcm[:, 0], dprm[1],
-              dprm[2])
-    d_args32 = f32(d_args)
-    g = torch.Generator(device="cuda").manual_seed(9)
-    arenas = [0.5 * torch.randn(2 * B, H, P, N, generator=g, device="cuda")]
-    arenas += [arenas[0].clone(), arenas[0].clone()]
-    slots = torch.arange(0, 2 * B, 2, dtype=torch.int32, device="cuda")
-    act = torch.ones(B, dtype=torch.bool, device="cuda")
-    row("ssd_decode_step", f"B={B} H={H} P={P} N={N} "
-        f"arena={2 * B} in place",
-        lambda: ops.ssd_decode_step(*d_args, arenas[0], slots, act),
-        lambda: ref.ssd_decode_step_ref(*d_args, arenas[1], slots,
-                                        act),
-        lambda: ref.ssd_decode_step_ref(*d_args32, arenas[2], slots,
-                                        act), None,
-        2 * B * H * P * N * 4
-        + (2 * B * H * P + B * H + 2 * B * N + 3 * H) * elt + 5 * B,
-        5 * B * H * P * N)
+    # SSD decode step: each run's own batch and arena layout
+    ssd_step_row("paged-ssm", 7, ("paged-ssm",))
+    ssd_step_row("slot-ssm", 19, ("slot-ssm",))
+    ssd_step_row("slot-hybrid", 13, ("slot-hybrid",))
 
     # grouped-expert FFN (run paged-moe): the dispatch buffer of the full
     # decode batch, C = batch * top_k, rows placed by a random top-k
@@ -1912,6 +2367,7 @@ def time_phase(runs, worst):
     mcfg = sh["cfg"]
     E, D, Fd, K = mcfg.n_experts, mcfg.d_model, mcfg.d_ff, mcfg.top_k
     B = sh["batch"]
+    g = torch.Generator(device="cuda").manual_seed(9)
     C = B * K
     mbuf, mwg, mwu, mwd = moe_inputs(E, C, dtype, E=E, D=D, F=Fd, seed=8)
     mbuf.zero_()
@@ -1932,8 +2388,15 @@ def time_phase(runs, worst):
         # the weights of experts with rows, the live rows in and out, the
         # counts
         3 * used * D * Fd * elt + 2 * live_rows * D * elt + E * 4,
-        6 * live_rows * D * Fd, body=_moe.body(dtype))
+        6 * live_rows * D * Fd, body=_moe.body(dtype), of_runs=("paged-moe",))
 
+    # every run's launches of a kernel stand under exactly one of its rows
+    for run, (_, counts) in runs.items():
+        for name, n in counts.items():
+            under = sum(run in r["of_runs"] for r in rows if r["name"] == name)
+            if (n and under != 1) or under > 1:
+                fail(f"time phase: run {run}'s {n} launches of {name} stand "
+                     f"under {under} timed rows")
     out, entries = [], {}
     for r in rows:
         name, shape = r["name"], r["shape"]
@@ -2011,11 +2474,15 @@ def main() -> None:
     check_engine()
     check_engine_features()
     check_hetero_engines()
+    check_slot_ssm_engines()
+    check_ring_prefill()
+    check_fleet_gate()
     check_async_engines()
     graphs_phase()
     async_graphs_phase()
-    runs = {name: serve_phase(name, extra, required)
-            for name, extra, required in SERVE_RUNS}
+    runs = {}
+    for name, extra, required in SERVE_RUNS:
+        runs.update(serve_phase(name, extra, required))
     kernels = time_phase(runs, worst)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))

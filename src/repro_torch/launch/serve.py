@@ -30,18 +30,28 @@ kernel versions on the CPU), over the paged engine by default
   PYTHONPATH=src python -m repro_torch.launch.serve --arch edge-6b \\
       --dtype bfloat16 --async-pipeline --trace out.json --metrics-every 16
 
+  # SSM and hybrid archs on the slot engine
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --dtype bfloat16 --executor slot --slots 16 --max-seq 1024
+
+  # fleet routing (DESIGN.md §11): one paged SLICE engine per arch, small
+  # -> large, behind one admission layer
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --fleet smollm-360m,edge-6b --dtype bfloat16 --ratio 0.5
+
   # tiny CPU run
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --duration 3 --slots 4 --max-seq 128
 
 Prints the measured l(b) curve and a one-line SLO summary, as the JAX
-launcher does (``repro.launch.serve``).
+launcher does (``repro.launch.serve``); with ``--fleet``, each instance's
+l(b), the fleet's summary line and one line per serving instance.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -51,8 +61,10 @@ from repro_torch.core.schedulers import (FastServeScheduler, OrcaScheduler,
 from repro_torch.data.workload import poisson_workload
 from repro_torch.serving.executor import (Executor, PagedTorchExecutor,
                                           TorchExecutor)
+from repro_torch.serving.fleet import (FleetInstance, FleetResult,
+                                       FleetRouter, run_fleet_loop)
 from repro_torch.serving.loop import LoopResult, run_serving_loop
-from repro_torch.serving.metrics import slo_attribution, summarize
+from repro_torch.serving.metrics import per_tier, slo_attribution, summarize
 from repro_torch.serving.spec_decode import draft_config_from_registry
 from repro_torch.serving.trace import TraceRecorder
 
@@ -65,6 +77,14 @@ class ServeRun:
     lat: object                  # MeasuredLatencyModel
     probes: List[tuple]          # measured (batch, ms) samples of l(b)
     result: LoopResult
+    trace: Optional[TraceRecorder] = None    # with --trace
+
+
+@dataclasses.dataclass
+class FleetRun:
+    router: FleetRouter          # its instances hold the engines
+    probes: Dict[str, List[tuple]]   # instance -> measured (batch, ms)
+    result: FleetResult
     trace: Optional[TraceRecorder] = None    # with --trace
 
 
@@ -113,13 +133,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "transfers overlap decode on a background "
                          "worker. Streams and metrics stay byte-"
                          "identical to the synchronous engine")
+    ap.add_argument("--fleet", default=None,
+                    help="comma-separated registry archs ordered small -> "
+                         "large: run one paged SLICE instance per arch "
+                         "behind a single routing/admission layer "
+                         "(DESIGN.md §11). A single-arch fleet is byte-"
+                         "identical to the plain single-model path")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="record the per-request lifecycle stream "
                          "(DESIGN.md §13) and write a Perfetto/Chrome-"
                          "trace JSON timeline here — open in "
                          "ui.perfetto.dev or chrome://tracing. Composes "
-                         "with every mode incl. --async-pipeline "
-                         "(commit-time spans)")
+                         "with every mode incl. --fleet and "
+                         "--async-pipeline (commit-time spans)")
     ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
                     help="with --trace: also sample a counters/gauges "
                          "MetricsSnapshot (pages in use, resident tasks, "
@@ -145,11 +171,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def shape_workload(tasks, lat, slots: int, max_seq: int) -> None:
-    """Scale the paper's workload SLOs to this engine's measured speed and
-    cap every task inside the engine's per-task limits, as
-    ``repro.launch.serve`` does."""
-    scale = max(lat.decode_ms(max(2, slots // 2)) / 50.0, 0.02)
+def shape_workload(tasks, lats, slots: int, max_seq: int) -> None:
+    """Scale the paper's workload SLOs to the measured speed of the slowest
+    engine in ``lats`` (one latency model a serving engine) and cap every
+    task inside the engines' per-task limits, as ``repro.launch.serve``
+    does."""
+    scale = max(max(lat.decode_ms(max(2, slots // 2)) for lat in lats)
+                / 50.0, 0.02)
     for t in tasks:
         t.slo.tpot_ms *= scale
         t.slo.ttft_ms *= max(scale, 1.0)
@@ -158,6 +186,47 @@ def shape_workload(tasks, lat, slots: int, max_seq: int) -> None:
         t.prompt_len = min(t.prompt_len, max_seq // 4)
         t.prefix_len = min(t.prefix_len, t.prompt_len)
         t.output_len = min(t.output_len, max_seq // 2)
+
+
+def _workload(args):
+    return poisson_workload(args.rate, args.duration,
+                            realtime_frac=args.ratio, seed=args.seed,
+                            rt_output_len=8, voice_output_len=24,
+                            qa_output_len=32,
+                            shared_prefix_frac=args.shared_prefix_frac,
+                            prefix_len_range=(args.max_seq // 8,
+                                              args.max_seq // 4))
+
+
+def _paged_engine(cfg, args) -> PagedTorchExecutor:
+    """The paged engine the flags ask for."""
+    n_pages = args.pages or (args.slots * args.max_seq) // args.page_size
+    draft_cfg = None
+    if args.spec_decode and args.draft_config is not None:
+        draft_cfg = draft_config_from_registry(args.draft_config, cfg)
+    return PagedTorchExecutor(cfg, n_pages=n_pages, page_size=args.page_size,
+                              max_seq=args.max_seq, seed=args.seed,
+                              max_batch=args.slots, dtype=DTYPES[args.dtype],
+                              device=args.device,
+                              prefill_chunk_size=args.prefill_chunk,
+                              prefix_cache=args.prefix_cache,
+                              spec_decode=args.spec_decode,
+                              draft_cfg=draft_cfg,
+                              max_spec_depth=args.spec_depth,
+                              async_dispatch=args.async_pipeline)
+
+
+def _slice_scheduler(lat, args, page_budget=None,
+                     prefix_hint=None) -> SliceScheduler:
+    return SliceScheduler(lat, page_budget=page_budget,
+                          prefill_chunk=args.prefill_chunk,
+                          prefix_hint=prefix_hint, kv_swap=args.kv_swap,
+                          spec_decode=args.spec_decode,
+                          max_spec_depth=args.spec_depth)
+
+
+def _curve(ex) -> str:
+    return " ".join(f"l({b})={ms:.3f}ms" for b, ms in ex.probe_samples)
 
 
 def _make_trace(args) -> Optional[TraceRecorder]:
@@ -180,9 +249,19 @@ def _export_trace(tr, args, tasks, events) -> None:
           f"violations={att['violations']} attribution={buckets or '{}'}")
 
 
-def run(args: argparse.Namespace) -> ServeRun:
+def run(args: argparse.Namespace) -> Union[ServeRun, FleetRun]:
     """Build the engine, measure l(b), serve a Poisson workload under the
-    chosen scheduler, print the l(b) curve and the SLO summary line."""
+    chosen scheduler, print the l(b) curve and the SLO summary line. With
+    ``--fleet``, ``run_fleet``."""
+    if args.fleet is not None:
+        if args.executor != "paged":
+            raise SystemExit("--fleet requires --executor paged (every "
+                             "instance is a paged SLICE engine)")
+        if args.scheduler != "slice":
+            raise SystemExit("--fleet routes onto per-instance SLICE "
+                             "schedulers; Orca/FastServe fleets are not "
+                             "a thing here")
+        return run_fleet(args)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -201,10 +280,6 @@ def run(args: argparse.Namespace) -> ServeRun:
         raise SystemExit(f"{args.arch}: spec-decode/prefix-cache/mesh need "
                          "rewindable/sharable per-token KV; the recurrent "
                          "state kind has none (DESIGN.md §12)")
-    if cfg.has_ssm and args.executor == "slot":
-        raise SystemExit(f"{args.arch}: the port's slot engine serves "
-                         "attention-only archs; SSM/hybrid archs serve with "
-                         "--executor paged (ROADMAP.md)")
     if args.prefix_cache and args.executor != "paged":
         raise SystemExit("--prefix-cache requires --executor paged "
                          "(sharing rides on the refcounted page pool)")
@@ -227,20 +302,7 @@ def run(args: argparse.Namespace) -> ServeRun:
     page_budget = None
     prefix_hint = None
     if args.executor == "paged":
-        draft_cfg = None
-        if args.spec_decode and args.draft_config is not None:
-            draft_cfg = draft_config_from_registry(args.draft_config, cfg)
-        ex = PagedTorchExecutor(cfg, n_pages=n_pages,
-                                page_size=args.page_size,
-                                max_seq=args.max_seq, seed=args.seed,
-                                max_batch=args.slots,
-                                dtype=DTYPES[args.dtype], device=args.device,
-                                prefill_chunk_size=args.prefill_chunk,
-                                prefix_cache=args.prefix_cache,
-                                spec_decode=args.spec_decode,
-                                draft_cfg=draft_cfg,
-                                max_spec_depth=args.spec_depth,
-                                async_dispatch=args.async_pipeline)
+        ex = _paged_engine(cfg, args)
         page_budget = ex.page_budget()
         if args.prefix_cache:
             prefix_hint = ex.cached_prompt_tokens
@@ -252,17 +314,10 @@ def run(args: argparse.Namespace) -> ServeRun:
     lat = ex.latency_model()
     lat.swap_bw_gbps = args.swap_bw_gbps
     probes = list(ex.probe_samples)
-    curve = " ".join(f"l({b})={ms:.3f}ms" for b, ms in probes)
     print(f"engine {cfg.name} ({args.executor}, {args.dtype}, {ex.device}): "
-          f"{curve}")
-    tasks = poisson_workload(args.rate, args.duration,
-                             realtime_frac=args.ratio, seed=args.seed,
-                             rt_output_len=8, voice_output_len=24,
-                             qa_output_len=32,
-                             shared_prefix_frac=args.shared_prefix_frac,
-                             prefix_len_range=(args.max_seq // 8,
-                                               args.max_seq // 4))
-    shape_workload(tasks, lat, args.slots, args.max_seq)
+          f"{_curve(ex)}")
+    tasks = _workload(args)
+    shape_workload(tasks, [lat], args.slots, args.max_seq)
     # Orca/FastServe have no memory model: cap their batch so worst-case
     # residency (prompt cap + output cap per task) fits the pool; the slot
     # engine holds one slot per task, so its cap is the slot count. With
@@ -273,11 +328,8 @@ def run(args: argparse.Namespace) -> ServeRun:
         peak = args.max_seq // 4 + args.max_seq // 2
         baseline_batch = max(1, min(args.slots,
                                     (n_pages * args.page_size) // peak))
-    sched = {"slice": lambda: SliceScheduler(
-                 lat, page_budget=page_budget,
-                 prefill_chunk=args.prefill_chunk, prefix_hint=prefix_hint,
-                 kv_swap=args.kv_swap, spec_decode=args.spec_decode,
-                 max_spec_depth=args.spec_depth),
+    sched = {"slice": lambda: _slice_scheduler(lat, args, page_budget,
+                                               prefix_hint),
              "orca": lambda: OrcaScheduler(max_batch=baseline_batch),
              "fastserve": lambda: FastServeScheduler(
                  max_batch=baseline_batch,
@@ -304,6 +356,66 @@ def run(args: argparse.Namespace) -> ServeRun:
           f"{swap_note}{spec_note}{pipe_note}")
     _export_trace(tr, args, res.tasks, tr.events if tr is not None else [])
     return ServeRun(executor=ex, lat=lat, probes=probes, result=res, trace=tr)
+
+
+def run_fleet(args: argparse.Namespace) -> FleetRun:
+    """The --fleet path, after the JAX launcher's ``_run_fleet``: one paged
+    engine and SliceScheduler per arch (tier = position, small -> large,
+    quality = (tier + 1) / n) under one FleetRouter. Each instance is built
+    and probed in turn, with the flags of a single paged run. The SLOs are
+    scaled to the slowest instance, and QA tasks want the top tier
+    (``min_tier``). With one arch this is the single-model run: the same
+    engine, scaling and event order."""
+    archs = [a.strip() for a in args.fleet.split(",") if a.strip()]
+    if not archs:
+        raise SystemExit("--fleet wants a comma-separated arch list ordered "
+                         "small -> large, e.g. smollm-360m,edge-6b")
+    insts = []
+    for tier, arch in enumerate(archs):
+        cfg = get_config(arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        if cfg.is_encoder_only:
+            raise SystemExit(f"{arch} is encoder-only: no decode serving "
+                             "(DESIGN.md §4)")
+        if args.prefill_chunk is not None and (not cfg.has_attention
+                                               or cfg.has_ssm):
+            raise SystemExit(f"{arch}: executor-level chunked prefill needs "
+                             "a pure-attention arch — SSM/hybrid archs serve "
+                             "with atomic prefill (DESIGN.md §12)")
+        ex = _paged_engine(cfg, args)
+        budget = ex.page_budget()
+        lat = ex.latency_model()
+        lat.swap_bw_gbps = args.swap_bw_gbps
+        prefix_hint = ex.cached_prompt_tokens if args.prefix_cache else None
+        sched = _slice_scheduler(lat, args, budget, prefix_hint)
+        print(f"fleet[{tier}] {cfg.name} (paged, {args.dtype}, "
+              f"{ex.device}): {_curve(ex)}")
+        insts.append(FleetInstance(name=arch, tier=tier, scheduler=sched,
+                                   executor=ex, lat=lat, page_budget=budget,
+                                   quality=(tier + 1) / len(archs)))
+    router = FleetRouter(insts)
+    tasks = _workload(args)
+    shape_workload(tasks, [i.lat for i in insts], args.slots, args.max_seq)
+    top = len(archs) - 1
+    for t in tasks:
+        if top > 0 and t.kind == "qa":
+            t.min_tier = top           # quality tier: wants the big model
+    tr = _make_trace(args)
+    res = run_fleet_loop(router, tasks, max_ms=3e7, trace=tr)
+    s = summarize(res.tasks)
+    print(f"fleet({','.join(archs)}): n={s['all'].n} SLO={s['all'].slo:.1%} "
+          f"RT={s['realtime'].slo:.1%} nRT={s['non_realtime'].slo:.1%} "
+          f"spills={res.spills} degraded={res.degraded} "
+          f"defers={dict(res.merged.defers_by_reason)}")
+    for name, a in per_tier(res.tasks).items():
+        print(f"  {name}: served={a.n} "
+              f"admitted={res.admissions.get(name, 0)} SLO={a.slo:.1%}")
+    _export_trace(tr, args, res.tasks, tr.events if tr is not None else [])
+    return FleetRun(router=router,
+                    probes={i.name: list(i.executor.probe_samples)
+                            for i in insts},
+                    result=res, trace=tr)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -18,11 +18,11 @@ Entry points:
   decode_step_paged(params, pages, ...)     -> (logits, pages)
   verify_step_paged(params, pages, ...)     -> (logits [B,C,V], pages)
 
-``prefill`` and ``decode_step_paged`` serve every causal arch (attention
-layers on the paged KV arena, SSM layers on the constant-size state arena
-of ``init_state_arena``, hybrids both, DESIGN.md §12); the slot-cache
-functions and the paged chunk and verify steps serve attention-only archs,
-dense or MoE.
+``prefill``, ``decode_step`` and ``decode_step_paged`` serve every causal
+arch (attention layers on the slot cache's ring or the paged KV arena, SSM
+layers on the slot cache's recurrent state or the constant-size state
+arena of ``init_state_arena``, hybrids both, DESIGN.md §12); the chunk
+and verify steps serve attention-only archs, dense or MoE.
 
 Unlike the functional JAX code, every step writes the new K/V (and
 ``kv_pos``/``length``, or the recurrent state) into the slot cache, the
@@ -67,8 +67,7 @@ def _check_causal(cfg: ArchConfig) -> None:
 
 
 def _check_kv_only(cfg: ArchConfig, what: str) -> None:
-    """The slot cache and the paged chunk/verify steps carry per-token K/V
-    only."""
+    """The chunk and verify steps carry per-token K/V only."""
     _check_causal(cfg)
     if cfg.has_ssm or not cfg.has_attention:
         raise NotImplementedError(
@@ -209,16 +208,34 @@ def load_params(cfg: ArchConfig, tree: Params, device="cuda") -> Params:
 
 def init_cache(cfg: ArchConfig, batch: int, buf_len: int,
                dtype=torch.float32, device="cuda") -> Cache:
-    """Empty slot cache: k/v [L,batch,Hkv,buf_len,hd] (ring of buf_len
-    slots), kv_pos [batch,buf_len] = -1, length [batch] = 0."""
-    _check_kv_only(cfg, "the slot cache")
+    """Empty slot cache: length [batch] = 0; for attention layers k/v
+    [L,batch,Hkv,buf_len,hd] (ring of buf_len slots) and kv_pos
+    [batch,buf_len] = -1; for SSM layers ssm [L,batch,H,P,N] (f32: the
+    recurrence accumulates in f32) and conv [L,batch,C,K-1] in ``dtype``,
+    zero."""
+    _check_causal(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, buf_len, cfg.head_dim)
-    return {"length": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "kv_pos": torch.full((batch, buf_len), -1, dtype=torch.int32,
-                                 device=dev)}
+    c: Cache = {"length": torch.zeros((batch,), dtype=torch.int32,
+                                      device=dev)}
+    if cfg.has_attention:
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, buf_len, cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        c["kv_pos"] = torch.full((batch, buf_len), -1, dtype=torch.int32,
+                                 device=dev)
+    if cfg.has_ssm:
+        c["ssm"] = torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                                cfg.ssm_head_dim, cfg.ssm_state),
+                               dtype=torch.float32, device=dev)
+        c["conv"] = torch.zeros((cfg.n_layers, batch,
+                                 cfg.ssm_inner + 2 * cfg.ssm_state,
+                                 cfg.ssm_conv - 1), dtype=dtype, device=dev)
+    return c
+
+
+# slot-cache fields laid out layer-major ([L, batch, ...]); the others are
+# [batch, ...]
+LAYER_FIELDS = ("k", "v", "ssm", "conv")
 
 
 def cache_window(cfg: ArchConfig, buf_len: int) -> Optional[int]:
@@ -354,14 +371,21 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
     with the JAX cache layout: length [B]; for attention layers k/v
     [L,B,Hkv,buf_len,hd] (zero past S) and kv_pos [B,buf_len] (-1 past S);
     for SSM layers ssm [L,B,H,P,N] f32 and conv [L,B,C,K-1], the final
-    recurrent state. buf_len >= S (the ring branch for sliding-window long
-    context is not ported)."""
+    recurrent state.
+
+    buf_len >= S for full-attention archs. With buf_len < S the cache is a
+    ring holding the last buf_len tokens, position p at slot p % buf_len
+    (kv_pos [B,buf_len] their positions); for a sliding-window arch (long
+    context) buf_len must then be the window, which attention keeps."""
     _check_causal(cfg)
     x = embed_inputs(cfg, params, inputs)
     B, S, _ = x.shape
-    if buf_len < S:
-        raise NotImplementedError("ring-buffer prefill (buf_len < S) is "
-                                  "still to port (ROADMAP.md)")
+    window = cfg.sliding_window if (cfg.sliding_window and buf_len < S) \
+        else None
+    if window is not None and buf_len != window:
+        raise ValueError(f"{cfg.name}: a ring prefill of {S} tokens needs "
+                         f"buf_len == the sliding window {window}, got "
+                         f"{buf_len}")
     positions = torch.arange(S, device=x.device)
     blk = params["blocks"]
     ks, vs, hs, cs = [], [], [], []
@@ -372,7 +396,7 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
             q, k, v = _proj_qkv(cfg, blk, layer, h)
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
-            a = ops.flash_prefill(q, k, v, causal=cfg.causal)
+            a = ops.flash_prefill(q, k, v, causal=cfg.causal, window=window)
             parts.append(a.reshape(B, S, cfg.q_dim) @ blk["wo"][layer])
             ks.append(k)
             vs.append(v)
@@ -388,13 +412,22 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
     cache: Cache = {
         "length": torch.full((B,), S, dtype=torch.int32, device=x.device)}
     if cfg.has_attention:
-        pad = (0, 0, 0, buf_len - S)                 # [.., S, hd] -> buf_len
-        cache["k"] = torch.nn.functional.pad(torch.stack(ks).transpose(2, 3),
-                                             pad)
-        cache["v"] = torch.nn.functional.pad(torch.stack(vs).transpose(2, 3),
-                                             pad)
+        k, v = (torch.stack(t).transpose(2, 3) for t in (ks, vs))
         pos = torch.arange(buf_len, dtype=torch.int32, device=x.device)
-        cache["kv_pos"] = torch.where(pos < S, pos, -1).repeat(B, 1)
+        if buf_len >= S:
+            pad = (0, 0, 0, buf_len - S)             # [.., S, hd] -> buf_len
+            cache["k"] = torch.nn.functional.pad(k, pad)
+            cache["v"] = torch.nn.functional.pad(v, pad)
+            kv_pos = torch.where(pos < S, pos, -1)
+        else:
+            # ring: the last buf_len tokens, position p at slot
+            # p % buf_len: tail token i (position S - buf_len + i) lands
+            # at slot (S + i) % buf_len, a roll of the tail by S % buf_len
+            shift = S % buf_len
+            cache["k"] = torch.roll(k[..., S - buf_len:, :], shift, dims=-2)
+            cache["v"] = torch.roll(v[..., S - buf_len:, :], shift, dims=-2)
+            kv_pos = torch.roll(pos + (S - buf_len), shift)
+        cache["kv_pos"] = kv_pos.repeat(B, 1)
     if cfg.has_ssm:
         cache["ssm"] = torch.stack(hs)
         cache["conv"] = torch.stack(cs)
@@ -498,16 +531,19 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
                 active: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode iteration for every (active) row of a slot cache, in
-    place; attention in the decode-attention kernel.
+    place: attention layers in the decode-attention kernel over the ring,
+    SSM layers through the ssd-decode kernel over the cache's own ``ssm``
+    rows (row b is state slot b), hybrid blocks both.
 
     tokens: [B] int; active: [B] bool (the decode-mask-matrix column from
     SLICE's rate allocator). The new token of row b goes to ring slot
     length[b] % buf_len; with a ring no longer than the arch's sliding
     window, attention keeps only that window. Inactive rows keep their
-    state (K/V, kv_pos and length unchanged) and their logits are garbage
-    to be ignored. Returns (logits [B,V], cache).
+    state (K/V, kv_pos, length, the SSD state and the conv tail unchanged)
+    and their logits are garbage to be ignored. Returns (logits [B,V],
+    cache).
     """
-    _check_kv_only(cfg, "slot decode_step")
+    _check_causal(cfg)
     B = tokens.shape[0]
     dev = tokens.device
     if active is None:
@@ -515,23 +551,35 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
     x = embed_inputs(cfg, params, tokens)                 # [B,D]
     length = cache["length"]
     q_pos = length.clone()
-    buf_len = cache["k"].shape[3]
-    window = cache_window(cfg, buf_len)
     rows = torch.arange(B, device=dev)
-    slot = (q_pos % buf_len).long()
-    kv_pos = cache["kv_pos"]
-    kv_pos[rows, slot] = torch.where(active, q_pos, kv_pos[rows, slot])
-    sel = active[:, None, None]
+    if cfg.has_attention:
+        buf_len = cache["k"].shape[3]
+        window = cache_window(cfg, buf_len)
+        slot = (q_pos % buf_len).long()
+        kv_pos = cache["kv_pos"]
+        kv_pos[rows, slot] = torch.where(active, q_pos, kv_pos[rows, slot])
+        sel = active[:, None, None]
+    if cfg.has_ssm:
+        state_slots = rows.to(torch.int32)
     blk = params["blocks"]
     for layer in range(cfg.n_layers):
-        q, k, v = _qkv(cfg, blk, layer, x)
-        q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
-        k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
-        kc, vc = cache["k"][layer], cache["v"][layer]     # [B,Hkv,S,hd]
-        kc[rows, :, slot] = torch.where(sel, k, kc[rows, :, slot])
-        vc[rows, :, slot] = torch.where(sel, v, vc[rows, :, slot])
-        a = ops.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
-        x = x + a.reshape(B, cfg.q_dim) @ blk["wo"][layer]
+        h = L.rms_norm(x, blk["ln1"][layer], cfg.norm_eps)
+        parts = []
+        if cfg.has_attention:
+            q, k, v = _proj_qkv(cfg, blk, layer, h)
+            q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
+            k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
+            kc, vc = cache["k"][layer], cache["v"][layer]     # [B,Hkv,S,hd]
+            kc[rows, :, slot] = torch.where(sel, k, kc[rows, :, slot])
+            vc[rows, :, slot] = torch.where(sel, v, vc[rows, :, slot])
+            a = ops.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
+            parts.append(a.reshape(B, cfg.q_dim) @ blk["wo"][layer])
+        if cfg.has_ssm:
+            parts.append(SSM.ssm_mixer_step(
+                _ssm_params(blk, layer), h, cfg.ssm_inner, cfg.ssm_state,
+                cfg.ssm_head_dim, cache["ssm"][layer], cache["conv"][layer],
+                state_slots, active))
+        x = x + _mix(parts)
         x = x + _ffn(cfg, blk, layer, x)
     length += active.to(length.dtype)
     return unembed(cfg, params, x), cache

@@ -217,7 +217,7 @@ def ssm_mixer_step(p: SSMParams, x: torch.Tensor, d_inner: int, n_state: int,
                    head_dim: int, ssm_state: torch.Tensor,
                    conv_state: torch.Tensor, slots: torch.Tensor,
                    active: torch.Tensor,
-                   write_to: torch.Tensor) -> torch.Tensor:
+                   write_to: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step over state arenas, in place. x: [B,D]; ssm_state
     [S,H,P,N] f32 and conv_state [S,C,K-1] arenas; row b reads slot
     ``slots[b]`` ([B] int32). Rows that are inactive ([B] bool
@@ -225,18 +225,26 @@ def ssm_mixer_step(p: SSMParams, x: torch.Tensor, d_inner: int, n_state: int,
     slot -1 row's output is garbage to be ignored. ``write_to``
     (``write_slots``, found once by a caller stepping many layers) is
     where each row's conv tail goes: its own slot, or the arena's spare.
-    The SSD recurrence runs through ``ops.ssd_decode_step``, which
-    gathers, steps and writes back the slots itself. No host sync.
-    Returns y [B,D]."""
+    Without ``write_to`` every row owns a distinct slot >= 0 (the slot
+    cache, row b at slot b) and writes its conv tail there, an inactive
+    row its old tail back. The SSD recurrence runs through
+    ``ops.ssd_decode_step``, which gathers, steps and writes back the
+    slots itself. No host sync. Returns y [B,D]."""
     B, D = x.shape
     H = d_inner // head_dim
     zxbcdt = x @ p["in_proj"]
     z, xbc, dt = _split_proj(zxbcdt, d_inner, n_state)
     rd = slots.long().clamp(min=0)
-    xbc_c, conv_new = causal_conv_step(xbc, conv_state[rd], p["conv_w"],
+    conv_old = conv_state[rd]
+    xbc_c, conv_new = causal_conv_step(xbc, conv_old, p["conv_w"],
                                        p["conv_b"])
     # the conv tail is kept in the arena's type, as JAX casts it
-    conv_state[write_to] = conv_new.to(conv_state.dtype)
+    conv_new = conv_new.to(conv_state.dtype)
+    if write_to is None:
+        conv_state[rd] = torch.where(active[:, None, None], conv_new,
+                                     conv_old)
+    else:
+        conv_state[write_to] = conv_new
     xs = xbc_c[:, :d_inner].reshape(B, H, head_dim)
     b = xbc_c[:, d_inner:d_inner + n_state]
     c = xbc_c[:, d_inner + n_state:]

@@ -1,5 +1,9 @@
 """Executors: the data plane behind the schedulers (PyTorch port).
 
+SimExecutor        — copies of ``repro.serving.executor``'s discrete-
+PagedSimExecutor     event executors: step costs from a LatencyModel, no
+                     model (the simulated fleet's members,
+                     ``serving.fleet.sim_fleet``).
 TorchExecutor      — the counterpart of ``repro.serving.executor.
                      JaxExecutor``: the model over a fixed slot array
                      (model.init_cache + model.decode_step), decode masked
@@ -17,7 +21,8 @@ PagedTorchExecutor — the counterpart of ``PagedJaxExecutor`` on one
                      (serving.state_store, DESIGN.md §12), MoE archs
                      through the model's grouped dispatch.
 
-Both measure l(b) for SLICE's Eq. 7 feasibility test, and both take
+The two torch engines measure l(b) for SLICE's Eq. 7 feasibility test,
+and both take
 ``prefill_chunk_size`` for chunked prefill (``prefill_chunk``, DESIGN.md
 §5), cutting a request into the same pieces as the JAX engines
 (``_chunk_pieces``). Attention, the SSD scan and step and the MoE expert
@@ -29,9 +34,8 @@ default and, with ``async_dispatch=True``, as the JAX engine's async
 pipeline (DESIGN.md §10): each op dispatches its step on the compute
 stream and returns, and the step is observed at its commit, in dispatch
 order, through ``serving.pipeline.DispatchQueue`` (at most
-``max_in_flight`` steps in flight). Tensor parallelism and SSM archs on
-the slot engine are still to port (ROADMAP.md); asking for one raises
-NotImplementedError.
+``max_in_flight`` steps in flight). Tensor parallelism is still to port
+(ROADMAP.md); asking for a mesh raises NotImplementedError.
 
 Every step runs through ``serving.step_graphs``: on the card each step
 kind and static shape is captured once as a CUDA graph and replayed, as
@@ -192,6 +196,154 @@ class Executor:
     def latency_model(self) -> LatencyModel:
         raise NotImplementedError
 
+    def trace_gauges(self) -> Dict[str, int]:
+        """Observability gauge surface (DESIGN.md §13): point-in-time
+        resource occupancy for MetricsSnapshot sampling. Read-only —
+        never mutates executor state. Executors without a paged arena
+        report nothing."""
+        return {}
+
+
+class SimExecutor(Executor):
+    def __init__(self, lat: LatencyModel, scheduling_overhead_ms: float = 0.0,
+                 name: Optional[str] = None):
+        self.lat = lat
+        self.name = name               # fleet-instance identity (DESIGN.md §11)
+        self.overhead = scheduling_overhead_ms
+        self.decode_steps = 0
+        self.prefill_steps = 0
+        self.chunk_steps = 0
+        self._chunk_progress: Dict[int, int] = {}
+        # KV swap accounting (DESIGN.md §7): transfers are priced by the
+        # latency model's swap_bw_gbps term; resident KV is the task's
+        # prompt plus every token decoded so far.
+        self.suspend_count = 0
+        self.resume_count = 0
+        self.swapped_bytes = 0.0
+        self._swapped_tokens: Dict[int, int] = {}
+        # Speculative decoding (DESIGN.md §8): draft+verify cost comes from
+        # the latency model's spec terms; acceptance is sampled per task
+        # from a persistent stream at the model's spec_accept_rate, so a
+        # run is deterministic at equal seed/call order.
+        self.spec_steps = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.last_commits: Optional[List[int]] = None
+        self._accept_rng: Dict[int, Any] = {}
+
+    def prefill(self, task: Task) -> float:
+        self.prefill_steps += 1
+        return self.lat.prefill_ms(task.prompt_len) + self.overhead
+
+    def prefill_chunk(self, task: Task, n_tokens: int) -> Tuple[float, bool]:
+        done = self._chunk_progress.get(task.task_id, 0)
+        n = min(n_tokens, task.prompt_len - done)
+        self.chunk_steps += 1
+        done += n
+        if done >= task.prompt_len:
+            self._chunk_progress.pop(task.task_id, None)
+            self.prefill_steps += 1
+            return self.lat.prefill_ms(n) + self.overhead, True
+        self._chunk_progress[task.task_id] = done
+        return self.lat.prefill_ms(n) + self.overhead, False
+
+    def decode(self, tasks: Sequence[Task],
+               depths: Optional[Sequence[int]] = None) -> float:
+        self.decode_steps += 1
+        if depths is None or not any(depths):
+            self.last_commits = [1] * len(tasks)
+            return self.lat.decode_ms(len(tasks)) + self.overhead
+        k = max(depths)
+        b = len(tasks)
+        commits: List[int] = []
+        for t, d in zip(tasks, depths):
+            d = max(0, min(int(d), t.output_len - t.tokens_done - 1))
+            rng = self._accept_rng.get(t.task_id)
+            if rng is None:
+                rng = np.random.default_rng(9_176 + 613 * t.task_id)
+                self._accept_rng[t.task_id] = rng
+            n_acc = 0
+            while n_acc < d and rng.random() < self.lat.spec_accept_rate:
+                n_acc += 1
+            self.drafted_tokens += d
+            self.accepted_tokens += n_acc
+            commits.append(n_acc + 1)
+        self.spec_steps += 1
+        self.last_commits = commits
+        return (self.lat.verify_ms(b, k) + self.lat.draft_ms(b, k)
+                + self.overhead)
+
+    def suspend(self, task: Task) -> float:
+        tid = task.task_id
+        if tid in self._swapped_tokens:
+            raise RuntimeError(f"task {tid} already suspended")
+        n = task.prompt_len + task.tokens_done
+        self._swapped_tokens[tid] = n
+        self.suspend_count += 1
+        self.swapped_bytes += n * self.lat.kv_bytes_per_token
+        return self.lat.swap_ms(n) + self.overhead
+
+    def resume(self, task: Task) -> float:
+        tid = task.task_id
+        if tid not in self._swapped_tokens:
+            raise RuntimeError(f"task {tid} is not suspended")
+        n = self._swapped_tokens.pop(tid)
+        self.resume_count += 1
+        self.swapped_bytes += n * self.lat.kv_bytes_per_token
+        return self.lat.swap_ms(n) + self.overhead
+
+    def release(self, task: Task) -> None:
+        self._chunk_progress.pop(task.task_id, None)
+        self._swapped_tokens.pop(task.task_id, None)
+        self._accept_rng.pop(task.task_id, None)
+
+    def latency_model(self) -> LatencyModel:
+        return self.lat
+
+
+class PagedSimExecutor(SimExecutor):
+    """SimExecutor + the held-page reporting a paged engine provides
+    (used by benchmarks/kv_swap.py and tests/test_kv_swap.py): prefill
+    pins the task's peak pages — deterministic and conservative, a real
+    engine grows into them — suspend releases them (sim has no sharing,
+    so every page is private), resume re-pins, release frees. ``budget``
+    is the PageBudget to hand the scheduler."""
+
+    def __init__(self, lat: LatencyModel, total_pages: int, page_size: int,
+                 scheduling_overhead_ms: float = 0.0,
+                 name: Optional[str] = None):
+        super().__init__(lat, scheduling_overhead_ms, name=name)
+        self.held: Dict[int, int] = {}
+        self.budget = PageBudget(
+            total_pages=total_pages, page_size=page_size,
+            held_pages=lambda t: self.held.get(t.task_id, 0))
+
+    @property
+    def used_pages(self) -> int:
+        """Pages currently pinned — the sim-side analogue of
+        PagePool.used_pages, so fleet leak checks read uniformly."""
+        return sum(self.held.values())
+
+    def trace_gauges(self) -> Dict[str, int]:
+        return {"pages_in_use": self.used_pages,
+                "pages_total": self.budget.total_pages}
+
+    def prefill(self, task: Task) -> float:
+        self.held[task.task_id] = self.budget.pages_for(task)
+        return super().prefill(task)
+
+    def suspend(self, task: Task) -> float:
+        self.held[task.task_id] = 0
+        return super().suspend(task)
+
+    def resume(self, task: Task) -> float:
+        self.held[task.task_id] = self.budget.pages_for(task)
+        return super().resume(task)
+
+    def release(self, task: Task) -> None:
+        self.held.pop(task.task_id, None)
+        super().release(task)
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -202,7 +354,8 @@ class TorchExecutor(Executor):
     """Real PyTorch engine over a fixed slot array.
 
     Every task holds one slot of a ``max_seq``-position ring cache
-    (model.init_cache). Decode runs the whole slot array with a per-slot
+    (model.init_cache): K/V for attention layers, the SSD state and conv
+    tail for SSM layers, both for hybrid archs. Decode runs the whole slot array with a per-slot
     active mask, the image of the decode-mask-matrix column. With
     ``compact_buckets`` the active slots' state is gathered into the
     smallest power-of-two bucket first, padded with distinct inactive
@@ -211,7 +364,8 @@ class TorchExecutor(Executor):
     ``prefill_chunk`` appends the next pieces of a prompt to its slot
     through model.prefill_chunk, one staged step per piece size that
     gathers the slot's row, chunks it and scatters it back (JAX's
-    ``_build_chunk_steps``). A whole prompt runs in one staged step per
+    ``_build_chunk_steps``; attention-only archs: SSM and hybrid archs
+    raise, as JAX's engine does). A whole prompt runs in one staged step per
     prompt length that splices the prompt's cache into its slot. The
     cache holds one spare row past the slots (``step_graphs.slot_cache``),
     which the steps' pad inputs write.
@@ -226,12 +380,11 @@ class TorchExecutor(Executor):
                  prefill_chunk_size: Optional[int] = None,
                  dtype=torch.float32, device="cuda",
                  cuda_graphs: bool = True):
-        if cfg.has_ssm or not cfg.has_attention:
-            raise NotImplementedError(
-                f"TorchExecutor: {cfg.name} has SSM layers; the slot engine "
-                "serves attention-only archs (dense or MoE) until SSM state "
-                "in the slot cache is ported (ROADMAP.md); serve it with "
-                "PagedTorchExecutor")
+        if prefill_chunk_size is not None and (not cfg.has_attention
+                                               or cfg.has_ssm):
+            raise ValueError("chunked prefill needs a pure-attention arch "
+                             "(SSM chunk-state carry is not implemented); "
+                             "use atomic prefill")
         self.device = M.resolve_device(device)
         self.cfg = cfg
         self.params = params if params is not None else M.init_params(
@@ -289,14 +442,16 @@ class TorchExecutor(Executor):
         if s is not None:
             self.free.append(s)
             self.cache["length"][s] = 0
-            self.cache["kv_pos"][s] = -1
+            if "kv_pos" in self.cache:
+                self.cache["kv_pos"][s] = -1
 
     # -- ops --
     def _prefill_step(self, L: int):
         """The whole-prompt step of length L (JAX's ``_prefill_jit[(L,)]``):
-        model.prefill, then the prompt's cache spliced into the slot
-        ``idx``. Inputs idx [1] and tokens [1, L]; the pad is the spare
-        row. Returns (logits [1,V], argmax [1] int32)."""
+        model.prefill, then the prompt's cache (K/V and kv_pos, the SSD
+        state and conv tail, the length) spliced into the slot ``idx``.
+        Inputs idx [1] and tokens [1, L]; the pad is the spare row.
+        Returns (logits [1,V], argmax [1] int32)."""
         cfg, params = self.cfg, self.params
         spec = {"idx": ((1,), torch.int64, self.max_slots),
                 "tokens": ((1, L), torch.int32, 0)}
@@ -305,10 +460,11 @@ class TorchExecutor(Executor):
             last, cache1 = M.prefill(cfg, params, x["tokens"],
                                      buf_len=self.max_seq)
             idx = x["idx"]
-            for k in ("k", "v"):
-                self.cache[k][:, idx] = cache1[k]
-            for k in ("kv_pos", "length"):
-                self.cache[k][idx] = cache1[k]
+            for k, v in cache1.items():
+                if k in M.LAYER_FIELDS:
+                    self.cache[k][:, idx] = v
+                else:
+                    self.cache[k][idx] = v
             return with_argmax(last)
 
         return self.graphs.step(("prefill", L), spec, prefill, self._arenas)
@@ -377,12 +533,12 @@ class TorchExecutor(Executor):
 
         def compacted(x):
             idx = x["idx"]
-            sub = {k: v[:, idx] if k in ("k", "v") else v[idx]
+            sub = {k: v[:, idx] if k in M.LAYER_FIELDS else v[idx]
                    for k, v in self.cache.items()}
             logits, sub = M.decode_step(cfg, params, sub, x["tokens"],
                                         x["valid"])
             for k, v in sub.items():
-                if k in ("k", "v"):
+                if k in M.LAYER_FIELDS:
                     self.cache[k][:, idx] = v
                 else:
                     self.cache[k][idx] = v

@@ -416,7 +416,7 @@ def masked_step(eng) -> Step:
             "valid": ((S,), torch.bool, False)}
 
     def masked(x):
-        rows = {k: v[:, :S] if k in ("k", "v") else v[:S]
+        rows = {k: v[:, :S] if k in M.LAYER_FIELDS else v[:S]
                 for k, v in eng.cache.items()}
         logits, _ = M.decode_step(cfg, params, rows, x["tokens"], x["valid"])
         return with_argmax(logits)

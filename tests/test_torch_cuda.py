@@ -24,6 +24,9 @@ at edge-6b, granite-moe and hymba heads, so rows span many page splits;
 the ring-cache kernel's two split bodies (hd 32 to 256, rings of 77 to
 1024 slots, wrapped, with holes and windows, empty rows); the three-pass
 SSD scan from 1 to 1024 steps at mamba2-780m and hymba-1.5b widths.
+Then the engines' captured steps against the same steps run eagerly
+(the slot engine also on mamba2-780m and hymba-1.5b, the SSD state in its
+slot cache), and a reduced two-tier fleet on the card.
 Before a checked call that must write exact zeros, a block of the
 output's size is filled with NaN and freed, so the wrapper's torch.empty
 gets poisoned memory back. Tolerances: fp32 1e-4 (summation order over
@@ -907,6 +910,114 @@ def test_captured_slot_prefill_and_chunk_match_eager():
     assert all(s.graph is not None for s in graphs.graphs.steps.values())
     assert {k[0] for k in graphs.graphs.steps} == {"prefill", "chunk",
                                                    "masked"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True], ids=["masked", "compact"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_captured_slot_ssm_steps_match_eager(arch, compact):
+    """The slot engine on an SSM and a hybrid arch: its whole-prompt steps
+    (the SSD state and conv tail spliced into the slot; one prompt shorter
+    than the conv width) and its masked or compacted decode steps (the
+    state stepped in place over the cache's rows) captured against eager,
+    across a release and a slot reused: logits bit for bit, streams and
+    launch counts equal, the slot rows of the cache (state included)
+    equal, the SSD kernels launched."""
+    _need_cuda()
+    cfg, eager, graphs = _eager_and_captured(arch, slot=True,
+                                             compact_buckets=compact)
+    tasks = _tasks((2, 17, 40), 8850)
+    logits, launches, streams = _run_both((eager, graphs), tasks,
+                                          [3, 1, 2, 3, 2, 1])
+    later = _tasks((9,), 8860)
+    for ex in (eager, graphs):
+        ex.release(tasks[0])
+        ex.prefill(later[0])
+        for _ in range(2):
+            ex.decode([later[0]] + tasks[1:])
+    torch.cuda.synchronize()
+    for a, b in zip(*logits):
+        np.testing.assert_array_equal(b, a)
+    np.testing.assert_array_equal(graphs.last_logits, eager.last_logits)
+    assert streams[0] == streams[1]
+    assert (graphs.generated_tokens(later[0])
+            == eager.generated_tokens(later[0]))
+    assert launches[0] == launches[1]
+    assert launches[1]["ssd_scan"] == 0          # the decode steps only
+    assert launches[1]["ssd_decode_step"] > 0
+    if cfg.has_attention:
+        assert launches[1]["decode_attention"] > 0
+    from repro_torch.models.model import LAYER_FIELDS
+    S = eager.max_slots
+    for k, v in eager.cache.items():
+        rows = ((slice(None), slice(0, S)) if k in LAYER_FIELDS
+                else (slice(0, S),))
+        assert torch.equal(graphs.cache[k][rows], v[rows]), k
+    assert {"ssm", "conv"} <= set(graphs.cache)
+    assert all(s.graph is not None and s.runs > 0
+               for s in graphs.graphs.steps.values())
+
+
+def fleet_structural_gate(router, two_tier):
+    """Serve the workload of ``benchmarks/fleet_routing.py``'s structural
+    gate over ``router`` and hold its checks: every request served exactly
+    once, no page or state slot left held. ``two_tier``: the two-tier
+    fleet's mix (control, voice, QA), else the heterogeneous fleet's
+    (control, QA). QA requests want tier 1. The SLOs get the benchmark's
+    relaxation: scaled to the slower instance, the TPOT and deadline four
+    times more, since the gate is structural. Returns the FleetResult."""
+    from repro_torch.core.task import SLOSpec, control_task, qa_task, \
+        voice_task
+    from repro_torch.serving.fleet import run_fleet_loop
+    scale = max(max(i.lat.decode_ms(2) for i in router.instances) / 50.0,
+                0.02)
+    tasks = []
+    for k in range(3):
+        tasks.append(control_task(arrival_ms=40.0 * k, prompt_len=10,
+                                  output_len=8))
+        if two_tier:
+            tasks.append(voice_task(arrival_ms=60.0 * k, prompt_len=12,
+                                    output_len=10))
+        q = qa_task(arrival_ms=(80.0 if two_tier else 70.0) * k,
+                    prompt_len=14, output_len=10)
+        q.min_tier = 1
+        tasks.append(q)
+    for t in tasks:
+        t.slo.tpot_ms *= scale * 4
+        t.slo.ttft_ms *= max(scale, 1.0)
+        if t.slo.deadline_ms:
+            t.slo = SLOSpec.realtime_deadline(
+                t.slo.deadline_ms * max(scale, 1.0) * 4, t.output_len)
+    res = run_fleet_loop(router, tasks, max_ms=3e7)
+    assert all(t.finished or t.dropped for t in res.tasks)
+    assert sum(len(r.tasks) for r in res.per_instance.values()) == len(tasks)
+    for inst in router.instances:
+        inst.executor.pool.check()
+        inst.executor.store.check()
+        assert inst.executor.store.leaked() == 0, inst.name
+        assert inst.executor.pool.used_pages == 0, inst.name
+    return res
+
+
+@pytest.mark.cuda
+def test_reduced_fleet_on_the_card():
+    """``engine_fleet`` of two reduced tiers (smollm-360m, edge-6b) on the
+    card, fp32, steps captured, under the structural gate of
+    ``benchmarks/fleet_routing.py``: every request served exactly once,
+    no page left held, both instances' paged kernels launched."""
+    _need_cuda()
+    from repro_torch.serving.fleet import engine_fleet
+    router = engine_fleet(["smollm-360m", "edge-6b"], n_pages=48,
+                          page_size=8, max_seq=96, max_batch=4, seed=0,
+                          device="cuda")
+    ops.reset_launches()
+    fleet_structural_gate(router, two_tier=True)
+    launches = dict(ops.LAUNCHES)
+    for inst in router.instances:
+        assert all(s.graph is not None
+                   for s in inst.executor.graphs.steps.values())
+    assert launches["paged_decode_attention"] > 0
+    assert launches["flash_prefill"] > 0
 
 
 @pytest.mark.cuda

@@ -218,18 +218,41 @@ def test_ssm_feature_gates_raise(arch):
                {"prefill_chunk_size": 8}):
         with pytest.raises(ValueError, match="unsupported for SSM/hybrid"):
             PagedTorchExecutor(cfg, device="cpu", **ENGINE, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchExecutor(cfg, device="cpu")
+    with pytest.raises(ValueError, match="pure-attention"):
+        TorchExecutor(cfg, device="cpu", prefill_chunk_size=8)
     for argv, match in ((["--spec-decode"], "recurrent"),
                         (["--prefix-cache"], "recurrent"),
                         (["--prefill-chunk", "8"], "pure-attention"),
-                        (["--executor", "slot"], "attention-only")):
+                        (["--executor", "slot", "--prefill-chunk", "8"],
+                         "pure-attention")):
         with pytest.raises(SystemExit, match=match):
             tserve.run(tserve.parse_args(["--arch", arch, "--reduced",
                                           "--device", "cpu", *argv]))
     with pytest.raises(SystemExit, match="encoder-only"):
         tserve.run(tserve.parse_args(["--arch", "hubert-xlarge", "--reduced",
                                       "--device", "cpu"]))
+    # the slot engine now serves SSM and hybrid archs, from the API (a
+    # prefill and two decode steps) and from the CLI (its l(b) probe
+    # decodes at every batch; whether the real-clock run's tasks finish
+    # and free their slots depends on the CPU's load, so
+    # tests/test_torch_slot_ssm.py's traced run holds that, on one pinned
+    # thread)
+    ex = TorchExecutor(cfg, device="cpu", max_slots=2, max_seq=32)
+    assert {"ssm", "conv"} <= set(ex.cache)
+    t = ttask.qa_task(prompt_len=5, output_len=4)
+    ex.prefill(t)
+    for _ in range(2):
+        ex.decode([t])
+        assert np.isfinite(ex.last_logits).all()
+    assert len(ex.generated_tokens(t)) == 3
+    ex.release(t)
+    assert sorted(ex.free) == [0, 1]
+    run = tserve.run(tserve.parse_args([
+        "--arch", arch, "--reduced", "--device", "cpu", "--executor", "slot",
+        "--slots", "8", "--max-seq", "64", "--duration", "1", "--rate", "2",
+        "--ratio", "0"]))
+    assert isinstance(run.executor, TorchExecutor)
+    assert [b for b, _ in run.probes] == [1, 2, 4, 8]
 
 
 SAMPLES = [(1, 8.0), (2, 9.0), (4, 11.0)]

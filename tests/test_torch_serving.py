@@ -296,13 +296,13 @@ def test_latency_probe_leaves_pool_empty():
 
 
 def test_unported_arch_kinds_raise():
-    """Encoder-only archs, and SSM archs on the slot engine, are still to
-    port (MoE, SSM and hybrid archs serve on the paged engine)."""
+    """Encoder-only archs are still to port (MoE, SSM and hybrid archs
+    serve on both engines)."""
     cfg = dataclasses.replace(get_config("edge-6b").reduced(), causal=False)
     with pytest.raises(NotImplementedError, match="encoder-only"):
         TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchExecutor(get_config("mamba2-780m").reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder-only"):
+        TorchExecutor(cfg, device="cpu")
 
 
 @pytest.fixture
