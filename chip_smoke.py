@@ -30,7 +30,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
             (H=48, P=64, N=128) and hymba (H=50, N=16) widths, T=1, 65,
             77 and 256, inputs as strided splits of one projection; the SSD decode step over a shuffled state arena
             with a pad and an inactive row (arena after the step compared
-            too); the grouped-expert FFN at granite-moe widths (E=40,
+            too), at both widths and at every other branch of its slab
+            plan (H/P/N 4/32/16, 4/24/12, 4/80/64, 2/64/256), each called
+            twice on the same inputs, bit for bit; the grouped-expert FFN at granite-moe widths (E=40,
             D=1536, F=512) for one decode group (C=64) and two per-example
             prefill groups, with zero rows, then with live-row counts (a
             skewed decode routing that leaves experts empty; per-example
@@ -60,7 +62,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
             engine_fleet under the structural gate of
             benchmarks/fleet_routing.py. The SSD decode step also over
             the slot engine's layout (row b at slot b, a spare row,
-            inactive rows) at both SSD widths. Every reduced engine on
+            inactive rows) at the same shapes. Every reduced engine on
             the card runs its steps captured as CUDA graphs (the
             engines' default).
 3. graphs — each step the engines capture, at full width in bf16, run
@@ -136,7 +138,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
             array and over run (j)'s at hymba's heads and window; the SSD
             scan over one median prompt of run (e) and of run (j); the SSD
             step over the full decode batch of runs (e), (i) and (j), each
-            on its own arena layout; flash prefill also at hymba's heads
+            on its own arena layout and timed cold (the next of as many
+            arena copies as fill twice the L2 each call), beside an empty
+            kernel on the same grid timed the same way, its launch floor
+            (JSON key "floor_ms"), each naming its slab plan; flash prefill also at hymba's heads
             over run (j)'s median prompt; the
             grouped-expert FFN over run (f)'s full decode batch with its
             routing's live-row counts passed and the bound counting only
@@ -660,12 +665,15 @@ def check_hetero_kernels(report):
     """The attention kernels at granite-moe, hymba and smollm head shapes
     (Hq/Hkv 24/8, 25/5, 15/5 at hd 64), and the
     SSD scan, SSD decode step and grouped-expert FFN at the serving runs'
-    widths, each against its plain version on the same inputs."""
+    widths, each against its plain version on the same inputs; the SSD
+    decode step also at every other branch of its slab plan, and twice on
+    the same inputs, bit for bit."""
     import torch
     from repro_torch.kernels import flash_prefill as _fp
     from repro_torch.kernels import moe_dispatch as _moe
     from repro_torch.kernels import paged_attention as _pa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_decode as _ssdd
     from repro_torch.kernels import ssd_scan as _ssd
     import numpy as np
     lengths = [-1, 0, 15, 16, 100, 517, 1023]
@@ -757,7 +765,12 @@ def check_hetero_kernels(report):
             scale = max(1.0, hw.abs().max().item())
             report("ssd_scan", case + " final state, fp32, over max(1, |h|)",
                    "float32", (h - hw).abs().max().item() / scale, False)
-        for H, P, N in ((48, 64, 128), (50, 64, 16)):
+        # mamba2-780m's and hymba-1.5b's widths, then every other branch
+        # of the slab plan: the reduced configs' width, N/4 = 3 (row sums
+        # in shared memory), P = 80 (a ragged last slab), N = 256 (a 64 KB
+        # tile, N/4 past a warp)
+        for H, P, N in ((48, 64, 128), (50, 64, 16), (4, 32, 16),
+                        (4, 24, 12), (4, 80, 64), (2, 64, 256)):
             B, S = 8, 16
             x, dtr, b, c, (a_log, d_skip, bias) = ssd_inputs(B, 1, H, P, N,
                                                              dtype, seed=H)
@@ -768,9 +781,12 @@ def check_hetero_kernels(report):
                                  device="cuda")
             active = torch.tensor([1, 1, 0, 1, 0, 1, 1, 1], dtype=torch.bool,
                                   device="cuda")
-            st_k, st_p = arena.clone(), arena.clone()
+            st_k, st_p, st_2 = arena.clone(), arena.clone(), arena.clone()
             y = ops.ssd_decode_step(*args, st_k, slots, active)
+            y2 = ops.ssd_decode_step(*args, st_2, slots, active)
             torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(st_k, st_2)):
+                fail("ssd_decode_step: two calls on the same inputs differ")
             yw = ref.ssd_decode_step_ref(*f32(args), st_p, slots, active)
             live = slots >= 0
             untouched = [s_ for s_ in range(S) if s_ not in (5, 0, 9, 12, 7, 15)]
@@ -778,7 +794,8 @@ def check_hetero_kernels(report):
                                                           arena[untouched])):
                 fail("ssd_decode_step: a pad row gave output or an unwritten "
                      "slot changed")
-            case = f"B={B} H={H} P={P} N={N} arena={S} pad+inactive rows"
+            case = (f"B={B} H={H} P={P} N={N} arena={S} pad+inactive rows, "
+                    f"two calls bit for bit ({_ssdd.body(P, N)})")
             report("ssd_decode_step", case + " y", dt,
                    (y.float() - yw)[live].abs().max().item())
             scale = max(1.0, st_p.abs().max().item())
@@ -806,7 +823,8 @@ def check_hetero_kernels(report):
                 fail("ssd_decode_step: an inactive row or the spare row of "
                      "the slot layout changed")
             case = (f"B={B} H={H} P={P} N={N} slot-cache layout (row b at "
-                    f"slot b, spare row) {int((~active).sum())} inactive rows")
+                    f"slot b, spare row) {int((~active).sum())} inactive rows "
+                    f"({_ssdd.body(P, N)})")
             report("ssd_decode_step", case + " y", dt,
                    (y.float() - yw).abs().max().item())
             scale = max(1.0, st_p.abs().max().item())
@@ -2065,6 +2083,7 @@ def time_phase(runs, worst):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as _pa
     from repro_torch.kernels import decode_attention as _da
+    from repro_torch.kernels import ssd_decode as _ssdd
     from repro_torch.kernels import ssd_scan as _ssd
     from repro_torch.launch.timing import (ATTENTION_PASSES, SSD_PASSES,
                                            passes_us, time_ms)
@@ -2076,17 +2095,18 @@ def time_phase(runs, worst):
     rows = []
 
     def row(name, shape, kern, plain, plain_fp32, lib, nbytes, flops, *,
-            of_runs, body="cuda_core", passes=None):
+            of_runs, body="cuda_core", passes=None, floor=None):
         """One timed kernel: its call, plain versions (working type and
         fp32), library yardstick or None, bytes and flops for the bound,
         the serving runs at whose shapes it is timed and whose launches it
-        reports, the body it runs, and for a multi-pass kernel the names
-        of its passes' kernels (``launch.timing``), each pass then timed
-        apart."""
+        reports, the body it runs, for a multi-pass kernel the names of
+        its passes' kernels (``launch.timing``), each pass then timed
+        apart, and an empty kernel on the same grid, timed the same way
+        (the launch floor), or None."""
         rows.append(dict(name=name, shape=shape, kern=kern, plain=plain,
                          plain_fp32=plain_fp32, lib=lib, nbytes=nbytes,
                          flops=flops, body=body, passes=passes,
-                         of_runs=of_runs))
+                         of_runs=of_runs, floor=floor))
 
     def lengths_of(shapes):
         """Cached tokens of a full batch over the workload's first requests,
@@ -2263,7 +2283,8 @@ def time_phase(runs, worst):
             None,
             2 * B * H * P * N * 4
             + (2 * B * H * P + B * H + 2 * B * N + 3 * H) * elt + 5 * B,
-            5 * B * H * P * N, of_runs=of_runs)
+            5 * B * H * P * N, body=_ssdd.body(P, N), of_runs=of_runs,
+            floor=lambda: _ssdd.launch_empty(B, H, P, N, dx.device))
 
     # paged decode: edge-6b's heads over run paged-atomic's batch (its
     # runs and the fleet's edge-6b instance), granite-moe's over run
@@ -2411,6 +2432,7 @@ def time_phase(runs, worst):
         paced_ms = time_ms(r["kern"], queued=False)
         plain_ms = time_ms(r["plain"])
         lib_ms = time_ms(r["lib"]) if r["lib"] is not None else None
+        floor_ms = time_ms(r["floor"]) if r["floor"] is not None else None
         t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / PEAK_FLOPS[dt] * 1e3
         bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
@@ -2426,11 +2448,15 @@ def time_phase(runs, worst):
               f"{plain_ms:.4f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
               f"{bound:.5f} ms by {by} ({r['nbytes']} B, {r['flops']} flop)"
+              + ("" if floor_ms is None else
+                 f", empty kernel on its grid {floor_ms:.4f} ms")
               + ", launches " + ", ".join(f"{run} {runs[run][1][name]}"
                                           for run in r["of_runs"]))
         timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                  "bound_by": by, "library_ms": lib_ms, "shape": shape,
                  "body": r["body"], "launches": launches}
+        if floor_ms is not None:
+            timed["floor_ms"] = floor_ms
         if pass_us is not None:
             timed["passes_us"] = pass_us
         if name in entries:

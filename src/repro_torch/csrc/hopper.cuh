@@ -1,5 +1,5 @@
 // PTX building blocks for the port's sm_90a kernels: mbarriers, TMA tensor
-// loads, warpgroup matrix multiply (wgmma) and its shared-memory
+// loads and 1-D bulk copies, warpgroup matrix multiply (wgmma) and its shared-memory
 // descriptors, register rebalancing, cp.async, ldmatrix and mma.sync.
 // Header only, device code and one host helper (the TMA tensor-map
 // encoder, resolved through the runtime so a library needs no -lcuda).
@@ -79,6 +79,17 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ------------------------------------------------------------------- TMA
+
+// `bytes` contiguous bytes (a multiple of 16) from global `src` to shared
+// `dst`, both 16-byte aligned: one bulk copy (the TMA's 1-D form, no
+// tensor map), its completion counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
 
 // A 4-D box of `map` at coordinates (c0 innermost .. c3) into shared
 // memory at `dst` (1024-byte aligned for the 128-byte swizzle); completion

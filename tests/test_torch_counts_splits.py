@@ -14,6 +14,10 @@ unsplit plain version at 1e-5 (fp32, a few hundred terms) for every split
 size, with empty splits, a single-page row, -1 entries inside the table
 and a pad row (exact 0); ``kernels.paged_attention.plan`` covers the table
 and keeps a block within its limits.
+
+SSD decode step: ``kernels.ssd_decode.plan`` covers each state tile of
+every SSM-carrying registry config (full and reduced) and of the odd
+shapes with slabs, exactly once, within the card's limits.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.models import moe as JMOE  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssd_decode as sd  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
 
 D, F, E, K = 16, 32, 5, 2
@@ -214,3 +219,44 @@ def test_paged_plan_covers_the_table(B, R, Hkv, hd, psz, maxp, dtype):
     ("float32", 64, "cuda_core"), ("float32", 128, "cuda_core")])
 def test_paged_body_rule(dtype, hd, want):
     assert pa.body(getattr(torch, dtype), hd) == want
+
+
+def _ssd_tile_shapes():
+    """(P, N) of every SSM-carrying registry config, full and reduced."""
+    from repro_torch.configs import registry
+    shapes = []
+    for name in registry.list_archs():
+        for cfg in (registry.get_config(name),
+                    registry.get_config(name + "-smoke")):
+            if cfg.ssm_state:
+                shapes.append((cfg.name, cfg.ssm_head_dim, cfg.ssm_state))
+    return shapes
+
+
+@pytest.mark.parametrize("name,P,N", _ssd_tile_shapes() + [
+    ("N/4 = 3", 24, 12), ("ragged last slab", 80, 64),
+    ("64 KB tile", 64, 256), ("a row a slab", 3, 4096),
+    ("N = 4", 5, 4)])
+def test_ssd_decode_plan_covers_the_tile(name, P, N):
+    """Every state row in exactly one slab, every float4 of a slab with
+    exactly one thread, slabs of whole 16-byte units, the block within
+    the card's limits, and shuffle sums only where a row's float4s fill
+    one aligned group of lanes."""
+    p = sd.plan(P, N)
+    covered = np.zeros(P, np.int64)
+    for s in range(p.slabs):
+        rows = range(s * p.rows, min(P, (s + 1) * p.rows))
+        assert len(rows) > 0 and len(rows) * N * 4 % 16 == 0
+        covered[rows.start:rows.stop] += 1
+    assert (covered == 1).all()
+    q = N // 4
+    nf4 = p.rows * q
+    steps = -(-nf4 // p.threads)
+    owners = np.bincount([t + k * p.threads for t in range(p.threads)
+                          for k in range(steps)], minlength=nf4)[:nf4]
+    assert (owners == 1).all()
+    assert p.threads % 32 == 0 and 32 <= p.threads <= sd.MAX_THREADS
+    assert p.rows * N * 4 <= max(sd.SLAB_BYTES, N * 4)
+    assert p.smem <= sd.SMEM_LIMIT
+    if p.shuffle:
+        assert 32 % q == 0 and p.threads % q == 0

@@ -16,7 +16,9 @@ tensor-core body in bf16), over several 64-key tiles with ragged ends,
 windows whose edge falls inside a tile, non-causal rows, and chunk rows
 that see no key (exact zeros). The SSD scan and decode step at mamba2-780m and hymba-1.5b widths and a ragged T, with inputs as
 strided splits of one projection, pad and inactive rows over a shuffled
-state arena; the grouped-expert FFN at granite-moe-3b-a800m widths and a
+state arena; the decode step also at every branch of its slab plan
+(N = 12, P = 80, N = 256, the reduced configs' width), and twice on the
+same inputs, bit for bit; the grouped-expert FFN at granite-moe-3b-a800m widths and a
 ragged shape with zero rows, and with per-group live-row counts (empty
 groups, full ones, counts that are not multiples of 8 or 16, per-example
 buffers, NaN past each count); the paged kernels over contexts up to 1023
@@ -344,36 +346,53 @@ def test_ssd_scan_kernel_matches_plain(dtype, B, T, H, P, N):
                                atol=TOL["float32"] * max(1.0, h_w.abs().max()))
 
 
+# the slab plan's branches (kernels/ssd_decode.plan): mamba2-780m (slabs
+# of 16 rows, shuffle sums), hymba-1.5b and the reduced configs (a whole
+# tile a slab), N = 12 (N/4 = 3: sums in shared memory), P = 80 (a
+# ragged last slab of 16 rows after two of 32), N = 256 (a 64 KB tile in
+# slabs of 8 rows, N/4 = 64 past a warp)
+SSD_DECODE_SHAPES = [(48, 64, 128), (50, 64, 16), (4, 32, 16), (4, 24, 12),
+                     (4, 80, 64), (2, 64, 256)]
+
+
+def _ssd_step_inputs(dtype, H, P, N, B=5, S=12):
+    """Step inputs on the card as strided splits of one projection, the
+    [H] parameters, and a random arena of S slots on the CPU."""
+    proj, (a_log, d_skip, dt_bias) = _ssd_inputs(B, 1, H, P, N, seed=H)
+    rng = np.random.default_rng(N)
+    arena = torch.from_numpy(0.5 * rng.standard_normal((S, H, P, N))
+                             .astype(np.float32))
+    dt_ = getattr(torch, dtype)
+    proj_d = proj[:, 0].to(dt_).cuda()
+    prm = [t.to(dt_).cuda() for t in (a_log, d_skip, dt_bias)]
+    return proj_d, prm, arena
+
+
+def _ssd_step_split(pr, H, P, N):
+    B = pr.shape[0]
+    return (pr[:, :H * P].reshape(B, H, P), pr[:, H * P + 2 * N:],
+            pr[:, H * P:H * P + N], pr[:, H * P + N:H * P + 2 * N])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,P,N", [(48, 64, 128), (50, 64, 16)])
+@pytest.mark.parametrize("H,P,N", SSD_DECODE_SHAPES)
 def test_ssd_decode_kernel_matches_plain(dtype, H, P, N):
     """Rows over a shuffled arena of 12 slots: a pad row (slot -1), an
     inactive row, three live rows. The arena after the step equals the
     plain version's bit for bit in every slot no live row writes."""
     _need_cuda()
     B, S = 5, 12
-    proj, (a_log, d_skip, dt_bias) = _ssd_inputs(B, 1, H, P, N, seed=H)
-    rng = np.random.default_rng(N)
-    arena = torch.from_numpy(0.5 * rng.standard_normal((S, H, P, N))
-                             .astype(np.float32))
+    proj_d, prm, arena = _ssd_step_inputs(dtype, H, P, N, B, S)
     slots = torch.tensor([7, -1, 2, 11, 0], dtype=torch.int32)
     active = torch.tensor([True, False, False, True, True])
-    dt_ = getattr(torch, dtype)
-    proj_d = proj[:, 0].to(dt_).cuda()
-    prm = [t.to(dt_).cuda() for t in (a_log, d_skip, dt_bias)]
-
-    def split(pr):
-        return (pr[:, :H * P].reshape(B, H, P), pr[:, H * P + 2 * N:],
-                pr[:, H * P:H * P + N], pr[:, H * P + N:H * P + 2 * N])
-
-    x, dt, b, c = split(proj_d)
+    x, dt, b, c = _ssd_step_split(proj_d, H, P, N)
     st = arena.cuda()
     before = ops.LAUNCHES["ssd_decode_step"]
     y = ops.ssd_decode_step(x, dt, prm[0], b, c, prm[1], prm[2], st,
                             slots.cuda(), active.cuda())
     assert ops.LAUNCHES["ssd_decode_step"] == before + 1
-    xc, dtc, bc, cc = split(proj_d.float().cpu())
+    xc, dtc, bc, cc = _ssd_step_split(proj_d.float().cpu(), H, P, N)
     pc = [t.float().cpu() for t in prm]
     st_w = arena.clone()
     y_w = ops.ssd_decode_step(xc, dtc, pc[0], bc, cc, pc[1], pc[2], st_w,
@@ -387,6 +406,28 @@ def test_ssd_decode_kernel_matches_plain(dtype, H, P, N):
     assert torch.equal(st.cpu()[kept], arena[kept])
     torch.testing.assert_close(st.cpu()[written], st_w[written], rtol=0,
                                atol=TOL["float32"] * max(1.0, st_w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,P,N", [(48, 64, 128), (4, 24, 12)])
+def test_ssd_decode_kernel_is_deterministic(H, P, N):
+    """Two calls on the same inputs and the same arena give bit-identical
+    y and arena, by shuffles (N = 128) and by shared-memory sums (N = 12):
+    the captured steps are held bit for bit to the eager ones."""
+    _need_cuda()
+    proj_d, prm, arena = _ssd_step_inputs("bfloat16", H, P, N)
+    x, dt, b, c = _ssd_step_split(proj_d, H, P, N)
+    slots = torch.tensor([7, -1, 2, 11, 0], dtype=torch.int32).cuda()
+    active = torch.tensor([True, False, False, True, True]).cuda()
+    outs = []
+    for _ in range(2):
+        st = arena.cuda()
+        y = ops.ssd_decode_step(x, dt, prm[0], b, c, prm[1], prm[2], st,
+                                slots, active)
+        outs.append((y, st))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert not torch.equal(outs[0][1], arena.cuda())
 
 
 @pytest.mark.cuda

@@ -195,12 +195,19 @@ def test_ssd_scan_plain_matches_pallas_interpret(B, T, H, P, N):
     _close(ht, hj, atol=2e-5)
 
 
-def test_ssd_decode_plain_matches_pallas_interpret():
+@pytest.mark.parametrize("H,P,N", [(4, 8, 16),
+                                   # the CUDA kernel's slab-plan branches
+                                   # at small H: the reduced configs'
+                                   # width, N/4 = 3, P = 80 (a ragged last
+                                   # slab), N = 256 (N/4 past a warp)
+                                   (2, 32, 16), (2, 24, 12), (1, 80, 64),
+                                   (1, 64, 256)])
+def test_ssd_decode_plain_matches_pallas_interpret(H, P, N):
     """``ops.ssd_decode_step`` over an arena (a live row, an inactive row,
     a pad row) against the Pallas step on the gathered state: the same y
     for the rows with a slot, the Pallas h' written to the active row's
     slot only."""
-    B, H, P, N = 3, 4, 8, 16
+    B = 3
     x, dt, a_log, b, c, d_skip, dt_bias = _ssd_inputs(B, 1, H, P, N, seed=12)
     arena = np.random.default_rng(13).standard_normal((5, H, P, N)).astype(
         np.float32)
