@@ -154,6 +154,36 @@ Phases, each printing its own lines; any failed check exits non-zero:
             each pass's device time (torch.profiler): the ring-cache
             decode's split and combine, the SSD scan's chunk states, state
             passing and chunk outputs (JSON key "passes_us").
+6. train  — the training path (forward, loss_fn, AdamW, train_step,
+            fp32, TF32 off; it reaches no kernel, as JAX's training path
+            reaches no Pallas kernel). (a) Every registry arch, reduced
+            (embedding-input and encoder-only archs included): forward
+            logits, the loss, every leaf's gradient and two train_steps'
+            loss and grad_norm on the card against the port on the CPU
+            from the same weights and batch (logits to 1e-4 of their
+            magnitude, loss 1e-5, each gradient to 1e-4 of its leaf's
+            largest, the steps 1e-4); every leaf forward reads has a
+            nonzero gradient on the card (embed of an embedding-input arch
+            with an untied head excepted, as in JAX); no kernel launched.
+            Forward with use_ssd_kernel (mamba2, no autograd) launches the
+            SSD scan once a layer and matches the default forward; under
+            autograd it raises. (b) smollm-360m at full width and depth:
+            10 steps at B=8, S=1024 on one batch, the loss must fall; then
+            at B=1, S=4096 a step with the chunked attention resolve_attn
+            picks, its loss and grad_norm against a dense-attention
+            loss_and_grads on the same weights. (c) mamba2-780m,
+            hymba-1.5b, hubert-xlarge at full width, granite-moe-3b-a800m
+            at full width with 8 of its 32 layers (its fp32 AdamW state
+            at 32 layers, ~53 GB, would not leave room), 3 steps each at
+            B=4, S=1024. Each run prints ms a step (host clock, synced;
+            median of the steps after the first), tokens/s, the dense
+            FLOPs a token (8x the weights a token's matmuls read: forward,
+            remat's second forward and a backward of twice the forward;
+            no attention scores) and their rate against the fp32 peak,
+            peak memory and the card's name and power limit; a JSON line
+            {"train": [...]} collects them. (d) python -m
+            repro_torch.launch.train --arch smollm-360m --steps 20 in a
+            subprocess must exit 0.
 
 The kernels JSON has one entry per kernel; each also names its shape and
 the kernel body it ran ("tensor_core" or "cuda_core"), and a kernel timed
@@ -171,6 +201,7 @@ import contextlib
 import functools
 import inspect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2482,6 +2513,309 @@ def time_phase(runs, worst):
     return out
 
 
+# ------------------------------------------------------------------ train
+
+FP32_PEAK = PEAK_FLOPS["float32"]
+# card against CPU, reduced archs, fp32 (TF32 off): cuBLAS and the CPU's
+# BLAS add in different orders
+TRAIN_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-4, "steps": 1e-4}
+# full-width training runs after smollm-360m's: (arch, layers kept or
+# None for all, batch, sequence, steps). granite-moe's fp32 AdamW state
+# (~16 B a parameter, ~53 GB at 32 layers) is cut to 8 layers
+TRAIN_RUNS = (("mamba2-780m", None, 4, 1024, 3),
+              ("hymba-1.5b", None, 4, 1024, 3),
+              ("hubert-xlarge", None, 4, 1024, 3),
+              ("granite-moe-3b-a800m", 8, 4, 1024, 3))
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()
+    if smi.returncode != 0 or not card:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return card[0]
+
+
+def matmul_params(cfg) -> int:
+    """Weights one token's matmuls read: every layer's projections (for
+    MoE its router and its top-k experts), and the head once; no
+    embedding gather, no attention scores. 2x this is the token's dense
+    forward FLOPs."""
+    D, per = cfg.d_model, 0
+    if cfg.has_attention:
+        per += 2 * D * cfg.q_dim + 2 * D * cfg.kv_dim
+    if cfg.has_ssm:
+        per += D * (2 * cfg.ssm_inner + 2 * cfg.ssm_state
+                    + cfg.ssm_heads) + cfg.ssm_inner * D
+    if cfg.block_kind == "moe":
+        per += D * cfg.n_experts + cfg.top_k * 3 * D * cfg.d_ff
+    elif cfg.d_ff:
+        per += 3 * D * cfg.d_ff
+    return cfg.n_layers * per + D * cfg.padded_vocab
+
+
+def train_batch(cfg, B, S, dev, seed):
+    """Random tokens (random [B,S,D] frames for embedding-input archs),
+    labels the tokens with every 7th position ignored."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev)
+    labels = toks.clone()
+    labels[:, ::7] = -1
+    inputs = toks
+    if cfg.embedding_inputs:
+        inputs = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    return {"inputs": inputs, "labels": labels}
+
+
+def leaf_names(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from leaf_names(tree[k], f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}"
+
+
+def copy_state(dst, src):
+    """Set a training state (params, AdamWState) to another's values."""
+    import torch
+    from repro_torch.training.optimizer import leaves
+    with torch.no_grad():
+        for a, b in zip(leaves({"p": dst[0], "m": dst[1].mu, "v": dst[1].nu}),
+                        leaves({"p": src[0], "m": src[1].mu, "v": src[1].nu})):
+            a.copy_(b)
+        dst[1].step.copy_(src[1].step)
+
+
+def check_train_reduced():
+    """(a) Every registry arch, reduced, fp32: forward, loss_fn and the
+    per-leaf gradients, then two train_steps (the card's state set to the
+    CPU's before each), on the card against the port on the CPU from the
+    same weights and batch. Every leaf forward
+    reads has a nonzero gradient on the card (embed of an embedding-input
+    arch with an untied head excepted: JAX's gradient leaves it at zero
+    too), and no kernel is launched. Then forward with use_ssd_kernel on
+    mamba2 launches the SSD scan and matches the default forward, and
+    raises under autograd."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import list_archs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.trainer import loss_and_grads, make_train_step
+    phase("train: every registry arch reduced, fp32, card against CPU")
+    opts = M.ModelOptions(remat=True)
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        weights = M.init_params(cfg, seed=0, device="cpu")
+        batch = train_batch(cfg, 2, 64, "cpu", 0)
+        out, steps, states = {}, [], {}
+        ops.reset_launches()
+        for dev in ("cpu", "cuda"):
+            init_state, train_step = make_train_step(
+                cfg, peak_lr=1e-3, warmup=1, total=10, device=dev)
+            states[dev] = (init_state(weights), train_step)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                logits, _ = M.forward(cfg, states[dev][0][0], b["inputs"])
+            loss, grads = loss_and_grads(cfg, states[dev][0][0], b, opts)
+            out[dev] = (logits.cpu(), float(loss),
+                        [g.cpu() for g in leaves(grads)])
+        # two steps, the card's state set to the CPU's before each: AdamW
+        # moves a component whose gradient is near 0 by up to lr whatever
+        # the gradient's last bits, which would part the two runs
+        for _ in range(2):
+            copy_state(states["cuda"][0], states["cpu"][0])
+            m = {}
+            for dev in ("cpu", "cuda"):
+                state, train_step = states[dev]
+                b = {k: v.to(dev) for k, v in batch.items()}
+                state, m[dev] = train_step(state, b)
+            steps += [(float(m["cuda"][k]), float(m["cpu"][k]))
+                      for k in ("loss", "grad_norm")]
+        launched = sum(ops.LAUNCHES.values())
+        (lc, loss_c, gc), (lg, loss_g, gg) = out["cpu"], out["cuda"]
+        names = list(leaf_names(weights))
+        l_err = ((lg - lc).abs().max() / lc.abs().max().clamp(min=1)).item()
+        g_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                    .item() for a, b in zip(gg, gc))
+        s_err = max(abs(a - b) / abs(b) for a, b in steps)
+        zero = [n for n, g in zip(names, gg) if not g.abs().max() > 0
+                and not (n == "embed" and cfg.embedding_inputs
+                         and not cfg.tied_embeddings)]
+        print(f"train {cfg.name}: logits rel err {l_err:.2e} "
+              f"loss {loss_g:.6f} vs {loss_c:.6f} grad rel err (of each "
+              f"leaf's max) {g_err:.2e} two steps' loss/grad_norm rel err "
+              f"{s_err:.2e} leaves {len(names)} zero-grad {zero} "
+              f"launches {launched}", flush=True)
+        if (l_err > TRAIN_TOL["logits"]
+                or abs(loss_g - loss_c) > TRAIN_TOL["loss"] * abs(loss_c)
+                or g_err > TRAIN_TOL["grad"] or s_err > TRAIN_TOL["steps"]):
+            fail(f"training {cfg.name} on the card disagrees with the CPU")
+        if zero:
+            fail(f"{cfg.name}: leaves with no gradient on the card: {zero}")
+        if launched:
+            fail(f"{cfg.name}: training launched kernels: {ops.LAUNCHES}")
+    cfg = get_config("mamba2-780m").reduced()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    x = train_batch(cfg, 2, 200, "cuda", 1)["inputs"]
+    ops.reset_launches()
+    with torch.no_grad():
+        lk, _ = M.forward(cfg, params, x, M.ModelOptions(use_ssd_kernel=True))
+        n = ops.LAUNCHES["ssd_scan"]
+        lp, _ = M.forward(cfg, params, x)
+    err = ((lk - lp).abs().max() / lp.abs().max()).item()
+    for p in leaves(params):
+        p.requires_grad_(True)
+    try:
+        M.forward(cfg, params, x, M.ModelOptions(use_ssd_kernel=True))
+        refused = False
+    except RuntimeError as e:
+        refused = "no backward" in str(e)
+    print(f"forward with use_ssd_kernel ({cfg.name}, S=200): ssd_scan "
+          f"launches {n} (layers {cfg.n_layers}), rel err to the default "
+          f"forward {err:.2e} tol {TOL['float32']}; under autograd "
+          f"refused: {refused}", flush=True)
+    if n != cfg.n_layers or err > TOL["float32"] or not refused:
+        fail("the SSD kernel option of forward is wrong on the card")
+
+
+def train_run(arch, layers, B, S, steps, card, lr=1e-3):
+    """``steps`` train_steps of one arch at full width in fp32 on one
+    fixed batch: losses, grad norms, ms a step (host clock, synced), the
+    median over the steps after the first, tokens/s, dense TFLOP/s and
+    peak memory, printed with the card. Returns (state, batch, row)."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training.trainer import make_train_step
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, train_step = make_train_step(cfg, peak_lr=lr, warmup=1,
+                                             total=10, device="cuda")
+    state = init_state(0)
+    batch = train_batch(cfg, B, S, "cuda", 2)
+    ops.reset_launches()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launched = sum(ops.LAUNCHES.values())
+    med = statistics.median(ms[1:])
+    fpt = 8 * matmul_params(cfg)          # fwd + remat fwd + bwd (2x)
+    tps = B * S / (med / 1e3)
+    row = {"arch": arch, "layers": cfg.n_layers, "B": B, "S": S,
+           "ms_per_step": med, "first_step_ms": ms[0],
+           "tokens_per_s": tps, "dense_flops_per_token": fpt,
+           "dense_tflops": fpt * tps / 1e12,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "losses": losses, "grad_norms": norms, "launches": launched}
+    print(f"train {cfg.name} ({cfg.n_layers} layers) B={B} S={S} fp32 on "
+          f"{card}: loss {' '.join(f'{v:.4f}' for v in losses)} grad_norm "
+          f"{norms[0]:.3f}..{norms[-1]:.3f}; {med:.1f} ms/step (first "
+          f"{ms[0]:.1f}), {tps:.0f} tokens/s, {fpt / 1e9:.2f} dense GFLOP "
+          f"a token -> {row['dense_tflops']:.1f} TFLOP/s "
+          f"({row['dense_tflops'] * 1e12 / FP32_PEAK:.1%} of the fp32 "
+          f"peak), peak memory {row['peak_gib']:.2f} GiB, launches "
+          f"{launched}", flush=True)
+    if not all(map(math.isfinite, losses + norms)) or launched:
+        fail(f"training {cfg.name} at full width: non-finite loss or "
+             f"grad_norm, or kernel launches ({ops.LAUNCHES})")
+    return state, batch, row
+
+
+def train_phase():
+    """(b) smollm-360m at full width and depth, fp32: 10 steps at B=8,
+    S=1024 on one batch (loss falls), then at B=1, S=4096 the chunked
+    attention's step against a dense one. (c) mamba2-780m, hymba-1.5b,
+    hubert-xlarge at full width, granite-moe-3b-a800m at full width with
+    8 of its 32 layers. (d) The training CLI at full width in a
+    subprocess."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.trainer import loss_and_grads, make_train_step
+    check_train_reduced()
+    card = card_line()
+    phase("train: smollm-360m at full width and depth, fp32")
+    state, _, row = train_run("smollm-360m", None, 8, 1024, 10, card)
+    rows = [row]
+    if not row["losses"][-1] < row["losses"][0]:
+        fail(f"smollm-360m: loss did not fall over 10 steps on one batch "
+             f"({row['losses']})")
+    cfg = get_config("smollm-360m")
+    batch = train_batch(cfg, 1, 4096, "cuda", 3)
+    auto = M.ModelOptions(remat=True)
+    if auto.resolve_attn(4096) != "chunked":
+        fail("resolve_attn does not pick chunked at S=4096")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_d, grads_d = loss_and_grads(cfg, state[0], batch,
+                                     M.ModelOptions(attn_impl="dense",
+                                                    remat=True))
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    norm_d = torch.sqrt(sum(torch.dot(g.reshape(-1), g.reshape(-1))
+                            for g in leaves(grads_d)))
+    del grads_d
+    _, train_step = make_train_step(cfg, peak_lr=1e-3, warmup=1, total=10,
+                                    device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = train_step(state, batch)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    l_err = abs(float(m["loss"]) - float(loss_d)) / float(loss_d)
+    n_err = abs(float(m["grad_norm"]) - float(norm_d)) / float(norm_d)
+    print(f"smollm-360m B=1 S=4096 on {card}: chunked step loss "
+          f"{float(m['loss']):.6f} grad_norm {float(m['grad_norm']):.4f} "
+          f"vs dense {float(loss_d):.6f} {float(norm_d):.4f} (rel err "
+          f"{l_err:.1e}, {n_err:.1e}, tol 1e-5, 1e-4); chunked train step "
+          f"{chunk_ms:.1f} ms (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB), dense loss+grad {dense_ms:.1f} ms", flush=True)
+    if l_err > 1e-5 or n_err > 1e-4:
+        fail("chunked and dense attention disagree at S=4096")
+    rows.append({"arch": "smollm-360m", "B": 1, "S": 4096,
+                 "chunked_step_ms": chunk_ms, "dense_loss_grad_ms": dense_ms})
+    del state
+    phase("train: mamba2, hymba, hubert, granite-moe at full width, fp32")
+    for run in TRAIN_RUNS:
+        state, _, row = train_run(*run, card)
+        rows.append(row)
+        del state
+    torch.cuda.empty_cache()
+    phase("train: the training CLI at full width")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm-360m", "--steps", "20"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    print(cli.stdout.strip())
+    print(f"CLI exit {cli.returncode} in {time.perf_counter() - t0:.1f}s")
+    if cli.returncode != 0:
+        fail(f"the training CLI failed: {cli.stderr[-2000:]}")
+    print(json.dumps({"train": rows, "card": card}), flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2510,19 +2844,15 @@ def main() -> None:
     for name, extra, required in SERVE_RUNS:
         runs.update(serve_phase(name, extra, required))
     kernels = time_phase(runs, worst)
+    train_phase()
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked:
         fail(f"JAX or the JAX package was imported: {leaked[:5]}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()
-    if smi.returncode != 0 or not card:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = card_line()
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
-    print(card[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

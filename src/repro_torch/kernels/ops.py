@@ -8,6 +8,14 @@ one to its launch count; a refused launch raises. It never falls back to the pla
 CPU tensors it runs the plain version in ``kernels.ref`` (no launch, no
 count) — the path the CPU tests take.
 
+No kernel has a backward, as no Pallas kernel of the JAX package has
+one: under autograd (``torch.is_grad_enabled()``) a wrapper given an
+input that requires grad raises, on the CPU as on the card, where the
+kernel's output would otherwise carry no ``grad_fn`` and the weights
+behind it would get no gradient without a word. The training forward
+(``models.model.forward``) computes in the model code; the engines serve
+detached parameters.
+
 ``LAUNCHES`` counts kernel launches per wrapper so a run can show that it
 went through the kernels; ``reset_launches()`` zeroes it. A CUDA graph's
 replay bypasses the wrappers, so ``serving.step_graphs`` records what a
@@ -62,7 +70,14 @@ def add_launches(delta: Dict[str, int]) -> None:
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
-    on the CPU; raises on a mix."""
+    on the CPU; raises on a mix, or when autograd would need a backward
+    the kernel does not have."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel has no backward "
+            "(nor has the JAX package's); the training forward "
+            "(models.model.forward) takes the model code, and serving "
+            "runs on detached parameters or under torch.no_grad()")
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False

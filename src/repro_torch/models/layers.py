@@ -85,6 +85,57 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, hd)
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_chunk: int = 512, k_chunk: int = 1024) -> torch.Tensor:
+    """Flash-style attention in plain torch: online softmax over
+    q_chunk x k_chunk tiles, O(chunk) score memory, differentiable (the
+    training forward's long-sequence path, as in the JAX model). Shapes as
+    ``attention``; q_pos/k_pos: [Sq]/[Sk] absolute positions for the band
+    mask. Sq and Sk are padded to chunk multiples, padded queries at
+    position -1e9 and padded keys at +1e9, so the band mask drops them."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    nq = -(-Sq // q_chunk)
+    nk = -(-Sk // k_chunk)
+    pq = nq * q_chunk - Sq
+    pk = nk * k_chunk - Sk
+    qf = F.pad(q, (0, 0, 0, 0, 0, pq)).reshape(B, nq, q_chunk, Hkv, g, hd)
+    kf = F.pad(k, (0, 0, 0, 0, 0, pk)).reshape(B, nk, k_chunk, Hkv, hd)
+    vf = F.pad(v, (0, 0, 0, 0, 0, pk)).reshape(B, nk, k_chunk, Hkv, hd)
+    qpf = F.pad(q_pos, (0, pq), value=-(10 ** 9)).reshape(nq, q_chunk)
+    kpf = F.pad(k_pos, (0, pk), value=10 ** 9).reshape(nk, k_chunk)
+    scale = hd ** -0.5
+    f32 = torch.float32
+    outs = []
+    for i in range(nq):
+        qc = qf[:, i]                                   # [B,qc,Hkv,g,hd]
+        m = torch.full((B, Hkv, g, q_chunk), NEG_INF, dtype=f32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, g, q_chunk), dtype=f32, device=q.device)
+        acc = torch.zeros((B, Hkv, g, q_chunk, hd), dtype=f32,
+                          device=q.device)
+        for j in range(nk):
+            kc, vc = kf[:, j], vf[:, j]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc).float() * scale
+            keep = band_mask(qpf[i], kpf[j], causal, window)   # [qc,kc]
+            s = torch.where(keep[None, None, None], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vc.dtype), vc).float()
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(q.dtype))
+    # [nq x (B,Hkv,g,qc,hd)] -> [B, Sq, Hq, hd]
+    out = torch.stack(outs, dim=1).permute(0, 1, 4, 2, 3, 5)
+    return out.reshape(B, nq * q_chunk, Hq, hd)[:, :Sq]
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_pos: torch.Tensor,
                      q_pos: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Causal decoders in PyTorch — dense GQA, MoE, Mamba2-SSD and hybrid
-(parallel attention + SSM) — the serving subset of ``repro.models.model``.
+"""The unified model in PyTorch — dense GQA, MoE, Mamba2-SSD, hybrid
+(parallel attention + SSM) and encoder-only — the port of
+``repro.models.model``.
 
 Parameters are a plain dict of tensors with the JAX pytree's names and
 layouts — ``x @ W`` with ``W [D, out]``, per-layer weights stacked over a
@@ -9,8 +10,14 @@ take the JAX package's own ``init_params`` output (as numpy) and both
 packages compute on the same weights. Attention, the SSD scan and decode
 step and the grouped-expert FFN go through ``kernels.ops``: the
 hand-written CUDA kernels on the card, their plain versions on the CPU.
+The training forward is the exception: it computes the JAX training
+path's own math (dense or chunked attention, ``ssd_chunked``, the grouped
+MoE's einsums) in plain torch, which autograd differentiates; no kernel
+has a backward, and ``kernels.ops`` refuses to run one under autograd.
 
 Entry points:
+  forward(params, inputs, opts)             -> (logits, aux)  (train/encode)
+  loss_fn(params, inputs, labels, opts)     -> loss
   prefill(params, inputs, buf_len)          -> (last_logits, cache)
   prefill_chunk(params, cache, tokens)      -> (last_logits, cache)
   decode_step(params, cache, tokens, active) -> (logits, cache)
@@ -18,24 +25,28 @@ Entry points:
   decode_step_paged(params, pages, ...)     -> (logits, pages)
   verify_step_paged(params, pages, ...)     -> (logits [B,C,V], pages)
 
-``prefill``, ``decode_step`` and ``decode_step_paged`` serve every causal
-arch (attention layers on the slot cache's ring or the paged KV arena, SSM
+``forward`` and ``loss_fn`` take every arch, encoder-only included (its
+inputs, like a VLM's, may be [B,S,D] embeddings). ``prefill``,
+``decode_step`` and ``decode_step_paged`` serve every causal arch
+(attention layers on the slot cache's ring or the paged KV arena, SSM
 layers on the slot cache's recurrent state or the constant-size state
 arena of ``init_state_arena``, hybrids both, DESIGN.md §12); the chunk
 and verify steps serve attention-only archs, dense or MoE.
 
-Unlike the functional JAX code, every step writes the new K/V (and
-``kv_pos``/``length``, or the recurrent state) into the slot cache, the
+Unlike the functional JAX code, every serving step writes the new K/V
+(and ``kv_pos``/``length``, or the recurrent state) into the slot cache, the
 page arena or the state arena in place: these are the engine's largest
 buffers, and a view of some rows of the slot cache (``cache[k][:, s:s+1]``)
 is updated through to the whole.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -59,11 +70,13 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_causal(cfg: ArchConfig) -> None:
+    """The serving entry points' gate: encoder-only archs train and encode
+    through ``forward`` but have no prefill or decode (DESIGN.md §4)."""
     if not (cfg.causal and (cfg.has_attention or cfg.has_ssm)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves causal decoders with attention "
-            "and/or SSM layers; encoder-only archs are still to port "
-            "(ROADMAP.md)")
+            f"{cfg.name}: the serving entry points take causal decoders "
+            "with attention and/or SSM layers; encoder-only archs have no "
+            "prefill or decode (DESIGN.md §4), only forward")
 
 
 def _check_kv_only(cfg: ArchConfig, what: str) -> None:
@@ -80,7 +93,6 @@ def _check_kv_only(cfg: ArchConfig, what: str) -> None:
 
 def param_shapes(cfg: ArchConfig) -> Params:
     """Shape of every parameter, nested as in the JAX pytree."""
-    _check_causal(cfg)
     D, Lh, f = cfg.d_model, cfg.n_layers, cfg.d_ff
     shapes: Params = {"embed": (cfg.padded_vocab, D), "final_norm": (D,)}
     if not cfg.tied_embeddings:
@@ -303,18 +315,29 @@ def spare_slot(pages: Cache) -> int:
 
 def embed_inputs(cfg: ArchConfig, params: Params,
                  inputs: torch.Tensor) -> torch.Tensor:
-    """Token ids [B,S] -> embeddings [B,S,D]."""
+    """Token ids [B,S] -> embeddings [B,S,D]; embedding-input archs
+    (audio frames, vision patches) pass [B,S,D] through."""
+    if inputs.ndim == 3:
+        return inputs
     return params["embed"][inputs.long()]
 
 
-def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and projection to the vocabulary (pad lanes sliced off)."""
+def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor,
+            keep_padded: bool = False) -> torch.Tensor:
+    """Final norm and projection to the vocabulary. ``keep_padded``
+    returns all padded_vocab lanes, the pad lanes biased by -1e30 (the
+    loss path, as in JAX); otherwise the pad lanes are sliced off."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
     logits = x @ head
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits = logits[..., :cfg.vocab_size]
-    return logits
+    Vp, V = cfg.padded_vocab, cfg.vocab_size
+    if Vp == V:
+        return logits
+    if not keep_padded:
+        return logits[..., :V]
+    lane = torch.arange(Vp, device=logits.device)
+    bias = torch.where(lane >= V, -1e30, 0.0).to(logits.dtype)
+    return logits + bias
 
 
 def _ffn(cfg: ArchConfig, blk: Params, layer: int,
@@ -359,6 +382,163 @@ def _mix(parts: List[torch.Tensor]) -> torch.Tensor:
     """The block's mixer output: attention's or the SSM's, or their mean
     for hybrid blocks (the JAX model's 0.5 * (attn + ssm))."""
     return parts[0] if len(parts) == 1 else 0.5 * (parts[0] + parts[1])
+
+
+def detached(params: Params) -> Params:
+    """``params`` with every tensor detached from autograd (the same
+    storage): what the engines serve, so that weights fresh from a
+    training step never reach a kernel wrapper as tensors that require
+    grad."""
+    return {k: detached(v) if isinstance(v, dict) else v.detach()
+            for k, v in params.items()}
+
+
+# ------------------------------------------------------------------ forward
+
+@dataclasses.dataclass(frozen=True)
+class ModelOptions:
+    """How ``forward`` computes, as the JAX package's ModelOptions.
+
+    attn_impl: auto | dense | chunked (``resolve_attn``). moe_impl:
+    grouped | grouped_kernel | sorted | dense; a sequence takes the grouped
+    einsums under both grouped names, and only a one-token-a-row forward
+    with grouped_kernel reaches the grouped-expert kernel, as in JAX.
+    remat: recompute each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
+    over the layer scan. use_ssd_kernel: the SSD core through
+    ``ops.ssd_scan`` (forward only). train_window: caps the attention
+    window. unroll: kept for parity; in JAX it unrolls the layer scan for
+    cost analysis, and the port's layers are a Python loop already, so it
+    has no effect."""
+    attn_impl: str = "auto"
+    moe_impl: str = "grouped"
+    remat: bool = False
+    use_ssd_kernel: bool = False
+    train_window: Optional[int] = None
+    unroll: bool = False
+
+    def resolve_attn(self, seq_len: int) -> str:
+        if self.attn_impl != "auto":
+            return self.attn_impl
+        return "chunked" if seq_len > 2048 else "dense"
+
+
+def _layers(node):
+    """The stacked [L, ...] block weights as one dict a layer, the views
+    taken by one ``unbind`` a leaf, so the backward stacks each leaf's
+    gradient once (indexing layer by layer would add a full-size gradient
+    a layer)."""
+    if not isinstance(node, dict):
+        return node.unbind(0)
+    parts = {k: _layers(v) for k, v in node.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _ffn_seq(cfg: ArchConfig, lp: Params, x: torch.Tensor,
+             moe_impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's post-mixer FFN over one layer's weights ``lp``
+    (residual applied by the caller): (out, aux), JAX's ``_ffn``."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.block_kind == "moe":
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        grouped = moe_impl in ("grouped", "grouped_kernel")
+        if grouped and h.ndim == 3 and h.shape[1] > 1:
+            return MOE.moe_ffn_grouped(lp["moe"], h, cfg.top_k,
+                                       use_kernel=False)
+        if grouped:
+            return MOE.moe_ffn_grouped_decode(
+                lp["moe"], h, cfg.top_k,
+                use_kernel=moe_impl == "grouped_kernel")
+        if moe_impl == "dense":
+            return MOE.moe_ffn_dense(lp["moe"], h, cfg.top_k)
+        return MOE.moe_ffn(lp["moe"], h, cfg.top_k)
+    if cfg.d_ff > 0:
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return L.gated_mlp(h, lp["wg"], lp["wu"], lp["wd"]), zero
+    return torch.zeros_like(x), zero
+
+
+def _block_seq(cfg: ArchConfig, lp: Params, x: torch.Tensor,
+               positions: torch.Tensor, impl: str, window: Optional[int],
+               opts: ModelOptions) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer over a full sequence: (x, aux), JAX's ``_block_seq``
+    without the cache."""
+    B, S, _ = x.shape
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    parts = []
+    if cfg.has_attention:
+        q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        if impl == "dense":
+            mask = L.band_mask(positions, positions, cfg.causal, window)
+            a = L.attention(q, k, v, mask)
+        else:
+            a = L.chunked_attention(q, k, v, positions, positions,
+                                    causal=cfg.causal, window=window)
+        parts.append(a.reshape(B, S, cfg.q_dim) @ lp["wo"])
+    if cfg.has_ssm:
+        parts.append(SSM.ssm_mixer(lp["ssm"], h, cfg.ssm_inner,
+                                   cfg.ssm_state, cfg.ssm_head_dim,
+                                   use_kernel=opts.use_ssd_kernel))
+    x = x + _mix(parts)
+    f_out, aux = _ffn_seq(cfg, lp, x, opts.moe_impl)
+    return x + f_out, aux
+
+
+def forward(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
+            opts: ModelOptions = ModelOptions(),
+            keep_padded: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (training, encoding), any arch. inputs: token
+    ids [B,S], or [B,S,D] embeddings for embedding-input archs. Returns
+    (logits [B,S,V] — padded_vocab lanes with ``keep_padded`` — and the
+    MoE load-balance loss averaged over layers, f32). The window is
+    ``opts.train_window``, else the arch's sliding window when it is
+    shorter than S."""
+    x = embed_inputs(cfg, params, inputs)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    impl = opts.resolve_attn(S)
+    window = opts.train_window or (
+        cfg.sliding_window if (cfg.sliding_window and cfg.sliding_window < S)
+        else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = opts.remat and torch.is_grad_enabled()
+    for lp in _layers(params["blocks"]):
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _block_seq, cfg, lp, x, positions, impl, window, opts,
+                use_reentrant=False)
+        else:
+            x, a = _block_seq(cfg, lp, x, positions, impl, window, opts)
+        aux = aux + a
+    return unembed(cfg, params, x, keep_padded=keep_padded), aux / cfg.n_layers
+
+
+def loss_fn(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
+            labels: torch.Tensor, opts: ModelOptions = ModelOptions(),
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token (causal) or per-frame (encoder) cross-entropy in f32,
+    over the labels >= 0 (negative labels are ignored), plus
+    ``aux_weight`` times the MoE load-balance loss: JAX's ``loss_fn``."""
+    logits, aux = forward(cfg, params, inputs, opts, keep_padded=True)
+    if cfg.causal:
+        logits = logits[:, :-1]
+        targets = labels[:, 1:]
+    else:
+        targets = labels
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    # an ignored label picks lane 0 here (JAX picks the last lane); its
+    # term is multiplied by 0 either way
+    picked = torch.gather(logits, -1,
+                          targets.long().clamp(min=0)[..., None])[..., 0]
+    valid = (targets >= 0).float()
+    ce = ((lse - picked) * valid).sum() / valid.sum().clamp(min=1.0)
+    return ce + aux_weight * aux
 
 
 # ------------------------------------------------------------------ prefill

@@ -6,9 +6,12 @@ expert buffer. Parameters are a dict with the names of the JAX
 
 The per-expert gated FFN of both grouped paths (``moe_ffn_grouped`` for
 sequences, ``moe_ffn_grouped_decode`` for one token per row) runs through
-``kernels.ops.moe_grouped_ffn``: the hand-written CUDA kernel on the card,
-its plain version on the CPU. Dispatch and combine stay tensor code, as
-they are jnp code outside the Pallas kernel in JAX.
+``kernels.ops.moe_grouped_ffn`` when ``use_kernel`` (the serving
+default): the hand-written CUDA kernel on the card, its plain version on
+the CPU. With ``use_kernel=False`` (the training forward) it is the JAX
+functions' three einsums over the same buffers, which autograd
+differentiates. Dispatch and combine stay tensor code, as they are jnp
+code outside the Pallas kernel in JAX.
 
 Routing must agree with JAX bit for bit, so the argsort is stable
 (``torch.argsort(..., stable=True)``, as ``jnp.argsort``) and segment
@@ -103,16 +106,24 @@ def moe_ffn(p: MoEParams, x: torch.Tensor, top_k: int,
     return y.reshape(orig_shape), aux
 
 
+def _experts(p: MoEParams, buf: torch.Tensor) -> torch.Tensor:
+    """The gated expert FFN over per-example buffers [B,E,C,D], as the JAX
+    functions' einsums compute it (expert e's weights on buf[:, e])."""
+    h = torch.einsum("becd,edf->becf", buf, p["wg"])
+    h = F.silu(h) * torch.einsum("becd,edf->becf", buf, p["wu"])
+    return torch.einsum("becf,efd->becd", h, p["wd"])
+
+
 def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
-                    capacity_factor: float = 1.25
+                    capacity_factor: float = 1.25, use_kernel: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batch-local dispatch: sort and scatter WITHIN each example
     (GShard-style groups), capacity C = max(int(T*K/E*cf + 0.999), K) per
-    example; assignments past it are dropped. x: [B,T,D], T > 1. The
-    per-example buffers [B,E,C,D] go through ``ops.moe_grouped_ffn`` as
-    G = B*E groups in ONE launch, group g using expert g mod E, with each
-    group's kept assignments (its count clamped to C) as its live
-    rows."""
+    example; assignments past it are dropped. x: [B,T,D], T > 1. With
+    ``use_kernel`` the per-example buffers [B,E,C,D] go through
+    ``ops.moe_grouped_ffn`` as G = B*E groups in ONE launch, group g using
+    expert g mod E, with each group's kept assignments (its count clamped
+    to C) as its live rows; without, through the einsums of ``_experts``."""
     B, T, D = x.shape
     E, K = p["router"].shape[-1], top_k
     w, ids, aux = route(p["router"], x.reshape(-1, D), K)
@@ -127,9 +138,13 @@ def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
     row = torch.where(keep, (bi * E + es) * C + pos, B * E * C)
     buf = torch.zeros((B * E * C + 1, D), dtype=x.dtype, device=x.device)
     buf[row] = x[bi, ts]
-    out = ops.moe_grouped_ffn(buf[:-1].view(B * E, C, D), p["wg"], p["wu"],
-                              p["wd"], counts.clamp(max=C).view(B * E)
-                              ).view(B * E * C, D)
+    if use_kernel:
+        out = ops.moe_grouped_ffn(buf[:-1].view(B * E, C, D), p["wg"],
+                                  p["wu"], p["wd"],
+                                  counts.clamp(max=C).view(B * E))
+    else:
+        out = _experts(p, buf[:-1].view(B, E, C, D))
+    out = out.reshape(B * E * C, D)
     y_assign = out[row.clamp(max=B * E * C - 1)] * keep[..., None]
     # back to (token, k) order: sorted assignment j is assignment order[j]
     y_tk = torch.empty_like(y_assign)
@@ -137,13 +152,15 @@ def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
     return y_tk.view(B, T, K, D).sum(2), aux
 
 
-def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int
+def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int,
+                           use_kernel: bool = True
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode-step dispatch: ONE token per row ([B,D] or [B,1,D]), the whole
     batch one group with capacity C = B*K, so nothing is dropped and each
-    expert sees only its routed rows. The expert FFN runs through
-    ``ops.moe_grouped_ffn`` with each expert's routed rows as its live
-    rows (at most B of its C), so empty experts read no weight."""
+    expert sees only its routed rows. With ``use_kernel`` the expert FFN
+    runs through ``ops.moe_grouped_ffn`` with each expert's routed rows as
+    its live rows (at most B of its C), so empty experts read no weight;
+    without, through the einsums of ``_experts``."""
     orig_shape = x.shape
     D = orig_shape[-1]
     x2 = x.reshape(-1, D)
@@ -156,7 +173,10 @@ def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int
     C = B * K                                            # lossless capacity
     buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
     buf[es, pos] = x2[ts]
-    out = ops.moe_grouped_ffn(buf, p["wg"], p["wu"], p["wd"], counts[0])
+    if use_kernel:
+        out = ops.moe_grouped_ffn(buf, p["wg"], p["wu"], p["wd"], counts[0])
+    else:
+        out = _experts(p, buf[None])[0]
     # back to (token, k) order: sorted assignment j is assignment order[j]
     y_tk = torch.empty((B * K, D), dtype=x.dtype, device=x.device)
     y_tk[order[0]] = out[es, pos] * ws[:, None]

@@ -7,11 +7,13 @@ decode); gated RMSNorm; out_proj. Single B/C group (G=1). Heads
 H = d_inner / head_dim P; state size N.
 
 Parameters are a dict with the names of the JAX ``SSMParams`` fields.
-``ssd_chunked`` and ``ssd_step`` are the plain versions of the SSD core;
-the model's paths go through ``kernels.ops`` (``ssd_scan`` for a prefill
+``ssd_chunked`` and ``ssd_step`` are the plain versions of the SSD core.
+The serving paths go through ``kernels.ops`` (``ssd_scan`` for a prefill
 without carried state, ``ssd_decode_step`` for the decode recurrence),
 which launch the hand-written CUDA kernels on the card and run these plain
-versions on the CPU. Softplus is ``torch.logaddexp(x, 0)``, as
+versions on the CPU; the training forward's ``ssm_mixer`` computes
+``ssd_chunked`` (differentiable) unless asked for the kernel, as the JAX
+mixer does. Softplus is ``torch.logaddexp(x, 0)``, as
 ``jax.nn.softplus`` computes it.
 
 Unlike the JAX functions, ``ssm_mixer_step`` updates the state arenas it
@@ -160,18 +162,33 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 # ------------------------------------------------------------------ block
 
+def ssm_mixer(p: SSMParams, x: torch.Tensor, d_inner: int, n_state: int,
+              head_dim: int, chunk: int = 64,
+              use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence mixer without state I/O (training, encoding). x:
+    [B,T,D] -> y [B,T,D]. By default the SSD core is ``ssd_chunked``, so
+    autograd reaches every parameter; ``use_kernel`` sends it through
+    ``ops.ssd_scan`` (forward only: the wrapper refuses inputs that
+    require grad under autograd)."""
+    y, _, _ = ssm_mixer_with_state(p, x, d_inner, n_state, head_dim,
+                                   chunk=chunk, use_kernel=use_kernel)
+    return y
+
+
 def ssm_mixer_with_state(p: SSMParams, x: torch.Tensor, d_inner: int,
                          n_state: int, head_dim: int, chunk: int = 64,
                          h0: Optional[torch.Tensor] = None,
-                         conv0: Optional[torch.Tensor] = None):
+                         conv0: Optional[torch.Tensor] = None,
+                         use_kernel: bool = True):
     """Full-sequence mixer. x: [B,T,D]. Returns (y [B,T,D], final ssm
     state [B,H,P,N] f32, final conv state [B,C,K-1]).
 
     ``h0``/``conv0`` carry state in from an earlier piece of the sequence
     (``conv0`` the [B,C,K-1] raw-input conv tail, ``h0`` the [B,H,P,N] SSD
-    state). Without ``h0`` the SSD core runs through ``ops.ssd_scan`` (the
-    kernel on the card, ``ssd_chunked`` on the CPU), as the JAX mixer runs
-    its kernel only then; with ``h0`` it runs the plain ``ssd_chunked``."""
+    state). With ``use_kernel`` (the serving default) and without ``h0``
+    the SSD core runs through ``ops.ssd_scan`` (the kernel on the card,
+    ``ssd_chunked`` on the CPU), as the JAX mixer runs its kernel only
+    then; otherwise it runs the plain ``ssd_chunked``."""
     B, T, D = x.shape
     H = d_inner // head_dim
     K = p["conv_w"].shape[-1]
@@ -190,7 +207,7 @@ def ssm_mixer_with_state(p: SSMParams, x: torch.Tensor, d_inner: int,
     c = xbc_conv[..., d_inner + n_state:]
     xh = xs.reshape(B, T, H, head_dim)              # a view: strides kept
     args = (xh, dt, p["a_log"], b, c, p["d_skip"], p["dt_bias"])
-    if h0 is None:
+    if use_kernel and h0 is None:
         y, h_last = ops.ssd_scan(*args)
     else:
         y, h_last = ssd_chunked(*args, chunk=chunk, h0=h0)

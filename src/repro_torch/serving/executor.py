@@ -387,8 +387,9 @@ class TorchExecutor(Executor):
                              "use atomic prefill")
         self.device = M.resolve_device(device)
         self.cfg = cfg
-        self.params = params if params is not None else M.init_params(
-            cfg, seed=seed, dtype=dtype, device=self.device)
+        # detached: a model fresh from training serves without autograd
+        self.params = M.detached(params) if params is not None else \
+            M.init_params(cfg, seed=seed, dtype=dtype, device=self.device)
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.seed = seed
@@ -701,8 +702,9 @@ class PagedTorchExecutor(Executor):
                     "(DESIGN.md §12)")
         self.device = M.resolve_device(device)
         self.cfg = cfg
-        self.params = params if params is not None else M.init_params(
-            cfg, seed=seed, dtype=dtype, device=self.device)
+        # detached: a model fresh from training serves without autograd
+        self.params = M.detached(params) if params is not None else \
+            M.init_params(cfg, seed=seed, dtype=dtype, device=self.device)
         self.page_size = page_size
         self.n_pages = n_pages
         self.max_seq = max_seq

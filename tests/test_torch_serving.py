@@ -41,8 +41,8 @@ from repro_torch.core.latency_model import MeasuredLatencyModel as TLat  # noqa:
 from repro_torch.data.workload import poisson_workload as t_workload  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.serving.executor import (PagedTorchExecutor,  # noqa: E402
-                                          TorchExecutor)
+from repro_torch.serving.executor import (_PREFILL_PRIOR,  # noqa: E402
+                                          PagedTorchExecutor, TorchExecutor)
 from repro_torch.serving.loop import run_serving_loop as torch_loop  # noqa: E402
 from repro.data.workload import poisson_workload as j_workload  # noqa: E402
 
@@ -296,13 +296,17 @@ def test_latency_probe_leaves_pool_empty():
 
 
 def test_unported_arch_kinds_raise():
-    """Encoder-only archs are still to port (MoE, SSM and hybrid archs
-    serve on both engines)."""
+    """Encoder-only archs have no prefill or decode: the serving entry
+    points refuse them, while their weights are made for ``forward``
+    (MoE, SSM and hybrid archs serve on both engines)."""
     cfg = dataclasses.replace(get_config("edge-6b").reduced(), causal=False)
+    params = TM.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="encoder-only"):
-        TM.init_params(cfg, device="cpu")
+        TM.prefill(cfg, params, torch.zeros((1, 4), dtype=torch.long), 8)
     with pytest.raises(NotImplementedError, match="encoder-only"):
         TorchExecutor(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder-only"):
+        PagedTorchExecutor(cfg, device="cpu", **ENGINE)
 
 
 @pytest.fixture
@@ -321,7 +325,31 @@ def one_cpu_thread():
     torch.set_num_threads(n)
 
 
-def test_slot_chunked_serving_run(one_cpu_thread):
+@pytest.fixture
+def fixed_latency_model(monkeypatch):
+    """The slot engine probes l(b) as it always does (the probe runs and
+    must leave every slot free), but SLICE is handed a fixed curve,
+    rising with the batch, in place of the probed one. On a loaded CPU the
+    wall-clock probe is not monotone: a probe that caught l(1) above twice
+    l(8) prices a lone QA task's cycle above SLICE's 1000 ms budget after
+    ``shape_workload`` scales the SLOs by l(8), so Eq. 7 defers every task
+    as infeasible, the loop ends drained with none served, and the run
+    fails for the noise of the probe, not for the scheduler or the
+    engine. The engine's own steps still run on the real clock."""
+    probe = TorchExecutor.latency_model
+    curve = [(1, 2.0), (2, 2.1), (4, 2.3), (8, 2.7), (16, 3.5)]
+
+    def latency_model(self):
+        probe(self)
+        assert all(ms > 0 for _, ms in self.probe_samples)
+        assert sorted(self.free) == list(range(self.max_slots))
+        self.probe_samples = list(curve)
+        return TLat(curve, _PREFILL_PRIOR)
+
+    monkeypatch.setattr(TorchExecutor, "latency_model", latency_model)
+
+
+def test_slot_chunked_serving_run(one_cpu_thread, fixed_latency_model):
     """The CLI over the slot engine with chunked prefill, on the CPU: every
     task finishes, chunks ran, and every slot is free at the end."""
     run = tserve.run(tserve.parse_args([
