@@ -121,7 +121,33 @@ Phases, each printing its own lines; any failed check exits non-zero:
             made them, and the tallies must sum to the run's. Run (d)
             also prints a speculative iteration's engine clock beside a
             plain decode step's at the same batch.
-5. time   — each kernel (device time: CUDA events over 30 calls queued
+5. sharded — tensor-parallel paged serving (--mesh-shape) over
+            torch.distributed. (a) The four paged-path kernels (paged
+            decode and verify, flash prefill and chunk) against their
+            plain versions at the heads a rank of edge-6b holds over 2
+            ranks (16 query heads, 1 KV head) and over 4 (8 and the one
+            KV head they read), fp32 and bf16, with the check phase's
+            cases (pad rows, -1 entries, page boundaries, C = 1, 3, 5,
+            q_start 0/16/300), each naming its body. (b) edge-6b at full
+            width in fp32 (TF32 off): the single-process paged engine
+            prefills 3 prompts of 37, 100 and 201 tokens and decodes 16
+            greedy steps; then 2 ranks over gloo sharing the card (eager
+            steps: gloo collectives cannot be captured) run the same ops
+            on their slabs: streams identical, logits within MESH_TOL,
+            equal launches on the two ranks. (c) A one-rank mesh over
+            NCCL (what --mesh-shape 1,1 builds) with every step captured,
+            the collectives inside the graphs, bit for bit the engine
+            without a mesh on the reduced config: whole and chunked
+            prefill, decode, speculative verify. (d) The CLI with
+            --mesh-shape 1,2 (run paged-mesh): edge-6b at full width in
+            bf16 on the serve phase's workload, 2 ranks over gloo on the
+            card; every task finishes, every rank's pool ends empty, the
+            ranks' digests are equal, each rank launches paged decode and
+            flash prefill at its 16 query heads and 1 KV head. The ranks
+            import no JAX. Prints each rank's l(b) and engine clock,
+            labelled as 2 ranks sharing one H100 over gloo: no
+            tensor-parallel speed.
+6. time   — each kernel (device time: CUDA events over 30 calls queued
             behind a spin kernel, so the calls run back to back; the
             kernel's time launched at the host's pace is printed beside
             it), its plain version and the library's
@@ -150,11 +176,16 @@ Phases, each printing its own lines; any failed check exits non-zero:
             batched matmuls is printed as a yardstick, and its
             library_ms stays null); the bound is the
             larger of bytes over 3.35 TB/s and flops over the type's peak
-            (H100 SXM data sheet). The multi-pass kernels' rows also print
+            (H100 SXM data sheet). The paged-path kernels are timed again
+            at a rank's heads (16 query heads, 1 KV head): paged decode
+            and flash prefill over run paged-mesh's batch and prompts
+            (its launches, both ranks', under these rows), verify and
+            chunk over runs paged-spec's and slot-chunked's shapes. The
+            multi-pass kernels' rows also print
             each pass's device time (torch.profiler): the ring-cache
             decode's split and combine, the SSD scan's chunk states, state
             passing and chunk outputs (JSON key "passes_us").
-6. train  — the training path (forward, loss_fn, AdamW, train_step,
+7. train  — the training path (forward, loss_fn, AdamW, train_step,
             fp32, TF32 off; it reaches no kernel, as JAX's training path
             reaches no Pallas kernel). (a) Every registry arch, reduced
             (embedding-input and encoder-only archs included): forward
@@ -2100,6 +2131,349 @@ def spec_probe(ex, L, b=4, depth=4, reps=3):
           f"{', '.join(f'{m:.3f}' for m in plain)})")
 
 
+# ---------------------------------------------------------------- sharded
+
+# edge-6b's heads a rank (query, KV) over 2 ranks (the paged-mesh run's)
+# and over 4 (8 query heads and the one KV head they read)
+MESH_HEADS = ((16, 1), (8, 1))
+# (b): fp32 logits of the 2-rank engine against the single-process one.
+# TF32 is off, so each product is fp32 on both sides; the ranks sum a
+# row-parallel product's two halves (K = 2048 or 6848 each) after cuBLAS
+# has summed each half, where the single engine sums all K in one call: a
+# reordering of fp32 sums, ~sqrt(K) * 2^-24 relative per product, through
+# 28 layers and the final norm. This check measured 1.3e-5 on an H100
+# 80GB HBM3 at 700 W; the tolerance leaves 8x room, and the greedy
+# streams beside it are compared exactly
+MESH_TOL = 1e-4
+MESH_ENGINE = dict(n_pages=64, page_size=16, max_seq=512, max_batch=4)
+MESH_PROMPTS = (37, 100, 201)       # (b): prompt lengths, then 16 steps
+MESH_STEPS = 16
+
+
+def check_sharded_kernels(worst):
+    """(a) The four paged-path kernels against their plain versions at the
+    heads a rank of edge-6b holds over 2 and 4 ranks, fp32 and bf16, with
+    the check phase's cases: pad rows and -1 table entries, page-boundary
+    positions, verify windows of C = 1, 3, 5, prefill at ragged lengths,
+    chunks at q_start 0/16/300 through the strides of a slot buffer."""
+    import torch
+    from repro_torch.kernels import flash_prefill as _fp
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as _pa
+    phase("sharded (a): the paged-path kernels at edge-6b's heads a rank")
+
+    def report(name, case, dt, err):
+        ok = err <= TOL[dt]
+        print(f"{name} {case} {dt}: max_abs_err={err:.3e} tol={TOL[dt]:g} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name} {case} {dt} disagrees with its plain version at "
+                 "a rank's heads")
+        worst[name] = max(worst[name], err)
+
+    lengths = [-1, 0, 15, 16, 31, 32, 100, 517, 1000, 1023]
+    for Hq, Hkv in MESH_HEADS:
+        heads = dict(Hq=Hq, Hkv=Hkv)
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            body = _pa.body(dtype, 128)
+            q, kp, vp, pt, qp = decode_inputs(lengths, dtype, holes=(3, 10),
+                                              **heads)
+            poison(q.shape, q.dtype)
+            out = ops.paged_decode_attention(q, kp, vp, pt, qp)
+            torch.cuda.synchronize()
+            want = ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                                  vp.float(), pt, qp)
+            live = torch.tensor([ln >= 0 for ln in lengths], device="cuda")
+            if not (torch.isfinite(out.float()).all()
+                    and (out[~live].float() == 0).all()):
+                fail("paged_decode_attention: pad rows must give finite "
+                     "zeros at a rank's heads")
+            report("paged_decode_attention", f"Hq={Hq} Hkv={Hkv} B=10 "
+                   f"lengths={lengths} holes 3,10 ({body} body)", dt,
+                   (out.float() - want)[live].abs().max().item())
+            for C in (1, 3, 5):
+                starts = [-1, 0, 15, 16, 30, 517, 1024 - C]
+                q, kp, vp, pt, qs = verify_inputs(starts, C, dtype, seed=C,
+                                                  **heads)
+                poison(q.shape, q.dtype)
+                out = ops.paged_verify_attention(q, kp, vp, pt, qs)
+                torch.cuda.synchronize()
+                want = ref.paged_verify_attention_ref(q.float(), kp.float(),
+                                                      vp.float(), pt, qs)
+                live = torch.tensor([s0 >= 0 for s0 in starts],
+                                    device="cuda")
+                if not (torch.isfinite(out.float()).all()
+                        and (out[~live].float() == 0).all()):
+                    fail("paged_verify_attention: pad rows must give finite "
+                         "zeros at a rank's heads")
+                report("paged_verify_attention",
+                       f"Hq={Hq} Hkv={Hkv} B=7 C={C} q_start={starts} "
+                       f"({body} body)", dt,
+                       (out.float() - want)[live].abs().max().item())
+            fbody = _fp.body(dtype, 128)
+            for B, S in ((2, 77), (1, 1000), (1, 1)):
+                q, k, v = prefill_inputs(B, S, dtype, **heads)
+                out = ops.flash_prefill(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                want = ref.flash_prefill_ref(q.float(), k.float(), v.float(),
+                                             causal=True)
+                if not torch.isfinite(out.float()).all():
+                    fail("flash_prefill: non-finite output at a rank's heads")
+                report("flash_prefill", f"Hq={Hq} Hkv={Hkv} B={B} S={S} "
+                       f"causal ({fbody} body)", dt,
+                       (out.float() - want).abs().max().item())
+            for q0 in (0, 16, 300):
+                for C in (1, 64):
+                    q, k, v = chunk_inputs(2, C, 1024, dtype, seed=q0 + C,
+                                           **heads)
+                    qs = torch.tensor([q0, q0 + 3], dtype=torch.int32,
+                                      device="cuda")
+                    out = ops.flash_prefill_chunk(q, k, v, qs)
+                    torch.cuda.synchronize()
+                    want = ref.flash_prefill_chunk_ref(q.float(), k.float(),
+                                                       v.float(), qs, None)
+                    if not torch.isfinite(out.float()).all():
+                        fail("flash_prefill_chunk: non-finite output at a "
+                             "rank's heads")
+                    report("flash_prefill_chunk",
+                           f"Hq={Hq} Hkv={Hkv} B=2 C={C} q_start={q0},"
+                           f"{q0 + 3} S=1024 strided ({fbody} body)", dt,
+                           (out.float() - want).abs().max().item())
+
+
+def mesh_ops(ex):
+    """(b)'s ops: MESH_PROMPTS prefilled whole, then MESH_STEPS greedy
+    decode steps of the three; returns (prefill logits, decode logits,
+    streams) and releases the tasks."""
+    from repro_torch.core.task import SLOSpec, Task
+    tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=L,
+                  output_len=MESH_STEPS + 1, task_id=9100 + i)
+             for i, L in enumerate(MESH_PROMPTS)]
+    pre, dec = [], []
+    for t in tasks:
+        ex.prefill(t)
+        pre.append(ex.last_prefill_logits)
+    for _ in range(MESH_STEPS):
+        ex.decode(tasks)
+        dec.append(ex.last_logits)
+    streams = [ex.generated_tokens(t) for t in tasks]
+    for t in tasks:
+        ex.release(t)
+    return pre, dec, streams
+
+
+def mesh_rank(rank):
+    """A rank of (b): edge-6b at full width in fp32 (TF32 off) on its slab,
+    over gloo on the one card, eager steps. Returns what mesh_ops saw,
+    the rank's launches during them, its heads and any JAX module."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.executor import PagedTorchExecutor
+    mesh = make_serving_mesh(model=2, device=torch.device("cuda", 0))
+    ex = PagedTorchExecutor(get_config("edge-6b"), mesh=mesh, device="cuda:0",
+                            cuda_graphs=False, **MESH_ENGINE)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pre, dec, streams = mesh_ops(ex)
+    torch.cuda.synchronize()
+    return {"pre": pre, "dec": dec, "streams": streams, "heads": ex.heads,
+            "launches": dict(ops.LAUNCHES), "s": time.perf_counter() - t0,
+            "leaked": sorted(m for m in sys.modules if m == "jax"
+                             or m.startswith(("jax.", "repro.")))}
+
+
+def check_mesh_equivalence():
+    """(b) edge-6b at full width, fp32: the single-process paged engine,
+    then 2 ranks over gloo sharing the card, on the same ops: streams
+    identical, logits within MESH_TOL, equal launches on the two ranks."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serving.executor import PagedTorchExecutor
+    phase("sharded (b): edge-6b fp32, 2 ranks over gloo against one engine")
+    ex = PagedTorchExecutor(get_config("edge-6b"), device="cuda",
+                            cuda_graphs=False, **MESH_ENGINE)
+    t0 = time.perf_counter()
+    pre, dec, streams = mesh_ops(ex)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(mesh_rank, 2, backend="gloo", timeout=300)
+    for r, res in enumerate(ranks):
+        if res["leaked"]:
+            fail(f"(b) rank {r} imported JAX or the JAX package: "
+                 f"{res['leaked'][:5]}")
+        if res["heads"] != (16, 1, r):
+            fail(f"(b) rank {r} holds heads {res['heads']}, not (16, 1, {r})")
+        if res["streams"] != streams:
+            fail(f"(b) rank {r}'s greedy streams differ from the single "
+                 f"engine's: {res['streams']} != {streams}")
+        err = max(float(np.abs(a - b).max()) for a, b in
+                  zip(res["pre"] + res["dec"], pre + dec))
+        print(f"rank {r}: streams identical ({len(MESH_PROMPTS)} x "
+              f"{MESH_STEPS + 1} tokens), logits max_abs_err={err:.3e} "
+              f"tol={MESH_TOL:g}, launches {res['launches']}, ops "
+              f"{res['s']:.2f} s (single engine {one_s:.2f} s; 2 ranks "
+              "sharing one H100 over gloo, eager: no tensor-parallel speed)")
+        if not err <= MESH_TOL:
+            fail(f"(b) rank {r}'s logits differ from the single engine's by "
+                 f"{err:.3e} > {MESH_TOL:g}")
+    if ranks[0]["launches"] != ranks[1]["launches"]:
+        fail("(b) the ranks launched different kernels: "
+             f"{ranks[0]['launches']} != {ranks[1]['launches']}")
+    for name in ("paged_decode_attention", "flash_prefill"):
+        if ranks[0]["launches"][name] <= 0:
+            fail(f"(b) the ranks never launched {name}")
+
+
+def check_mesh_nccl_captured():
+    """(c) A one-rank mesh over NCCL, every step captured (the collectives
+    in the graphs), against the engine without a mesh on the reduced
+    config: whole prefill, chunked prefill, decode, speculative verify
+    with a self-draft; logits and streams bit for bit."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    phase("sharded (c): --mesh-shape 1,1 over NCCL, steps captured, "
+          "against no mesh")
+    cfg = get_config("edge-6b").reduced()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    kw = dict(n_pages=64, page_size=16, max_seq=256, max_batch=4,
+              prefill_chunk_size=32, spec_decode=True, draft_cfg=cfg,
+              draft_params=params, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_serving_mesh(model=1, device=torch.device("cuda", 0))
+            engines = [PagedTorchExecutor(cfg, params=params, **kw),
+                       PagedTorchExecutor(cfg, params=params, mesh=mesh,
+                                          **kw)]
+            seen = []
+            for ex in engines:
+                a, b = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=L,
+                             output_len=24, task_id=9200 + i)
+                        for i, L in enumerate((40, 50))]
+                out = []
+                ex.prefill(a)
+                out.append(ex.last_prefill_logits)
+                done = False
+                while not done:
+                    done = ex.prefill_chunk(b, 64)[1]
+                out.append(ex.last_prefill_logits)
+                for depths in (None, None, [2, 3], None, [1, 0], None):
+                    ex.decode([a, b], depths)
+                    out.append(ex.last_logits)
+                out.append([ex.generated_tokens(t) for t in (a, b)])
+                seen.append(out)
+            captured = [k for k, st in engines[1].graphs.steps.items()
+                        if st.graph is not None]
+            if len(captured) != len(engines[1].graphs.steps) or not captured:
+                fail(f"(c) the mesh engine's steps were not all captured: "
+                     f"{sorted(map(str, engines[1].graphs.steps))}")
+            for i, (x, y) in enumerate(zip(*seen)):
+                same = (x == y if isinstance(x, list)
+                        else np.array_equal(x, y))
+                if not same:
+                    fail(f"(c) observation {i} of the one-rank NCCL mesh "
+                         "differs from the engine without a mesh")
+            print(f"one-rank NCCL mesh: {len(captured)} captured steps "
+                  f"({', '.join(sorted(str(k) for k in captured))}), "
+                  f"{len(seen[0])} observations bit for bit, streams "
+                  f"{seen[1][-1]}")
+            del engines          # reference cycles: their graphs go first
+            gc.collect()
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+
+
+def mesh_serve_phase():
+    """(d) The CLI with --mesh-shape 1,2: edge-6b at full width in bf16 on
+    the serve phase's workload, 2 ranks over gloo on the one card. Every
+    task finishes, every rank's pool ends empty, the ranks' digests are
+    equal, each rank launches paged decode and flash prefill at its slab's
+    heads (16 query heads, 1 KV head). Returns the run's entry for the
+    time phase: the shapes a rank's kernels saw, the ranks' launches
+    summed."""
+    import dataclasses
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    argv = SERVE_ARGS + ["--executor", "paged", "--mesh-shape", "1,2"]
+    args = serve.parse_args(argv)
+    phase("sharded (d) serve paged-mesh: edge-6b at full width (bf16), 2 "
+          "ranks over gloo sharing the card")
+    print("serve args:", " ".join(argv))
+    t0 = time.perf_counter()
+    run = serve.run(args)
+    wall = time.perf_counter() - t0
+    if not isinstance(run, serve.MeshRun) or run.backend != "gloo":
+        fail("paged-mesh: not a gloo mesh run")
+    launches = dict.fromkeys(KERNELS, 0)
+    for r, res in enumerate(run.ranks):
+        print(f"rank {r} ({res['device']}): heads q={res['heads'][0]} "
+              f"kv={res['heads'][1]} (KV head {res['heads'][2]}), "
+              f"l(b) {' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probes'])}"
+              f", engine clock {res['end_ms']:.1f} ms over "
+              f"{res['decode_iters']} decode steps and {res['prefills']} "
+              f"prefills (2 ranks sharing one H100 over gloo, eager: no "
+              f"tensor-parallel speed), launches {res['launches']}, "
+              f"digest {res['digest']:#x}")
+        if res["unfinished"] or not res["n_tasks"]:
+            fail(f"paged-mesh: rank {r} left tasks unfinished: "
+                 f"{res['unfinished']} of {res['n_tasks']}")
+        if res["used_pages"] or res["leaked"]:
+            fail(f"paged-mesh: rank {r} ends with {res['used_pages']} pages "
+                 "held")
+        if res["digests"] != [run.ranks[0]["digest"]] * len(run.ranks):
+            fail(f"paged-mesh: the ranks' digests differ: {res['digests']}")
+        if res["heads"] != (16, 1, r):
+            fail(f"paged-mesh: rank {r} holds heads {res['heads']}")
+        for name in ("paged_decode_attention", "flash_prefill"):
+            if res["launches"][name] <= 0:
+                fail(f"paged-mesh: rank {r} never launched {name}")
+        for name, n in res["launches"].items():
+            launches[name] += n
+    print(f"paged-mesh: {run.ranks[0]['n_tasks']} tasks, wall {wall:.1f} s")
+    cfg = get_config(args.arch)
+    shapes = {"cfg": dataclasses.replace(cfg, n_heads=16, n_kv_heads=1),
+              "max_seq": args.max_seq, "chunk": None,
+              "tasks": [types.SimpleNamespace(prompt_len=p, output_len=o)
+                        for p, o in run.ranks[0]["tasks"]],
+              "batch": args.slots, "page_size": args.page_size,
+              "n_pages": (args.slots * args.max_seq) // args.page_size,
+              "maxp": -(-args.max_seq // args.page_size)}
+    return {"paged-mesh": (shapes, launches)}
+
+
+def sharded_phase(worst):
+    """(a)-(d); returns the paged-mesh run's entry for the time phase."""
+    check_sharded_kernels(worst)
+    check_mesh_equivalence()
+    check_mesh_nccl_captured()
+    return mesh_serve_phase()
+
+
 def time_phase(runs, worst):
     """Time each kernel, its plain version and the library yardstick at the
     shapes its serving run gave it; bound from these inputs. ``runs`` maps
@@ -2345,61 +2719,85 @@ def time_phase(runs, worst):
                     ("slot-chunked", "paged-spec", "paged-spec-rate8"))
     ring_decode_row("slot-hybrid", 17, ("slot-hybrid",))
 
-    # one full chunk of the median prompt, its last full one, over the
-    # slot engine's [1,Hkv,S,hd] layer buffer read through its strides
-    # (run slot-chunked)
-    sh = runs["slot-chunked"][0]
-    Hq, Hkv, hd = heads(sh["cfg"])
-    eff, _ = lengths_of(sh)
-    Sbuf = sh["max_seq"]
-    window = M.cache_window(sh["cfg"], Sbuf)
-    C = sh["chunk"]
-    S_med = sorted(eff)[len(eff) // 2]
-    q0 = C * max(0, S_med // C - 1)
-    cq, ck, cv = chunk_inputs(1, C, Sbuf, dtype, Hq=Hq, Hkv=Hkv, hd=hd, seed=4)
-    cqs = torch.tensor([q0], dtype=torch.int32, device="cuda")
-    q_pos = q0 + torch.arange(C, device="cuda")
-    ckeep = (torch.arange(Sbuf, device="cuda")[None, :] <= q_pos[:, None])
-    row("flash_prefill_chunk",
-        f"B=1 C={C} q_start={q0} S={Sbuf} strided window={window}",
-        lambda: ops.flash_prefill_chunk(cq, ck, cv, cqs,
-                                        window=window),
-        lambda: ref.flash_prefill_chunk_ref(cq, ck, cv, cqs, window),
-        lambda: ref.flash_prefill_chunk_ref(cq.float(), ck.float(),
-                                            cv.float(), cqs, window),
-        masked_sdpa(cq.transpose(1, 2), ck.transpose(1, 2),
-                    cv.transpose(1, 2), ckeep),
-        (2 * C * Hq + 2 * (q0 + C) * Hkv) * hd * elt + 4,
-        4 * Hq * hd * (C * q0 + C * (C + 1) // 2), body=_fp.body(dtype, hd),
-        of_runs=("slot-chunked", "paged-chunked", "paged-chunked-realtime",
-                 "paged-spec", "paged-spec-rate8"))
+    def chunk_row(run, seed, of_runs, at=None):
+        """One full chunk of ``run``'s median prompt, its last full one,
+        over the slot engine's [1,Hkv,S,hd] layer buffer read through its
+        strides, at its arch's heads or ``at`` (Hq, Hkv)."""
+        sh = runs[run][0]
+        Hq, Hkv, hd = heads(sh["cfg"])
+        if at is not None:
+            Hq, Hkv = at
+        eff, _ = lengths_of(sh)
+        Sbuf = sh["max_seq"]
+        window = M.cache_window(sh["cfg"], Sbuf)
+        C = sh["chunk"]
+        S_med = sorted(eff)[len(eff) // 2]
+        q0 = C * max(0, S_med // C - 1)
+        cq, ck, cv = chunk_inputs(1, C, Sbuf, dtype, Hq=Hq, Hkv=Hkv, hd=hd,
+                                  seed=seed)
+        cqs = torch.tensor([q0], dtype=torch.int32, device="cuda")
+        q_pos = q0 + torch.arange(C, device="cuda")
+        ckeep = (torch.arange(Sbuf, device="cuda")[None, :] <= q_pos[:, None])
+        row("flash_prefill_chunk",
+            f"B=1 C={C} q_start={q0} S={Sbuf} Hq={Hq} Hkv={Hkv} hd={hd} "
+            f"strided window={window}",
+            lambda: ops.flash_prefill_chunk(cq, ck, cv, cqs,
+                                            window=window),
+            lambda: ref.flash_prefill_chunk_ref(cq, ck, cv, cqs, window),
+            lambda: ref.flash_prefill_chunk_ref(cq.float(), ck.float(),
+                                                cv.float(), cqs, window),
+            masked_sdpa(cq.transpose(1, 2), ck.transpose(1, 2),
+                        cv.transpose(1, 2), ckeep),
+            (2 * C * Hq + 2 * (q0 + C) * Hkv) * hd * elt + 4,
+            4 * Hq * hd * (C * q0 + C * (C + 1) // 2),
+            body=_fp.body(dtype, hd), of_runs=of_runs)
 
-    # paged verify (run paged-spec): a full batch of the widest window the
-    # run's depth grants, q_start as the paged-decode row's q_pos, over the
-    # engine's arena shape
-    sh = runs["paged-spec"][0]
-    Hq, Hkv, hd = heads(sh["cfg"])
-    C = sh["window"]
-    _, starts = lengths_of(sh)
-    psz = sh["page_size"]
-    B = len(starts)
-    vq, vkp, vvp, vpt, vqs = verify_inputs(starts, C, dtype,
-                                           n_pages=sh["n_pages"], Hq=Hq,
-                                           Hkv=Hkv, hd=hd, psz=psz,
-                                           maxp=sh["maxp"], seed=5)
-    keys = sum(s0 + C for s0 in starts)          # K/V rows the windows keep
-    pairs = sum(C * s0 + C * (C + 1) // 2 for s0 in starts)   # (query, key)
-    row("paged_verify_attention",
-        f"B={B} C={C} q_start={starts} maxp={sh['maxp']}, "
-        + splits(B, C * Hq // Hkv, Hkv, hd, sh),
-        lambda: ops.paged_verify_attention(vq, vkp, vvp, vpt, vqs),
-        lambda: ref.paged_verify_attention_ref(vq, vkp, vvp, vpt,
-                                               vqs),
-        lambda: ref.paged_verify_attention_ref(
-            vq.float(), vkp.float(), vvp.float(), vpt, vqs),
-        None, 2 * keys * Hkv * hd * elt + 2 * B * C * Hq * hd * elt
-        + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd,
-        body=_pa.body(dtype, hd), of_runs=("paged-spec", "paged-spec-rate8"))
+    def verify_row(run, seed, of_runs, at=None):
+        """A full batch of the widest window ``run``'s depth grants,
+        q_start as the paged-decode row's q_pos, over the engine's arena
+        shape, at its arch's heads or ``at`` (Hq, Hkv)."""
+        sh = runs[run][0]
+        Hq, Hkv, hd = heads(sh["cfg"])
+        if at is not None:
+            Hq, Hkv = at
+        C = sh["window"]
+        _, starts = lengths_of(sh)
+        psz = sh["page_size"]
+        B = len(starts)
+        vq, vkp, vvp, vpt, vqs = verify_inputs(starts, C, dtype,
+                                               n_pages=sh["n_pages"], Hq=Hq,
+                                               Hkv=Hkv, hd=hd, psz=psz,
+                                               maxp=sh["maxp"], seed=seed)
+        keys = sum(s0 + C for s0 in starts)      # K/V rows the windows keep
+        pairs = sum(C * s0 + C * (C + 1) // 2 for s0 in starts)  # (q, key)
+        row("paged_verify_attention",
+            f"B={B} C={C} q_start={starts} maxp={sh['maxp']} Hq={Hq} "
+            f"Hkv={Hkv} hd={hd}, " + splits(B, C * Hq // Hkv, Hkv, hd, sh),
+            lambda: ops.paged_verify_attention(vq, vkp, vvp, vpt, vqs),
+            lambda: ref.paged_verify_attention_ref(vq, vkp, vvp, vpt,
+                                                   vqs),
+            lambda: ref.paged_verify_attention_ref(
+                vq.float(), vkp.float(), vvp.float(), vpt, vqs),
+            None, 2 * keys * Hkv * hd * elt + 2 * B * C * Hq * hd * elt
+            + vpt.numel() * 4 + B * 4, 4 * pairs * Hq * hd,
+            body=_pa.body(dtype, hd), of_runs=of_runs)
+
+    # prompt chunks over run slot-chunked's slot buffer
+    chunk_row("slot-chunked", 4, (
+        "slot-chunked", "paged-chunked", "paged-chunked-realtime",
+        "paged-spec", "paged-spec-rate8"))
+    # paged verify over run paged-spec's arena
+    verify_row("paged-spec", 5, ("paged-spec", "paged-spec-rate8"))
+
+    # a rank of the paged-mesh run (edge-6b over 2 ranks: 16 query heads,
+    # 1 KV head): paged decode and whole-prompt prefill over its batch and
+    # prompts, the verify and chunk kernels (which that run does not
+    # launch) at the same heads over the paged-spec and slot-chunked
+    # runs' shapes
+    paged_decode_row("paged-mesh", 21, ("paged-mesh",))
+    prefill_row("paged-mesh", 22, ("paged-mesh",))
+    verify_row("paged-spec", 23, (), at=MESH_HEADS[0])
+    chunk_row("slot-chunked", 24, (), at=MESH_HEADS[0])
 
     # SSD scan: mamba2-780m's heads (runs paged-ssm and slot-ssm give it
     # the same prompts), hymba-1.5b's over run slot-hybrid's prompts
@@ -2843,6 +3241,7 @@ def main() -> None:
     runs = {}
     for name, extra, required in SERVE_RUNS:
         runs.update(serve_phase(name, extra, required))
+    runs.update(sharded_phase(worst))
     kernels = time_phase(runs, worst)
     train_phase()
     leaked = sorted(m for m in sys.modules

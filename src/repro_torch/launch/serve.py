@@ -39,26 +39,47 @@ kernel versions on the CPU), over the paged engine by default
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --fleet smollm-360m,edge-6b --dtype bfloat16 --ratio 0.5
 
+  # tensor-parallel paged serving (DESIGN.md §9): weights and the KV
+  # arena cut over the model axis of a (data, model) mesh, one process a
+  # rank; NCCL when each rank has a card of its own, else gloo (the CPU,
+  # or ranks sharing one card, with eager steps)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch edge-6b \\
+      --dtype bfloat16 --mesh-shape 1,2
+  # the same ranks under torchrun (it starts them, not the CLI)
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --arch edge-6b --dtype bfloat16 --mesh-shape 1,2
+
   # tiny CPU run
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --duration 3 --slots 4 --max-seq 128
 
 Prints the measured l(b) curve and a one-line SLO summary, as the JAX
 launcher does (``repro.launch.serve``); with ``--fleet``, each instance's
-l(b), the fleet's summary line and one line per serving instance.
+l(b), the fleet's summary line and one line per serving instance. With
+``--mesh-shape`` the first line names the mesh and its backend, rank 0
+prints the summary, and a last line gives the mesh, the backend and every
+rank's digest of its ops' inputs (equal when the ranks ran in lockstep);
+a rank that fails fails the command.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Union
+import io
+import os
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core.schedulers import (FastServeScheduler, OrcaScheduler,
                                          SliceScheduler)
 from repro_torch.data.workload import poisson_workload
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import (backend_for, make_serving_mesh,
+                                     rank_device, spawn_ranks)
 from repro_torch.serving.executor import (Executor, PagedTorchExecutor,
                                           TorchExecutor)
 from repro_torch.serving.fleet import (FleetInstance, FleetResult,
@@ -69,6 +90,9 @@ from repro_torch.serving.spec_decode import draft_config_from_registry
 from repro_torch.serving.trace import TraceRecorder
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# seconds the ranks of --mesh-shape may run before they are ended and the
+# command fails (a hung collective never returns)
+MESH_TIMEOUT_S = 1800.0
 
 
 @dataclasses.dataclass
@@ -78,6 +102,13 @@ class ServeRun:
     probes: List[tuple]          # measured (batch, ms) samples of l(b)
     result: LoopResult
     trace: Optional[TraceRecorder] = None    # with --trace
+
+
+@dataclasses.dataclass
+class MeshRun:
+    mesh_shape: Tuple[int, int]      # (data, model)
+    backend: str                     # "nccl" or "gloo"
+    ranks: List[dict]                # each rank's summary (``_serve_rank``)
 
 
 @dataclasses.dataclass
@@ -139,6 +170,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "behind a single routing/admission layer "
                          "(DESIGN.md §11). A single-arch fleet is byte-"
                          "identical to the plain single-model path")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="paged executor: 'data,model' serving mesh, e.g. "
+                         "1,2 — cuts weights + the KV page arena over the "
+                         "model axis (DESIGN.md §9), one process a rank, "
+                         "started here (or by torchrun)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="record the per-request lifecycle stream "
                          "(DESIGN.md §13) and write a Perfetto/Chrome-"
@@ -198,22 +234,26 @@ def _workload(args):
                                               args.max_seq // 4))
 
 
-def _paged_engine(cfg, args) -> PagedTorchExecutor:
-    """The paged engine the flags ask for."""
+def _paged_engine(cfg, args, mesh=None) -> PagedTorchExecutor:
+    """The paged engine the flags ask for; under a mesh this rank's, on
+    the rank's device, its steps captured only over NCCL."""
     n_pages = args.pages or (args.slots * args.max_seq) // args.page_size
     draft_cfg = None
     if args.spec_decode and args.draft_config is not None:
         draft_cfg = draft_config_from_registry(args.draft_config, cfg)
+    mesh_kw = {} if mesh is None else dict(
+        mesh=mesh, cuda_graphs=mesh.backend == "nccl")
     return PagedTorchExecutor(cfg, n_pages=n_pages, page_size=args.page_size,
                               max_seq=args.max_seq, seed=args.seed,
                               max_batch=args.slots, dtype=DTYPES[args.dtype],
-                              device=args.device,
+                              device=args.device if mesh is None
+                              else mesh.device,
                               prefill_chunk_size=args.prefill_chunk,
                               prefix_cache=args.prefix_cache,
                               spec_decode=args.spec_decode,
                               draft_cfg=draft_cfg,
                               max_spec_depth=args.spec_depth,
-                              async_dispatch=args.async_pipeline)
+                              async_dispatch=args.async_pipeline, **mesh_kw)
 
 
 def _slice_scheduler(lat, args, page_budget=None,
@@ -249,10 +289,34 @@ def _export_trace(tr, args, tasks, events) -> None:
           f"violations={att['violations']} attribution={buckets or '{}'}")
 
 
-def run(args: argparse.Namespace) -> Union[ServeRun, FleetRun]:
+def _mesh_shape(args) -> Optional[Tuple[int, int]]:
+    """--mesh-shape parsed and checked against the other flags, as the JAX
+    launcher does, plus the port's own refusals (ROADMAP.md)."""
+    if args.mesh_shape is None:
+        return None
+    try:
+        shape = tuple(int(x) for x in args.mesh_shape.split(","))
+        assert len(shape) == 2 and min(shape) >= 1
+    except (ValueError, AssertionError):
+        raise SystemExit("--mesh-shape wants 'data,model', e.g. 1,4")
+    if args.executor != "paged":
+        raise SystemExit("--mesh-shape requires --executor paged "
+                         "(the slot engine has no sharded arena)")
+    if args.fleet is not None:
+        raise SystemExit("--fleet with --mesh-shape is not supported "
+                         "(one process group per run)")
+    if shape[0] > 1:
+        raise SystemExit("--mesh-shape with data > 1 (the batch sharded over "
+                         "'data') is still to port (ROADMAP.md)")
+    return shape
+
+
+def run(args: argparse.Namespace) -> Union[ServeRun, FleetRun, MeshRun]:
     """Build the engine, measure l(b), serve a Poisson workload under the
     chosen scheduler, print the l(b) curve and the SLO summary line. With
-    ``--fleet``, ``run_fleet``."""
+    ``--fleet``, ``run_fleet``; with ``--mesh-shape``, one rank of the mesh
+    serves in each process (``run_mesh``), or, in a rank, this rank."""
+    mesh_shape = _mesh_shape(args)
     if args.fleet is not None:
         if args.executor != "paged":
             raise SystemExit("--fleet requires --executor paged (every "
@@ -276,10 +340,13 @@ def run(args: argparse.Namespace) -> Union[ServeRun, FleetRun]:
                          "a pure-attention arch — SSM/hybrid archs serve "
                          "with atomic prefill (DESIGN.md §12)")
     if cfg.has_ssm and args.executor == "paged" and (
-            args.spec_decode or args.prefix_cache):
+            args.spec_decode or args.prefix_cache or mesh_shape is not None):
         raise SystemExit(f"{args.arch}: spec-decode/prefix-cache/mesh need "
                          "rewindable/sharable per-token KV; the recurrent "
                          "state kind has none (DESIGN.md §12)")
+    if cfg.block_kind == "moe" and mesh_shape is not None:
+        raise SystemExit(f"{args.arch}: MoE under --mesh-shape is still to "
+                         "port (ROADMAP.md)")
     if args.prefix_cache and args.executor != "paged":
         raise SystemExit("--prefix-cache requires --executor paged "
                          "(sharing rides on the refcounted page pool)")
@@ -298,11 +365,20 @@ def run(args: argparse.Namespace) -> Union[ServeRun, FleetRun]:
     if args.async_pipeline and args.executor != "paged":
         raise SystemExit("--async-pipeline requires --executor paged "
                          "(the dispatch queue rides the paged engine)")
+    if mesh_shape is None:
+        return _serve(args, cfg)
+    if dist.is_initialized():
+        raise SystemExit("--mesh-shape starts its own process group")
+    return run_mesh(args, cfg, mesh_shape)
+
+
+def _serve(args: argparse.Namespace, cfg, mesh=None) -> ServeRun:
+    """One engine (under a mesh: this rank's) serving the workload."""
     n_pages = args.pages or (args.slots * args.max_seq) // args.page_size
     page_budget = None
     prefix_hint = None
     if args.executor == "paged":
-        ex = _paged_engine(cfg, args)
+        ex = _paged_engine(cfg, args, mesh)
         page_budget = ex.page_budget()
         if args.prefix_cache:
             prefix_hint = ex.cached_prompt_tokens
@@ -354,8 +430,78 @@ def run(args: argparse.Namespace) -> Union[ServeRun, FleetRun]:
           f"decode_iters={res.decode_iterations} prefills={res.prefills} "
           f"prefill_chunks={res.prefill_chunks} defers={dict(res.defers_by_reason)}"
           f"{swap_note}{spec_note}{pipe_note}")
-    _export_trace(tr, args, res.tasks, tr.events if tr is not None else [])
+    if mesh is None or mesh.rank == 0:        # one rank writes the trace
+        _export_trace(tr, args, res.tasks,
+                      tr.events if tr is not None else [])
     return ServeRun(executor=ex, lat=lat, probes=probes, result=res, trace=tr)
+
+
+def run_mesh(args: argparse.Namespace, cfg,
+             mesh_shape: Tuple[int, int]) -> MeshRun:
+    """Serve on a (data, model) mesh, one process a rank: the ranks are
+    spawned here and rendezvous through a FileStore in a temporary
+    directory, or, under torchrun (RANK and WORLD_SIZE set), this process
+    is its rank. Returns the ranks' summaries (under torchrun, this
+    rank's)."""
+    ways = mesh_shape[0] * mesh_shape[1]
+    backend = backend_for(args.device, ways)
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if not torchrun or os.environ["RANK"] == "0":
+        where = ("each on its own card" if backend == "nccl"
+                 else f"sharing {rank_device(args.device, backend, 0)}")
+        print(f"mesh data={mesh_shape[0]} model={mesh_shape[1]}: {ways} "
+              f"ranks over {backend}, {where}", flush=True)
+    if torchrun:
+        rank = int(os.environ["RANK"])
+        dist.init_process_group(backend)
+        try:
+            return MeshRun(mesh_shape, backend,
+                           [_serve_rank(rank, args, cfg, mesh_shape, backend)])
+        finally:
+            dist.destroy_process_group()
+    return MeshRun(mesh_shape, backend, spawn_ranks(
+        _serve_rank, ways, (args, cfg, mesh_shape, backend),
+        backend=backend, timeout=MESH_TIMEOUT_S))
+
+
+def _serve_rank(rank: int, args: argparse.Namespace, cfg,
+                mesh_shape: Tuple[int, int], backend: str) -> dict:
+    """One rank of ``run_mesh``: serve on this rank's slab (only rank 0
+    prints), then gather the ranks' digests; rank 0 prints them. Returns
+    the rank's summary: its heads (query, KV, first KV head), digest,
+    kernel launches, loop clock, the tasks' (prompt, output) lengths, tasks
+    left unfinished and pages held."""
+    device = rank_device(args.device, backend, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:       # ranks on one host's CPU: threads of their own, not shared
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // (mesh_shape[0] * mesh_shape[1])))
+    mesh = make_serving_mesh(data=mesh_shape[0], model=mesh_shape[1],
+                             device=device)
+    quiet = (contextlib.nullcontext() if rank == 0
+             else contextlib.redirect_stdout(io.StringIO()))
+    with quiet:
+        run = _serve(args, cfg, mesh)
+    ex, res = run.executor, run.result
+    if ex.prefix_cache is not None:
+        ex.prefix_cache.clear()
+    digests = mesh.gather(ex.digest)
+    if rank == 0:
+        print(f"mesh data={mesh_shape[0]} model={mesh_shape[1]} "
+              f"backend={backend} heads/rank q={ex.heads[0]} "
+              f"kv={ex.heads[1]} digests=[{', '.join(f'{d:#x}' for d in digests)}]"
+              f" {'equal' if len(set(digests)) == 1 else 'DIFFER'}",
+              flush=True)
+    return {"rank": rank, "device": str(device), "heads": ex.heads,
+            "digest": ex.digest, "digests": digests,
+            "launches": dict(ops.LAUNCHES), "probes": list(run.probes),
+            "end_ms": res.end_ms, "n_tasks": len(res.tasks),
+            "tasks": [(t.prompt_len, t.output_len) for t in res.tasks],
+            "unfinished": [t.task_id for t in res.tasks
+                           if t.dropped or not t.finished],
+            "used_pages": ex.pool.used_pages, "leaked": ex.store.leaked(),
+            "decode_iters": res.decode_iterations, "prefills": res.prefills}
 
 
 def run_fleet(args: argparse.Namespace) -> FleetRun:

@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import partitioning as P
+
 NEG_INF = -1e30
 
 
@@ -246,5 +248,9 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------- MLP
 
 def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-              wd: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ wg) * (x @ wu)) @ wd
+              wd: torch.Tensor, partial: bool = False) -> torch.Tensor:
+    """``partial``: wg/wu hold a slab of d_ff's columns and wd its rows (a
+    tensor-parallel rank's), so the product is a partial sum, summed over
+    the model axis (``partitioning.reduce_model``)."""
+    y = (F.silu(x @ wg) * (x @ wu)) @ wd
+    return P.reduce_model(y) if partial else y

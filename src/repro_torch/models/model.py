@@ -33,6 +33,15 @@ layers on the slot cache's recurrent state or the constant-size state
 arena of ``init_state_arena``, hybrids both, DESIGN.md §12); the chunk
 and verify steps serve attention-only archs, dense or MoE.
 
+Tensor parallelism (DESIGN.md §9): the serving entry points compute on a
+rank's slab of the weights (``launch.sharding.local_params``) and KV
+arena, taking their head counts and widths from the weights' shapes, and
+meet the other ranks at ``models.partitioning``'s collectives: a sum after
+each row-parallel product (wo, wd), the vocabulary-sharded embedding
+lookup and the gather of the vocabulary-sharded logits. Without an
+installed context and on whole weights they are the single-device
+functions.
+
 Unlike the functional JAX code, every serving step writes the new K/V
 (and ``kv_pos``/``length``, or the recurrent state) into the slot cache, the
 page arena or the state arena in place: these are the engine's largest
@@ -52,6 +61,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import partitioning as P
 from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
@@ -135,13 +145,15 @@ def _init_rule(cfg: ArchConfig, group: str, name: str):
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
-                device="cuda") -> Params:
+                device="cuda", cut=None) -> Params:
     """Random weights with the JAX init's shapes and scales (normal *
     D^-0.5; wo by q_dim^-0.5, wd by d_ff^-0.5; norms zero; the SSM and MoE
     groups as ``init_ssm_params``/``init_moe_params`` draw them), from a
     torch.Generator seeded with ``seed`` on ``device``. Stacked weights are
     drawn one layer at a time, so the fp32 draw never holds more than one
-    layer's matrix beside the result."""
+    layer's matrix beside the result. ``cut(path, x)`` (``launch.sharding.
+    cutter``) keeps a slab of each drawn leaf or layer: a tensor-parallel
+    rank draws what every rank draws and keeps only its slab."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -149,31 +161,35 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
     def draw(shape, s):
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
 
-    def fill(group, name, shape):
+    def fill(group, name, shape, path):
         kind, s = _init_rule(cfg, group, name)
+        keep = (lambda x: x) if cut is None else (lambda x: cut(path, x))
         if kind == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=dev)
+            return keep(torch.zeros(shape, dtype=dtype, device=dev))
         if kind == "ones":
-            return torch.ones(shape, dtype=dtype, device=dev)
+            return keep(torch.ones(shape, dtype=dtype, device=dev))
         if kind == "a_log":
             row = torch.log(torch.linspace(1.0, 16.0, shape[-1], device=dev))
-            return row.expand(shape).to(dtype).contiguous()
+            return keep(row.expand(shape).to(dtype).contiguous())
         if len(shape) == 2 and group is None:
-            return draw(shape, s)
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        for layer in range(shape[0]):
-            out[layer] = draw(shape[1:], s)
+            return keep(draw(shape, s))
+        first = keep(draw(shape[1:], s))
+        out = torch.empty((shape[0], *first.shape), dtype=dtype, device=dev)
+        out[0] = first
+        for layer in range(1, shape[0]):
+            out[layer] = keep(draw(shape[1:], s))
         return out
 
     shapes = param_shapes(cfg)
-    p: Params = {k: fill(None, k, v) for k, v in shapes.items()
+    p: Params = {k: fill(None, k, v, k) for k, v in shapes.items()
                  if k != "blocks"}
     p["blocks"] = {}
     for k, v in shapes["blocks"].items():
         if isinstance(v, dict):
-            p["blocks"][k] = {kk: fill(k, kk, vv) for kk, vv in v.items()}
+            p["blocks"][k] = {kk: fill(k, kk, vv, f"blocks.{k}.{kk}")
+                              for kk, vv in v.items()}
         else:
-            p["blocks"][k] = fill("blocks", k, v)
+            p["blocks"][k] = fill("blocks", k, v, f"blocks.{k}")
     return p
 
 
@@ -259,7 +275,8 @@ def cache_window(cfg: ArchConfig, buf_len: int) -> Optional[int]:
 
 
 def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
-                     dtype=torch.float32, device="cuda") -> Cache:
+                     dtype=torch.float32, device="cuda",
+                     kv_heads: Optional[int] = None) -> Cache:
     """Shared KV page arena: k/v_pages [L, n_pages + 1, Hkv, page_size,
     hd]. Pages 0..n_pages-1 are the pool's; page n_pages is the spare
     (``spare_page``), which no page table names: the decode and verify
@@ -268,10 +285,11 @@ def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
     step syncs with the host. Attention-free (pure SSM) archs get a
     zero-width arena (Hkv = hd = 0): the page table stays the logical
     token-length ledger of every arch (DESIGN.md §12) but the pages hold
-    no bytes."""
+    no bytes. ``kv_heads``: the heads a tensor-parallel rank's slab holds
+    (``launch.sharding.head_slab``), all of them by default."""
     _check_causal(cfg)
     dev = resolve_device(device)
-    hkv = cfg.n_kv_heads if cfg.has_attention else 0
+    hkv = (kv_heads or cfg.n_kv_heads) if cfg.has_attention else 0
     hd = cfg.head_dim if cfg.has_attention else 0
     shape = (cfg.n_layers, n_pages + 1, hkv, page_size, hd)
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
@@ -316,9 +334,13 @@ def spare_slot(pages: Cache) -> int:
 def embed_inputs(cfg: ArchConfig, params: Params,
                  inputs: torch.Tensor) -> torch.Tensor:
     """Token ids [B,S] -> embeddings [B,S,D]; embedding-input archs
-    (audio frames, vision patches) pass [B,S,D] through."""
+    (audio frames, vision patches) pass [B,S,D] through. A rank's
+    vocabulary slab of the table looks up through
+    ``partitioning.embed_model``."""
     if inputs.ndim == 3:
         return inputs
+    if P.cut("embed"):
+        return P.embed_model(params["embed"], inputs)
     return params["embed"][inputs.long()]
 
 
@@ -326,11 +348,15 @@ def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor,
             keep_padded: bool = False) -> torch.Tensor:
     """Final norm and projection to the vocabulary. ``keep_padded``
     returns all padded_vocab lanes, the pad lanes biased by -1e30 (the
-    loss path, as in JAX); otherwise the pad lanes are sliced off."""
+    loss path, as in JAX); otherwise the pad lanes are sliced off. A
+    rank's vocabulary slab of the head gives a slab of the logits, which
+    ``partitioning.gather_model`` puts together."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
     logits = x @ head
     Vp, V = cfg.padded_vocab, cfg.vocab_size
+    if P.cut("embed" if cfg.tied_embeddings else "lm_head"):
+        logits = P.gather_model(logits, -1)
     if Vp == V:
         return logits
     if not keep_padded:
@@ -355,17 +381,28 @@ def _ffn(cfg: ArchConfig, blk: Params, layer: int,
     if cfg.d_ff <= 0:
         return torch.zeros_like(x)
     h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
-    return L.gated_mlp(h, blk["wg"][layer], blk["wu"][layer], blk["wd"][layer])
+    return L.gated_mlp(h, blk["wg"][layer], blk["wu"][layer],
+                       blk["wd"][layer], partial=P.cut("wd"))
 
 
 def _proj_qkv(cfg: ArchConfig, blk: Params, layer: int, h: torch.Tensor):
     """Input projections of one layer from the normed input, heads split:
-    h [..., D] -> q [..., Hq, hd], k/v [..., Hkv, hd]."""
+    h [..., D] -> q [..., Hq, hd], k/v [..., Hkv, hd], the head counts
+    those of the weights (a tensor-parallel rank's slab)."""
     lead = h.shape[:-1]
-    q = (h @ blk["wq"][layer]).reshape(*lead, cfg.n_heads, cfg.head_dim)
-    k = (h @ blk["wk"][layer]).reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ blk["wv"][layer]).reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
+    q = (h @ blk["wq"][layer]).reshape(*lead, -1, cfg.head_dim)
+    k = (h @ blk["wk"][layer]).reshape(*lead, -1, cfg.head_dim)
+    v = (h @ blk["wv"][layer]).reshape(*lead, -1, cfg.head_dim)
     return q, k, v
+
+
+def _attn_out(cfg: ArchConfig, blk: Params, layer: int,
+              a: torch.Tensor) -> torch.Tensor:
+    """Attention output [..., H, hd] through wo: a slab of the heads (a
+    tensor-parallel rank's rows of wo) gives a partial sum, summed over
+    the model axis."""
+    y = a.reshape(*a.shape[:-2], -1) @ blk["wo"][layer]
+    return P.reduce_model(y) if P.cut("wo") else y
 
 
 def _qkv(cfg: ArchConfig, blk: Params, layer: int, x: torch.Tensor):
@@ -577,7 +614,7 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
             a = ops.flash_prefill(q, k, v, causal=cfg.causal, window=window)
-            parts.append(a.reshape(B, S, cfg.q_dim) @ blk["wo"][layer])
+            parts.append(_attn_out(cfg, blk, layer, a))
             ks.append(k)
             vs.append(v)
         if cfg.has_ssm:
@@ -649,7 +686,7 @@ def prefill_chunk(cfg: ArchConfig, params: Params, cache: Cache,
         vc[barr, :, slot] = v
         a = ops.flash_prefill_chunk(q, kc.transpose(1, 2), vc.transpose(1, 2),
                                     length, window=window)
-        x = x + a.reshape(B, C, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _attn_out(cfg, blk, layer, a)
         x = x + _ffn(cfg, blk, layer, x)
     length += C
     return unembed(cfg, params, x[:, -1]), cache
@@ -699,7 +736,7 @@ def prefill_chunk_paged(cfg: ArchConfig, params: Params, pages: Cache,
         vc = L.gather_pages(v_all[layer], page_table)
         a = ops.flash_prefill_chunk(q, kc.transpose(1, 2), vc.transpose(1, 2),
                                     lengths)
-        x = x + a.reshape(B, C, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _attn_out(cfg, blk, layer, a)
         x = x + _ffn(cfg, blk, layer, x)
     return unembed(cfg, params, x[:, -1]), pages
 
@@ -753,7 +790,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
             kc[rows, :, slot] = torch.where(sel, k, kc[rows, :, slot])
             vc[rows, :, slot] = torch.where(sel, v, vc[rows, :, slot])
             a = ops.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
-            parts.append(a.reshape(B, cfg.q_dim) @ blk["wo"][layer])
+            parts.append(_attn_out(cfg, blk, layer, a))
         if cfg.has_ssm:
             parts.append(SSM.ssm_mixer_step(
                 _ssm_params(blk, layer), h, cfg.ssm_inner, cfg.ssm_state,
@@ -799,7 +836,7 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
         active = torch.ones((B,), dtype=torch.bool, device=dev)
     k_all, v_all = pages["k_pages"], pages["v_pages"]
     psz, maxp = k_all.shape[3], page_table.shape[1]
-    x = params["embed"][tokens.long()]                 # [B,D]
+    x = embed_inputs(cfg, params, tokens)              # [B,D]
     q_pos = lengths
     if cfg.has_attention:
         rows = torch.arange(B, device=dev)
@@ -826,7 +863,7 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
             v_all[layer, w_page, :, w_off] = v
             a = ops.paged_decode_attention(q, k_all[layer], v_all[layer],
                                            page_table, q_pos)
-            parts.append(a.reshape(B, cfg.q_dim) @ blk["wo"][layer])
+            parts.append(_attn_out(cfg, blk, layer, a))
         if cfg.has_ssm:
             parts.append(SSM.ssm_mixer_step(
                 _ssm_params(blk, layer), h, cfg.ssm_inner, cfg.ssm_state,
@@ -882,6 +919,6 @@ def verify_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
         v_all[layer, w_page, :, w_off] = v
         a = ops.paged_verify_attention(q, k_all[layer], v_all[layer],
                                        page_table, lengths)
-        x = x + a.reshape(B, C, cfg.q_dim) @ blk["wo"][layer]
+        x = x + _attn_out(cfg, blk, layer, a)
         x = x + _ffn(cfg, blk, layer, x)
     return unembed(cfg, params, x), pages

@@ -29,13 +29,14 @@ and both take
 FFN run in the hand-written CUDA kernels on the card and in their plain
 versions on the CPU.
 
-The engines are single-device. The paged engine runs synchronously by
-default and, with ``async_dispatch=True``, as the JAX engine's async
-pipeline (DESIGN.md §10): each op dispatches its step on the compute
-stream and returns, and the step is observed at its commit, in dispatch
-order, through ``serving.pipeline.DispatchQueue`` (at most
-``max_in_flight`` steps in flight). Tensor parallelism is still to port
-(ROADMAP.md); asking for a mesh raises NotImplementedError.
+The paged engine runs synchronously by default and, with
+``async_dispatch=True``, as the JAX engine's async pipeline (DESIGN.md
+§10): each op dispatches its step on the compute stream and returns, and
+the step is observed at its commit, in dispatch order, through
+``serving.pipeline.DispatchQueue`` (at most ``max_in_flight`` steps in
+flight). With ``mesh=`` (a ``launch.mesh.ServingMesh``) it is one rank of
+a tensor-parallel engine (DESIGN.md §9), run SPMD over
+``torch.distributed``; the slot engine has no mesh, as in JAX.
 
 Every step runs through ``serving.step_graphs``: on the card each step
 kind and static shape is captured once as a CUDA graph and replayed, as
@@ -71,7 +72,10 @@ import torch
 from repro_torch.core.latency_model import LatencyModel, MeasuredLatencyModel
 from repro_torch.core.selection import PageBudget, StateBudget
 from repro_torch.core.task import Task, qa_task
+from repro_torch.launch import sharding as S
+from repro_torch.launch.mesh import digest
 from repro_torch.models import model as M
+from repro_torch.models.partitioning import activation_partitioning
 from repro_torch.serving.kv_pool import KVPagePool, OutOfPages
 from repro_torch.serving.kv_swap import HostArenaFull, KVSwapArena
 from repro_torch.serving.pipeline import (DispatchQueue, GapStats,
@@ -348,6 +352,45 @@ class PagedSimExecutor(SimExecutor):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class _RankStats(GapStats):
+    """GapStats of a rank of a tensor-parallel engine: every wait booked
+    into ``wait_ms`` grows it by the slowest rank's wait (``agree``), so
+    the serving loop, which folds these waits into its clock under async
+    dispatch, keeps one clock on every rank."""
+
+    def __init__(self, agree):
+        self.__dict__["_agree"] = agree
+        super().__init__()
+
+    def __setattr__(self, name, value):
+        if name == "wait_ms" and "wait_ms" in self.__dict__:
+            value = self.wait_ms + self._agree(value - self.wait_ms)
+        super().__setattr__(name, value)
+
+
+def _check_mesh(cfg, mesh, cuda_graphs: bool, device) -> None:
+    """The mesh refusals that are the port's own: MoE archs, batch
+    sharding over 'data', and captured steps over gloo (its collectives
+    cannot be captured). SSM and hybrid archs refuse a mesh as in JAX."""
+    if "model" not in mesh.axis_names or "data" not in mesh.axis_names:
+        raise ValueError("serving mesh needs ('data', 'model') axes — see "
+                         "launch.mesh.make_serving_mesh")
+    if cfg.block_kind == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE under a mesh (expert-parallel or tensor-"
+            "parallel inside each expert) is still to port (ROADMAP.md)")
+    if mesh.shape["data"] > 1:
+        raise NotImplementedError(
+            "mesh data > 1 (the batch sharded over 'data') is still to port "
+            "(ROADMAP.md); use a (1, model) mesh")
+    if (cuda_graphs and getattr(mesh, "backend", None) == "gloo"
+            and torch.device(device).type == "cuda"):
+        raise ValueError("cuda_graphs=True over a gloo process group: gloo "
+                         "collectives cannot be captured in a CUDA graph; "
+                         "pass cuda_graphs=False, or give each rank a card "
+                         "of its own (NCCL)")
 
 
 class TorchExecutor(Executor):
@@ -642,6 +685,27 @@ class PagedTorchExecutor(Executor):
     chunked prefill need per-token state and raise for these archs, as in
     the JAX engine.
 
+    With ``mesh=`` (a ``launch.mesh.ServingMesh`` over an initialised
+    process group; DESIGN.md §9) the engine is one rank of a
+    tensor-parallel engine, run SPMD: every rank runs this same control
+    plane in lockstep on its own host state (pool, radix cache, swap
+    arena, draft model), holds its slab of the weights
+    (``launch.sharding.local_params``: whole heads, d_ff columns and
+    vocabulary rows) and of the KV arena (its KV heads), and runs every
+    step with ``models.partitioning``'s collectives installed, so the
+    paged kernels run on the rank's head slab and every rank sees the
+    whole logits. The loop's clock must be one clock: every ms an op
+    returns, and every commit wait, is the slowest rank's (``_agree``).
+    Each op compares a digest of its host inputs across the ranks and
+    raises ``RuntimeError("ranks diverged ...")`` on a mismatch; ``digest``
+    chains them over the run. Suspend/resume swap each rank's own slab;
+    the host arena counts whole pages (``KVSwapArena.byte_scale``), so
+    admission decides as the single-device engine does. The draft of
+    speculative decoding stays whole on every rank. SSM and hybrid archs
+    raise ValueError, as in JAX; MoE archs and a 'data' axis above 1 raise
+    NotImplementedError (ROADMAP.md); ``cuda_graphs`` on the card needs
+    NCCL (gloo collectives cannot be captured).
+
     With ``async_dispatch=True`` the engine pipelines as the JAX engine
     does (DESIGN.md §10), on one compute stream. Every op makes its host
     reservations and dispatches its step at once, then returns the host's
@@ -682,9 +746,6 @@ class PagedTorchExecutor(Executor):
                  async_dispatch: bool = False, max_in_flight: int = 2,
                  n_state_slots: Optional[int] = None,
                  cuda_graphs: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PagedTorchExecutor: mesh still to port (ROADMAP.md)")
         if not (cfg.has_attention or cfg.has_ssm):
             raise ValueError("PagedTorchExecutor needs an attention and/or "
                              "SSM mixer")
@@ -692,7 +753,8 @@ class PagedTorchExecutor(Executor):
             gated = [name for name, on in (
                 ("spec_decode", spec_decode),
                 ("prefix_cache", prefix_cache),
-                ("prefill_chunk_size", prefill_chunk_size is not None)) if on]
+                ("prefill_chunk_size", prefill_chunk_size is not None),
+                ("mesh", mesh is not None)) if on]
             if gated:
                 raise ValueError(
                     f"{'/'.join(gated)} unsupported for SSM/hybrid archs: "
@@ -700,11 +762,26 @@ class PagedTorchExecutor(Executor):
                     "log — it cannot be rewound, prefix-shared, chunk-"
                     "restarted at the executor level, or sharded "
                     "(DESIGN.md §12)")
+        if mesh is not None:
+            _check_mesh(cfg, mesh, cuda_graphs, device)
         self.device = M.resolve_device(device)
         self.cfg = cfg
+        # tensor parallelism (DESIGN.md §9): this rank's slab of the
+        # weights and of the KV heads
+        self.mesh = mesh
+        ways = mesh.shape["model"] if mesh is not None else 1
+        rank = mesh.coords["model"] if mesh is not None else 0
+        self.heads = S.head_slab(cfg, ways, rank)   # (Hq, Hkv, first KV)
+        cut = S.cutter(cfg, mesh) if mesh is not None else None
         # detached: a model fresh from training serves without autograd
-        self.params = M.detached(params) if params is not None else \
-            M.init_params(cfg, seed=seed, dtype=dtype, device=self.device)
+        if params is not None:
+            self.params = M.detached(params)
+            if mesh is not None:
+                self.params = S.local_params(cfg, self.params, mesh)
+        else:
+            self.params = M.init_params(cfg, seed=seed, dtype=dtype,
+                                        device=self.device, cut=cut)
+        self.digest = 0               # chained digest of the ops' inputs
         self.page_size = page_size
         self.n_pages = n_pages
         self.max_seq = max_seq
@@ -715,14 +792,18 @@ class PagedTorchExecutor(Executor):
         self.pool = KVPagePool(n_pages, page_size)
         # host-offload KV swap (DESIGN.md §7): suspended tasks' private
         # page contents live here until resume; host_arena_bytes bounds it
-        self.arena = KVSwapArena(page_size, capacity_bytes=host_arena_bytes)
+        self.arena = KVSwapArena(
+            page_size, capacity_bytes=host_arena_bytes,
+            byte_scale=cfg.n_kv_heads // self.heads[1]
+            if cfg.has_attention else 1)
         self.prefix_cache = None
         if prefix_cache:
             self.prefix_cache = RadixPrefixCache(self.pool, max_pages=n_pages)
         self.max_pages_per_seq = -(-max_seq // page_size)
         self.pages = M.init_paged_cache(cfg, n_pages, page_size,
                                         dtype=self.params["embed"].dtype,
-                                        device=self.device)
+                                        device=self.device,
+                                        kv_heads=self.heads[1])
         # recurrent-state kind (DESIGN.md §12): one constant-size slot of
         # the state arena per SSM/hybrid task, allocated as pages are;
         # CacheStore is the cross-kind audit facade
@@ -745,7 +826,8 @@ class PagedTorchExecutor(Executor):
         # and books its time as wait), so the loop reads one surface
         self.async_dispatch = async_dispatch
         self._sync_depth = 0          # _sync_mode() nesting
-        self.gap_stats = GapStats()
+        self.gap_stats = GapStats() if mesh is None else _RankStats(
+            mesh.agree)
         self.ledger = TransferLedger()
         self._queue = DispatchQueue(self._commit_step,
                                     max_in_flight=max_in_flight,
@@ -885,6 +967,38 @@ class PagedTorchExecutor(Executor):
     def _arenas(self) -> List[torch.Tensor]:
         return list(self.pages.values())
 
+    def _step(self, key, spec, fn):
+        """The staged step ``key`` (``StepGraphs.step``); under a mesh its
+        function runs with the model's collectives installed."""
+        if self.mesh is not None:
+            inner = fn
+            cut = S.cut_leaves(self.cfg, self.mesh.shape["model"])
+
+            def fn(x):
+                with activation_partitioning(self.mesh, cut):
+                    return inner(x)
+        return self.graphs.step(key, spec, fn, self._arenas)
+
+    # -- tensor parallelism (DESIGN.md §9) --
+    def _agree(self, ms: float) -> float:
+        """An op's ms as the loop books it: under a mesh the slowest
+        rank's, so every rank's loop keeps one clock."""
+        return ms if self.mesh is None else self.mesh.agree(ms)
+
+    def _guard(self, kind: str, ids: Sequence[int],
+               host: Optional[Dict[str, np.ndarray]] = None, *extra) -> None:
+        """Under a mesh: raise unless every rank gives this op the same
+        host inputs (kind, task ids, the step's arrays: page table,
+        lengths, token ids, ...), and chain their digest into
+        ``digest``."""
+        if self.mesh is None:
+            return
+        arrays = [x for k in sorted(host or {})
+                  for x in (k, np.asarray(host[k]))]
+        d = digest(self.digest, kind, [int(i) for i in ids], *arrays, *extra)
+        self.mesh.check_same(d, f"{kind} of tasks {list(ids)}")
+        self.digest = d
+
     def _decode_step(self, b: int):
         """The decode step of batch bucket b (JAX's ``_build_steps``):
         inputs page table, lengths, tokens, active and, for SSM/hybrid
@@ -906,7 +1020,7 @@ class PagedTorchExecutor(Executor):
                 x["tokens"], x["active"], **kw)
             return with_argmax(logits)
 
-        return self.graphs.step(("decode", b), spec, fn, self._arenas)
+        return self._step(("decode", b), spec, fn)
 
     def _verify_step(self, b: int, K: int):
         """The verify step of batch bucket b and depth bucket K (JAX's
@@ -924,7 +1038,7 @@ class PagedTorchExecutor(Executor):
                                             x["tokens"])
             return with_argmax(logits)
 
-        return self.graphs.step(("verify", b, K), spec, fn, self._arenas)
+        return self._step(("verify", b, K), spec, fn)
 
     def _chunk_step(self, c: int):
         """The chunk step of c tokens on one row (JAX's
@@ -943,7 +1057,7 @@ class PagedTorchExecutor(Executor):
                                               x["tokens"])
             return with_argmax(logits)
 
-        return self.graphs.step(("chunk", c), spec, fn, self._arenas)
+        return self._step(("chunk", c), spec, fn)
 
     def _prefill_step(self, L: int):
         """The whole-prompt step of length L (JAX's ``_prefill_jit[(L,)]``):
@@ -980,7 +1094,7 @@ class PagedTorchExecutor(Executor):
                         self.pages[name].dtype)
             return with_argmax(last)
 
-        return self.graphs.step(("prefill", L), spec, fn, self._arenas)
+        return self._step(("prefill", L), spec, fn)
 
     def _set_first_token(self, tid: int, logits: LazyLogits,
                          tok: int) -> None:
@@ -1202,11 +1316,12 @@ class PagedTorchExecutor(Executor):
         waits on the step) and book the whole time as wait."""
         if async_on:
             waited = self._push(step)
-            ms = max(0.0, (time.perf_counter() - t0) * 1000.0 - waited)
+            ms = self._agree(max(0.0, (time.perf_counter() - t0) * 1000.0
+                                 - waited))
             self.gap_stats.dispatch_ms += ms
             return ms
         self._commit_step(step)
-        ms = (time.perf_counter() - t0) * 1000.0
+        ms = self._agree((time.perf_counter() - t0) * 1000.0)
         self.gap_stats.wait_ms += ms
         self.gap_stats.cycles += 1
         return ms
@@ -1216,7 +1331,7 @@ class PagedTorchExecutor(Executor):
         chunks, a swap): synchronously after the device finishes."""
         if not async_on:
             _sync(self.device)
-        ms = (time.perf_counter() - t0) * 1000.0
+        ms = self._agree((time.perf_counter() - t0) * 1000.0)
         if async_on:
             self.gap_stats.dispatch_ms += ms
         else:
@@ -1368,6 +1483,7 @@ class PagedTorchExecutor(Executor):
             host["page_ids"] = np.asarray(phys)
         if self.states is not None:
             host["state_slot"] = np.asarray([slot])
+        self._guard("prefill", [tid], host)
         # the splice into the pages and state slot is inside the step and
         # its clock (the JAX engine splices after its clock)
         t0 = self._clock(async_on, t_disp)
@@ -1401,6 +1517,8 @@ class PagedTorchExecutor(Executor):
         self._reserve(lambda: self.pool.extend(tid, L))
         self._ensure_range_writable(tid, start, L)
         pt = self._table_np([tid], 1)
+        self._guard("suffix", [tid], {"page_table": pt,
+                                      "tokens": toks_np[:, start:L]}, start)
         t0 = self._clock(async_on, t_disp)
         done = start
         for c, step in zip(pieces, steps):
@@ -1449,9 +1567,11 @@ class PagedTorchExecutor(Executor):
             else:
                 self._reserve(lambda e=c: self.pool.alloc(tid, e))
             self._ensure_range_writable(tid, done, done + c)
-            logits, argmax = step.run({"page_table": self._table_np([tid], 1),
-                                       "lengths": np.asarray([done]),
-                                       "tokens": toks_full[:, done:done + c]})
+            host = {"page_table": self._table_np([tid], 1),
+                    "lengths": np.asarray([done]),
+                    "tokens": toks_full[:, done:done + c]}
+            self._guard("chunk", [tid], host)
+            logits, argmax = step.run(host)
             done += c
             self._chunk_progress[tid] = done
             self._insert_prefix(task, toks_full, upto=done)
@@ -1496,6 +1616,7 @@ class PagedTorchExecutor(Executor):
             sl = np.full((b,), -1, np.int32)
             sl[: len(ids)] = [self.states.slot_of(i) for i in ids]
             host["state_slots"] = sl
+        self._guard("decode", ids, host)
         t0 = self._clock(async_on, t_disp)
         logits, argmax = step.run(host, dev)
         snap = self.graphs.snapshot(argmax)
@@ -1570,11 +1691,13 @@ class PagedTorchExecutor(Executor):
             toks[r, 0] = self._last_tok[i]
             toks[r, 1: 1 + len(drafts[r])] = drafts[r]
         step = self._verify_step(b, K)
+        host = {"page_table": self._table_np(ids, b), "lengths": ln_arr,
+                "tokens": toks}
+        self._guard("verify", ids, host)
         if not async_on:
             _sync(self.device)
         t_verify = time.perf_counter()
-        logits, argmax = step.run({"page_table": self._table_np(ids, b),
-                                   "lengths": ln_arr, "tokens": toks})
+        logits, argmax = step.run(host)
         self._verify_queued = True     # at most one: the barrier above
         return self._finish(PendingStep("verify", ids, {
             "logits": LazyLogits(logits[: len(ids)]),
@@ -1680,6 +1803,7 @@ class PagedTorchExecutor(Executor):
         async_on = self._async_on()
         t0 = self._clock(async_on, time.perf_counter())
         released = self.pool.swap_out(tid)
+        self._guard("suspend", [tid], None, released)
         snaps = self._snapshot_swapped(tid, released)
         hosts, done = self._copy_out(snaps) if snaps else ({}, None)
         entries = [(li, {"k": hosts["k"][:, n], "v": hosts["v"][:, n]})
@@ -1762,6 +1886,7 @@ class PagedTorchExecutor(Executor):
             if slot >= 0:
                 self.states.swap_out(tid)     # give the fresh slot back
             raise
+        self._guard("resume", [tid], None, restored)
         entries = self.arena.take(tid)
         state = [blob for li, blob in entries if li < 0]
         self._restore_pages(restored, [e for e in entries if e[0] >= 0])

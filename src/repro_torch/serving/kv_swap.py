@@ -42,6 +42,12 @@ page entries so ``check()``'s ascending-unique-index audit covers it,
 and the whole suspension stays one atomic ``put`` (capacity is priced
 across both kinds; ``HostArenaFull`` rolls back state and pages
 together in the executor).
+
+Tensor parallelism (DESIGN.md §9): each rank of a tensor-parallel engine
+swaps its own slab of every page (1/``byte_scale`` of the page's KV
+heads) into its own arena. The arena counts each blob at ``byte_scale``
+times its size, the whole page's bytes, so its accounting and every
+capacity decision are the single-device engine's on every rank.
 """
 from __future__ import annotations
 
@@ -64,13 +70,15 @@ def _blob_bytes(blob: PageBlob) -> int:
 
 
 class KVSwapArena:
-    def __init__(self, page_size: int, capacity_bytes: Optional[int] = None):
+    def __init__(self, page_size: int, capacity_bytes: Optional[int] = None,
+                 byte_scale: int = 1):
         if page_size <= 0:
             raise ValueError("page_size must be positive")
         if capacity_bytes is not None and capacity_bytes < 0:
             raise ValueError("capacity_bytes must be non-negative")
         self.page_size = page_size
         self.capacity_bytes = capacity_bytes
+        self.byte_scale = byte_scale
         self._entries: Dict[int, List[Entry]] = {}   # owner -> saved pages
         self._bytes: Dict[int, int] = {}             # owner -> bytes held
         # lifetime counters (surfaced through LoopResult / benchmark JSON)
@@ -103,7 +111,7 @@ class KVSwapArena:
         already-suspended task is a caller bug."""
         if owner in self._entries:
             raise ValueError(f"owner {owner} already has swapped pages")
-        size = sum(_blob_bytes(blob) for _, blob in entries)
+        size = self.byte_scale * sum(_blob_bytes(blob) for _, blob in entries)
         if (self.capacity_bytes is not None
                 and self.bytes_held + size > self.capacity_bytes):
             raise HostArenaFull(
@@ -141,7 +149,8 @@ class KVSwapArena:
         assert set(self._entries) == set(self._bytes), (
             set(self._entries), set(self._bytes))
         for owner, entries in self._entries.items():
-            got = sum(_blob_bytes(blob) for _, blob in entries)
+            got = self.byte_scale * sum(_blob_bytes(blob)
+                                        for _, blob in entries)
             assert got == self._bytes[owner], (owner, got, self._bytes[owner])
             idxs = [i for i, _ in entries]
             assert idxs == sorted(set(idxs)), f"owner {owner}: bad indices {idxs}"
