@@ -134,18 +134,34 @@ Phases, each printing its own lines; any failed check exits non-zero:
             greedy steps; then 2 ranks over gloo sharing the card (eager
             steps: gloo collectives cannot be captured) run the same ops
             on their slabs: streams identical, logits within MESH_TOL,
-            equal launches on the two ranks. (c) A one-rank mesh over
-            NCCL (what --mesh-shape 1,1 builds) with every step captured,
-            the collectives inside the graphs, bit for bit the engine
-            without a mesh on the reduced config: whole and chunked
+            equal launches, digests and loop clocks on the ranks. (e)
+            The grouped-expert FFN against its plain version at a rank's
+            slab of granite-moe, fp32 and bf16: 20 and 10 of its 40
+            experts (expert-parallel over 2 and 4 ranks) and all 40 with
+            256 and 128 of their 512 d_ff columns (inside each expert),
+            in the decode layout (C = 64) and the per-example layout (2
+            examples, C = 50), live-row counts with 0 and C and NaN past
+            each count; each case timed beside its bound and the chain of
+            batched matmuls (JSON key "rank_slabs" of the kernel's
+            entry). (f) granite-moe the way of (b) on a (2, 2) mesh, 4
+            ranks: the decode bucket of 4 split 2 + 2 over the data
+            groups, each rank on 20 experts, the grouped FFN launched on
+            every rank, equal digests and loop clocks. (c) A one-rank
+            mesh over NCCL (what --mesh-shape 1,1 builds) with every step
+            captured, the collectives inside the graphs, bit for bit the
+            engine without a mesh and the same mesh engine with eager
+            steps, on reduced edge-6b and granite-moe: whole and chunked
             prefill, decode, speculative verify. (d) The CLI with
             --mesh-shape 1,2 (run paged-mesh): edge-6b at full width in
             bf16 on the serve phase's workload, 2 ranks over gloo on the
             card; every task finishes, every rank's pool ends empty, the
             ranks' digests are equal, each rank launches paged decode and
-            flash prefill at its 16 query heads and 1 KV head. The ranks
+            flash prefill at its 16 query heads and 1 KV head. (d') The
+            same with --arch granite-moe-3b-a800m --mesh-shape 2,2 (run
+            paged-mesh-moe), 4 ranks: each rank on 12 query heads, 4 KV
+            heads and 20 experts launches the grouped FFN too. The ranks
             import no JAX. Prints each rank's l(b) and engine clock,
-            labelled as 2 ranks sharing one H100 over gloo: no
+            labelled as ranks sharing one H100 over gloo: no
             tensor-parallel speed.
 6. time   — each kernel (device time: CUDA events over 30 calls queued
             behind a spin kernel, so the calls run back to back; the
@@ -180,7 +196,11 @@ Phases, each printing its own lines; any failed check exits non-zero:
             at a rank's heads (16 query heads, 1 KV head): paged decode
             and flash prefill over run paged-mesh's batch and prompts
             (its launches, both ranks', under these rows), verify and
-            chunk over runs paged-spec's and slot-chunked's shapes. The
+            chunk over runs paged-spec's and slot-chunked's shapes; at a
+            rank of run paged-mesh-moe (12 query heads, 4 KV heads, 20
+            experts), paged decode, flash prefill and the grouped FFN
+            over its rows of a full decode batch (4 of 8) and its
+            prompts. The
             multi-pass kernels' rows also print
             each pass's device time (torch.profiler): the ring-cache
             decode's split and combine, the SSD scan's chunk states, state
@@ -2242,6 +2262,97 @@ def check_sharded_kernels(worst):
                            (out.float() - want).abs().max().item())
 
 
+# (e): the grouped-expert FFN at a rank's slab of granite-moe (D 1536,
+# F 512, 40 experts, top-8): expert-parallel over 2 and 4 ranks (E_local,
+# F) and inside each expert (all 40 experts, the d_ff columns of 2 and 4
+# ranks); the decode layout of 8 tokens (one group an expert, C = 8 x 8)
+# and the per-example layout of 2 examples of 200 tokens (C = int(200 x 8
+# / 40 x 1.25 + 0.999) = 50, from the whole layer's 40 experts)
+MOE_SLABS = ((20, 512), (10, 512), (40, 256), (40, 128))
+MOE_LAYOUTS = (("decode", 1, 64), ("per-example", 2, 50))
+
+
+def check_sharded_moe(worst):
+    """(e) moe_grouped_ffn against its plain version, fp32 and bf16, at the
+    MOE_SLABS slabs in both MOE_LAYOUTS: live-row counts that include 0
+    and C, rows past a count NaN (never read; they must come out exact
+    0). Each case is timed with CUDA events beside its bound (the weights
+    of the experts with live rows, the live rows in and out, the counts;
+    6 flop a live row's weight) and beside the chain of batched matmuls
+    over the same buffer (a yardstick, not one library call). Returns the
+    bf16 cases' numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import moe_dispatch as _moe
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import time_ms
+    phase("sharded (e): the grouped-expert FFN at a rank's slab of "
+          "granite-moe")
+    D, out = 1536, []
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        elt = torch.finfo(dtype).bits // 8
+        for E, Fd in MOE_SLABS:
+            for layout, B, C in MOE_LAYOUTS:
+                G = B * E
+                buf, wg, wu, wd = moe_inputs(G, C, dtype, E=E, D=D, F=Fd,
+                                             seed=E + Fd + C)
+                g = torch.Generator(device="cuda").manual_seed(G + Fd)
+                counts = torch.randint(0, C + 1, (G,), generator=g,
+                                       device="cuda", dtype=torch.int32)
+                counts[::4] = 0
+                counts[1] = C
+                dead = (torch.arange(C, device="cuda")[None, :]
+                        >= counts[:, None])
+                buf = buf.masked_fill(dead[..., None], float("nan"))
+                poison(buf.shape, dtype)
+                got = ops.moe_grouped_ffn(buf, wg, wu, wd, counts)
+                torch.cuda.synchronize()
+                want = ref.moe_grouped_ffn_ref(buf.float(), wg.float(),
+                                               wu.float(), wd.float(), counts)
+                if not (torch.isfinite(got.float()).all()
+                        and (got[dead] == 0).all()):
+                    fail("moe_grouped_ffn: rows past a count must give exact "
+                         "zeros at a rank's slab")
+                err = (got.float() - want)[~dead].abs().max().item()
+                used = int((counts.view(B, E).sum(0) > 0).sum())
+                live = int(counts.sum())
+                nbytes = 3 * used * D * Fd * elt + 2 * live * D * elt + G * 4
+                flops = 6 * live * D * Fd
+                bound = max(nbytes / HBM_BYTES_PER_S,
+                            flops / PEAK_FLOPS[dt]) * 1e3
+                by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= flops / PEAK_FLOPS[dt] else "operations")
+                ms = time_ms(lambda: ops.moe_grouped_ffn(buf, wg, wu, wd,
+                                                         counts))
+                b4 = buf.nan_to_num().view(B, E, C, D)
+                chain_ms = time_ms(lambda: torch.matmul(
+                    F.silu(torch.matmul(b4, wg)) * torch.matmul(b4, wu),
+                    wd))
+                case = (f"{layout} G={G} E_local={E} C={C} D={D} F={Fd}, "
+                        f"{int((counts == 0).sum())} empty groups, "
+                        f"{int((counts == C).sum())} full, {live} live rows "
+                        f"over {used} experts ({_moe.body(dtype)} body)")
+                ok = err <= TOL[dt]
+                print(f"moe_grouped_ffn {case} {dt}: max_abs_err={err:.3e} "
+                      f"tol={TOL[dt]:g} {'ok' if ok else 'FAIL'}; kernel "
+                      f"{ms:.4f} ms, bmm chain {chain_ms:.4f} ms, bound "
+                      f"{bound:.5f} ms by {by} ({nbytes} B, {flops} flop)",
+                      flush=True)
+                if not ok:
+                    fail(f"moe_grouped_ffn {case} {dt} disagrees with its "
+                         "plain version at a rank's slab")
+                worst["moe_grouped_ffn"] = max(worst["moe_grouped_ffn"], err)
+                if dt == "bfloat16":
+                    out.append({"layout": layout, "G": G, "E_local": E,
+                                "C": C, "D": D, "F": Fd, "live_rows": live,
+                                "experts_used": used, "ms": ms,
+                                "bmm_chain_ms": chain_ms, "bound_ms": bound,
+                                "bound_by": by, "max_abs_err": err})
+                del buf, wg, wu, wd, got, want, b4
+    return out
+
+
 def mesh_ops(ex):
     """(b)'s ops: MESH_PROMPTS prefilled whole, then MESH_STEPS greedy
     decode steps of the three; returns (prefill logits, decode logits,
@@ -2263,45 +2374,64 @@ def mesh_ops(ex):
     return pre, dec, streams
 
 
-def mesh_rank(rank):
-    """A rank of (b): edge-6b at full width in fp32 (TF32 off) on its slab,
-    over gloo on the one card, eager steps. Returns what mesh_ops saw,
-    the rank's launches during them, its heads and any JAX module."""
+def mesh_rank(rank, arch, shape):
+    """A rank of (b) or (f): ``arch`` at full width in fp32 (TF32 off) on
+    its slab of a ``shape`` (data, model) mesh, over gloo on the one card,
+    eager steps. Returns what mesh_ops saw, the rank's launches during
+    them, its heads, the experts it holds, its digest and loop clock (the
+    agreed ms of its ops) and any JAX module."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (shape[0]
+                                                             * shape[1])))
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serving.executor import PagedTorchExecutor
-    mesh = make_serving_mesh(model=2, device=torch.device("cuda", 0))
-    ex = PagedTorchExecutor(get_config("edge-6b"), mesh=mesh, device="cuda:0",
+    mesh = make_serving_mesh(data=shape[0], model=shape[1],
+                             device=torch.device("cuda", 0))
+    ex = PagedTorchExecutor(get_config(arch), mesh=mesh, device="cuda:0",
                             cuda_graphs=False, **MESH_ENGINE)
     ops.reset_launches()
     t0 = time.perf_counter()
     pre, dec, streams = mesh_ops(ex)
     torch.cuda.synchronize()
+    moe = ex.params["blocks"].get("moe")
     return {"pre": pre, "dec": dec, "streams": streams, "heads": ex.heads,
+            "experts": 0 if moe is None else moe["wg"].shape[1],
+            "digest": ex.digest, "clock": ex.gap_stats.wait_ms,
             "launches": dict(ops.LAUNCHES), "s": time.perf_counter() - t0,
             "leaked": sorted(m for m in sys.modules if m == "jax"
                              or m.startswith(("jax.", "repro.")))}
 
 
-def check_mesh_equivalence():
+def check_mesh_equivalence(arch="edge-6b", shape=(1, 2), label="(b)"):
     """(b) edge-6b at full width, fp32: the single-process paged engine,
     then 2 ranks over gloo sharing the card, on the same ops: streams
-    identical, logits within MESH_TOL, equal launches on the two ranks."""
+    identical, logits within MESH_TOL, equal launches on the ranks. (f)
+    granite-moe the same way on a (2, 2) mesh, 4 ranks: mesh_ops's
+    decode bucket of 4 split 2 + 2 over the data groups, each rank on 20
+    of the 40 experts; also equal digests and loop clocks on the four
+    ranks and the grouped FFN launched on every rank."""
     import gc
 
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as S
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.serving.executor import PagedTorchExecutor
-    phase("sharded (b): edge-6b fp32, 2 ranks over gloo against one engine")
-    ex = PagedTorchExecutor(get_config("edge-6b"), device="cuda",
-                            cuda_graphs=False, **MESH_ENGINE)
+    data, model = shape
+    ways = data * model
+    cfg = get_config(arch)
+    experts = (cfg.n_experts // model if cfg.block_kind == "moe"
+               and cfg.n_experts % model == 0 else cfg.n_experts)
+    phase(f"sharded {label}: {arch} fp32, a ({data}, {model}) mesh of "
+          f"{ways} ranks over gloo against one engine")
+    ex = PagedTorchExecutor(cfg, device="cuda", cuda_graphs=False,
+                            **MESH_ENGINE)
     t0 = time.perf_counter()
     pre, dec, streams = mesh_ops(ex)
     torch.cuda.synchronize()
@@ -2309,38 +2439,69 @@ def check_mesh_equivalence():
     del ex
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = spawn_ranks(mesh_rank, 2, backend="gloo", timeout=300)
+    ranks = spawn_ranks(mesh_rank, ways, (arch, shape), backend="gloo",
+                        timeout=300)
     for r, res in enumerate(ranks):
+        heads = S.head_slab(cfg, model, r % model)
         if res["leaked"]:
-            fail(f"(b) rank {r} imported JAX or the JAX package: "
+            fail(f"{label} rank {r} imported JAX or the JAX package: "
                  f"{res['leaked'][:5]}")
-        if res["heads"] != (16, 1, r):
-            fail(f"(b) rank {r} holds heads {res['heads']}, not (16, 1, {r})")
+        if res["heads"] != heads or res["experts"] != experts:
+            fail(f"{label} rank {r} holds heads {res['heads']} and "
+                 f"{res['experts']} experts, not {heads} and {experts}")
         if res["streams"] != streams:
-            fail(f"(b) rank {r}'s greedy streams differ from the single "
+            fail(f"{label} rank {r}'s greedy streams differ from the single "
                  f"engine's: {res['streams']} != {streams}")
         err = max(float(np.abs(a - b).max()) for a, b in
                   zip(res["pre"] + res["dec"], pre + dec))
-        print(f"rank {r}: streams identical ({len(MESH_PROMPTS)} x "
+        print(f"rank {r}: heads {res['heads']}, {res['experts']} experts, "
+              f"streams identical ({len(MESH_PROMPTS)} x "
               f"{MESH_STEPS + 1} tokens), logits max_abs_err={err:.3e} "
-              f"tol={MESH_TOL:g}, launches {res['launches']}, ops "
-              f"{res['s']:.2f} s (single engine {one_s:.2f} s; 2 ranks "
+              f"tol={MESH_TOL:g}, launches {res['launches']}, digest "
+              f"{res['digest']:#x}, loop clock {res['clock']:.3f} ms, ops "
+              f"{res['s']:.2f} s (single engine {one_s:.2f} s; {ways} ranks "
               "sharing one H100 over gloo, eager: no tensor-parallel speed)")
         if not err <= MESH_TOL:
-            fail(f"(b) rank {r}'s logits differ from the single engine's by "
-                 f"{err:.3e} > {MESH_TOL:g}")
-    if ranks[0]["launches"] != ranks[1]["launches"]:
-        fail("(b) the ranks launched different kernels: "
-             f"{ranks[0]['launches']} != {ranks[1]['launches']}")
-    for name in ("paged_decode_attention", "flash_prefill"):
+            fail(f"{label} rank {r}'s logits differ from the single engine's "
+                 f"by {err:.3e} > {MESH_TOL:g}")
+        for key in ("launches", "digest", "clock"):
+            if res[key] != ranks[0][key]:
+                fail(f"{label} ranks 0 and {r} differ in {key}: "
+                     f"{ranks[0][key]} != {res[key]}")
+    required = ["paged_decode_attention", "flash_prefill"]
+    if cfg.block_kind == "moe":
+        required.append("moe_grouped_ffn")
+    for name in required:
         if ranks[0]["launches"][name] <= 0:
-            fail(f"(b) the ranks never launched {name}")
+            fail(f"{label} the ranks never launched {name}")
+
+
+def nccl_ops(ex, tid):
+    """(c)'s ops: a whole prefill, a chunked prefill, decode with
+    speculative steps between; every observation and the streams."""
+    from repro_torch.core.task import SLOSpec, Task
+    a, b = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=L, output_len=24,
+                 task_id=tid + i) for i, L in enumerate((40, 50))]
+    out = []
+    ex.prefill(a)
+    out.append(ex.last_prefill_logits)
+    done = False
+    while not done:
+        done = ex.prefill_chunk(b, 64)[1]
+    out.append(ex.last_prefill_logits)
+    for depths in (None, None, [2, 3], None, [1, 0], None):
+        ex.decode([a, b], depths)
+        out.append(ex.last_logits)
+    out.append([ex.generated_tokens(t) for t in (a, b)])
+    return out
 
 
 def check_mesh_nccl_captured():
     """(c) A one-rank mesh over NCCL, every step captured (the collectives
-    in the graphs), against the engine without a mesh on the reduced
-    config: whole prefill, chunked prefill, decode, speculative verify
+    in the graphs), against the engine without a mesh and against the
+    same mesh engine with eager steps, on reduced edge-6b and granite-moe
+    (its one slab all 40 experts, the combine's all-reduce in the
+    graphs): whole prefill, chunked prefill, decode, speculative verify
     with a self-draft; logits and streams bit for bit."""
     import gc
 
@@ -2348,130 +2509,158 @@ def check_mesh_nccl_captured():
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.core.task import SLOSpec, Task
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import model as M
     from repro_torch.serving.executor import PagedTorchExecutor
     phase("sharded (c): --mesh-shape 1,1 over NCCL, steps captured, "
-          "against no mesh")
-    cfg = get_config("edge-6b").reduced()
-    params = M.init_params(cfg, seed=0, device="cuda")
-    kw = dict(n_pages=64, page_size=16, max_seq=256, max_batch=4,
-              prefill_chunk_size=32, spec_decode=True, draft_cfg=cfg,
-              draft_params=params, device="cuda")
+          "against no mesh and eager steps")
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(
             os.path.join(tmp, "store"), 1), rank=0, world_size=1)
         try:
             mesh = make_serving_mesh(model=1, device=torch.device("cuda", 0))
-            engines = [PagedTorchExecutor(cfg, params=params, **kw),
-                       PagedTorchExecutor(cfg, params=params, mesh=mesh,
-                                          **kw)]
-            seen = []
-            for ex in engines:
-                a, b = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=L,
-                             output_len=24, task_id=9200 + i)
-                        for i, L in enumerate((40, 50))]
-                out = []
-                ex.prefill(a)
-                out.append(ex.last_prefill_logits)
-                done = False
-                while not done:
-                    done = ex.prefill_chunk(b, 64)[1]
-                out.append(ex.last_prefill_logits)
-                for depths in (None, None, [2, 3], None, [1, 0], None):
-                    ex.decode([a, b], depths)
-                    out.append(ex.last_logits)
-                out.append([ex.generated_tokens(t) for t in (a, b)])
-                seen.append(out)
-            captured = [k for k, st in engines[1].graphs.steps.items()
-                        if st.graph is not None]
-            if len(captured) != len(engines[1].graphs.steps) or not captured:
-                fail(f"(c) the mesh engine's steps were not all captured: "
-                     f"{sorted(map(str, engines[1].graphs.steps))}")
-            for i, (x, y) in enumerate(zip(*seen)):
-                same = (x == y if isinstance(x, list)
-                        else np.array_equal(x, y))
-                if not same:
-                    fail(f"(c) observation {i} of the one-rank NCCL mesh "
-                         "differs from the engine without a mesh")
-            print(f"one-rank NCCL mesh: {len(captured)} captured steps "
-                  f"({', '.join(sorted(str(k) for k in captured))}), "
-                  f"{len(seen[0])} observations bit for bit, streams "
-                  f"{seen[1][-1]}")
-            del engines          # reference cycles: their graphs go first
-            gc.collect()
-            torch.cuda.synchronize()
+            for arch in ("edge-6b", "granite-moe-3b-a800m"):
+                cfg = get_config(arch).reduced()
+                params = M.init_params(cfg, seed=0, device="cuda")
+                kw = dict(n_pages=64, page_size=16, max_seq=256, max_batch=4,
+                          prefill_chunk_size=32, spec_decode=True,
+                          draft_cfg=cfg, draft_params=params, device="cuda")
+                engines = [PagedTorchExecutor(cfg, params=params, **kw),
+                           PagedTorchExecutor(cfg, params=params, mesh=mesh,
+                                              **kw),
+                           PagedTorchExecutor(cfg, params=params, mesh=mesh,
+                                              cuda_graphs=False, **kw)]
+                seen = [nccl_ops(ex, 9200) for ex in engines]
+                captured = [k for k, st in engines[1].graphs.steps.items()
+                            if st.graph is not None]
+                if (len(captured) != len(engines[1].graphs.steps)
+                        or not captured):
+                    fail(f"(c) {arch}: the mesh engine's steps were not all "
+                         "captured: "
+                         f"{sorted(map(str, engines[1].graphs.steps))}")
+                for other, what in ((0, "the engine without a mesh"),
+                                    (2, "its eager steps")):
+                    for i, (x, y) in enumerate(zip(seen[1], seen[other])):
+                        same = (x == y if isinstance(x, list)
+                                else np.array_equal(x, y))
+                        if not same:
+                            fail(f"(c) {arch}: observation {i} of the "
+                                 f"captured one-rank NCCL mesh differs from "
+                                 f"{what}")
+                print(f"one-rank NCCL mesh, {cfg.name}: {len(captured)} "
+                      f"captured steps "
+                      f"({', '.join(sorted(str(k) for k in captured))}), "
+                      f"{len(seen[0])} observations bit for bit with no "
+                      f"mesh and with eager steps, streams {seen[1][-1]}")
+                del engines      # reference cycles: their graphs go first
+                gc.collect()
+                torch.cuda.synchronize()
         finally:
             dist.destroy_process_group()
 
 
+# (d) and (d'): (run, extra serve arguments, kernels every rank must
+# launch) on the serve phase's workload, the ranks sharing the card over
+# gloo with eager steps
+MESH_SERVE_RUNS = (
+    ("paged-mesh", ["--mesh-shape", "1,2"],
+     ("paged_decode_attention", "flash_prefill")),
+    # granite-moe expert-parallel (20 of its 40 experts a rank), the
+    # decode batches of 2, 4 and 8 split over two data groups
+    ("paged-mesh-moe", ["--arch", "granite-moe-3b-a800m", "--mesh-shape",
+                        "2,2"],
+     ("paged_decode_attention", "flash_prefill", "moe_grouped_ffn")),
+)
+
+
 def mesh_serve_phase():
     """(d) The CLI with --mesh-shape 1,2: edge-6b at full width in bf16 on
-    the serve phase's workload, 2 ranks over gloo on the one card. Every
-    task finishes, every rank's pool ends empty, the ranks' digests are
-    equal, each rank launches paged decode and flash prefill at its slab's
-    heads (16 query heads, 1 KV head). Returns the run's entry for the
-    time phase: the shapes a rank's kernels saw, the ranks' launches
-    summed."""
+    the serve phase's workload, 2 ranks over gloo on the one card. (d')
+    granite-moe the same way with --mesh-shape 2,2, 4 ranks. Every task
+    finishes, every rank's pool ends empty, the ranks' digests are
+    equal, each rank holds its slab (heads, experts) and launches its
+    run's kernels. Returns the runs' entries for the time phase: the
+    shapes a rank's kernels saw (a rank's heads, experts and rows of a
+    full decode batch), the ranks' launches summed."""
     import dataclasses
     import types
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    argv = SERVE_ARGS + ["--executor", "paged", "--mesh-shape", "1,2"]
-    args = serve.parse_args(argv)
-    phase("sharded (d) serve paged-mesh: edge-6b at full width (bf16), 2 "
-          "ranks over gloo sharing the card")
-    print("serve args:", " ".join(argv))
-    t0 = time.perf_counter()
-    run = serve.run(args)
-    wall = time.perf_counter() - t0
-    if not isinstance(run, serve.MeshRun) or run.backend != "gloo":
-        fail("paged-mesh: not a gloo mesh run")
-    launches = dict.fromkeys(KERNELS, 0)
-    for r, res in enumerate(run.ranks):
-        print(f"rank {r} ({res['device']}): heads q={res['heads'][0]} "
-              f"kv={res['heads'][1]} (KV head {res['heads'][2]}), "
-              f"l(b) {' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probes'])}"
-              f", engine clock {res['end_ms']:.1f} ms over "
-              f"{res['decode_iters']} decode steps and {res['prefills']} "
-              f"prefills (2 ranks sharing one H100 over gloo, eager: no "
-              f"tensor-parallel speed), launches {res['launches']}, "
-              f"digest {res['digest']:#x}")
-        if res["unfinished"] or not res["n_tasks"]:
-            fail(f"paged-mesh: rank {r} left tasks unfinished: "
-                 f"{res['unfinished']} of {res['n_tasks']}")
-        if res["used_pages"] or res["leaked"]:
-            fail(f"paged-mesh: rank {r} ends with {res['used_pages']} pages "
-                 "held")
-        if res["digests"] != [run.ranks[0]["digest"]] * len(run.ranks):
-            fail(f"paged-mesh: the ranks' digests differ: {res['digests']}")
-        if res["heads"] != (16, 1, r):
-            fail(f"paged-mesh: rank {r} holds heads {res['heads']}")
-        for name in ("paged_decode_attention", "flash_prefill"):
-            if res["launches"][name] <= 0:
-                fail(f"paged-mesh: rank {r} never launched {name}")
-        for name, n in res["launches"].items():
-            launches[name] += n
-    print(f"paged-mesh: {run.ranks[0]['n_tasks']} tasks, wall {wall:.1f} s")
-    cfg = get_config(args.arch)
-    shapes = {"cfg": dataclasses.replace(cfg, n_heads=16, n_kv_heads=1),
-              "max_seq": args.max_seq, "chunk": None,
-              "tasks": [types.SimpleNamespace(prompt_len=p, output_len=o)
-                        for p, o in run.ranks[0]["tasks"]],
-              "batch": args.slots, "page_size": args.page_size,
-              "n_pages": (args.slots * args.max_seq) // args.page_size,
-              "maxp": -(-args.max_seq // args.page_size)}
-    return {"paged-mesh": (shapes, launches)}
+    from repro_torch.launch import sharding as S
+    entries = {}
+    for name, extra, required in MESH_SERVE_RUNS:
+        argv = SERVE_ARGS + ["--executor", "paged"] + extra
+        args = serve.parse_args(argv)
+        data, model = serve._mesh_shape(args)
+        cfg = get_config(args.arch)
+        experts = (cfg.n_experts // model if cfg.block_kind == "moe"
+                   and cfg.n_experts % model == 0 else cfg.n_experts)
+        phase(f"sharded serve {name}: {args.arch} at full width (bf16), "
+              f"{data * model} ranks of a ({data}, {model}) mesh over gloo "
+              "sharing the card")
+        print("serve args:", " ".join(argv))
+        t0 = time.perf_counter()
+        run = serve.run(args)
+        wall = time.perf_counter() - t0
+        if not isinstance(run, serve.MeshRun) or run.backend != "gloo":
+            fail(f"{name}: not a gloo mesh run")
+        launches = dict.fromkeys(KERNELS, 0)
+        for r, res in enumerate(run.ranks):
+            heads = S.head_slab(cfg, model, r % model)
+            print(f"rank {r} ({res['device']}): heads q={res['heads'][0]} "
+                  f"kv={res['heads'][1]} (KV head {res['heads'][2]}), "
+                  f"{res['experts']} experts, l(b) "
+                  f"{' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probes'])}"
+                  f", engine clock {res['end_ms']:.1f} ms over "
+                  f"{res['decode_iters']} decode steps and {res['prefills']} "
+                  f"prefills ({data * model} ranks sharing one H100 over "
+                  f"gloo, eager: no tensor-parallel speed), launches "
+                  f"{res['launches']}, digest {res['digest']:#x}")
+            if res["unfinished"] or not res["n_tasks"]:
+                fail(f"{name}: rank {r} left tasks unfinished: "
+                     f"{res['unfinished']} of {res['n_tasks']}")
+            if res["used_pages"] or res["leaked"]:
+                fail(f"{name}: rank {r} ends with {res['used_pages']} pages "
+                     "held")
+            if res["jax_modules"]:
+                fail(f"{name}: rank {r} imported JAX or the JAX package: "
+                     f"{res['jax_modules'][:5]}")
+            if res["digests"] != [run.ranks[0]["digest"]] * len(run.ranks):
+                fail(f"{name}: the ranks' digests differ: {res['digests']}")
+            if res["heads"] != heads or res["experts"] != experts:
+                fail(f"{name}: rank {r} holds heads {res['heads']} and "
+                     f"{res['experts']} experts, not {heads} and {experts}")
+            for kernel in required:
+                if res["launches"][kernel] <= 0:
+                    fail(f"{name}: rank {r} never launched {kernel}")
+            for kernel, n in res["launches"].items():
+                launches[kernel] += n
+        print(f"{name}: {run.ranks[0]['n_tasks']} tasks, wall {wall:.1f} s")
+        hq, hkv, _ = S.head_slab(cfg, model, 0)
+        shapes = {"cfg": dataclasses.replace(cfg, n_heads=hq,
+                                             n_kv_heads=hkv),
+                  "experts": experts, "max_seq": args.max_seq,
+                  "chunk": None,
+                  "tasks": [types.SimpleNamespace(prompt_len=p, output_len=o)
+                            for p, o in run.ranks[0]["tasks"]],
+                  "batch": args.slots // data,
+                  "page_size": args.page_size,
+                  "n_pages": (args.slots * args.max_seq) // args.page_size,
+                  "maxp": -(-args.max_seq // args.page_size)}
+        entries[name] = (shapes, launches)
+    return entries
 
 
 def sharded_phase(worst):
-    """(a)-(d); returns the paged-mesh run's entry for the time phase."""
+    """(a)-(f); returns the serving runs' entries for the time phase and
+    (e)'s timed cases."""
     check_sharded_kernels(worst)
+    moe_slabs = check_sharded_moe(worst)
     check_mesh_equivalence()
+    check_mesh_equivalence("granite-moe-3b-a800m", (2, 2), "(f)")
     check_mesh_nccl_captured()
-    return mesh_serve_phase()
+    return mesh_serve_phase(), moe_slabs
 
 
 def time_phase(runs, worst):
@@ -2809,36 +2998,56 @@ def time_phase(runs, worst):
     ssd_step_row("slot-ssm", 19, ("slot-ssm",))
     ssd_step_row("slot-hybrid", 13, ("slot-hybrid",))
 
-    # grouped-expert FFN (run paged-moe): the dispatch buffer of the full
-    # decode batch, C = batch * top_k, rows placed by a random top-k
-    # routing of the batch's tokens and each expert's count passed, so
-    # most of each expert's capacity is dead rows, as in serving
-    sh = runs["paged-moe"][0]
-    mcfg = sh["cfg"]
-    E, D, Fd, K = mcfg.n_experts, mcfg.d_model, mcfg.d_ff, mcfg.top_k
-    B = sh["batch"]
-    g = torch.Generator(device="cuda").manual_seed(9)
-    C = B * K
-    mbuf, mwg, mwu, mwd = moe_inputs(E, C, dtype, E=E, D=D, F=Fd, seed=8)
-    mbuf.zero_()
-    picks = torch.rand(B, E, generator=g, device="cuda").topk(K).indices
-    fill = torch.zeros(E, dtype=torch.long)
-    for e in picks.flatten().tolist():
-        mbuf[e, fill[e]] = torch.randn(D, generator=g, device="cuda").to(dtype)
-        fill[e] += 1
-    used = int((fill > 0).sum())
-    live_rows = int(fill.sum())
-    mcounts = fill.to(torch.int32).cuda()
-    m_args32 = f32((mbuf, mwg, mwu, mwd))
-    row("moe_grouped_ffn", f"G=E={E} C={C} D={D} F={Fd}, {live_rows} "
-        f"live rows over {used} experts, counts passed",
-        lambda: ops.moe_grouped_ffn(mbuf, mwg, mwu, mwd, mcounts),
-        lambda: ref.moe_grouped_ffn_ref(mbuf, mwg, mwu, mwd, mcounts),
-        lambda: ref.moe_grouped_ffn_ref(*m_args32, mcounts), None,
-        # the weights of experts with rows, the live rows in and out, the
-        # counts
-        3 * used * D * Fd * elt + 2 * live_rows * D * elt + E * 4,
-        6 * live_rows * D * Fd, body=_moe.body(dtype), of_runs=("paged-moe",))
+    def moe_row(run, seed, of_runs):
+        """The dispatch buffer of ``run``'s full decode batch, C = batch *
+        top_k, rows placed by a random top-k routing of the batch's tokens
+        over all the arch's experts and each expert's count passed, so
+        most of each expert's capacity is dead rows, as in serving; on a
+        rank's slab of the experts (its ``experts``, the first ones),
+        only the assignments to the slab's experts."""
+        sh = runs[run][0]
+        mcfg = sh["cfg"]
+        E, D, Fd, K = mcfg.n_experts, mcfg.d_model, mcfg.d_ff, mcfg.top_k
+        El = sh.get("experts", E)
+        B = sh["batch"]
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        C = B * K
+        mbuf, mwg, mwu, mwd = moe_inputs(El, C, dtype, E=El, D=D, F=Fd,
+                                         seed=seed - 1)
+        mbuf.zero_()
+        picks = torch.rand(B, E, generator=g, device="cuda").topk(K).indices
+        fill = torch.zeros(El, dtype=torch.long)
+        for e in picks.flatten().tolist():
+            if e < El:
+                mbuf[e, fill[e]] = torch.randn(D, generator=g,
+                                               device="cuda").to(dtype)
+                fill[e] += 1
+        used = int((fill > 0).sum())
+        live_rows = int(fill.sum())
+        mcounts = fill.to(torch.int32).cuda()
+        m_args32 = f32((mbuf, mwg, mwu, mwd))
+        slab = "" if El == E else f" (a rank's {El} of {E} experts)"
+        row("moe_grouped_ffn", f"G=E={El}{slab} C={C} D={D} F={Fd}, "
+            f"{live_rows} live rows over {used} experts, counts passed",
+            lambda: ops.moe_grouped_ffn(mbuf, mwg, mwu, mwd, mcounts),
+            lambda: ref.moe_grouped_ffn_ref(mbuf, mwg, mwu, mwd, mcounts),
+            lambda: ref.moe_grouped_ffn_ref(*m_args32, mcounts), None,
+            # the weights of experts with rows, the live rows in and out,
+            # the counts
+            3 * used * D * Fd * elt + 2 * live_rows * D * elt + El * 4,
+            6 * live_rows * D * Fd, body=_moe.body(dtype), of_runs=of_runs)
+        return mbuf, mwg, mwu, mwd
+
+    # grouped-expert FFN: run paged-moe's batch over all 40 experts, and a
+    # rank's rows of a full batch of the paged-mesh-moe run on its 20
+    mbuf, mwg, mwu, mwd = moe_row("paged-moe", 9, ("paged-moe",))
+    moe_row("paged-mesh-moe", 25, ("paged-mesh-moe",))
+
+    # a rank of the paged-mesh-moe run (granite-moe over a (2, 2) mesh: 12
+    # query heads, 4 KV heads), paged decode over its rows of a full batch
+    # and whole-prompt prefill over its prompts
+    paged_decode_row("paged-mesh-moe", 26, ("paged-mesh-moe",))
+    prefill_row("paged-mesh-moe", 27, ("paged-mesh-moe",))
 
     # every run's launches of a kernel stand under exactly one of its rows
     for run, (_, counts) in runs.items():
@@ -3241,8 +3450,12 @@ def main() -> None:
     runs = {}
     for name, extra, required in SERVE_RUNS:
         runs.update(serve_phase(name, extra, required))
-    runs.update(sharded_phase(worst))
+    mesh_runs, moe_slabs = sharded_phase(worst)
+    runs.update(mesh_runs)
     kernels = time_phase(runs, worst)
+    for k in kernels:
+        if k["name"] == "moe_grouped_ffn":
+            k["rank_slabs"] = moe_slabs
     train_phase()
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))

@@ -37,21 +37,29 @@ class ServingMesh:
 
     ``shape`` maps each axis to its size and ``axis_names`` is ('data',
     'model'), all that the sharding rules read. ``coords`` is this rank's
-    place on each axis (rank = data * model_size + model), ``model_group``
-    the process group of the ranks that share this rank's data index (the
-    collectives of the model), ``cpu_group`` a gloo group of the same ranks
-    for host scalars (``agree``, ``check_same``), ``device`` the rank's
-    device and ``backend`` the model group's."""
+    place on each axis (rank = data * model_size + model). ``model_group``
+    is the process group of the ranks that share this rank's data index
+    (the model's collectives), ``data_group`` that of the ranks that share
+    its model index (the gathers of a batch split over 'data'), and
+    ``data_cpu_group`` a gloo twin of it for host tensors (the group
+    itself under gloo). ``world_cpu_group`` is a gloo group of every rank:
+    every rank runs the same control plane, so ``agree``, ``check_same``
+    and ``gather`` span the whole mesh, one loop clock and one digest
+    across the data groups. ``device`` is the rank's device and
+    ``backend`` the model group's."""
 
     axis_names = AXES
 
     def __init__(self, data: int, model: int, rank: int, model_group,
-                 cpu_group, device: torch.device, backend: str):
+                 data_group, data_cpu_group, world_cpu_group,
+                 device: torch.device, backend: str):
         self.shape = {"data": data, "model": model}
         self.coords = {"data": rank // model, "model": rank % model}
         self.rank = rank
         self.model_group = model_group
-        self.cpu_group = cpu_group
+        self.data_group = data_group
+        self.data_cpu_group = data_cpu_group
+        self.world_cpu_group = world_cpu_group
         self.device = torch.device(device)
         self.backend = backend
 
@@ -60,24 +68,24 @@ class ServingMesh:
         of a step of a tensor-parallel engine is its slowest rank's, and
         the serving loop's clock must be one clock on every rank."""
         t = torch.tensor([float(ms)], dtype=torch.float64)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.cpu_group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.world_cpu_group)
         return float(t[0])
 
     def check_same(self, digest: int, what: str) -> None:
         """Raise on every rank unless every rank passed the same
         ``digest`` (an int below 2**62)."""
         t = torch.tensor([digest, -digest], dtype=torch.int64)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.cpu_group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.world_cpu_group)
         if int(t[0]) != -int(t[1]):
             raise RuntimeError(
                 f"ranks diverged at {what}: host inputs differ between the "
-                f"ranks of the model group (rank {self.rank} digest "
+                f"ranks of the mesh (rank {self.rank} digest "
                 f"{digest:#x}); the control planes must run in lockstep")
 
     def gather(self, obj) -> List[Any]:
         """Every rank's ``obj`` (picklable), in rank order, on every rank."""
-        out: List[Any] = [None] * self.shape["model"]
-        dist.all_gather_object(out, obj, group=self.cpu_group)
+        out: List[Any] = [None] * (self.shape["data"] * self.shape["model"])
+        dist.all_gather_object(out, obj, group=self.world_cpu_group)
         return out
 
 
@@ -99,18 +107,31 @@ def make_serving_mesh(*, model: int, data: int = 1,
                          f"the process group has {world}")
     rank = dist.get_rank()
     backend = dist.get_backend()
-    model_group = cpu_group = None
-    for d in range(data):           # every rank makes every group, in order
-        ranks = list(range(d * model, (d + 1) * model))
-        g = dist.new_group(ranks) if data > 1 else dist.group.WORLD
-        c = g if backend == "gloo" else dist.new_group(ranks, backend="gloo")
-        if rank in ranks:
-            model_group, cpu_group = g, c
+
+    def groups(blocks, twin):
+        """(group, its gloo twin or None) of the block holding this rank;
+        every rank makes every block's groups, in the same order. One
+        block is the world itself."""
+        mine = None
+        for ranks in blocks:
+            g = dist.new_group(ranks) if len(blocks) > 1 else dist.group.WORLD
+            c = (g if backend == "gloo" else
+                 dist.new_group(ranks, backend="gloo") if twin else None)
+            if rank in ranks:
+                mine = (g, c)
+        return mine
+
+    model_group, _ = groups([list(range(d * model, (d + 1) * model))
+                             for d in range(data)], twin=False)
+    data_group, data_cpu_group = groups([list(range(m, n, model))
+                                         for m in range(model)], twin=True)
+    world_cpu_group = (dist.group.WORLD if backend == "gloo"
+                       else dist.new_group(list(range(n)), backend="gloo"))
     if device is None:
         device = (torch.device("cuda", rank % torch.cuda.device_count())
                   if backend == "nccl" else torch.device("cpu"))
-    return ServingMesh(data, model, rank, model_group, cpu_group, device,
-                       backend)
+    return ServingMesh(data, model, rank, model_group, data_group,
+                       data_cpu_group, world_cpu_group, device, backend)
 
 
 def batch_axes(mesh) -> tuple:

@@ -48,6 +48,10 @@ kernel versions on the CPU), over the paged engine by default
   # the same ranks under torchrun (it starts them, not the CLI)
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
       --arch edge-6b --dtype bfloat16 --mesh-shape 1,2
+  # an MoE arch (expert-parallel: 20 of granite's 40 experts a rank) with
+  # the decode batch split over two data groups: 4 ranks
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --dtype bfloat16 --mesh-shape 2,2
 
   # tiny CPU run
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
@@ -68,6 +72,7 @@ import contextlib
 import dataclasses
 import io
 import os
+import sys
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -172,9 +177,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "identical to the plain single-model path")
     ap.add_argument("--mesh-shape", default=None,
                     help="paged executor: 'data,model' serving mesh, e.g. "
-                         "1,2 — cuts weights + the KV page arena over the "
-                         "model axis (DESIGN.md §9), one process a rank, "
-                         "started here (or by torchrun)")
+                         "2,2 — cuts weights + the KV page arena over the "
+                         "model axis and decode batches over the data axis "
+                         "(DESIGN.md §9), one process a rank, started here "
+                         "(or by torchrun)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="record the per-request lifecycle stream "
                          "(DESIGN.md §13) and write a Perfetto/Chrome-"
@@ -291,7 +297,7 @@ def _export_trace(tr, args, tasks, events) -> None:
 
 def _mesh_shape(args) -> Optional[Tuple[int, int]]:
     """--mesh-shape parsed and checked against the other flags, as the JAX
-    launcher does, plus the port's own refusals (ROADMAP.md)."""
+    launcher does."""
     if args.mesh_shape is None:
         return None
     try:
@@ -305,9 +311,6 @@ def _mesh_shape(args) -> Optional[Tuple[int, int]]:
     if args.fleet is not None:
         raise SystemExit("--fleet with --mesh-shape is not supported "
                          "(one process group per run)")
-    if shape[0] > 1:
-        raise SystemExit("--mesh-shape with data > 1 (the batch sharded over "
-                         "'data') is still to port (ROADMAP.md)")
     return shape
 
 
@@ -344,9 +347,6 @@ def run(args: argparse.Namespace) -> Union[ServeRun, FleetRun, MeshRun]:
         raise SystemExit(f"{args.arch}: spec-decode/prefix-cache/mesh need "
                          "rewindable/sharable per-token KV; the recurrent "
                          "state kind has none (DESIGN.md §12)")
-    if cfg.block_kind == "moe" and mesh_shape is not None:
-        raise SystemExit(f"{args.arch}: MoE under --mesh-shape is still to "
-                         "port (ROADMAP.md)")
     if args.prefix_cache and args.executor != "paged":
         raise SystemExit("--prefix-cache requires --executor paged "
                          "(sharing rides on the refcounted page pool)")
@@ -468,9 +468,10 @@ def _serve_rank(rank: int, args: argparse.Namespace, cfg,
                 mesh_shape: Tuple[int, int], backend: str) -> dict:
     """One rank of ``run_mesh``: serve on this rank's slab (only rank 0
     prints), then gather the ranks' digests; rank 0 prints them. Returns
-    the rank's summary: its heads (query, KV, first KV head), digest,
-    kernel launches, loop clock, the tasks' (prompt, output) lengths, tasks
-    left unfinished and pages held."""
+    the rank's summary: its heads (query, KV, first KV head), the experts
+    it holds (MoE), digest, kernel launches, loop clock, the tasks'
+    (prompt, output) lengths, tasks left unfinished, pages held and any
+    module of JAX or the JAX package it imported."""
     device = rank_device(args.device, backend, rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -493,7 +494,9 @@ def _serve_rank(rank: int, args: argparse.Namespace, cfg,
               f"kv={ex.heads[1]} digests=[{', '.join(f'{d:#x}' for d in digests)}]"
               f" {'equal' if len(set(digests)) == 1 else 'DIFFER'}",
               flush=True)
+    moe = ex.params["blocks"].get("moe")
     return {"rank": rank, "device": str(device), "heads": ex.heads,
+            "experts": 0 if moe is None else moe["wg"].shape[1],
             "digest": ex.digest, "digests": digests,
             "launches": dict(ops.LAUNCHES), "probes": list(run.probes),
             "end_ms": res.end_ms, "n_tasks": len(res.tasks),
@@ -501,7 +504,9 @@ def _serve_rank(rank: int, args: argparse.Namespace, cfg,
             "unfinished": [t.task_id for t in res.tasks
                            if t.dropped or not t.finished],
             "used_pages": ex.pool.used_pages, "leaked": ex.store.leaked(),
-            "decode_iters": res.decode_iterations, "prefills": res.prefills}
+            "decode_iters": res.decode_iterations, "prefills": res.prefills,
+            "jax_modules": sorted(m for m in sys.modules if m == "jax"
+                                  or m.startswith(("jax.", "repro.")))}
 
 
 def run_fleet(args: argparse.Namespace) -> FleetRun:

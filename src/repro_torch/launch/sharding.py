@@ -19,9 +19,9 @@ dimension, as jit input shardings require.
 The serving layout (``serving_cuts``, ``local_params``, ``head_slab``)
 is what a rank of ``serving.executor.PagedTorchExecutor(mesh=...)`` holds.
 It follows ``param_specs(train=False)`` wherever that spec splits whole
-heads, whole d_ff columns or whole vocabulary rows; where the spec splits
-inside a head, or splits d_model, the port keeps whole heads, because a
-kernel takes whole heads:
+heads, whole d_ff columns, whole experts or whole vocabulary rows; where
+the spec splits inside a head, or splits d_model, the port keeps whole
+heads, because a kernel takes whole heads:
 
 - attention shards by query heads when ``n_heads % ways == 0`` and every
   rank's query heads read the same number of KV heads; otherwise every
@@ -36,12 +36,19 @@ kernel takes whole heads:
 - the embedding is cut by vocabulary rows and lm_head by vocabulary
   columns when ``padded_vocab % ways == 0``; else both are replicated
   (JAX splits d_model there);
-- norms are replicated. SSM and MoE weights have no serving layout: a
-  mesh refuses those archs (ROADMAP.md).
+- MoE (the ``moe`` group), as the spec chooses: expert-parallel when
+  ``n_experts % ways == 0``, wg/wu/wd cut on the expert dim (rank r holds
+  experts [r*E/ways, (r+1)*E/ways)); otherwise tensor-parallel inside
+  each expert, wg/wu cut by d_ff columns and wd by d_ff rows when
+  ``d_ff % ways == 0``, else whole. The router and ln2 stay whole;
+- norms are replicated. SSM weights have no serving layout: a mesh
+  refuses those archs, as in JAX.
 
-A cut product is a partial sum over 'model' (wo's and wd's rows) or a
-slab of the output (the vocabulary); ``models.partitioning`` puts the
-whole together.
+A cut product is a partial sum over 'model' (wo's and wd's rows, an
+expert slab's or a d_ff slab's share of the MoE combine) or a slab of
+the output (the vocabulary); ``models.partitioning`` puts the whole
+together. ``cut_leaves`` names a group's leaves by their path in the
+group ("moe.wd"), so a dense MLP's "wd" and an MoE's never meet.
 """
 from __future__ import annotations
 
@@ -226,7 +233,7 @@ def head_slab(cfg: ArchConfig, ways: int, rank: int) -> Tuple[int, int, int]:
 
 def serving_cuts(cfg: ArchConfig, ways: int) -> Dict[str, Any]:
     """The serving layout over ``ways`` model ranks: per leaf of
-    init_params' tree (attention-only archs: no SSM or MoE group) a Cut,
+    init_params' tree (attention archs, dense or MoE: no SSM group) a Cut,
     (dim, "model") or (dim, "kv_group"), or None (whole). Over one rank
     every leaf that can be cut is, into one slab."""
     attn = attention_split(cfg, ways)
@@ -239,7 +246,14 @@ def serving_cuts(cfg: ArchConfig, ways: int) -> Dict[str, Any]:
     if cfg.has_attention:
         blk.update(wq=(-1, "model") if attn else None, wk=kv, wv=kv,
                    wo=(-2, "model") if attn else None)
-    if cfg.d_ff > 0:
+    if cfg.block_kind == "moe":
+        if _div(cfg.n_experts, ways):         # expert-parallel
+            wg = wd = (-3, "model")
+        else:                                 # inside each expert
+            wg, wd = ((-1, "model"), (-2, "model")) if mlp else (None, None)
+        blk["moe"] = {"router": None, "wg": wg, "wu": wg, "wd": wd}
+        blk["ln2"] = None
+    elif cfg.d_ff > 0:
         blk.update(wg=(-1, "model") if mlp else None,
                    wu=(-1, "model") if mlp else None,
                    wd=(-2, "model") if mlp else None, ln2=None)
@@ -252,14 +266,17 @@ def serving_cuts(cfg: ArchConfig, ways: int) -> Dict[str, Any]:
 
 def cut_leaves(cfg: ArchConfig, ways: int) -> frozenset:
     """Names of the leaves cut over ``ways`` model ranks, for
-    ``models.partitioning.activation_partitioning``."""
-    def names(node):
+    ``models.partitioning.activation_partitioning``: a top-level or block
+    leaf by its name ("wd"), a group's by its path in the group
+    ("moe.wd")."""
+    def names(node, prefix):
         for k, v in node.items():
             if isinstance(v, dict):
-                yield from names(v)
+                yield from names(v, prefix if k == "blocks"
+                                 else f"{prefix}{k}.")
             elif v is not None:
-                yield k
-    return frozenset(names(serving_cuts(cfg, ways)))
+                yield prefix + k
+    return frozenset(names(serving_cuts(cfg, ways), ""))
 
 
 def cutter(cfg: ArchConfig, mesh) -> Callable[[str, torch.Tensor],

@@ -371,13 +371,21 @@ def _ffn(cfg: ArchConfig, blk: Params, layer: int,
     """Post-mixer FFN (residual applied by the caller). MoE blocks dispatch
     as the JAX model's default ``moe_impl="grouped"``: a sequence of T > 1
     tokens a row through ``moe_ffn_grouped`` (per-example capacity, drops),
-    one token a row through the lossless ``moe_ffn_grouped_decode``."""
+    one token a row through the lossless ``moe_ffn_grouped_decode``. A
+    rank's slab of the experts, or of their d_ff columns, gives a partial
+    sum, summed over the model axis after the combine."""
     if cfg.block_kind == "moe":
         h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
         mp = {k: v[layer] for k, v in blk["moe"].items()}
+        # an expert-parallel slab: E_local of the E experts, the rank's
+        first = P.model_index() * mp["wg"].shape[0] if (
+            mp["wg"].shape[0] < cfg.n_experts) else 0
         if h.ndim == 3 and h.shape[1] > 1:
-            return MOE.moe_ffn_grouped(mp, h, cfg.top_k)[0]
-        return MOE.moe_ffn_grouped_decode(mp, h, cfg.top_k)[0]
+            y = MOE.moe_ffn_grouped(mp, h, cfg.top_k, first_expert=first)[0]
+        else:
+            y = MOE.moe_ffn_grouped_decode(mp, h, cfg.top_k,
+                                           first_expert=first)[0]
+        return P.reduce_model(y) if P.cut("moe.wd") else y
     if cfg.d_ff <= 0:
         return torch.zeros_like(x)
     h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
@@ -826,6 +834,12 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     required for SSM/hybrid archs. The new K/V and state are written in
     place. No host sync: the step can be captured as a CUDA graph.
     Returns (logits [B,V], pages).
+
+    With the batch split over 'data' (``partitioning.batch_rows``), this
+    rank computes its data group's rows only, then gathers the logits and
+    the step's new K/V of every row from the other groups and writes them
+    into its own arena (``_share_rows``), which stays replicated over
+    'data' as JAX's ``page_specs`` has it.
     """
     _check_causal(cfg)
     if cfg.has_ssm and state_slots is None:
@@ -836,7 +850,6 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
         active = torch.ones((B,), dtype=torch.bool, device=dev)
     k_all, v_all = pages["k_pages"], pages["v_pages"]
     psz, maxp = k_all.shape[3], page_table.shape[1]
-    x = embed_inputs(cfg, params, tokens)              # [B,D]
     q_pos = lengths
     if cfg.has_attention:
         rows = torch.arange(B, device=dev)
@@ -849,6 +862,14 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
         writes = active & (pt_row >= 0)
         w_page = torch.where(writes, pt_row, spare_page(pages)).long()
         w_off = torch.where(writes, q_pos % psz, 0).long()
+        all_page, all_off = w_page, w_off
+    mine = P.batch_rows(B)
+    if mine is not None:
+        tokens, page_table, q_pos, active = (
+            t[mine] for t in (tokens, page_table, q_pos, active))
+        w_page, w_off = w_page[mine], w_off[mine]
+    x = embed_inputs(cfg, params, tokens)              # [B,D]
+    ks, vs = [], []
     if cfg.has_ssm:
         s_write = SSM.write_slots(state_slots, active, spare_slot(pages))
     blk = params["blocks"]
@@ -861,6 +882,8 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
             k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
             k_all[layer, w_page, :, w_off] = k
             v_all[layer, w_page, :, w_off] = v
+            ks.append(k)
+            vs.append(v)
             a = ops.paged_decode_attention(q, k_all[layer], v_all[layer],
                                            page_table, q_pos)
             parts.append(_attn_out(cfg, blk, layer, a))
@@ -871,7 +894,28 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
                 pages["conv_state"][layer], state_slots, active, s_write))
         x = x + _mix(parts)
         x = x + _ffn(cfg, blk, layer, x)
-    return unembed(cfg, params, x), pages
+    logits = unembed(cfg, params, x)
+    if mine is not None:
+        logits = _share_rows(pages, all_page, all_off, ks, vs, logits)
+    return logits, pages
+
+
+def _share_rows(pages: Cache, w_page: torch.Tensor, w_off: torch.Tensor,
+                ks: List[torch.Tensor], vs: List[torch.Tensor],
+                logits: torch.Tensor) -> torch.Tensor:
+    """After a step whose batch is split over 'data': every group's rows
+    of the logits and of the new K/V of every layer (``ks``/``vs``, this
+    group's rows [n, ..., Hkv, hd] a layer), gathered in one collective;
+    the K/V of every row written into this rank's arena at ``w_page`` /
+    ``w_off`` (every row's targets, [B] or [B,C]; this group's own rows
+    again, with the same values). Returns the logits of every row."""
+    k, v, logits = P.gather_data(torch.stack(ks, 1), torch.stack(vs, 1),
+                                 logits)
+    # [B, L, ..., Hkv, hd] -> the arena index's [B, ..., L, Hkv, hd]
+    at = w_page.ndim
+    pages["k_pages"][:, w_page, :, w_off] = k.movedim(1, at)
+    pages["v_pages"][:, w_page, :, w_off] = v.movedim(1, at)
+    return logits
 
 
 # ------------------------------------------------------- speculative verify
@@ -891,14 +935,14 @@ def verify_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     then query i attends over positions 0..lengths[b]+i. No host sync.
     Returns (logits [B,C,V], pages):
     logits[:, i] is the next-token distribution after window token i. Pad
-    rows' logits are garbage to be ignored, as inactive decode rows'.
+    rows' logits are garbage to be ignored, as inactive decode rows'. A
+    batch split over 'data' runs as in ``decode_step_paged``.
     """
     _check_kv_only(cfg, "verify_step_paged")
     B, C = tokens.shape
     dev = tokens.device
     k_all, v_all = pages["k_pages"], pages["v_pages"]
     psz, maxp = k_all.shape[3], page_table.shape[1]
-    x = embed_inputs(cfg, params, tokens)                 # [B,C,D]
     q_pos = lengths[:, None] + torch.arange(C, dtype=lengths.dtype,
                                             device=dev)
     barr = torch.arange(B, device=dev)[:, None]
@@ -910,6 +954,14 @@ def verify_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     writes = (pt_row >= 0) & (q_pos < maxp * psz)
     w_page = torch.where(writes, pt_row, spare_page(pages)).long()
     w_off = torch.where(writes, q_pos % psz, 0).long()
+    all_page, all_off = w_page, w_off
+    mine = P.batch_rows(B)
+    if mine is not None:
+        tokens, page_table, lengths, q_pos, w_page, w_off = (
+            t[mine] for t in (tokens, page_table, lengths, q_pos, w_page,
+                              w_off))
+    x = embed_inputs(cfg, params, tokens)                 # [B,C,D]
+    ks, vs = [], []
     blk = params["blocks"]
     for layer in range(cfg.n_layers):
         q, k, v = _qkv(cfg, blk, layer, x)
@@ -917,8 +969,13 @@ def verify_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
         k = L.apply_rope(k, q_pos, cfg.rope_theta)
         k_all[layer, w_page, :, w_off] = k
         v_all[layer, w_page, :, w_off] = v
+        ks.append(k)
+        vs.append(v)
         a = ops.paged_verify_attention(q, k_all[layer], v_all[layer],
                                        page_table, lengths)
         x = x + _attn_out(cfg, blk, layer, a)
         x = x + _ffn(cfg, blk, layer, x)
-    return unembed(cfg, params, x), pages
+    logits = unembed(cfg, params, x)
+    if mine is not None:
+        logits = _share_rows(pages, all_page, all_off, ks, vs, logits)
+    return logits, pages

@@ -18,6 +18,20 @@ Routing must agree with JAX bit for bit, so the argsort is stable
 starts come from a left ``torch.searchsorted``: capacity drops in
 ``moe_ffn_grouped`` depend on each assignment's position after that sort.
 
+Under a mesh (DESIGN.md §9) the grouped paths run on a rank's slab of
+the experts (``launch.sharding.serving_cuts``). Expert-parallel, the
+slab holds E_local of the E experts, from ``first_expert``: tokens are
+replicated over 'model', so every rank routes them with the whole router
+over all E and dispatches as the single device does (the capacity and the
+drops from the global E), then runs the kernel on its experts' part of
+the buffer only and combines the assignments to them; the others give 0.
+Tensor-parallel inside each expert, the slab holds every expert's share
+of the d_ff columns and the kernel runs with those columns. Either way
+each rank's output is a partial sum, which the model sums over 'model'
+after the combine (``partitioning.reduce_model``): one all-reduce a
+layer, no all-to-all. With the whole experts (no mesh) the functions are
+the single-device ones.
+
 The grouped paths combine a token's K expert outputs without atomics:
 the weighted outputs go back to (token, k) order through the sort's
 permutation and are summed over k, where JAX scatter-adds them. The sum
@@ -114,8 +128,18 @@ def _experts(p: MoEParams, buf: torch.Tensor) -> torch.Tensor:
     return torch.einsum("becf,efd->becd", h, p["wd"])
 
 
+def _local(es: torch.Tensor, p: MoEParams, first_expert: int):
+    """(E_local, whether each sorted assignment's expert is one of the
+    slab's, its index in the slab): the slab holds experts
+    [first_expert, first_expert + E_local) of ``p``'s expert dim."""
+    El = p["wg"].shape[0]
+    le = es - first_expert
+    return El, (le >= 0) & (le < El), le
+
+
 def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
-                    capacity_factor: float = 1.25, use_kernel: bool = True
+                    capacity_factor: float = 1.25, use_kernel: bool = True,
+                    first_expert: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batch-local dispatch: sort and scatter WITHIN each example
     (GShard-style groups), capacity C = max(int(T*K/E*cf + 0.999), K) per
@@ -123,29 +147,36 @@ def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
     ``use_kernel`` the per-example buffers [B,E,C,D] go through
     ``ops.moe_grouped_ffn`` as G = B*E groups in ONE launch, group g using
     expert g mod E, with each group's kept assignments (its count clamped
-    to C) as its live rows; without, through the einsums of ``_experts``."""
+    to C) as its live rows; without, through the einsums of ``_experts``.
+    On a slab of E_local experts from ``first_expert`` (E from the
+    router, so the capacity and drops are the whole layer's), the buffers
+    hold the slab's experts only, [B,E_local,C,D], and the result is the
+    slab's share of the output."""
     B, T, D = x.shape
     E, K = p["router"].shape[-1], top_k
     w, ids, aux = route(p["router"], x.reshape(-1, D), K)
     C = max(int(T * K / E * capacity_factor + 0.999), K)
     order, es, ts, pos, counts = _dispatch(ids.reshape(B, T * K), K, E)
     ws = torch.gather(w.reshape(B, T * K), 1, order)
-    keep = pos < C
+    El, mine, le = _local(es, p, first_expert)
+    keep = (pos < C) & mine
     bi = torch.arange(B, device=x.device)[:, None]
-    # row of each assignment in the flat [B*E*C] buffer; dropped ones go to
-    # one spare row past its end (JAX drops them through an out-of-bounds
-    # index), so no boolean mask, and no host sync, is needed
-    row = torch.where(keep, (bi * E + es) * C + pos, B * E * C)
-    buf = torch.zeros((B * E * C + 1, D), dtype=x.dtype, device=x.device)
+    # row of each assignment in the flat [B*El*C] buffer; dropped ones, and
+    # another slab's, go to one spare row past its end (JAX drops them
+    # through an out-of-bounds index), so no boolean mask, and no host
+    # sync, is needed
+    row = torch.where(keep, (bi * El + le) * C + pos, B * El * C)
+    buf = torch.zeros((B * El * C + 1, D), dtype=x.dtype, device=x.device)
     buf[row] = x[bi, ts]
     if use_kernel:
-        out = ops.moe_grouped_ffn(buf[:-1].view(B * E, C, D), p["wg"],
+        live = counts[:, first_expert:first_expert + El].clamp(max=C)
+        out = ops.moe_grouped_ffn(buf[:-1].view(B * El, C, D), p["wg"],
                                   p["wu"], p["wd"],
-                                  counts.clamp(max=C).view(B * E))
+                                  live.reshape(B * El).contiguous())
     else:
-        out = _experts(p, buf[:-1].view(B, E, C, D))
-    out = out.reshape(B * E * C, D)
-    y_assign = out[row.clamp(max=B * E * C - 1)] * keep[..., None]
+        out = _experts(p, buf[:-1].view(B, El, C, D))
+    out = out.reshape(B * El * C, D)
+    y_assign = out[row.clamp(max=B * El * C - 1)] * keep[..., None]
     # back to (token, k) order: sorted assignment j is assignment order[j]
     y_tk = torch.empty_like(y_assign)
     y_tk[bi, order] = y_assign * ws[..., None]
@@ -153,14 +184,16 @@ def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
 
 
 def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int,
-                           use_kernel: bool = True
+                           use_kernel: bool = True, first_expert: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode-step dispatch: ONE token per row ([B,D] or [B,1,D]), the whole
     batch one group with capacity C = B*K, so nothing is dropped and each
     expert sees only its routed rows. With ``use_kernel`` the expert FFN
     runs through ``ops.moe_grouped_ffn`` with each expert's routed rows as
     its live rows (at most B of its C), so empty experts read no weight;
-    without, through the einsums of ``_experts``."""
+    without, through the einsums of ``_experts``. On a slab of E_local
+    experts from ``first_expert`` the buffer holds the slab's experts
+    only, [E_local,C,D], and the result is the slab's share."""
     orig_shape = x.shape
     D = orig_shape[-1]
     x2 = x.reshape(-1, D)
@@ -171,15 +204,21 @@ def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int,
     es, ts, pos = es[0], ts[0], pos[0]
     ws = w.reshape(-1)[order[0]]
     C = B * K                                            # lossless capacity
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
-    buf[es, pos] = x2[ts]
+    El, mine, le = _local(es, p, first_expert)
+    # another slab's assignments write, and read, a spare row past the end
+    row = torch.where(mine, le * C + pos, El * C)
+    buf = torch.zeros((El * C + 1, D), dtype=x.dtype, device=x.device)
+    buf[row] = x2[ts]
     if use_kernel:
-        out = ops.moe_grouped_ffn(buf, p["wg"], p["wu"], p["wd"], counts[0])
+        out = ops.moe_grouped_ffn(buf[:-1].view(El, C, D), p["wg"], p["wu"],
+                                  p["wd"],
+                                  counts[0, first_expert:first_expert + El])
     else:
-        out = _experts(p, buf[None])[0]
+        out = _experts(p, buf[:-1].view(1, El, C, D))[0]
+    y_assign = out.reshape(El * C, D)[row.clamp(max=El * C - 1)]
     # back to (token, k) order: sorted assignment j is assignment order[j]
     y_tk = torch.empty((B * K, D), dtype=x.dtype, device=x.device)
-    y_tk[order[0]] = out[es, pos] * ws[:, None]
+    y_tk[order[0]] = y_assign * (ws * mine)[:, None]
     return y_tk.view(B, K, D).sum(1).reshape(orig_shape), aux
 
 

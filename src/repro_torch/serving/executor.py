@@ -371,20 +371,12 @@ class _RankStats(GapStats):
 
 
 def _check_mesh(cfg, mesh, cuda_graphs: bool, device) -> None:
-    """The mesh refusals that are the port's own: MoE archs, batch
-    sharding over 'data', and captured steps over gloo (its collectives
-    cannot be captured). SSM and hybrid archs refuse a mesh as in JAX."""
+    """The mesh refusal that is the port's own: captured steps over gloo
+    (its collectives cannot be captured). SSM and hybrid archs refuse a
+    mesh as in JAX, before this."""
     if "model" not in mesh.axis_names or "data" not in mesh.axis_names:
         raise ValueError("serving mesh needs ('data', 'model') axes — see "
                          "launch.mesh.make_serving_mesh")
-    if cfg.block_kind == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE under a mesh (expert-parallel or tensor-"
-            "parallel inside each expert) is still to port (ROADMAP.md)")
-    if mesh.shape["data"] > 1:
-        raise NotImplementedError(
-            "mesh data > 1 (the batch sharded over 'data') is still to port "
-            "(ROADMAP.md); use a (1, model) mesh")
     if (cuda_graphs and getattr(mesh, "backend", None) == "gloo"
             and torch.device(device).type == "cuda"):
         raise ValueError("cuda_graphs=True over a gloo process group: gloo "
@@ -690,21 +682,28 @@ class PagedTorchExecutor(Executor):
     tensor-parallel engine, run SPMD: every rank runs this same control
     plane in lockstep on its own host state (pool, radix cache, swap
     arena, draft model), holds its slab of the weights
-    (``launch.sharding.local_params``: whole heads, d_ff columns and
-    vocabulary rows) and of the KV arena (its KV heads), and runs every
-    step with ``models.partitioning``'s collectives installed, so the
-    paged kernels run on the rank's head slab and every rank sees the
-    whole logits. The loop's clock must be one clock: every ms an op
-    returns, and every commit wait, is the slowest rank's (``_agree``).
-    Each op compares a digest of its host inputs across the ranks and
-    raises ``RuntimeError("ranks diverged ...")`` on a mismatch; ``digest``
-    chains them over the run. Suspend/resume swap each rank's own slab;
-    the host arena counts whole pages (``KVSwapArena.byte_scale``), so
-    admission decides as the single-device engine does. The draft of
-    speculative decoding stays whole on every rank. SSM and hybrid archs
-    raise ValueError, as in JAX; MoE archs and a 'data' axis above 1 raise
-    NotImplementedError (ROADMAP.md); ``cuda_graphs`` on the card needs
-    NCCL (gloo collectives cannot be captured).
+    (``launch.sharding.local_params``: whole heads, d_ff columns,
+    vocabulary rows and, for MoE, whole experts or each expert's d_ff
+    columns) and of the KV arena (its KV heads), and runs every step with
+    ``models.partitioning``'s collectives installed, so the paged kernels
+    and the grouped-expert FFN run on the rank's slab and every rank sees
+    the whole logits. Over 'data' the weights and the arena are
+    replicated (JAX's ``param_specs(train=False)`` and ``page_specs``): a
+    decode or verify step of bucket b is cut into ``data`` row blocks when
+    b divides (JAX's ``batch_spec``), each data group computing its block
+    on its model group, and every rank then gathers the other groups'
+    logits and new K/V into its own arena, once a step; any other step
+    runs whole on every group. The loop's clock must be one clock: every
+    ms an op returns, and every commit wait, is the slowest rank's of the
+    whole mesh (``_agree``). Each op compares a digest of its host inputs
+    across every rank and raises ``RuntimeError("ranks diverged ...")``
+    on a mismatch; ``digest`` chains them over the run. Suspend/resume
+    swap each rank's own slab (the same on every data replica); the host
+    arena counts whole pages (``KVSwapArena.byte_scale``), so admission
+    decides as the single-device engine does. The draft of speculative
+    decoding stays whole on every rank. SSM and hybrid archs raise
+    ValueError, as in JAX; ``cuda_graphs`` on the card needs NCCL (gloo
+    collectives cannot be captured).
 
     With ``async_dispatch=True`` the engine pipelines as the JAX engine
     does (DESIGN.md §10), on one compute stream. Every op makes its host

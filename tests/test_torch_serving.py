@@ -280,12 +280,17 @@ def test_cuda_request_raises_without_gpu():
 
 
 @pytest.mark.parametrize("option", [{"mesh": types.SimpleNamespace(
-    shape={"data": 1, "model": 2}, axis_names=("data", "model"))}])
+    shape={"data": 1, "model": 2}, axis_names=("data", "model"),
+    coords={"data": 0, "model": 0}, backend="gloo", agree=float)}])
 def test_unported_options_raise(option):
-    """MoE under a mesh is the next slice of the port (ROADMAP.md)."""
+    """MoE under a mesh, once refused, is ported: the engine is built on a
+    stand-in mesh (no collective runs while one is built), and the rank
+    holds the first half of the experts and the whole router."""
     cfg = get_config("granite-moe-3b-a800m").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PagedTorchExecutor(cfg, device="cpu", **ENGINE, **option)
+    ex = PagedTorchExecutor(cfg, device="cpu", **ENGINE, **option)
+    moe = ex.params["blocks"]["moe"]
+    assert moe["wg"].shape[1] == moe["wd"].shape[1] == cfg.n_experts // 2
+    assert moe["router"].shape[-1] == cfg.n_experts
 
 
 def test_latency_probe_leaves_pool_empty():

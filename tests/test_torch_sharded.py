@@ -19,8 +19,10 @@ one KV head, shared by the 4 ranks), a 2-way mesh and depth-0 identity;
 prefill and decode also against JAX's own sharded engine (``mesh4``).
 The port's own: the arena's head slabs, the swap arena's accounting and
 a blob's round trip, async dispatch against sync on the mesh, the
-divergence guard, the agreed loop clock, the refusals, ``spawn_ranks``'s
-failure and time limit, and the CLI's ``--mesh-shape 1,2``.
+divergence guard, the agreed loop clock, the mesh's groups, the
+refusals, ``spawn_ranks``'s failure and time limit, and the CLI's
+``--mesh-shape 1,2``. MoE archs and a 'data' axis are
+``tests/test_torch_sharded_moe.py``'s.
 
 All 4-rank cases share one spawned group (``ranks4``), which runs every
 case on every rank and returns what each rank saw.
@@ -306,14 +308,18 @@ def _rank_clock(ctx):
 
 
 def _rank_mesh22(ctx):
-    """A (2, 2) mesh over the same 4 ranks: each rank's coordinates; each
-    model group sums, and gathers, its own two ranks."""
+    """A (2, 2) mesh over the same 4 ranks: each rank's coordinates; a sum
+    over its model group, its data group and the data group's gloo twin;
+    the mesh's gather and agree."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_serving_mesh
     mesh = make_serving_mesh(model=2, data=2)
-    t = torch.tensor([float(ctx.rank)])
-    dist.all_reduce(t, group=mesh.model_group)
-    return {"coords": mesh.coords, "sum": float(t[0]),
+    sums = []
+    for group in (mesh.model_group, mesh.data_group, mesh.data_cpu_group):
+        t = torch.tensor([float(ctx.rank)])
+        dist.all_reduce(t, group=group)
+        sums.append(float(t[0]))
+    return {"coords": mesh.coords, "sums": sums,
             "gathered": mesh.gather(ctx.rank), "agreed": mesh.agree(ctx.rank)}
 
 
@@ -445,27 +451,31 @@ def test_page_arena_sharded_over_kv_heads(weights, ranks4):
 
 def test_mesh_refusals():
     """The counterpart of JAX's mesh refusal of its Pallas kernel: SSM and
-    hybrid archs raise ValueError (as JAX's), MoE and data > 1
-    NotImplementedError naming ROADMAP.md, captured steps over gloo on a
-    card ValueError, all before any process group is touched."""
+    hybrid archs raise ValueError (as JAX's), captured steps over gloo on
+    a card ValueError, all before any process group is touched. MoE archs
+    and a data axis above 1 pass the checks: an engine is built on a
+    stand-in mesh (no collective runs while one is built), an MoE rank
+    holding its slab of the experts."""
     from repro_torch.configs import get_config
     from repro_torch.serving.executor import PagedTorchExecutor
 
     def mesh(data=1, model=2, backend="gloo"):
         return types.SimpleNamespace(shape={"data": data, "model": model},
                                      axis_names=("data", "model"),
-                                     backend=backend)
+                                     coords={"data": 0, "model": 1},
+                                     backend=backend, agree=float)
 
     kw = dict(device="cpu", n_pages=8, page_size=8, max_seq=32, max_batch=2)
     for arch in ("mamba2-780m", "hymba-1.5b"):
         with pytest.raises(ValueError, match="mesh"):
             PagedTorchExecutor(get_config(arch).reduced(), mesh=mesh(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PagedTorchExecutor(get_config("granite-moe-3b-a800m").reduced(),
-                           mesh=mesh(), **kw)
+    moe = get_config("granite-moe-3b-a800m").reduced()
+    for shape in ((1, 2), (2, 2)):
+        ex = PagedTorchExecutor(moe, mesh=mesh(*shape), **kw)
+        assert ex.params["blocks"]["moe"]["wg"].shape[1] == 2, shape
     cfg = _port_cfg(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PagedTorchExecutor(cfg, mesh=mesh(data=2), **kw)
+    ex = PagedTorchExecutor(cfg, mesh=mesh(data=2), **kw)
+    assert ex.heads == (2, 2, 2)
     with pytest.raises(ValueError, match="gloo"):
         PagedTorchExecutor(cfg, mesh=mesh(), **{**kw, "device": "cuda"})
 
@@ -599,14 +609,17 @@ def test_agreed_clock_equal_on_every_rank(ranks4, mode):
 
 def test_data_by_model_mesh_groups(ranks4):
     """make_serving_mesh(model=2, data=2) over 4 ranks: rank r sits at
-    (r // 2, r % 2), and its model group (and CPU group) is its data
-    index's two ranks."""
+    (r // 2, r % 2); its model group is its data index's two ranks, its
+    data group (and that group's gloo twin) its model index's two ranks.
+    The control plane's gather and agree span all four ranks, both data
+    groups: one loop clock and one digest for the mesh."""
     for r, res in enumerate(ranks4):
-        d = r // 2
-        assert res["mesh22"] == {"coords": {"data": d, "model": r % 2},
-                                 "sum": float(4 * d + 1),
-                                 "gathered": [2 * d, 2 * d + 1],
-                                 "agreed": float(2 * d + 1)}, r
+        d, m = r // 2, r % 2
+        assert res["mesh22"] == {"coords": {"data": d, "model": m},
+                                 "sums": [float(4 * d + 1), float(2 + 2 * m),
+                                          float(2 + 2 * m)],
+                                 "gathered": [0, 1, 2, 3],
+                                 "agreed": 3.0}, r
 
 
 def _fails(rank):
@@ -641,7 +654,7 @@ def test_serve_cli_mesh_shape(capfd):
     the ranks' digests are equal, each rank holds its slab's heads
     (edge-6b reduced: 4 query heads, 1 KV head -> 2 and the 1 a rank,
     which both ranks' queries read).
-    A data axis, and an SSM arch, are refused."""
+    A data axis passes the flag checks; an SSM arch is refused."""
     from repro_torch.launch import serve
     run = serve.run(serve.parse_args([
         "--reduced", "--device", "cpu", "--duration", "2", "--rate", "3",
@@ -658,9 +671,8 @@ def test_serve_cli_mesh_shape(capfd):
         assert res["digests"] == [run.ranks[0]["digest"]] * 2
     assert any(line.startswith("mesh data=1 model=2 backend=gloo") and
                line.endswith("equal") for line in out)
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        serve.run(serve.parse_args(["--reduced", "--device", "cpu",
-                                    "--mesh-shape", "2,1"]))
+    assert serve._mesh_shape(serve.parse_args(
+        ["--reduced", "--device", "cpu", "--mesh-shape", "2,1"])) == (2, 1)
     with pytest.raises(SystemExit, match="mesh"):
         serve.run(serve.parse_args(["--reduced", "--device", "cpu",
                                     "--arch", "mamba2-780m",

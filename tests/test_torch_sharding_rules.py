@@ -33,10 +33,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import sharding as TS  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
-MESHES = [(1, 2), (1, 4), (16, 16), (2, 16, 16)]
-# archs a serving mesh takes: causal, attention-only, dense
+MESHES = [(1, 2), (1, 4), (2, 2), (16, 16), (2, 16, 16)]
+# archs a serving mesh takes: causal, attention-only, dense or MoE
 MESH_ARCHS = [a for a in list_archs()
-              if get_config(a).block_kind == "dense"
+              if get_config(a).block_kind in ("dense", "moe")
               and get_config(a).causal and not get_config(a).has_ssm]
 
 
@@ -112,7 +112,10 @@ def test_serving_layout_follows_param_specs(arch, ways):
     """Leaf by leaf the rank's cut equals param_specs(train=False), or the
     leaf is a documented departure: JAX splits inside a head or d_model
     there, and the port keeps the leaf whole (or, for K/V, the one head
-    its query heads read)."""
+    its query heads read). The MoE group follows the spec in both its
+    branches: whole experts (granite-moe's 40 over 2 and 4,
+    llama4-scout's 16 over 2, 4 and 16) or every expert's d_ff columns
+    (granite-moe over 16)."""
     cfg = get_config(arch)
     want = dict(leaves(TS.param_specs(cfg, fake_mesh((1, ways)), False)))
     got = dict(leaves(cut_specs(cfg, ways)))
@@ -133,6 +136,49 @@ def test_serving_layout_follows_param_specs(arch, ways):
         assert "model" not in spec, (path, spec)
         if "kv_group" in spec:
             assert attn and cfg.n_kv_heads % ways, path
+
+
+def test_cut_leaves_name_moe_apart():
+    """The MoE group's leaves are named by their path in the group, so an
+    MoE layout never cuts a dense MLP's wg/wu/wd, nor a dense layout an
+    MoE's: granite-moe cuts "moe.wd" and no "wd", edge-6b "wd" and no
+    "moe.wd". Over 3 ranks granite-moe's 40 experts do not divide, its
+    d_ff of 512 does not either: the experts stay whole."""
+    moe, dense = get_config("granite-moe-3b-a800m"), get_config("edge-6b")
+    for ways in (1, 2, 4, 16):
+        cut = TS.cut_leaves(moe, ways)
+        assert {"moe.wg", "moe.wu", "moe.wd"} <= cut, ways
+        assert not {"wg", "wu", "wd", "router", "moe.router"} & cut, ways
+    assert not {"moe.wg", "moe.wu", "moe.wd"} & TS.cut_leaves(moe, 3)
+    cut = TS.cut_leaves(dense, 2)
+    assert {"wg", "wu", "wd"} <= cut and not any("moe" in n for n in cut)
+
+
+@pytest.mark.parametrize("experts,ways", [(4, 2), (4, 4), (3, 2), (6, 4)])
+def test_moe_slabs_cut_whole_params(experts, ways):
+    """The ranks' MoE slabs, expert-parallel (4 experts over 2 and 4) or
+    inside each expert (3 over 2, 6 over 4), put every leaf back together
+    along the cut, the router whole on every rank, and init_params(cut=)
+    draws exactly each slab."""
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(),
+                              n_experts=experts)
+    full = TM.init_params(cfg, seed=4, device="cpu")["blocks"]["moe"]
+    cuts = TS.serving_cuts(cfg, ways)["blocks"]["moe"]
+    dim = -3 if experts % ways == 0 else None
+    for k in ("wg", "wu", "wd"):
+        assert cuts[k][0] == (dim or (-2 if k == "wd" else -1)), k
+    slabs = [TS.local_params(cfg, {"blocks": {"moe": full}},
+                             fake_mesh((1, ways), r))["blocks"]["moe"]
+             for r in range(ways)]
+    for r in range(ways):
+        drawn = TM.init_params(cfg, seed=4, device="cpu", cut=TS.cutter(
+            cfg, fake_mesh((1, ways), r)))["blocks"]["moe"]
+        for k in full:
+            assert torch.equal(drawn[k], slabs[r][k]), (r, k)
+    assert all(torch.equal(s["router"], full["router"]) for s in slabs)
+    for k in ("wg", "wu", "wd"):
+        assert torch.equal(torch.cat([s[k] for s in slabs], cuts[k][0]),
+                           full[k]), k
 
 
 def test_edge_6b_head_slabs():
