@@ -205,7 +205,29 @@ Phases, each printing its own lines; any failed check exits non-zero:
             each pass's device time (torch.profiler): the ring-cache
             decode's split and combine, the SSD scan's chunk states, state
             passing and chunk outputs (JSON key "passes_us").
-7. train  — the training path (forward, loss_fn, AdamW, train_step,
+7. dryrun — python -m repro_torch.launch.dryrun in subprocesses (no JAX
+            may be imported), started together: smollm-360m's
+            decode_32k, prefill_32k and train_4k on the stand-in pod mesh
+            (16, 16) and decode_32k on the multi-pod mesh (2,
+            16, 16), every record ok; hubert-xlarge's decode_32k, a skip
+            (encoder-only). The roofline table of the pod records (python
+            -m repro_torch.launch.roofline). Then the H100 roofline of
+            three of the graphs phase's captured steps: build_cell and
+            count_cell on a 1x1 stand-in mesh at full width in bf16
+            (edge-6b's slot decode over 16 slots of a 1024-slot ring and
+            its whole 256-token prefill, mamba2-780m's slot decode over
+            16 slots), each term and the dominant one printed beside the
+            captured clock the graphs phase measured, and the share
+            bound / clock, which must not exceed 1.05 (JSON line
+            {"roofline": [...]}).
+8. examples — examples/torch_quickstart.py and
+            torch_multi_slo_serving.py at their defaults,
+            torch_train_tiny.py (300 steps) and torch_edge_serving_sim.py
+            at --duration 20, each in a subprocess: exit 0, its SLO or
+            loss line (the loss must fall), its kernels launched
+            (flash_prefill and decode_attention; ssd_scan and
+            ssd_decode_step), no JAX imported.
+9. train  — the training path (forward, loss_fn, AdamW, train_step,
             fp32, TF32 off; it reaches no kernel, as JAX's training path
             reaches no Pallas kernel). (a) Every registry arch, reduced
             (embedding-input and encoder-only archs included): forward
@@ -1620,6 +1642,9 @@ PREFILL_CASES = (
      (64, 128, 256)),
 )
 PREFILL_REPS = 5          # timed prompts an engine at each length
+# the graphs phase's captured clocks (ms, median): a decode case's step at
+# its largest batch by case, a prefill case's prompt by (case, length)
+CAPTURED = {}
 
 
 def graphs_phase():
@@ -1718,6 +1743,7 @@ def graphs_phase():
         if eager["launches"] != cap["launches"]:
             fail(f"{case}: launches captured {cap['launches']} != eager "
                  f"{eager['launches']}")
+        CAPTURED[case] = float(np.median(cap["spread"]))
     for case in PREFILL_CASES:
         if params_of != case[1]:
             params = None
@@ -1814,6 +1840,7 @@ def prefill_graph_case(params, case, arch, kind, kw, how, lengths):
                                if cap["hits"] is not None else ""))
     for L in lengths:
         e, c = sorted(eager["ms"][L]), sorted(cap["ms"][L])
+        CAPTURED[(case, L)] = float(np.median(c))
         print(f"{case}: {how} prefill of {L} tokens, engine clock eager / "
               f"captured: min {e[0]:.3f} / {c[0]:.3f} ms, median "
               f"{float(np.median(e)):.3f} / {float(np.median(c)):.3f} ms "
@@ -3125,6 +3152,209 @@ def time_phase(runs, worst):
 FP32_PEAK = PEAK_FLOPS["float32"]
 # card against CPU, reduced archs, fp32 (TF32 off): cuBLAS and the CPU's
 # BLAS add in different orders
+# (arch, shape, mesh, status its record must have): one subprocess each,
+# all started together (smollm-360m's train_4k cell takes ~55 s)
+DRYRUN_CELLS = (("smollm-360m", "decode_32k", "pod", "ok"),
+                ("smollm-360m", "prefill_32k", "pod", "ok"),
+                ("smollm-360m", "train_4k", "pod", "ok"),
+                ("smollm-360m", "decode_32k", "multipod", "ok"),
+                ("hubert-xlarge", "decode_32k", "pod", "skip"))
+# (the graphs phase's captured row, arch, (name, seq_len, batch, kind)):
+# the slot engine's masked step computes all 16 slots of a 1024-slot ring
+ROOFLINE_CASES = (
+    ("edge-6b slot masked", "edge-6b", ("slot_decode_16x1024", 1024, 16,
+                                        "decode")),
+    (("edge-6b whole prefill", 256), "edge-6b", ("prefill_1x256", 256, 1,
+                                                 "prefill")),
+    ("mamba2-780m slot masked", "mamba2-780m", ("slot_decode_16x1024", 1024,
+                                                16, "decode")))
+MAX_SHARE = 1.05          # a bound above the measured clock is a fault
+# runs a module (-m) or a file in a subprocess, then prints the JAX
+# modules it imported
+_SUBPROCESS = ("import runpy, sys\n"
+               "how, what = sys.argv[1], sys.argv[2]\n"
+               "sys.argv = [what] + sys.argv[3:]\n"
+               "if how == '-m':\n"
+               "    runpy.run_module(what, run_name='__main__', "
+               "alter_sys=True)\n"
+               "else:\n"
+               "    runpy.run_path(what, run_name='__main__')\n"
+               "print('LEAKED', sorted(m for m in sys.modules if m == 'jax' "
+               "or m.startswith(('jax.', 'repro.'))))\n")
+
+
+def python_job(how, what, *args):
+    """Start ``python -m what args`` (how "-m") or ``python what args``
+    (how "file") in a subprocess with the repository's src on the path."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen([sys.executable, "-c", _SUBPROCESS, how, what,
+                             *args], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+
+def python_result(proc, label, timeout=600):
+    """The standard output of a ``python_job`` (without the JAX check's
+    line); fails on a non-zero exit, on ``timeout`` seconds (the process
+    is ended) or when the process imported JAX or the JAX package."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{label}: still running after {timeout} s: ended")
+    if proc.returncode != 0:
+        print(out[-3000:])
+        fail(f"{label} exited {proc.returncode}: {err[-3000:]}")
+    out, _, leaked = out.rpartition("LEAKED ")
+    if leaked.strip() != "[]":
+        fail(f"{label} imported JAX or the JAX package: {leaked.strip()}")
+    return out
+
+
+@contextlib.contextmanager
+def ended_on_exit(procs):
+    """Kill whichever of ``procs`` still runs when the block is left (a
+    failed check elsewhere must not leave them behind)."""
+    try:
+        yield procs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def run_python(how, what, *args, timeout=600):
+    """``python_job`` and ``python_result`` in one."""
+    with ended_on_exit([python_job(how, what, *args)]) as (proc,):
+        return python_result(proc, f"{what} {' '.join(args)}", timeout)
+
+
+def dryrun_phase():
+    """The dry-run (python -m repro_torch.launch.dryrun) in subprocesses,
+    started together: smollm-360m's decode_32k, prefill_32k and train_4k
+    on the pod mesh, decode_32k on the multipod
+    mesh, hubert-xlarge's decode (a skip); each record must be ok (a skip
+    where JAX skips) and no subprocess may import JAX. Then the roofline
+    table of the pod records (python -m repro_torch.launch.roofline).
+    Then the card check: build_cell and count_cell at the shapes of the
+    graphs phase's captured rows (edge-6b's slot decode over 16 slots of
+    a 1024-slot ring and its whole 256-token prefill, mamba2-780m's slot
+    decode over 16 slots), a 1x1 stand-in mesh, full width, bf16 meta
+    tensors; each roofline term and the dominant one beside the same
+    run's captured clock, and the share bound / clock, which must not
+    exceed MAX_SHARE."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import make_stand_in_mesh
+    phase("dryrun: stand-in production meshes on meta tensors, the H100 "
+          "roofline, and the captured steps against it")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        with ended_on_exit([python_job(
+                "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                shape, "--mesh", mesh, "--out", out)
+                for arch, shape, mesh, _ in DRYRUN_CELLS]) as procs:
+            for (arch, shape, mesh, _), proc in zip(DRYRUN_CELLS, procs):
+                print(python_result(proc, f"dryrun {arch} {shape} {mesh}")
+                      .strip())
+                print(f"dryrun {arch} {shape} {mesh}: done at "
+                      f"{time.perf_counter() - t0:.1f}s", flush=True)
+        for name in sorted(os.listdir(out)):
+            with open(os.path.join(out, name)) as f:
+                rec = json.load(f)
+            want = next(st for a, sh, m, st in DRYRUN_CELLS
+                        if (a, sh, m) == (rec["arch"], rec["shape"],
+                                          rec["mesh"]))
+            if rec["status"] != want:
+                fail(f"dryrun {name}: status {rec['status']}, {want} "
+                     f"expected: {rec.get('error', rec.get('reason'))}")
+            if rec["status"] == "ok":
+                print(f"dryrun {name}: flops/dev {rec['flops_per_device']:.4g}"
+                      f", bytes/dev floor {rec['bytes_floor_per_device']:.4g} "
+                      f"eager {rec['bytes_per_device']:.4g}, collectives "
+                      f"{rec['collectives']['total']:.4g} B, arguments "
+                      f"{rec['argument_size_in_bytes']} (JAX's specs "
+                      f"{rec['argument_size_in_bytes_spec']}), "
+                      f"{len(rec['departures'])} departures")
+        print(run_python("-m", "repro_torch.launch.roofline", "--dir", out,
+                         "--out", os.path.join(out, "roofline")).strip())
+    rows = []
+    with make_stand_in_mesh({"data": 1, "model": 1}) as mesh:
+        for key, arch, (name, S, B, kind) in ROOFLINE_CASES:
+            cfg = get_config(arch)
+            rec = D.count_cell(cfg, InputShape(name, S, B, kind), mesh)
+            rec["mesh_shape"] = dict(mesh.shape)
+            t = R.terms(rec)
+            clock = CAPTURED[key]
+            share = t["bound_s"] * 1e3 / clock
+            rows.append({"case": key if isinstance(key, str)
+                         else f"{key[0]} {key[1]}", "arch": arch,
+                         "shape": name, "dtype": "bfloat16",
+                         **{k: t[k] * 1e3 for k in (
+                             "compute_s", "memory_s", "memory_unfused_s",
+                             "collective_s", "bound_s")},
+                         "dominant": t["dominant"], "captured_ms": clock,
+                         "share": share,
+                         "arg_bytes": rec["argument_size_in_bytes"],
+                         "flops": rec["flops_per_device"]})
+            print(f"roofline {arch} {name} (bf16, 1x1): compute "
+                  f"{t['compute_s'] * 1e3:.4f} ms, memory "
+                  f"{t['memory_s'] * 1e3:.4f} ms (unfused "
+                  f"{t['memory_unfused_s'] * 1e3:.4f}), collective "
+                  f"{t['collective_s'] * 1e3:.4f} ms; dominant "
+                  f"{t['dominant']} {t['bound_s'] * 1e3:.4f} ms against the "
+                  f"captured {clock:.4f} ms ({rows[-1]['case']}): share "
+                  f"{share:.3f}", flush=True)
+            if not (0 < share <= MAX_SHARE):
+                fail(f"roofline {arch} {name}: share {share:.3f} outside "
+                     f"(0, {MAX_SHARE}]")
+    print(json.dumps({"roofline": rows}))
+
+
+# (file, arguments, a line its output must hold, kernels it must launch)
+EXAMPLES = (
+    ("torch_quickstart.py", (), r"SLO attainment: \d+%",
+     ("flash_prefill", "decode_attention")),
+    ("torch_multi_slo_serving.py", (), r"SLICE delivered DIFFERENT",
+     ("ssd_scan", "ssd_decode_step")),
+    ("torch_train_tiny.py", (), r"loss [\d.]+ -> [\d.]+ \(improved\)", ()),
+    ("torch_edge_serving_sim.py", ("--duration", "20"),
+     r"(?m)^SLICE +[\d.]+% ", ()))
+
+
+def examples_phase():
+    """The four examples/torch_*.py on the card in subprocesses:
+    quickstart, multi-SLO and train_tiny (300 steps, ~5 s on the card;
+    its checkpoint in a temporary directory) at their defaults, the
+    simulation at
+    --duration 20, as the JAX package's CI runs its examples. Each must
+    exit 0, print its SLO or loss line, launch its kernels (printed by
+    the example) and import no JAX."""
+    import re
+    phase("examples: examples/torch_*.py on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args, line, kernels in EXAMPLES:
+            t0 = time.perf_counter()
+            if name == "torch_train_tiny.py":
+                args += ("--ckpt", os.path.join(tmp, "tiny.npz"))
+            out = run_python("file", os.path.join(ROOT, "examples", name),
+                             *args)
+            print("\n".join(f"{name}: {x}" for x in out.strip().splitlines()
+                            [-8:]))
+            print(f"{name}: {time.perf_counter() - t0:.1f}s", flush=True)
+            if not re.search(line, out):
+                fail(f"{name}: no line matching {line!r}")
+            launched = dict(re.findall(r"(\w+)=(\d+)", "".join(
+                x for x in out.splitlines()
+                if x.startswith("kernel launches:"))))
+            missing = [k for k in kernels if int(launched.get(k, 0)) == 0]
+            if missing:
+                fail(f"{name}: launched none of {missing} "
+                     f"(launches {launched})")
+
+
 TRAIN_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-4, "steps": 1e-4}
 # full-width training runs after smollm-360m's: (arch, layers kept or
 # None for all, batch, sequence, steps). granite-moe's fp32 AdamW state
@@ -3456,6 +3686,8 @@ def main() -> None:
     for k in kernels:
         if k["name"] == "moe_grouped_ffn":
             k["rank_slabs"] = moe_slabs
+    dryrun_phase()
+    examples_phase()
     train_phase()
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))

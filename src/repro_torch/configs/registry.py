@@ -1,11 +1,12 @@
 """Architecture registry of the port: every architecture of the JAX
 package's registry (``repro.configs.registry``), configs copied with their
-imports changed. get_config("<id>") / list_archs()."""
+imports changed. get_config("<id>") / list_archs(); ASSIGNED_ARCHS and
+get_shape("<name>") name the dry-run's cells, as the JAX registry's."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPE_BY_NAME, ArchConfig, InputShape
 
 _MODULES = {
     "internvl2-26b": "internvl2_26b",
@@ -20,6 +21,7 @@ _MODULES = {
     "minicpm-2b": "minicpm_2b",
     "edge-6b": "edge_6b",
 }
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "edge-6b")
 
 
 def list_archs():
@@ -33,3 +35,7 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> InputShape:
+    return SHAPE_BY_NAME[name]

@@ -8,6 +8,13 @@ one to its launch count; a refused launch raises. It never falls back to the pla
 CPU tensors it runs the plain version in ``kernels.ref`` (no launch, no
 count) — the path the CPU tests take.
 
+Given meta tensors (every one on ``meta``) it runs the plain version too:
+the counting route of ``launch.dryrun``, which runs a step on tensors that
+hold no data and counts its FLOPs and bytes. Those counts are the plain
+versions' ops, not the CUDA kernels'. No serving or training entry point
+reaches this route with a real tensor, and meta mixed with any other
+device raises as any other mix does.
+
 No kernel has a backward, as no Pallas kernel of the JAX package has
 one: under autograd (``torch.is_grad_enabled()``) a wrapper given an
 input that requires grad raises, on the CPU as on the card, where the
@@ -70,8 +77,9 @@ def add_launches(delta: Dict[str, int]) -> None:
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
-    on the CPU; raises on a mix, or when autograd would need a backward
-    the kernel does not have."""
+    on the CPU or all on ``meta`` (the plain version's route); raises on a
+    mix, or when autograd would need a backward the kernel does not
+    have."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but the kernel has no backward "
@@ -79,7 +87,7 @@ def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
             "(models.model.forward) takes the model code, and serving "
             "runs on detached parameters or under torch.no_grad()")
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: tensors on mixed devices "

@@ -9,9 +9,12 @@ at the collectives of ``models.partitioning``. ``make_serving_mesh``
 describes this rank's place in a ('data', 'model') mesh over an
 initialised process group; ``spawn_ranks`` starts such a group on one host.
 
+``make_production_mesh`` (the 256- and 512-device meshes of the dry-run)
+and ``make_stand_in_mesh`` describe rank 0 of a mesh that is counted, not
+run (``launch.dryrun``), over a "fake" process group.
+
 A FUNCTION, not a module-level constant: importing this module touches no
-process group. ``make_production_mesh`` (the 256- and 512-chip meshes of
-the dry-run) is still to port (ROADMAP.md).
+process group.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -132,6 +135,66 @@ def make_serving_mesh(*, model: int, data: int = 1,
                   if backend == "nccl" else torch.device("cpu"))
     return ServingMesh(data, model, rank, model_group, data_group,
                        data_cpu_group, world_cpu_group, device, backend)
+
+
+class StandInMesh:
+    """Rank 0 of a mesh that is counted, not run: ``shape`` (axis -> size),
+    ``axis_names`` and ``coords`` as a ``ServingMesh`` has them, so the
+    sharding rules and ``models.partitioning`` read it as they read a
+    serving mesh. ``model_group`` (the ranks of rank 0's 'model' row) and
+    ``data_group`` (the ranks of its model index over ('pod', 'data'),
+    which ``models.partitioning`` folds into one data axis, pod-major)
+    are groups of a process group of the "fake" backend
+    (``torch.testing._internal.distributed.fake_pg``, which ships with
+    PyTorch): its collectives return at once and move nothing, which is
+    what a dry-run on meta tensors needs. The mesh inits that group when
+    it is made and destroys it at ``close()`` (or the end of a ``with``
+    block)."""
+
+    def __init__(self, shape: Dict[str, int]):
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        if dist.is_initialized():
+            raise RuntimeError("a stand-in mesh needs a process with no "
+                               "process group of its own (it inits a fake "
+                               "one)")
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.coords = {a: 0 for a in shape}
+        n = math.prod(shape.values())
+        model = shape["model"]
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+        self.model_group = dist.new_group(list(range(model)))
+        self.data_group = dist.new_group(list(range(0, n, model)))
+
+    def close(self) -> None:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def make_stand_in_mesh(shape: Dict[str, int]) -> StandInMesh:
+    """A ``StandInMesh`` of ``shape`` (ordered axes, e.g. {"data": 1,
+    "model": 1}; 'model' last)."""
+    if list(shape)[-1] != "model":
+        raise ValueError(f"mesh axes {list(shape)}: 'model' must come last")
+    return StandInMesh(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> StandInMesh:
+    """Single pod: (data=16, model=16), 256 devices. Multi-pod: (pod=2,
+    data=16, model=16), 512 devices. The shapes of
+    ``repro.launch.mesh.make_production_mesh``, as a stand-in for rank 0
+    (``StandInMesh``); the batch splits over ('pod', 'data') together."""
+    if multi_pod:
+        return make_stand_in_mesh({"pod": 2, "data": 16, "model": 16})
+    return make_stand_in_mesh({"data": 16, "model": 16})
 
 
 def batch_axes(mesh) -> tuple:

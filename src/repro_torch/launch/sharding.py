@@ -41,8 +41,10 @@ heads, because a kernel takes whole heads:
   experts [r*E/ways, (r+1)*E/ways)); otherwise tensor-parallel inside
   each expert, wg/wu cut by d_ff columns and wd by d_ff rows when
   ``d_ff % ways == 0``, else whole. The router and ln2 stay whole;
-- norms are replicated. SSM weights have no serving layout: a mesh
-  refuses those archs, as in JAX.
+- norms are replicated. SSM weights have no serving layout: they stay
+  whole (the ``ssm`` group's cuts are all None), and a serving mesh
+  refuses those archs, as in JAX; a dry-run (``launch.dryrun``) counts
+  them whole on every rank.
 
 A cut product is a partial sum over 'model' (wo's and wd's rows, an
 expert slab's or a d_ff slab's share of the MoE combine) or a slab of
@@ -58,6 +60,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import batch_axes, batch_ways
+from repro_torch.models import ssm as SSM
 
 Spec = Tuple[Any, ...]
 # a serving cut: (dim, how) with how "model" (one of `ways` equal blocks,
@@ -233,7 +236,7 @@ def head_slab(cfg: ArchConfig, ways: int, rank: int) -> Tuple[int, int, int]:
 
 def serving_cuts(cfg: ArchConfig, ways: int) -> Dict[str, Any]:
     """The serving layout over ``ways`` model ranks: per leaf of
-    init_params' tree (attention archs, dense or MoE: no SSM group) a Cut,
+    init_params' tree a Cut (the SSM group's all None: whole),
     (dim, "model") or (dim, "kv_group"), or None (whole). Over one rank
     every leaf that can be cut is, into one slab."""
     attn = attention_split(cfg, ways)
@@ -246,6 +249,10 @@ def serving_cuts(cfg: ArchConfig, ways: int) -> Dict[str, Any]:
     if cfg.has_attention:
         blk.update(wq=(-1, "model") if attn else None, wk=kv, wv=kv,
                    wo=(-2, "model") if attn else None)
+    if cfg.has_ssm:
+        blk["ssm"] = dict.fromkeys(SSM.param_shapes(
+            cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim,
+            cfg.ssm_conv))
     if cfg.block_kind == "moe":
         if _div(cfg.n_experts, ways):         # expert-parallel
             wg = wd = (-3, "model")

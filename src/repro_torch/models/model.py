@@ -235,18 +235,21 @@ def load_params(cfg: ArchConfig, tree: Params, device="cuda") -> Params:
 
 
 def init_cache(cfg: ArchConfig, batch: int, buf_len: int,
-               dtype=torch.float32, device="cuda") -> Cache:
+               dtype=torch.float32, device="cuda",
+               kv_heads: Optional[int] = None) -> Cache:
     """Empty slot cache: length [batch] = 0; for attention layers k/v
     [L,batch,Hkv,buf_len,hd] (ring of buf_len slots) and kv_pos
     [batch,buf_len] = -1; for SSM layers ssm [L,batch,H,P,N] (f32: the
     recurrence accumulates in f32) and conv [L,batch,C,K-1] in ``dtype``,
-    zero."""
+    zero. ``kv_heads``: the heads a tensor-parallel rank's slab holds
+    (``launch.sharding.head_slab``), all of them by default."""
     _check_causal(cfg)
     dev = resolve_device(device)
     c: Cache = {"length": torch.zeros((batch,), dtype=torch.int32,
                                       device=dev)}
     if cfg.has_attention:
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, buf_len, cfg.head_dim)
+        shape = (cfg.n_layers, batch, kv_heads or cfg.n_kv_heads, buf_len,
+                 cfg.head_dim)
         c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
         c["kv_pos"] = torch.full((batch, buf_len), -1, dtype=torch.int32,

@@ -22,7 +22,11 @@ The batch over 'data' (JAX's ``batch_spec``): a decode or verify step of
 B rows is cut into ``data`` row blocks when B divides, and
 ``batch_rows(B)`` is then this rank's block (None: every data group
 computes every row, as JAX's ``bshard = None``); ``gather_data(*xs)``
-puts the blocks side by side on every rank, on ``mesh.data_group``.
+puts the blocks side by side on every rank, on ``mesh.data_group``. A
+mesh with a 'pod' axis (``launch.mesh.make_production_mesh(multi_pod=
+True)``) folds ('pod', 'data') into one data axis, pod-major, as
+``launch.mesh.batch_axes`` shards a batch over both: its ``data_group``
+spans both axes.
 
 Without a context installed (``with activation_partitioning(mesh, cut):
 ...``, around a tensor-parallel engine's steps) nothing is cut and no
@@ -34,6 +38,11 @@ and takes the collective path too.
 A gather is an all-reduce of a zero-filled full-width buffer in which
 each rank has written its slab: exact (x + 0 = x), and the one collective
 gloo also runs on CUDA tensors.
+
+``recording(fn)`` calls ``fn(kind, axis, tensor)`` before each collective
+("all-reduce" for ``reduce_model``, "all-gather" for the gathers, with
+the full-width buffer the ranks all-reduce): what
+``launch.collective_stats`` counts.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 _CTX = None     # the installed activation_partitioning
+_RECORD = None  # the installed recording's fn(kind, axis, tensor)
 
 
 class activation_partitioning:
@@ -78,17 +88,48 @@ def model_index() -> int:
     return 0 if _CTX is None else _CTX.mesh.coords["model"]
 
 
+class recording:
+    """Context manager: ``with recording(fn): ...`` calls ``fn(kind, axis,
+    tensor)`` before each collective of the functions below: kind
+    "all-reduce" or "all-gather", axis "model" or "data", the tensor the
+    ranks all-reduce."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self._prev = None
+
+    def __enter__(self):
+        global _RECORD
+        self._prev, _RECORD = _RECORD, self.fn
+        return self
+
+    def __exit__(self, *exc):
+        global _RECORD
+        _RECORD = self._prev
+        return False
+
+
+def _data_axis(mesh) -> Tuple[int, int]:
+    """(data groups, this rank's group): ('pod', 'data') folded, pod-major,
+    where the mesh has a 'pod' axis."""
+    ways, index = 1, 0
+    for a in ("pod", "data"):
+        if a in mesh.shape:
+            index = index * mesh.shape[a] + mesh.coords[a]
+            ways *= mesh.shape[a]
+    return ways, index
+
+
 def batch_rows(batch: int):
     """This rank's rows of a batch of ``batch`` rows split over 'data' (a
     slice), or None where the batch is not split: without a context, with
     one data group, or when the groups do not divide it."""
     if _CTX is None:
         return None
-    ways = _CTX.mesh.shape["data"]
+    ways, d = _data_axis(_CTX.mesh)
     if ways == 1 or batch % ways:
         return None
     n = batch // ways
-    d = _CTX.mesh.coords["data"]
     return slice(d * n, (d + 1) * n)
 
 
@@ -97,18 +138,23 @@ def reduce_model(x: torch.Tensor) -> torch.Tensor:
     context."""
     if _CTX is None:
         return x
+    if _RECORD is not None:
+        _RECORD("all-reduce", "model", x)
     dist.all_reduce(x, group=_CTX.mesh.model_group)
     return x
 
 
-def _gather(x: torch.Tensor, dim: int, axis: str, group) -> torch.Tensor:
-    """The slabs of ``dim`` over ``axis`` side by side, in axis order."""
-    mesh = _CTX.mesh
+def _gather(x: torch.Tensor, dim: int, axis: str, ways: int, index: int,
+            group) -> torch.Tensor:
+    """The slabs of ``dim`` over ``axis`` (``ways`` of them, this rank's
+    at ``index``) side by side, in axis order."""
     n = x.shape[dim]
     shape = list(x.shape)
-    shape[dim] = n * mesh.shape[axis]
+    shape[dim] = n * ways
     full = x.new_zeros(shape)
-    full.narrow(dim, mesh.coords[axis] * n, n).copy_(x)
+    full.narrow(dim, index * n, n).copy_(x)
+    if _RECORD is not None:
+        _RECORD("all-gather", axis, full)
     dist.all_reduce(full, group=group)
     return full
 
@@ -118,7 +164,9 @@ def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     without a context."""
     if _CTX is None:
         return x
-    return _gather(x, dim, "model", _CTX.mesh.model_group)
+    mesh = _CTX.mesh
+    return _gather(x, dim, "model", mesh.shape["model"],
+                   mesh.coords["model"], mesh.model_group)
 
 
 def gather_data(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -129,7 +177,7 @@ def gather_data(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return xs
     n = xs[0].shape[0]
     full = _gather(torch.cat([x.reshape(n, -1) for x in xs], 1), 0, "data",
-                   _CTX.mesh.data_group)
+                   *_data_axis(_CTX.mesh), _CTX.mesh.data_group)
     out, at = [], 0
     for x in xs:
         w = x[0].numel()

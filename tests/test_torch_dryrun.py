@@ -1,0 +1,121 @@
+"""The port's dry-run end to end through its CLI (``python -m
+repro_torch.launch.dryrun`` in a subprocess), the counterparts of
+``tests/test_dryrun.py``: a cell is rank 0 of a stand-in production mesh,
+its step run on meta tensors. The subprocess reports the modules it
+imported: neither ``jax`` nor the JAX package may be among them."""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# runs the CLI's main, then prints the JAX modules the process imported
+_CLI = ("import runpy, sys\n"
+        "sys.argv = ['dryrun'] + sys.argv[1:]\n"
+        "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n"
+        "print('LEAKED', sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'repro.'))))\n")
+COLLECTIVE_KEYS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                   "collective-permute", "n_all-gather", "n_all-reduce",
+                   "n_reduce-scatter", "n_all-to-all",
+                   "n_collective-permute", "total"}
+
+
+def _run_cell(arch, shape, mesh, tmpdir):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    cp = subprocess.run(
+        [sys.executable, "-c", _CLI, "--arch", arch, "--shape", shape,
+         "--mesh", mesh, "--out", str(tmpdir)],
+        env=env, capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert cp.returncode == 0, cp.stderr[-2000:]
+    assert "LEAKED []" in cp.stdout, cp.stdout[-2000:]
+    with open(os.path.join(str(tmpdir), f"{arch}__{shape}__{mesh}.json")) as f:
+        return json.load(f)
+
+
+def test_torch_dryrun_decode_cell_pod(tmp_path):
+    rec = _run_cell("smollm-360m", "decode_32k", "pod", tmp_path)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh_shape"] == {"data": 16, "model": 16}
+    assert rec["flops_per_device"] > 0
+    # a Python loop over alike layers: the extrapolation is the count
+    assert rec["flops_per_device_extrap"] == rec["flops_per_device"]
+    assert rec["bytes_per_device_extrap"] == rec["bytes_per_device"]
+    assert set(rec["collectives"]) == COLLECTIVE_KEYS
+    # the d_ff-cut MLP's 32 sums, the vocabulary-cut embedding's one and
+    # the logits' gather, all over 'model'
+    assert rec["collectives"]["n_all-reduce"] == 33
+    assert rec["collectives"]["n_all-gather"] == 1
+    assert set(rec["collectives_by_axis"]) == {"model"}
+    assert 0 < rec["bytes_floor_per_device"] <= rec["bytes_per_device"]
+    # under JAX's specs a device holds 722 MB (the compiled JAX record's
+    # argument_size_in_bytes, tests/test_torch_dryrun_vs_jax.py) ...
+    assert rec["argument_size_in_bytes_spec"] == 722_397_120
+    # ... the port's rank 0 holds every query head (15 do not divide 16)
+    # and the whole batch's cache, each named as a departure
+    named = sorted(d.split(":")[0] for d in rec["departures"][1:])
+    assert named == ["cache.k", "cache.kv_pos", "cache.length", "cache.v",
+                     "params.blocks.wk", "params.blocks.wo",
+                     "params.blocks.wq", "params.blocks.wv", "tokens"]
+    assert rec["departures"][0].startswith("decode over data > 1")
+    assert rec["argument_size_in_bytes"] > rec["argument_size_in_bytes_spec"]
+
+
+def test_torch_dryrun_multipod(tmp_path):
+    rec = _run_cell("smollm-360m", "decode_32k", "multipod", tmp_path)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
+    assert rec["flops_per_device"] > 0
+    assert set(rec["collectives"]) == COLLECTIVE_KEYS
+    # the batch of 128 splits over the 32 data groups of ('pod', 'data')
+    assert "cache.length: spec (('pod', 'data'),) holds [4] a device, " \
+        "the port [128]" in rec["departures"]
+    assert "flops_per_device_extrap" not in rec     # pod cells only
+
+
+def test_torch_dryrun_encoder_skip(tmp_path):
+    rec = _run_cell("hubert-xlarge", "decode_32k", "pod", tmp_path)
+    assert rec["status"] == "skip"
+    assert "encoder-only" in rec["reason"]
+
+
+def test_torch_dryrun_long_context_skip():
+    # every registry arch with attention has a window; without one JAX's
+    # decode_buf_len asserts (an error record), the port names a skip
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import specs as SP
+    cfg = dataclasses.replace(get_config("smollm-360m"), sliding_window=None)
+    reason = SP.skip_reason(cfg, get_shape("long_500k"))
+    assert "DESIGN.md §4" in reason and "long_500k" in reason
+    with pytest.raises(ValueError, match="sub-quadratic"):
+        SP.decode_buf_len(cfg, get_shape("long_500k"))
+    assert SP.skip_reason(get_config("smollm-360m"),
+                          get_shape("long_500k")) is None
+    assert SP.decode_buf_len(get_config("smollm-360m"),
+                             get_shape("long_500k")) == 8192
+
+
+def test_torch_roofline_analyzer_on_record():
+    from repro_torch.launch.roofline import analyze_record, link_bw
+    rec = {"status": "ok", "arch": "yi-6b", "shape": "decode_32k",
+           "mesh_shape": {"data": 16, "model": 16},
+           "flops_per_device": 4.7e10, "bytes_per_device": 2.4e11,
+           "bytes_floor_per_device": 5e10,
+           "collectives": {"total": 2e6},
+           "collectives_by_axis": {"model": 2e6}}
+    row = analyze_record(rec)
+    assert row["dominant"] == "memory"   # decode is HBM-bound
+    assert row["memory_s"] > row["compute_s"]
+    assert row["memory_unfused_s"] > row["memory_s"]
+    assert row["chips"] == 256
+    assert 0 < row["useful_ratio"] < 5
+    # a 16-way axis spans two nodes of 8: InfiniBand; 8 GPUs: NVLink
+    assert row["collective_s"] == 2e6 / 50e9
+    assert link_bw({"data": 2, "model": 4}, "data") == 450e9
+    assert link_bw({"data": 4, "model": 4}, "data") == 50e9
