@@ -17,8 +17,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
             flash prefill
             at ragged lengths, causal / window / non-causal; ring-cache
             decode with -1 slots, a pad row, wrapped kv_pos, window 64 and
-            8192; prompt chunks at q_start 0/16/300, C 1/37/64/128, over a
-            1024-slot buffer with stale data past the chunk, K/V read
+            8192, and with its log-sum-exp output on the two 512-slot
+            halves of a 1024-slot ring (a half that keeps nothing for a
+            row: out 0, lse -1e30; the halves merged by combine_model_lse's
+            arithmetic against the whole ring); prompt chunks at
+            q_start 0/16/300, C 1/37/64/128, over a 1024-slot buffer
+            with stale data past the chunk, K/V read
             through the strides of a [B,Hkv,S,hd] buffer, with a window,
             and chunks past the buffer's end whose rows that see no key
             must give exact zeros. Each flash case names the body it ran
@@ -163,6 +167,27 @@ Phases, each printing its own lines; any failed check exits non-zero:
             import no JAX. Prints each rank's l(b) and engine clock,
             labelled as ranks sharing one H100 over gloo: no
             tensor-parallel speed.
+5'. slot-mesh — the slot prefill and decode_step in JAX's sharded cache
+            layout (cache_specs: the batch over ('pod', 'data'), the
+            ring's K/V and kv_pos slots over 'model', every KV head), one
+            process a rank over gloo on the card, fp32 (TF32 off), each
+            rank drawing its slab of the weights the single process
+            draws: (a) edge-6b at full width and depth on a (1, 2) mesh,
+            8 prompts of 500 tokens into a 1024-slot ring (512 slots a
+            rank), 32 greedy decode steps under a fixed active pattern;
+            (b) hymba-1.5b at full width, 16 of its 32 layers, on a
+            (2, 2) mesh, 4 prompts of 1100 tokens into its 1024-slot
+            window ring (wrapped, then cut in two; 2 rows a data group),
+            16 steps. Against the single process's prefill + decode steps
+            on the whole cache: every rank's logits within MESH_TOL
+            (prefill, and active rows), greedy streams identical, the
+            ranks' caches put together (launch.sharding.gather_cache)
+            equal to the process's (positions exact, K/V and SSM state
+            within MESH_TOL of their magnitude), every rank's launches
+            exactly layers x steps ring decodes (with the log-sum-exp
+            output) and a flash prefill (and SSD scan, SSD step) a
+            layer, no JAX imported. Run (a)'s rank 0 launches stand under
+            the time phase's rows at a rank's shapes.
 6. time   — each kernel (device time: CUDA events over 30 calls queued
             behind a spin kernel, so the calls run back to back; the
             kernel's time launched at the host's pace is printed beside
@@ -200,7 +225,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
             rank of run paged-mesh-moe (12 query heads, 4 KV heads, 20
             experts), paged decode, flash prefill and the grouped FFN
             over its rows of a full decode batch (4 of 8) and its
-            prompts. The
+            prompts; at a rank of run slot-mesh (a), the ring decode
+            with its log-sum-exp over rank 0's 512 slots of a 1024-slot
+            ring (B=8, every slot live) and the flash prefill of its 8
+            prompts of 500 tokens at 16 query heads and 1 KV head. The
             multi-pass kernels' rows also print
             each pass's device time (torch.profiler): the ring-cache
             decode's split and combine, the SSD scan's chunk states, state
@@ -271,6 +299,7 @@ CUDA is not available or the repository's sources are not beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import inspect
 import json
@@ -732,7 +761,68 @@ def check_kernels():
                f"({fp_body[dt]} body)", dt,
                (out.float() - want)[seen].abs().max().item())
     check_hetero_kernels(report)
+    check_ring_lse(report)
     return worst
+
+
+def check_ring_lse(report):
+    """The ring decode kernel with ``return_lse`` (what a rank runs over
+    its slice of a slot cache cut by sequence) at edge-6b's heads
+    on the two 512-slot halves of a 1024-slot ring, fp32 and bf16, into
+    NaN-poisoned outputs: each half's output and each row's log-sum-exp
+    against the plain version's; rows a half keeps nothing of (row 0
+    everywhere, row 1 in the upper half) give out 0 and lse -1e30; the
+    halves merged by ``combine_model_lse``'s arithmetic
+    (``partitioning.merge_lse``) against the kernel over the whole ring."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as _da
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as _pa
+    from repro_torch.models.partitioning import merge_lse
+    S, half = 1024, 512
+    q_pos = [0, 300, 700, 2 * S + 100, 900]
+    kv_pos = np.full((len(q_pos), S), -1, np.int32)
+    kv_pos[1, :301] = np.arange(301)
+    kv_pos[2, :701] = np.arange(701)
+    for p in range(q_pos[3] - S + 1, q_pos[3] + 1):
+        kv_pos[3, p % S] = p
+    kv_pos[4] = np.random.default_rng(4).integers(0, 1000, S)
+    kv_pos[4, ::7] = -1
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        q, k, v, kp, qp = ring_inputs(q_pos, kv_pos, dtype, S, seed=41)
+        _, sps, nsplit = _da.plan(16, 128, half, dtype)
+        parts = []
+        for lo in (0, half):
+            sk, sv = (x[:, :, lo:lo + half].contiguous() for x in (k, v))
+            skp = kp[:, lo:lo + half].contiguous()
+            poison(q.shape, q.dtype)
+            out, lse = ops.decode_attention(q, sk, sv, skp, qp,
+                                            return_lse=True)
+            torch.cuda.synchronize()
+            want, want_lse = ref.decode_attention_ref(
+                q.float(), sk.float(), sv.float(), skp, qp, None, True)
+            live = want_lse > -1e29                        # [B, Hq]
+            if not (torch.isfinite(out.float()).all()
+                    and (out[~live].float() == 0).all()
+                    and (lse[~live] == -1e30).all() and not live[0].any()
+                    and live[2:].all() and live[1].all() == (lo == 0)):
+                fail("decode_attention lse: rows a slice keeps nothing of "
+                     "must give out 0 and lse -1e30")
+            err = max((out.float() - want)[live].abs().max().item(),
+                      (lse - want_lse)[live].abs().max().item())
+            report("decode_attention", f"return_lse, slots {lo}..{lo + half}"
+                   f" of a {S}-slot ring, Hq=32 Hkv=2 hd=128 B={len(q_pos)} "
+                   f"q_pos={q_pos} ({_pa.body(dtype, 128)} body, {nsplit} "
+                   f"splits of {sps} slots; out and lse)", dt, err)
+            parts.append((out, lse))
+        whole = ops.decode_attention(q, k, v, kp, qp)
+        merged = merge_lse(parts)
+        torch.cuda.synchronize()
+        report("decode_attention", f"two {half}-slot halves merged by "
+               "combine_model_lse's arithmetic against the whole ring",
+               dt, (merged.float() - whole.float())[1:].abs().max().item())
 
 
 def check_ring(report, q_pos, kv_pos, dtype, S, windows, Hq=32, Hkv=2,
@@ -2690,6 +2780,194 @@ def sharded_phase(worst):
     return mesh_serve_phase(), moe_slabs
 
 
+# (label, arch, (data, model), batch, prompt length, ring slots, decode
+# steps, layers or None for all): (a) edge-6b's prompts fill rank 0's
+# half of the ring and its decode steps cross into rank 1's; (b) hymba's
+# prompts are longer than its 1024-token window, so the ring wraps before
+# it is cut in two. (b) runs 16 of hymba's 32 layers: at 32 the ranks'
+# logits came 1.206e-4 from one process's, over MESH_TOL, the MLP's
+# row-parallel partial sums in fp32 compounding through the layers (the
+# same 900-token prompts into a ring cut over 'model' and into one that
+# is not gave the same error, 8.225e-5: the sequence-parallel merge adds
+# nothing measurable; PERF.md §6)
+SLOT_MESH_CASES = (("(a)", "edge-6b", (1, 2), 8, 500, 1024, 32, None),
+                   ("(b)", "hymba-1.5b", (2, 2), 4, 1100, 1024, 16, 16))
+
+
+def slot_mesh_config(index):
+    """The config of SLOT_MESH_CASES[index], cut to its layers."""
+    from repro_torch.configs import get_config
+    _, arch, *_, layers = SLOT_MESH_CASES[index]
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def slot_mesh_inputs(cfg, batch, prompt, steps):
+    """The case's prompts [batch, prompt] int32 and active pattern [steps,
+    batch] bool, from seeded generators on the host."""
+    import torch
+    g = torch.Generator().manual_seed(27)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                            dtype=torch.int32)
+    active = torch.tensor([[(b + t) % 4 != 3 for b in range(batch)]
+                           for t in range(steps)])
+    return prompts, active
+
+
+def slot_mesh_ops(cfg, params, prompts, active, buf_len):
+    """``prefill`` of every prompt into a ``buf_len``-slot cache, then the
+    greedy decode steps under the active pattern (an inactive row keeps
+    its token), under whatever partitioning context is installed; the
+    logits, tokens and final cache as numpy arrays (a spawned rank's
+    result crosses a queue)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    dev = torch.device("cuda", 0)
+
+    def host(x):
+        return x.float().cpu().numpy() if x.is_floating_point() else \
+            x.cpu().numpy()
+
+    logits, cache = M.prefill(cfg, params, prompts.to(dev), buf_len)
+    pre = host(logits)
+    tokens = logits.argmax(-1).to(torch.int32)
+    dec, streams = [], [host(tokens)]
+    for act in active.to(dev):
+        logits, cache = M.decode_step(cfg, params, cache, tokens, act,
+                                      buf_len=buf_len)
+        dec.append(host(logits))
+        tokens = torch.where(act, logits.argmax(-1).to(torch.int32), tokens)
+        streams.append(host(tokens))
+    torch.cuda.synchronize()
+    return {"pre": pre, "dec": dec, "streams": np.stack(streams),
+            "cache": {k: host(v) for k, v in cache.items()}}
+
+
+def slot_mesh_rank(rank, index):
+    """A rank of case SLOT_MESH_CASES[index]: its slab of the weights
+    (drawn as the single process draws them, fp32, TF32 off) on a gloo
+    mesh sharing the card, slot_mesh_ops under activation_partitioning;
+    also its launches, seconds and any JAX module."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _, _, shape, batch, prompt, buf_len, steps, _ = SLOT_MESH_CASES[index]
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // (shape[0] * shape[1])))
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.partitioning import activation_partitioning
+    cfg = slot_mesh_config(index)
+    mesh = make_serving_mesh(data=shape[0], model=shape[1],
+                             device=torch.device("cuda", 0))
+    params = M.init_params(cfg, seed=0, dtype=torch.float32,
+                           device="cuda:0", cut=S.cutter(cfg, mesh))
+    prompts, active = slot_mesh_inputs(cfg, batch, prompt, steps)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with activation_partitioning(mesh, S.cut_leaves(cfg, shape[1])):
+        out = slot_mesh_ops(cfg, params, prompts, active, buf_len)
+    out.update(launches=dict(ops.LAUNCHES), s=time.perf_counter() - t0,
+               leaked=sorted(m for m in sys.modules if m == "jax"
+                             or m.startswith(("jax.", "repro."))))
+    return out
+
+
+def check_slot_mesh(index):
+    """One SLOT_MESH_CASES case: the single-process prefill + decode
+    steps on the whole cache, then the mesh's ranks on theirs; returns
+    rank 0's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import model as M
+    label, arch, shape, batch, prompt, buf_len, steps, _ = \
+        SLOT_MESH_CASES[index]
+    data, model = shape
+    cfg = slot_mesh_config(index)
+    phase(f"slot-mesh {label}: {arch} ({cfg.n_layers} layers) fp32 prefill "
+          f"+ decode_step in JAX's cache layout on a ({data}, {model}) mesh "
+          f"of {data * model} gloo ranks against one process, {batch} "
+          f"prompts of {prompt} tokens into {buf_len} slots, {steps} steps")
+    params = M.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    prompts, active = slot_mesh_inputs(cfg, batch, prompt, steps)
+    t0 = time.perf_counter()
+    one = slot_mesh_ops(cfg, params, prompts, active, buf_len)
+    one_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(slot_mesh_rank, data * model, (index,),
+                        backend="gloo", timeout=300)
+    want = {"decode_attention": cfg.n_layers * steps,
+            "flash_prefill": cfg.n_layers}
+    if cfg.has_ssm:
+        want.update(ssd_scan=cfg.n_layers,
+                    ssd_decode_step=cfg.n_layers * steps)
+    for r, res in enumerate(ranks):
+        if res["leaked"]:
+            fail(f"slot-mesh {label} rank {r} imported JAX or the JAX "
+                 f"package: {res['leaked'][:5]}")
+        if not np.array_equal(res["streams"], one["streams"]):
+            fail(f"slot-mesh {label} rank {r}'s greedy streams differ from "
+                 "the single process's")
+        pre_err = float(np.abs(res["pre"] - one["pre"]).max())
+        dec_err = max(float(np.abs(a - b)[act].max()) for a, b, act in
+                      zip(res["dec"], one["dec"], active.numpy()))
+        err = max(pre_err, dec_err)
+        scale = max(float(np.abs(x).max()) for x in [one["pre"]]
+                    + one["dec"])
+        got = {k: res["launches"][k] for k in want}
+        print(f"rank {r}: logits max_abs_err={err:.3e} tol={MESH_TOL:g} "
+              f"(prefill {pre_err:.3e}, {steps} steps' active rows "
+              f"{dec_err:.3e}; logits up to {scale:.3g}), streams identical "
+              f"({batch} x {steps + 1} tokens), launches {got}, ops "
+              f"{res['s']:.2f} s (one process {one_s:.2f} s; ranks sharing "
+              "one H100 over gloo, eager: no tensor-parallel speed)")
+        if not err <= MESH_TOL:
+            fail(f"slot-mesh {label} rank {r}'s logits differ from the "
+                 f"single process's by {err:.3e} > {MESH_TOL:g}")
+        if got != want:
+            fail(f"slot-mesh {label} rank {r} launched {got}, not {want}: "
+                 "every layer of every step must go through the kernels")
+    parts = [{k: torch.from_numpy(v) for k, v in res["cache"].items()}
+             for res in ranks]
+    whole = S.gather_cache(cfg, parts, {"data": data, "model": model},
+                           batch, buf_len)
+    for key, w in one["cache"].items():
+        g = whole[key].numpy()
+        if key in ("length", "kv_pos"):
+            ok, what = np.array_equal(g, w), "exact"
+        else:
+            scale = max(1.0, float(np.abs(w).max()))
+            e = float(np.abs(g - w).max())
+            ok, what = e <= MESH_TOL * scale, (
+                f"max_abs_err={e:.3e} tol={MESH_TOL:g} x {scale:.3g}")
+        print(f"gathered cache {key} {list(g.shape)}: {what}")
+        if not ok:
+            fail(f"slot-mesh {label}: the ranks' gathered cache {key} "
+                 "differs from the single process's")
+    print(f"slot-mesh {label}: rank 0 holds k/v "
+          f"{list(parts[0]['k'].shape)} of {list(one['cache']['k'].shape)}")
+    return ranks[0]["launches"]
+
+
+def slot_mesh_phase():
+    """Both cases; returns case (a)'s run for the time phase (rank 0's
+    launches, under the rows timed at a rank's shapes)."""
+    launches = check_slot_mesh(0)
+    check_slot_mesh(1)
+    return {"slot-mesh": ({}, launches)}
+
+
 def time_phase(runs, worst):
     """Time each kernel, its plain version and the library yardstick at the
     shapes its serving run gave it; bound from these inputs. ``runs`` maps
@@ -2697,6 +2975,7 @@ def time_phase(runs, worst):
     launches); a timed row's launches are the sum over the serving runs
     at whose shapes (heads, state widths, cache layout) it is timed, and
     each run's launches of a kernel stand under exactly one of its rows."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as _fp
@@ -3014,6 +3293,44 @@ def time_phase(runs, worst):
     prefill_row("paged-mesh", 22, ("paged-mesh",))
     verify_row("paged-spec", 23, (), at=MESH_HEADS[0])
     chunk_row("slot-chunked", 24, (), at=MESH_HEADS[0])
+
+    # a rank of the slot-mesh run (a) (edge-6b over (1, 2): the cache's
+    # 512 slots of 1024 with both KV heads, every query head): the ring
+    # decode with its log-sum-exp over rank 0's full half, the flash
+    # prefill of its 8 prompts of 500 tokens at its 16 query heads and
+    # 1 KV head
+    sm_q, sm_B, sm_S = 524, 8, 512
+    sm = ring_inputs([sm_q] * sm_B, np.tile(np.arange(sm_S, dtype=np.int32),
+                                             (sm_B, 1)), dtype, sm_S, seed=28)
+    _, sm_sps, sm_n = _da.plan(16, 128, sm_S, dtype)
+    row("decode_attention",
+        f"B={sm_B} S={sm_S} (a rank's half of a 1024-slot ring) "
+        f"q_pos={sm_q} Hq=32 Hkv=2 hd=128, return_lse, {sm_n} splits of "
+        f"{sm_sps} slots",
+        lambda: ops.decode_attention(*sm, return_lse=True)[0],
+        lambda: ref.decode_attention_ref(*sm),
+        lambda: ref.decode_attention_ref(*f32(sm[:3]), *sm[3:]),
+        masked_sdpa(sm[0][:, :, None], sm[1], sm[2],
+                    (sm[3] >= 0)[:, None, None, :]),
+        2 * sm_B * sm_S * 2 * 128 * elt + 2 * sm_B * 32 * 128 * elt
+        + sm_B * sm_S * 4 + sm_B * 4 + sm_B * 32 * 4,
+        4 * sm_B * sm_S * 32 * 128, body=_pa.body(dtype, 128),
+        passes=ATTENTION_PASSES, of_runs=("slot-mesh",))
+    pq, pk, pv = prefill_inputs(8, 500, dtype, Hq=16, Hkv=1, hd=128,
+                                seed=29)
+    pqt, pkt, pvt = (x.transpose(1, 2) for x in (pq, pk, pv))
+    pkr, pvr = (x.repeat_interleave(16, dim=1) for x in (pkt, pvt))
+    row("flash_prefill", "B=8 S=500 Hq=16 Hkv=1 hd=128 causal (a rank's "
+        "slab, slot-mesh (a))",
+        lambda: ops.flash_prefill(pq, pk, pv, causal=True),
+        lambda: ref.flash_prefill_ref(pq, pk, pv, causal=True),
+        lambda: ref.flash_prefill_ref(pq.float(), pk.float(), pv.float(),
+                                      causal=True),
+        lambda: F.scaled_dot_product_attention(pqt, pkr, pvr,
+                                               is_causal=True),
+        8 * (2 * 500 * 16 + 2 * 500 * 1) * 128 * elt,
+        8 * 4 * (500 * 501 // 2) * 16 * 128, body=_fp.body(dtype, 128),
+        of_runs=("slot-mesh",))
 
     # SSD scan: mamba2-780m's heads (runs paged-ssm and slot-ssm give it
     # the same prompts), hymba-1.5b's over run slot-hybrid's prompts
@@ -3682,6 +3999,7 @@ def main() -> None:
         runs.update(serve_phase(name, extra, required))
     mesh_runs, moe_slabs = sharded_phase(worst)
     runs.update(mesh_runs)
+    runs.update(slot_mesh_phase())
     kernels = time_phase(runs, worst)
     for k in kernels:
         if k["name"] == "moe_grouped_ffn":

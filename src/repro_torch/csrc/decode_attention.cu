@@ -8,7 +8,10 @@
 // 0 <= kv_pos <= q_pos and (no window or q_pos - kv_pos < window); scale
 // hd^-0.5; masked scores are -1e30; sums in fp32. A row with nothing live
 // (an empty or inactive slot) writes 0, as the TPU kernel does. Unlike the
-// TPU wrapper it takes any S: the ragged last split is masked here.
+// TPU wrapper it takes any S: the ragged last split is masked here. With
+// `lse` it also writes each query row's log-sum-exp of its kept scaled
+// scores (-1e30 where it kept none), so the outputs of several slices of
+// one ring (a sequence cut over ranks) merge exactly.
 //
 // What bounds it on the card: device-memory bytes in principle (each
 // (sequence, KV head) reads the K and V of its kept slots once, 4*g flops
@@ -91,15 +94,16 @@ struct RingKeys {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; body: 0 = CUDA cores, 1 = tensor cores
-// (bf16, hd 64/128); window <= 0 means no window. part: an fp32 scratch of
-// B*Hkv*nsplit*g*(hd+2) floats (g = Hq/Hkv); rows_per_tile, sps (a
-// multiple of 16, <= 256) and nsplit = ceil(S / sps) from
-// kernels/decode_attention.py `plan`. All tensors contiguous, q and k/v
+// (bf16, hd 64/128); window <= 0 means no window. lse: null, or an fp32
+// [B,Hq] that the combine fills with each row's log-sum-exp. part: an
+// fp32 scratch of B*Hkv*nsplit*g*(hd+2) floats (g = Hq/Hkv);
+// rows_per_tile, sps (a multiple of 16, <= 256) and nsplit =
+// ceil(S / sps) from kernels/decode_attention.py `plan`. All tensors contiguous, q and k/v
 // 16-byte aligned. Returns a cudaError_t (0 = launched).
 int decode_attention(const void* q, const void* k, const void* v,
                      const void* kv_pos, const void* q_pos, void* out,
-                     void* part, int B, int Hq, int Hkv, int hd, int S,
-                     int window, int rows_per_tile, int sps, int nsplit,
+                     void* lse, void* part, int B, int Hq, int Hkv, int hd,
+                     int S, int window, int rows_per_tile, int sps, int nsplit,
                      float scale, int dtype, int body, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || Hkv <= 0 || Hkv > 65535 ||
       Hq % Hkv != 0 || rows_per_tile <= 0 ||
@@ -113,7 +117,7 @@ int decode_attention(const void* q, const void* k, const void* v,
   const Args a{q, k, v, static_cast<const int*>(kv_pos),
                static_cast<const int*>(q_pos), out, static_cast<float*>(part),
                B, 1, Hq, Hkv, 1, S, sps, nsplit, rows_per_tile, window,
-               scale};
+               scale, static_cast<float*>(lse)};
   return split_attn::run<RingKeys>(a, hd, dtype, body,
                                    static_cast<cudaStream_t>(stream));
 }

@@ -102,7 +102,7 @@ int run(const void* q, const void* k_pages, const void* v_pages,
   const Args a{q, k_pages, v_pages, static_cast<const int*>(page_table),
                static_cast<const int*>(q_start), out,
                static_cast<float*>(part), B, C, Hq, Hkv, psz, maxp,
-               pps * psz, nsplit, rows_per_tile, 0, scale};
+               pps * psz, nsplit, rows_per_tile, 0, scale, nullptr};
   return split_attn::run<PagedKeys>(a, hd, dtype, body,
                                     static_cast<cudaStream_t>(stream));
 }

@@ -49,7 +49,10 @@
 // Keys::splits(pos) splits of a row in one online pass, the loads of
 // later splits independent of the running sums; a split with l = 0 (it
 // kept nothing for the row) weighs nothing and its acc is not used, so an
-// acc that such a split never wrote is harmless. The split and combine
+// acc that such a split never wrote is harmless. Where Args::lse is set
+// it also writes each row's M + log(L) (-1e30 for a row that kept
+// nothing), what a caller needs to merge this output with others over
+// other keys (a sequence cut over ranks). The split and combine
 // kernels are one launch of the caller's entry point.
 #pragma once
 
@@ -83,6 +86,9 @@ struct Args {
   int nsplit, rows_per_tile;
   int window;                       // ring: <= 0 none
   float scale;
+  float* lse = nullptr;             // [B,C,Hq] each row's log-sum-exp of
+                                    // its kept scaled scores, -1e30 where
+                                    // it kept none; null: not written
 };
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -494,6 +500,8 @@ combine_kernel(Args a) {
     o.w = o.w * c + acc.w * w;
     M = m;
   }
+  if (a.lse != nullptr && d == 0)
+    a.lse[q_row(a, b, h, r, g)] = L > 0.f ? M + logf(L) : kNegInf;
   const float inv = 1.f / fmaxf(L, 1e-30f);
   o.x *= inv;
   o.y *= inv;

@@ -58,17 +58,19 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 7 + [I] * 9 + [ctypes.c_float, I, I, P]
+        fn.argtypes = [P] * 8 + [I] * 9 + [ctypes.c_float, I, I, P]
         fn.restype = ctypes.c_int
     return lib
 
 
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            kv_pos: torch.Tensor, q_pos: torch.Tensor, out: torch.Tensor,
-           window: Optional[int]) -> None:
+           window: Optional[int], lse: Optional[torch.Tensor] = None) -> None:
     """q/out [B,Hq,hd], k/v_cache [B,Hkv,S,hd] (fp32 or bf16, one type),
     kv_pos [B,S] int32, q_pos [B] int32; all contiguous and q, k/v 16-byte
-    aligned on one CUDA device; window None or >= 1."""
+    aligned on one CUDA device; window None or >= 1. ``lse``: None, or a
+    contiguous fp32 [B,Hq] the combine fills with each row's log-sum-exp
+    (-1e30 where the row keeps nothing)."""
     lib = _lib()
     B, Hq, hd = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
@@ -79,7 +81,8 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+        kv_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), part.data_ptr(),
         B, Hq, Hkv, hd, S, -1 if window is None else int(window), rows, sps,
         nsplit, float(hd ** -0.5), DTYPES[q.dtype],
         BODIES[body(q.dtype, hd)], stream)

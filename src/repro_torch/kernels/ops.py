@@ -212,18 +212,22 @@ def _check_tensor_core(name: str, q: torch.Tensor, k: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_pos: torch.Tensor,
                      q_pos: torch.Tensor, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None, return_lse: bool = False):
     """GQA flash-decode over a slot (ring) cache, any S. q [B,Hq,hd];
     k/v_cache [B,Hkv,S,hd]; kv_pos [B,S] int32 (-1 empty); q_pos [B] int32;
     keeps 0 <= kv_pos <= q_pos (and q_pos - kv_pos < window). Returns
     [B,Hq,hd] in q's type. A row with nothing live gives 0 on the card
     (the plain version averages every slot): callers ignore such rows.
-    The kernel's two passes (slot splits, combine) count as one launch."""
+    With ``return_lse``, (out, lse): lse f32 [B,Hq] each row's log-sum-exp
+    of its kept scaled scores, -1e30 where it keeps nothing, so outputs
+    over disjoint slices of a ring merge exactly
+    (``partitioning.combine_model_lse``). The kernel's two passes (slot
+    splits, combine) count as one launch."""
     name = "decode_attention"
     _check_window(name, window)
     if not _on_cuda(name, q, k_cache, v_cache, kv_pos, q_pos):
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
-                                        window)
+                                        window, return_lse)
     _check(name, q.ndim == 3 and k_cache.ndim == 4, "q [B,Hq,hd] and "
            "k/v_cache [B,Hkv,S,hd] expected")
     B, Hq, hd = q.shape
@@ -246,11 +250,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
            "q and k/v_cache must be 16-byte aligned (the kernel copies 16 "
            "bytes at a time)")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B == 0 or S == 0:
-        return out.zero_()
-    _da.launch(q, k_cache, v_cache, kv_pos, q_pos, out, window)
+        out.zero_()
+        return (out, lse.fill_(ref.NEG_INF)) if return_lse else out
+    _da.launch(q, k_cache, v_cache, kv_pos, q_pos, out, window, lse)
     LAUNCHES[name] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_prefill_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

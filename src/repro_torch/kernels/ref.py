@@ -23,15 +23,17 @@ from repro_torch.models.layers import paged_verify_attention as _verify
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, kv_pos: torch.Tensor,
-                         q_pos: torch.Tensor,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         q_pos: torch.Tensor, window: Optional[int] = None,
+                         return_lse: bool = False):
     """Same contract as csrc/decode_attention.cu: one query token per row
     over a ring cache. q [B,Hq,hd], k/v_cache [B,Hkv,S,hd], kv_pos [B,S]
     int32 (-1 empty), q_pos [B] int32 -> [B,Hq,hd]; keys kept where
     0 <= kv_pos <= q_pos (and q_pos - kv_pos < window). A row with nothing
     live averages every slot here (the kernel gives 0): callers ignore
-    such rows."""
-    return decode_attention(q, k_cache, v_cache, kv_pos, q_pos, window)
+    such rows. With ``return_lse``, (out, each row's log-sum-exp f32
+    [B,Hq], -1e30 for a row that keeps nothing, as the kernel writes)."""
+    return decode_attention(q, k_cache, v_cache, kv_pos, q_pos, window,
+                            return_lse)
 
 
 def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -7,13 +7,16 @@ roofline report (``launch.roofline``).
 JAX lowers and compiles each cell for 256 or 512 placeholder devices and
 reads XLA's cost and memory analyses. The port runs SPMD, one program a
 rank, so a cell is rank 0's program: its slab of the weights
-(``launch.sharding.local_params``, the serving layout), its cache and
-inputs, and the step run under ``models.partitioning``'s
-``activation_partitioning`` over ``launch.mesh.make_production_mesh``,
-whose collectives are a fake process group's. Meta tensors hold no data,
-so a cell takes seconds whatever its size; the kernel wrappers take their
-plain versions on them (``kernels.ops``), so the FLOPs and bytes are
-those of the plain versions' ops, not of the CUDA kernels.
+(``launch.sharding.local_params``, the serving layout), its part of the
+cache and inputs (``launch.sharding.local_cache``: the rows of a batch
+split over ('pod', 'data'), the slots of a ring cut over 'model'; JAX's
+``cache_specs`` and ``batch_spec``), and the step run under
+``models.partitioning``'s ``activation_partitioning`` over
+``launch.mesh.make_production_mesh``, whose collectives are a fake
+process group's. Meta tensors hold no data, so a cell takes seconds
+whatever its size; the kernel wrappers take their plain versions on them
+(``kernels.ops``), so the FLOPs and bytes are those of the plain
+versions' ops, not of the CUDA kernels.
 
 A record has JAX's keys where the port has a meaning for them:
 
@@ -36,8 +39,9 @@ A record has JAX's keys where the port has a meaning for them:
   ``opt_state_specs``) give each leaf: what ties the record to JAX's
   ``argument_size_in_bytes``;
 - ``departures``: where the port's rank holds or computes otherwise than
-  the specs say (the whole-head layouts of ``launch.sharding``, the
-  batches the port does not split over 'data');
+  the specs say (the whole-head layouts of ``launch.sharding``, the SSM
+  state's whole heads, the trainer's and the encoder forward's
+  unsharded steps);
 - ``run_s``, in place of ``lower_s`` and ``compile_s``. JAX's
   ``generated_code_size_in_bytes``, ``temp_size_in_bytes`` and
   ``hlo_bytes`` have no counterpart and are left out.
@@ -71,7 +75,7 @@ from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import specs as SP
 from repro_torch.launch.collective_stats import CollectiveRecorder
-from repro_torch.launch.mesh import batch_ways, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.models.partitioning import activation_partitioning
 
@@ -127,10 +131,9 @@ def build_cell(cfg: ArchConfig, shape: InputShape, mesh,
     opts = opts or M.ModelOptions(remat=(shape.kind == "train"))
     B = shape.global_batch
     whole = SP.param_specs_struct(cfg)
-    split_batch = batch_ways(mesh) > 1 and B % batch_ways(mesh) == 0
     train = shape.kind == "train"
     p_spec = SH.param_specs(cfg, mesh, train=train)
-    ins = SP.input_specs(cfg, shape) if shape.kind != "decode" else None
+    ins = whole_ins = SP.input_specs(cfg, shape)
 
     if train:
         from repro_torch.training.trainer import make_train_step
@@ -155,49 +158,39 @@ def build_cell(cfg: ArchConfig, shape: InputShape, mesh,
     ways = mesh.shape["model"]
     if shape.kind == "prefill":
         x_spec = SH.batch_spec(mesh, B, ins["inputs"].ndim)
-        notes = []
-        if split_batch:
-            notes.append("prefill over data > 1: the port splits only "
-                         "decode and verify batches over 'data' (the paged "
-                         "engine's); every data group computes the whole "
-                         "prefill batch")
         if cfg.is_encoder_only:
             fn = lambda p, x: M.forward(cfg, p, x, opts)[0]  # noqa: E731
             params, cut = whole, frozenset()
-            notes.append("forward (encoder-only prefill) runs on whole "
-                         "weights: the training forward has no "
-                         "tensor-parallel layout")
+            notes = ["forward (encoder-only prefill) runs on whole weights "
+                     "and the whole batch: the training forward has no "
+                     "tensor-parallel layout"]
         else:
-            fn = lambda p, x: M.prefill(cfg, p, x, buf_len=shape.seq_len)  # noqa: E731,E501
+            fn = lambda p, x: M.prefill(  # noqa: E731
+                cfg, p, x, buf_len=shape.seq_len, batch=B)
             params = SH.local_params(cfg, whole, mesh)
             cut = SH.cut_leaves(cfg, ways)
+            ins = SP.input_specs(cfg, shape, mesh=mesh)
+            notes = []
         return Cell(fn, (params, ins["inputs"]), cut, False,
                     {"params": params, "inputs": ins["inputs"]},
-                    {"params": whole, "inputs": ins["inputs"]},
+                    {"params": whole, "inputs": whole_ins["inputs"]},
                     {"params": p_spec, "inputs": x_spec}, notes)
 
     if shape.kind == "decode":
-        _, kv_heads, _ = SH.head_slab(cfg, ways, mesh.coords["model"])
-        ins = SP.input_specs(cfg, shape, kv_heads=kv_heads)
-        whole_cache = SP.cache_struct(cfg, shape)
+        buf = SP.decode_buf_len(cfg, shape)
+        ins = SP.input_specs(cfg, shape, mesh=mesh)
         params = SH.local_params(cfg, whole, mesh)
-        fn = lambda p, c, t: M.decode_step(cfg, p, c, t)  # noqa: E731
-        notes = []
-        if split_batch:
-            notes.append("decode over data > 1: the slot decode step splits "
-                         "no batch over 'data' (only the paged decode and "
-                         "verify steps do); every data group computes all "
-                         "B rows and holds the whole batch's cache")
-        c_spec = SH.cache_specs(cfg, mesh, B,
-                                buf_len=SP.decode_buf_len(cfg, shape))
+        fn = lambda p, c, t: M.decode_step(  # noqa: E731
+            cfg, p, c, t, buf_len=buf, batch=B)
+        c_spec = SH.cache_specs(cfg, mesh, B, buf_len=buf)
         return Cell(fn, (params, ins["cache"], ins["tokens"]),
                     SH.cut_leaves(cfg, ways), False,
                     {"params": params, "cache": ins["cache"],
                      "tokens": ins["tokens"]},
-                    {"params": whole, "cache": whole_cache,
-                     "tokens": ins["tokens"]},
+                    {"params": whole, "cache": whole_ins["cache"],
+                     "tokens": whole_ins["tokens"]},
                     {"params": p_spec, "cache": c_spec,
-                     "tokens": SH.batch_spec(mesh, B, 1)}, notes)
+                     "tokens": SH.batch_spec(mesh, B, 1)}, [])
     raise ValueError(shape.kind)
 
 

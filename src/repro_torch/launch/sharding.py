@@ -16,6 +16,16 @@ Training: additionally FSDP-shards the non-'model' weight dim over 'data'.
 Every rule guards on divisibility and falls back to the next-best
 dimension, as jit input shardings require.
 
+A slot cache (``models.model.init_cache``'s layout) follows
+``cache_specs`` exactly: ``local_cache`` cuts a whole cache to a rank's
+part (its rows of a batch split over ('pod', 'data'), its slice of the
+K/V and ``kv_pos`` slots over 'model', every KV head), what the slot
+``prefill`` returns and ``decode_step`` takes under
+``models.partitioning.activation_partitioning``; ``gather_cache`` puts
+the ranks' parts back together. One departure: the SSM state and conv
+tail keep whole heads on the rank's rows (the SSM weights have no
+tensor-parallel layout).
+
 The serving layout (``serving_cuts``, ``local_params``, ``head_slab``)
 is what a rank of ``serving.executor.PagedTorchExecutor(mesh=...)`` holds.
 It follows ``param_specs(train=False)`` wherever that spec splits whole
@@ -54,8 +64,11 @@ group ("moe.wd"), so a dense MLP's "wd" and an MoE's never meet.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import math
+import types
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -193,6 +206,81 @@ def cache_specs(cfg: ArchConfig, mesh, batch: int,
         c["conv"] = (None, bshard,
                      "model" if _div(conv_dim, mways) else None, None)
     return c
+
+
+def _block(shape: Dict[str, int], coords: Dict[str, int],
+           axes) -> Tuple[int, int]:
+    """(ways, this rank's block) of a dim split over ``axes`` (a name or
+    a tuple of names, the first major)."""
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    index = 0
+    for a in names:
+        index = index * shape[a] + coords[a]
+    return math.prod(shape[a] for a in names), index
+
+
+def _cache_cuts(cfg: ArchConfig, mesh, cache: Dict[str, Any], batch: int,
+                buf_len: Optional[int]) -> Dict[str, List[Tuple[int, Any]]]:
+    """Per leaf of a slot cache, the (dim, axes) ``cache_specs`` cuts, but
+    the SSM heads (``ssm``/``conv`` stay whole on 'model')."""
+    specs = cache_specs(cfg, mesh, batch, buf_len)
+    return {k: [(d, ax) for d, ax in enumerate(specs[k]) if ax is not None
+                and not (ax == "model" and k in ("ssm", "conv"))]
+            for k in cache}
+
+
+def local_cache(cfg: ArchConfig, cache: Dict[str, torch.Tensor],
+                mesh) -> Dict[str, torch.Tensor]:
+    """This rank's part of a whole slot cache (the counterpart of
+    ``jax.device_put(cache, to_shardings(mesh, cache_specs(...)))``): per
+    ``cache_specs`` for the cache's batch and ring length, its rows of
+    every leaf where 'data' (('pod', 'data')) divides the batch, and its
+    slice of the slots of ``k``, ``v`` and ``kv_pos`` where 'model'
+    divides the ring, with every KV head; ``ssm`` and ``conv`` keep whole
+    heads. Each leaf an own contiguous tensor: the whole cache can be
+    freed after."""
+    buf_len = cache["k"].shape[3] if "k" in cache else None
+    cuts = _cache_cuts(cfg, mesh, cache, cache["length"].shape[0], buf_len)
+    out = {}
+    for key, x in cache.items():
+        for dim, axes in cuts[key]:
+            ways, index = _block(mesh.shape, mesh.coords, axes)
+            n = x.shape[dim] // ways
+            x = x.narrow(dim, index * n, n)
+        out[key] = x.clone(memory_format=torch.contiguous_format)
+    return out
+
+
+def gather_cache(cfg: ArchConfig, parts: List[Dict[str, torch.Tensor]],
+                 shape: Dict[str, int], batch: int,
+                 buf_len: Optional[int]) -> Dict[str, torch.Tensor]:
+    """The whole slot cache of ``batch`` rows and ``buf_len`` slots from
+    every rank's part (``local_cache``'s layout), ``parts`` in rank order
+    of a mesh of ``shape`` (ordered axes, 'model' last; a rank's
+    coordinates row-major, as ``launch.mesh.make_serving_mesh`` numbers
+    them). Where a leaf is not cut over an axis, the first rank's copy
+    stands for the others."""
+    axes = tuple(shape)
+    mesh = types.SimpleNamespace(shape=dict(shape), axis_names=axes)
+    coords = [dict(zip(axes, map(int, np.unravel_index(r, tuple(
+        shape.values()))))) for r in range(len(parts))]
+    cuts = _cache_cuts(cfg, mesh, parts[0], batch, buf_len)
+    out = {}
+    for key, leaf_cuts in cuts.items():
+        grid: Dict[tuple, torch.Tensor] = {}
+        for c, part in zip(coords, parts):
+            at = tuple(_block(shape, c, axes)[1] for _, axes in leaf_cuts)
+            grid.setdefault(at, part[key])
+
+        def build(at: tuple) -> torch.Tensor:
+            if len(at) == len(leaf_cuts):
+                return grid[at]
+            dim, axes = leaf_cuts[len(at)]
+            ways = _block(shape, coords[0], axes)[0]
+            return torch.cat([build(at + (i,)) for i in range(ways)], dim)
+
+        out[key] = build(())
+    return out
 
 
 def batch_spec(mesh, global_batch: int, ndim: int) -> Spec:

@@ -16,6 +16,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import batch_ways
 from repro_torch.models import model as M
 
 PARAM_DTYPE = torch.bfloat16
@@ -60,17 +62,22 @@ def decode_buf_len(cfg: ArchConfig, shape: InputShape) -> int:
 
 
 def cache_struct(cfg: ArchConfig, shape: InputShape, dtype=PARAM_DTYPE,
-                 kv_heads: Optional[int] = None) -> M.Cache:
-    """The slot cache of a decode shape, on meta; ``kv_heads``: a rank's
-    slab of the KV heads (all by default)."""
+                 mesh=None) -> M.Cache:
+    """The slot cache of a decode shape, on meta; with ``mesh``, the part
+    of it that the rank at ``mesh.coords`` holds (``launch.sharding.
+    local_cache``: its rows and slots, every KV head)."""
     buf = decode_buf_len(cfg, shape)
-    return M.init_cache(cfg, shape.global_batch, max(buf, 1), dtype,
-                        device=META, kv_heads=kv_heads)
+    cache = M.init_cache(cfg, shape.global_batch, max(buf, 1), dtype,
+                         device=META)
+    return cache if mesh is None else SH.local_cache(cfg, cache, mesh)
 
 
 def input_specs(cfg: ArchConfig, shape: InputShape, dtype=PARAM_DTYPE,
-                kv_heads: Optional[int] = None) -> Dict[str, Any]:
-    """Model inputs for the step function of this shape's kind."""
+                mesh=None) -> Dict[str, Any]:
+    """Model inputs for the step function of this shape's kind; with
+    ``mesh``, the rank's part of the prefill and decode inputs: its rows
+    where ('pod', 'data') divides the batch (``batch_spec``) and its part
+    of the cache."""
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         if cfg.embedding_inputs:
@@ -78,13 +85,14 @@ def input_specs(cfg: ArchConfig, shape: InputShape, dtype=PARAM_DTYPE,
         else:
             inputs = _meta((B, S), torch.int32)
         return {"inputs": inputs, "labels": _meta((B, S), torch.int32)}
+    b = B if mesh is None or B % batch_ways(mesh) else B // batch_ways(mesh)
     if shape.kind == "prefill":
         if cfg.embedding_inputs:
-            return {"inputs": _meta((B, S, cfg.d_model), dtype)}
-        return {"inputs": _meta((B, S), torch.int32)}
+            return {"inputs": _meta((b, S, cfg.d_model), dtype)}
+        return {"inputs": _meta((b, S), torch.int32)}
     if shape.kind == "decode":
         if cfg.is_encoder_only:
             raise ValueError("encoder-only archs have no decode")
-        return {"cache": cache_struct(cfg, shape, dtype, kv_heads),
-                "tokens": _meta((B,), torch.int32)}
+        return {"cache": cache_struct(cfg, shape, dtype, mesh),
+                "tokens": _meta((b,), torch.int32)}
     raise ValueError(shape.kind)

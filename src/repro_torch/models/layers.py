@@ -140,13 +140,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_pos: torch.Tensor,
-                     q_pos: torch.Tensor,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     q_pos: torch.Tensor, window: Optional[int] = None,
+                     return_lse: bool = False):
     """Single-token decode over a (possibly ring-buffer) KV cache.
 
     q: [B,Hq,hd] (RoPE'd); k/v_cache: [B,Hkv,Sbuf,hd]; kv_pos: [B,Sbuf]
     absolute position per slot, -1 = empty; q_pos: [B]; window: keep only
-    keys with q_pos - kv_pos < window.
+    keys with q_pos - kv_pos < window. With ``return_lse`` also each query
+    row's log-sum-exp of its kept scaled scores, f32 [B,Hq] (NEG_INF where
+    it keeps none, so such a row weighs nothing when outputs over other
+    slots are merged with it).
     """
     B, Hq, hd = q.shape
     Hkv = k_cache.shape[1]
@@ -159,8 +162,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         keep &= q_pos[:, None] - kv_pos < window
     s = torch.where(keep[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache)
-    return out.reshape(B, Hq, hd)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache).reshape(B, Hq, hd)
+    if not return_lse:
+        return out
+    lse = torch.where(keep.any(-1)[:, None, None], torch.logsumexp(s, -1),
+                      NEG_INF)
+    return out, lse.reshape(B, Hq)
 
 
 def chunk_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

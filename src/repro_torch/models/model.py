@@ -38,7 +38,10 @@ rank's slab of the weights (``launch.sharding.local_params``) and KV
 arena, taking their head counts and widths from the weights' shapes, and
 meet the other ranks at ``models.partitioning``'s collectives: a sum after
 each row-parallel product (wo, wd), the vocabulary-sharded embedding
-lookup and the gather of the vocabulary-sharded logits. Without an
+lookup and the gather of the vocabulary-sharded logits. The slot
+``prefill`` and ``decode_step`` take JAX's sharded cache layout there
+(``cache_specs``: the rank's rows and its slice of the ring's slots with
+every KV head), merging the slices' attention by log-sum-exp. Without an
 installed context and on whole weights they are the single-device
 functions.
 
@@ -416,6 +419,36 @@ def _attn_out(cfg: ArchConfig, blk: Params, layer: int,
     return P.reduce_model(y) if P.cut("wo") else y
 
 
+def _gather_heads(cfg: ArchConfig, q: Optional[torch.Tensor],
+                  k: torch.Tensor, v: torch.Tensor):
+    """Every head from the ranks' slabs ([..., n, hd] each, this rank's
+    query heads and the KV heads it holds), in one gather over 'model':
+    (q with all Hq query heads, or None when ``q`` is None; k and v with
+    all Hkv KV heads). Where ranks share a KV head (``launch.sharding``'s
+    kv_group layout) each head is taken from the first rank holding it."""
+    parts = [k, v] if q is None else [q, k, v]
+    n_q = 0 if q is None else q.shape[-2]
+    n_kv = k.shape[-2]
+    width = n_q + 2 * n_kv
+    full = P.gather_model(torch.cat(parts, -2), -2)
+    full = full.unflatten(-2, (full.shape[-2] // width, width))
+    step = full.shape[-3] * n_kv // cfg.n_kv_heads     # ranks a KV head
+
+    def heads(lo, n, stride=1):
+        return full[..., lo:lo + n, :].flatten(-3, -2)[
+            ..., ::stride, :].contiguous()
+
+    kk, vv = heads(n_q, n_kv, step), heads(n_q + n_kv, n_kv, step)
+    return (None if q is None else heads(0, n_q)), kk, vv
+
+
+def _own_heads(blk: Params, a: torch.Tensor, hd: int) -> torch.Tensor:
+    """This rank's query-head slab ([..., Hq/ways, hd], wq's columns) of an
+    attention output over every head [..., Hq, hd]."""
+    n = blk["wq"].shape[-1] // hd
+    return a.narrow(-2, P.model_index() * n, n)
+
+
 def _qkv(cfg: ArchConfig, blk: Params, layer: int, x: torch.Tensor):
     """Normed input projections of one layer: x [..., D] -> q, k, v."""
     return _proj_qkv(cfg, blk, layer,
@@ -591,8 +624,25 @@ def loss_fn(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
 
 # ------------------------------------------------------------------ prefill
 
+def _ring_slots(x: torch.Tensor, S: int, buf_len: int,
+                sl: Optional[slice]) -> torch.Tensor:
+    """One layer's K or V of a prompt, x [B,S,Hkv,hd], as the slot cache
+    holds it: [B,Hkv,buf_len,hd], zero past S when buf_len >= S, else a
+    ring of the last buf_len tokens (position p at slot p % buf_len: tail
+    token i, position S - buf_len + i, at slot (S + i) % buf_len, a roll
+    of the tail by S % buf_len); only the slots ``sl`` when given, as an
+    own tensor."""
+    x = x.transpose(1, 2)                               # [B,Hkv,S,hd]
+    if buf_len >= S:
+        x = torch.nn.functional.pad(x, (0, 0, 0, buf_len - S))
+    else:
+        x = torch.roll(x[..., S - buf_len:, :], S % buf_len, dims=-2)
+    return x if sl is None else x[..., sl, :].contiguous()
+
+
 def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
-            buf_len: int) -> Tuple[torch.Tensor, Cache]:
+            buf_len: int, *, batch: Optional[int] = None,
+            kv_slab: bool = False) -> Tuple[torch.Tensor, Cache]:
     """Process prompts (all rows full length S): attention in the
     flash-prefill kernel, the SSD scan of SSM layers in the ssd-scan
     kernel, hybrid blocks both. Returns (last-position logits [B,V], cache)
@@ -604,16 +654,35 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
     buf_len >= S for full-attention archs. With buf_len < S the cache is a
     ring holding the last buf_len tokens, position p at slot p % buf_len
     (kv_pos [B,buf_len] their positions); for a sliding-window arch (long
-    context) buf_len must then be the window, which attention keeps."""
+    context) buf_len must then be the window, which attention keeps.
+
+    Under ``partitioning.activation_partitioning`` this rank computes its
+    rows of a batch split over ('pod', 'data') (``batch_rows``; ``inputs``
+    whole [B,...], or with ``batch`` given already this rank's rows of a
+    batch of ``batch``), attention on its head slab as the paged engine
+    does, and returns the logits of every row (``gather_data``) and its
+    part of the cache (``launch.sharding.local_cache``'s layout): its rows,
+    every KV head (gathered over 'model' where the heads are cut) and its
+    slots (``seq_slice(buf_len)``), each layer narrowed to them before the
+    layers are stacked. With ``kv_slab`` it computes every row and returns
+    the K/V heads of its weights' slab over the whole sequence instead:
+    what the tensor-parallel paged engine splices into its arena
+    (``page_specs``' layout).
+    """
     _check_causal(cfg)
+    B = batch or inputs.shape[0]
+    mine = None if kv_slab else P.batch_rows(B)
+    if mine is not None and inputs.shape[0] == B:
+        inputs = inputs[mine]
     x = embed_inputs(cfg, params, inputs)
-    B, S, _ = x.shape
+    b, S, _ = x.shape
     window = cfg.sliding_window if (cfg.sliding_window and buf_len < S) \
         else None
     if window is not None and buf_len != window:
         raise ValueError(f"{cfg.name}: a ring prefill of {S} tokens needs "
                          f"buf_len == the sliding window {window}, got "
                          f"{buf_len}")
+    sl = None if kv_slab else P.seq_slice(buf_len)
     positions = torch.arange(S, device=x.device)
     blk = params["blocks"]
     ks, vs, hs, cs = [], [], [], []
@@ -626,8 +695,10 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
             k = L.apply_rope(k, positions, cfg.rope_theta)
             a = ops.flash_prefill(q, k, v, causal=cfg.causal, window=window)
             parts.append(_attn_out(cfg, blk, layer, a))
-            ks.append(k)
-            vs.append(v)
+            if P.cut("wk") and not kv_slab:
+                _, k, v = _gather_heads(cfg, None, k, v)
+            ks.append(_ring_slots(k, S, buf_len, sl))
+            vs.append(_ring_slots(v, S, buf_len, sl))
         if cfg.has_ssm:
             s_out, h_last, conv_last = SSM.ssm_mixer_with_state(
                 _ssm_params(blk, layer), h, cfg.ssm_inner, cfg.ssm_state,
@@ -638,28 +709,22 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
         x = x + _mix(parts)
         x = x + _ffn(cfg, blk, layer, x)
     cache: Cache = {
-        "length": torch.full((B,), S, dtype=torch.int32, device=x.device)}
+        "length": torch.full((b,), S, dtype=torch.int32, device=x.device)}
     if cfg.has_attention:
-        k, v = (torch.stack(t).transpose(2, 3) for t in (ks, vs))
+        cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
         pos = torch.arange(buf_len, dtype=torch.int32, device=x.device)
         if buf_len >= S:
-            pad = (0, 0, 0, buf_len - S)             # [.., S, hd] -> buf_len
-            cache["k"] = torch.nn.functional.pad(k, pad)
-            cache["v"] = torch.nn.functional.pad(v, pad)
             kv_pos = torch.where(pos < S, pos, -1)
         else:
-            # ring: the last buf_len tokens, position p at slot
-            # p % buf_len: tail token i (position S - buf_len + i) lands
-            # at slot (S + i) % buf_len, a roll of the tail by S % buf_len
-            shift = S % buf_len
-            cache["k"] = torch.roll(k[..., S - buf_len:, :], shift, dims=-2)
-            cache["v"] = torch.roll(v[..., S - buf_len:, :], shift, dims=-2)
-            kv_pos = torch.roll(pos + (S - buf_len), shift)
-        cache["kv_pos"] = kv_pos.repeat(B, 1)
+            kv_pos = torch.roll(pos + (S - buf_len), S % buf_len)
+        cache["kv_pos"] = (kv_pos if sl is None else kv_pos[sl]).repeat(b, 1)
     if cfg.has_ssm:
         cache["ssm"] = torch.stack(hs)
         cache["conv"] = torch.stack(cs)
-    return unembed(cfg, params, x[:, -1]), cache
+    logits = unembed(cfg, params, x[:, -1])
+    if mine is not None:
+        logits, = P.gather_data(logits)
+    return logits, cache
 
 
 # ---------------------------------------------------------- chunked prefill
@@ -756,7 +821,8 @@ def prefill_chunk_paged(cfg: ArchConfig, params: Params, pages: Cache,
 
 def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor,
-                active: Optional[torch.Tensor] = None
+                active: Optional[torch.Tensor] = None, *,
+                buf_len: Optional[int] = None, batch: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode iteration for every (active) row of a slot cache, in
     place: attention layers in the decode-attention kernel over the ring,
@@ -770,23 +836,51 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
     state (K/V, kv_pos, length, the SSD state and the conv tail unchanged)
     and their logits are garbage to be ignored. Returns (logits [B,V],
     cache).
+
+    Under ``partitioning.activation_partitioning`` the cache is this
+    rank's part (``launch.sharding.local_cache``): its rows of a batch
+    split over ('pod', 'data') and, where 'model' divides the ring of
+    ``buf_len`` slots (the whole mesh's; by default the cache's own), its
+    slice of the slots (``seq_slice``) with every KV head. ``tokens`` and
+    ``active`` are whole [B] and cut by ``batch_rows`` (or, with ``batch``
+    given, already this rank's rows of a batch of ``batch``); the logits
+    of every row come back (``gather_data``). Window and ring slot follow
+    the whole ring. Where the heads are cut, the rank gathers q and the
+    new token's K/V of every head; the rank whose slice holds the new
+    token's slot writes it; every rank attends over its slice for every
+    head, the slices are merged (``combine_model_lse``), and the rank's
+    head slab goes through its rows of wo as in the paged step.
     """
     _check_causal(cfg)
-    B = tokens.shape[0]
     dev = tokens.device
+    B = batch or tokens.shape[0]
     if active is None:
-        active = torch.ones((B,), dtype=torch.bool, device=dev)
-    x = embed_inputs(cfg, params, tokens)                 # [B,D]
+        active = torch.ones(tokens.shape, dtype=torch.bool, device=dev)
+    mine = P.batch_rows(B)
+    if mine is not None and tokens.shape[0] == B:
+        tokens, active = tokens[mine], active[mine]
+    b = tokens.shape[0]
+    x = embed_inputs(cfg, params, tokens)                 # [b,D]
     length = cache["length"]
     q_pos = length.clone()
-    rows = torch.arange(B, device=dev)
+    rows = torch.arange(b, device=dev)
     if cfg.has_attention:
-        buf_len = cache["k"].shape[3]
+        n_slots = cache["k"].shape[3]
+        buf_len = buf_len or n_slots
+        sl = P.seq_slice(buf_len)
+        if n_slots != (buf_len if sl is None else sl.stop - sl.start):
+            raise ValueError(f"{cfg.name}: a cache of {n_slots} slots is not "
+                             f"this rank's part of a {buf_len}-slot ring")
         window = cache_window(cfg, buf_len)
         slot = (q_pos % buf_len).long()
+        write = active
+        if sl is not None:
+            slot = slot - sl.start
+            write = active & (slot >= 0) & (slot < n_slots)
+            slot = slot.clamp(0, n_slots - 1)
         kv_pos = cache["kv_pos"]
-        kv_pos[rows, slot] = torch.where(active, q_pos, kv_pos[rows, slot])
-        sel = active[:, None, None]
+        kv_pos[rows, slot] = torch.where(write, q_pos, kv_pos[rows, slot])
+        sel = write[:, None, None]
     if cfg.has_ssm:
         state_slots = rows.to(torch.int32)
     blk = params["blocks"]
@@ -797,10 +891,20 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
             q, k, v = _proj_qkv(cfg, blk, layer, h)
             q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
             k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
-            kc, vc = cache["k"][layer], cache["v"][layer]     # [B,Hkv,S,hd]
+            if P.cut("wq"):
+                q, k, v = _gather_heads(cfg, q, k, v)
+            kc, vc = cache["k"][layer], cache["v"][layer]     # [b,Hkv,S,hd]
             kc[rows, :, slot] = torch.where(sel, k, kc[rows, :, slot])
             vc[rows, :, slot] = torch.where(sel, v, vc[rows, :, slot])
-            a = ops.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
+            if sl is None:
+                a = ops.decode_attention(q, kc, vc, kv_pos, q_pos,
+                                         window=window)
+            else:
+                a = P.combine_model_lse(*ops.decode_attention(
+                    q, kc, vc, kv_pos, q_pos, window=window,
+                    return_lse=True))
+            if P.cut("wq"):
+                a = _own_heads(blk, a, cfg.head_dim)
             parts.append(_attn_out(cfg, blk, layer, a))
         if cfg.has_ssm:
             parts.append(SSM.ssm_mixer_step(
@@ -810,7 +914,10 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
         x = x + _mix(parts)
         x = x + _ffn(cfg, blk, layer, x)
     length += active.to(length.dtype)
-    return unembed(cfg, params, x), cache
+    logits = unembed(cfg, params, x)
+    if mine is not None:
+        logits, = P.gather_data(logits)
+    return logits, cache
 
 
 # ------------------------------------------------------------ paged decode

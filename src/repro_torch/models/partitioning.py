@@ -11,7 +11,12 @@ collectives themselves, Megatron-style:
   combine, and the vocabulary-sharded embedding lookup);
 - ``gather_model(x, dim)`` puts the ranks' slabs of ``dim`` side by side
   (the vocabulary-sharded logits);
-- ``embed_model(table, ids)`` looks ids up in a vocabulary slab.
+- ``embed_model(table, ids)`` looks ids up in a vocabulary slab;
+- ``combine_model_lse(out, lse)`` merges attention outputs over the
+  ranks' slices of one sequence (the slot cache's K/V cut over 'model',
+  JAX's ``cache_specs``; ``seq_slice(buf_len)`` is this rank's slots):
+  an all-reduce MAX of the rows' log-sum-exps, then one all-reduce SUM
+  of the reweighted outputs and their weights, packed in one buffer.
 
 The model asks ``cut(name)`` whether a leaf ("wo", "wd", "embed",
 "lm_head", the MoE group's "moe.wg", ...) is cut over 'model' on this
@@ -19,10 +24,11 @@ engine, and calls these only where it is; ``model_index()`` is the rank's
 place on 'model' (which experts an expert-parallel slab holds).
 
 The batch over 'data' (JAX's ``batch_spec``): a decode or verify step of
-B rows is cut into ``data`` row blocks when B divides, and
-``batch_rows(B)`` is then this rank's block (None: every data group
-computes every row, as JAX's ``bshard = None``); ``gather_data(*xs)``
-puts the blocks side by side on every rank, on ``mesh.data_group``. A
+B rows, or a slot prefill's batch, is cut into ``data`` row blocks when
+B divides, and ``batch_rows(B)`` is then this rank's block (None: every
+data group computes every row, as JAX's ``bshard = None``);
+``gather_data(*xs)`` puts the blocks side by side on every rank, on
+``mesh.data_group``. A
 mesh with a 'pod' axis (``launch.mesh.make_production_mesh(multi_pod=
 True)``) folds ('pod', 'data') into one data axis, pod-major, as
 ``launch.mesh.batch_axes`` shards a batch over both: its ``data_group``
@@ -40,9 +46,9 @@ each rank has written its slab: exact (x + 0 = x), and the one collective
 gloo also runs on CUDA tensors.
 
 ``recording(fn)`` calls ``fn(kind, axis, tensor)`` before each collective
-("all-reduce" for ``reduce_model``, "all-gather" for the gathers, with
-the full-width buffer the ranks all-reduce): what
-``launch.collective_stats`` counts.
+("all-reduce" for ``reduce_model`` and each of ``combine_model_lse``'s
+two, "all-gather" for the gathers, with the full-width buffer the ranks
+all-reduce): what ``launch.collective_stats`` counts.
 """
 from __future__ import annotations
 
@@ -131,6 +137,66 @@ def batch_rows(batch: int):
         return None
     n = batch // ways
     return slice(d * n, (d + 1) * n)
+
+
+def seq_slice(buf_len: int):
+    """This rank's slots of a slot cache of ``buf_len`` slots cut by
+    sequence over 'model' (a slice; JAX's ``cache_specs``), or None where
+    the sequence is not cut: without a context, or when 'model' does not
+    divide ``buf_len``."""
+    if _CTX is None:
+        return None
+    ways = _CTX.mesh.shape["model"]
+    if buf_len % ways:
+        return None
+    n = buf_len // ways
+    r = _CTX.mesh.coords["model"]
+    return slice(r * n, (r + 1) * n)
+
+
+def _weighed(out: torch.Tensor, lse: torch.Tensor,
+             m: torch.Tensor) -> torch.Tensor:
+    """[out * w | w] in f32, w = exp(lse - m): one slice's share of a
+    merge whose rows' largest log-sum-exp is ``m``."""
+    w = torch.exp(lse - m)[..., None]
+    return torch.cat([out.float() * w, w], -1)
+
+
+def _merged(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The slices' shares summed -> sum(out * w) / max(sum(w), 1e-30)."""
+    return (total[..., :-1] / total[..., -1:].clamp(min=1e-30)).to(dtype)
+
+
+def merge_lse(parts) -> torch.Tensor:
+    """``combine_model_lse``'s arithmetic over (out, lse) pairs held in one
+    process (the slices' outputs side by side): what the tests and the
+    card's check hold the collective version's arithmetic to."""
+    m = torch.stack([lse for _, lse in parts]).amax(0)
+    total = sum(_weighed(out, lse, m) for out, lse in parts)
+    return _merged(total, parts[0][0].dtype)
+
+
+def combine_model_lse(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Attention over the ranks' slices of one sequence, put together:
+    ``out`` [..., hd] this rank's output over its slots, ``lse`` [...] f32
+    each row's log-sum-exp of the scores it kept (-1e30 where it kept
+    none). With M the rows' largest lse over 'model' and weights
+    w = exp(lse - M), the result is sum(out * w) / max(sum(w), 1e-30), in
+    out's type: two all-reduces, MAX of lse, then SUM of [out * w | w]
+    in one f32 buffer. A rank that kept nothing for a row weighs 0 there
+    (whatever its out). ``out`` itself without a context."""
+    if _CTX is None:
+        return out
+    group = _CTX.mesh.model_group
+    m = lse.clone()
+    if _RECORD is not None:
+        _RECORD("all-reduce", "model", m)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    total = _weighed(out, lse, m)
+    if _RECORD is not None:
+        _RECORD("all-reduce", "model", total)
+    dist.all_reduce(total, group=group)
+    return _merged(total, out.dtype)
 
 
 def reduce_model(x: torch.Tensor) -> torch.Tensor:

@@ -1078,7 +1078,7 @@ class PagedTorchExecutor(Executor):
 
         def fn(x):
             last, cache1 = M.prefill(cfg, params, x["tokens"],
-                                     buf_len=n * psz)
+                                     buf_len=n * psz, kv_slab=True)
             if cfg.has_attention:
                 # [L,1,Hkv,n*psz,hd] -> the pages' [L,n,Hkv,psz,hd]
                 for name, key in (("k_pages", "k"), ("v_pages", "v")):

@@ -198,6 +198,36 @@ def test_decode_attention_kernel_matches_plain(dtype, window):
     torch.testing.assert_close(got[live], want[live], atol=TOL[dtype], rtol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 64])
+def test_decode_attention_kernel_lse_matches_plain(dtype, window):
+    """``return_lse``: the kernel's output and each row's log-sum-exp
+    against the plain version's on a 512-slot slice of a ring (a rank's
+    half of 1024 slots), the empty row out 0 and lse -1e30; one launch."""
+    _need_cuda()
+    q, k, v, kp, qp = _ring_inputs(S=1024)
+    k, v, kp = (x[..., 512:, :] if x.ndim == 4 else x[:, 512:]
+                for x in (k, v, kp))
+    dt = getattr(torch, dtype)
+    dev = ([x.to(dt).contiguous().cuda() for x in (q, k, v)]
+           + [kp.contiguous().cuda(), qp.cuda()])
+    before = ops.LAUNCHES["decode_attention"]
+    out, lse = ops.decode_attention(*dev, window=window, return_lse=True)
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    want, want_lse = ops.decode_attention(
+        *[x.cpu().float() for x in dev[:3]], kp.contiguous(), qp,
+        window=window, return_lse=True)
+    empty = want_lse[:, 0] == -1e30
+    assert empty[0] and not empty.all()
+    assert torch.all(out[empty].float() == 0)
+    assert torch.all(lse[empty].cpu() == -1e30)
+    torch.testing.assert_close(out[~empty].float().cpu(), want[~empty],
+                               atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(lse[~empty].cpu(), want_lse[~empty],
+                               atol=TOL[dtype], rtol=0)
+
+
 # (C, q_start of row 0, window, Hq, Hkv, hd) over a 1024-slot buffer: the
 # edge-6b cases, the serving run's chunk (C 64 at 192), then g = 1, 3, 5,
 # 16 at hd 64 and 128 with chunks crossing several 64-key tiles, ragged

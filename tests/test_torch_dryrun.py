@@ -46,23 +46,25 @@ def test_torch_dryrun_decode_cell_pod(tmp_path):
     assert rec["flops_per_device_extrap"] == rec["flops_per_device"]
     assert rec["bytes_per_device_extrap"] == rec["bytes_per_device"]
     assert set(rec["collectives"]) == COLLECTIVE_KEYS
-    # the d_ff-cut MLP's 32 sums, the vocabulary-cut embedding's one and
-    # the logits' gather, all over 'model'
-    assert rec["collectives"]["n_all-reduce"] == 33
-    assert rec["collectives"]["n_all-gather"] == 1
-    assert set(rec["collectives_by_axis"]) == {"model"}
+    # per layer the d_ff-cut MLP's sum and the sequence-parallel
+    # attention's two (the rows' log-sum-exp MAX, the weighted outputs'
+    # SUM), 96, and the vocabulary-cut embedding's one; the logits'
+    # gathers over 'model' (vocabulary) and over 'data' (the batch rows)
+    assert rec["collectives"]["n_all-reduce"] == 97
+    assert rec["collectives"]["n_all-gather"] == 2
+    assert set(rec["collectives_by_axis"]) == {"model", "data"}
     assert 0 < rec["bytes_floor_per_device"] <= rec["bytes_per_device"]
     # under JAX's specs a device holds 722 MB (the compiled JAX record's
     # argument_size_in_bytes, tests/test_torch_dryrun_vs_jax.py) ...
     assert rec["argument_size_in_bytes_spec"] == 722_397_120
-    # ... the port's rank 0 holds every query head (15 do not divide 16)
-    # and the whole batch's cache, each named as a departure
-    named = sorted(d.split(":")[0] for d in rec["departures"][1:])
-    assert named == ["cache.k", "cache.kv_pos", "cache.length", "cache.v",
-                     "params.blocks.wk", "params.blocks.wo",
-                     "params.blocks.wq", "params.blocks.wv", "tokens"]
-    assert rec["departures"][0].startswith("decode over data > 1")
-    assert rec["argument_size_in_bytes"] > rec["argument_size_in_bytes_spec"]
+    # ... the port's rank 0 holds its 8 rows and 2048 slots of the cache
+    # and its 8 tokens, as the specs do, and every query head (15 do not
+    # divide 16): the attention weights are its only departures
+    named = sorted(d.split(":")[0] for d in rec["departures"])
+    assert named == ["params.blocks.wk", "params.blocks.wo",
+                     "params.blocks.wq", "params.blocks.wv"]
+    assert rec["argument_size_in_bytes_spec"] < \
+        rec["argument_size_in_bytes"] < 1.0e9
 
 
 def test_torch_dryrun_multipod(tmp_path):
@@ -72,9 +74,21 @@ def test_torch_dryrun_multipod(tmp_path):
     assert rec["flops_per_device"] > 0
     assert set(rec["collectives"]) == COLLECTIVE_KEYS
     # the batch of 128 splits over the 32 data groups of ('pod', 'data')
-    assert "cache.length: spec (('pod', 'data'),) holds [4] a device, " \
-        "the port [128]" in rec["departures"]
+    # on the port as in the specs: rank 0 holds 4 rows of the cache and
+    # tokens, so neither is a departure
+    assert not any(d.startswith(("cache.", "tokens"))
+                   for d in rec["departures"])
+    assert rec["collectives_by_axis"]["data"] > 0
     assert "flops_per_device_extrap" not in rec     # pod cells only
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    with make_production_mesh(multi_pod=True) as mesh:
+        cell = D.build_cell(get_config("smollm-360m"),
+                            get_shape("decode_32k"), mesh)
+        assert cell.tree["cache"]["length"].shape == (4,)
+        assert cell.tree["tokens"].shape == (4,)
+        assert cell.tree["cache"]["k"].shape[1::2] == (4, 2048)
 
 
 def test_torch_dryrun_encoder_skip(tmp_path):

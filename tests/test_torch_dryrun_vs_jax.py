@@ -216,11 +216,18 @@ def test_extrapolation_equals_direct_count(arch):
             assert ext["collective_bytes_extrap"] == \
                 rec["collectives"]["total"]
             assert ext["flops_nonlayer"] >= 0
-            # the batch of 4 splits over 2 data groups in JAX's specs; the
-            # port splits none of these steps' batches: a named departure
-            assert rec["departures"][0].startswith(
-                {"train": "train:", "prefill": "prefill over data > 1",
-                 "decode": "decode over data > 1"}[shape.kind])
+            # the batch of 4 splits over 2 data groups in JAX's specs: the
+            # port's slot prefill and decode split it too (the rows, the
+            # cache's rows and slots: no departure); the trainer and the
+            # encoder forward do not (a named departure)
+            deps = rec["departures"]
+            if shape.kind == "train" or cfg.is_encoder_only:
+                assert deps[0].startswith(("train:", "forward"))
+            else:
+                assert not any(
+                    d.startswith(("cache.length", "cache.k", "cache.v",
+                                  "cache.kv_pos", "tokens", "inputs"))
+                    or "data > 1" in d for d in deps), deps
             assert rec["argument_size_in_bytes_spec"] > 0
     assert not torch.distributed.is_initialized()
 

@@ -25,6 +25,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp_launch  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models.partitioning import merge_lse  # noqa: E402
 
 ATOL = 1e-5
 
@@ -256,6 +257,86 @@ def test_decode_attention_plain_matches_pallas(window, Hq, Hkv):
     np.testing.assert_array_equal(layer, got)
     np.testing.assert_allclose(got[live], kern[live], atol=ATOL, rtol=0)
     assert np.all(kern[~live] == 0)       # the kernels' empty-row contract
+
+
+def _lse_numpy(q, k, kv_pos, q_pos, window):
+    """Each query row's log-sum-exp of its kept scaled scores, summed in
+    float64, [B,Hq] (-1e30 for a row that keeps nothing)."""
+    B, Hq, hd = q.shape
+    Hkv = k.shape[1]
+    sc = np.einsum("bhgd,bhsd->bhgs", q.reshape(B, Hkv, Hq // Hkv, hd)
+                   .astype(np.float64), k.astype(np.float64)) * hd ** -0.5
+    d = q_pos[:, None] - kv_pos
+    keep = (kv_pos >= 0) & (d >= 0) & (d < (window or 10 ** 9))
+    sc = np.where(keep[:, None, None], sc, -np.inf)
+    m = sc.max(-1, keepdims=True)
+    lse = (np.log(np.exp(sc - np.where(np.isfinite(m), m, 0)).sum(-1))
+           + np.where(np.isfinite(m), m, 0)[..., 0])
+    return np.where(keep.any(-1)[:, None, None], lse, -1e30).reshape(B, Hq)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (6, 3)])
+def test_decode_attention_lse_matches_jax(window, Hq, Hkv):
+    """``return_lse`` on the plain version and ``layers.decode_attention``:
+    the output as JAX's ``layers.decode_attention``, and each row's
+    log-sum-exp of its kept scaled scores (float64 in numpy); a row that
+    keeps nothing (row 0) gets exactly -1e30."""
+    arrs = _ring_inputs(Hq, Hkv)
+    out, lse = ops.decode_attention(*_t(*arrs), window=window,
+                                    return_lse=True)
+    lout, llse = TL.decode_attention(*_t(*arrs), window=window,
+                                     return_lse=True)
+    want = np.asarray(JL.decode_attention(*_j(*arrs), window))
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, rtol=0)
+    assert lse.dtype == torch.float32 and lse.shape == (5, Hq)
+    q, k, _, kv_pos, q_pos = arrs
+    want_lse = _lse_numpy(q, k, kv_pos, q_pos, window).astype(np.float32)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=0)
+    assert torch.all(lse[0] == -1e30) and torch.all(lse[1:] > -1e29)
+    assert torch.equal(lout, out) and torch.equal(llse, lse)
+
+
+@pytest.mark.parametrize("ways", [2, 4])
+@pytest.mark.parametrize("window", [None, 8, 24])
+def test_decode_attention_slices_combine_to_whole(ways, window):
+    """The ring cut into ``ways`` slices of slots, each attended alone
+    with ``return_lse`` and merged by the combine's arithmetic, gives the
+    whole ring's output on every row that keeps a slot
+    (``partitioning.merge_lse``, ``combine_model_lse``'s arithmetic in one
+    process): a wrapped ring,
+    holes, future positions, a window. A slice that keeps nothing for a
+    row (lse -1e30) weighs nothing there."""
+    q, k, v, kv_pos, q_pos = _t(*_ring_inputs(4, 2, S=32))
+    n = 32 // ways
+    parts = [ops.decode_attention(
+        q, k[:, :, i * n:(i + 1) * n].contiguous(),
+        v[:, :, i * n:(i + 1) * n].contiguous(),
+        kv_pos[:, i * n:(i + 1) * n].contiguous(), q_pos, window=window,
+        return_lse=True) for i in range(ways)]
+    whole = ops.decode_attention(q, k, v, kv_pos, q_pos, window=window)
+    live = slice(1, None)                 # row 0 keeps nothing at all
+    np.testing.assert_allclose(merge_lse(parts)[live].numpy(),
+                               whole[live].numpy(), atol=ATOL, rtol=0)
+    # row 1 keeps slots 0..5 only: every other slice is empty for it
+    empty = [p for p in parts[1:] if bool(torch.all(p[1][1] == -1e30))]
+    assert len(empty) == ways - 1
+
+
+def test_decode_attention_empty_slice_weighs_nothing():
+    """A slice whose every slot is empty (kv_pos -1) merged with a live
+    one gives the live slice's output, whatever the empty slice's out
+    holds (the plain version averages its slots there, the kernel writes
+    0)."""
+    q, k, v, kv_pos, q_pos = _t(*_ring_inputs(4, 2, S=32))
+    live = ops.decode_attention(q, k, v, kv_pos, q_pos, return_lse=True)
+    none = torch.full_like(kv_pos, -1)
+    empty = ops.decode_attention(q, k, v, none, q_pos, return_lse=True)
+    assert torch.all(empty[1] == -1e30)
+    rows = slice(1, None)
+    for e in (empty, (torch.zeros_like(empty[0]), empty[1])):
+        torch.testing.assert_close(merge_lse([live, e])[rows], live[0][rows],
+                                   atol=0, rtol=0)
 
 
 def _chunk_inputs(B, C, S, Hq, Hkv, hd=32, seed=0):
