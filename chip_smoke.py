@@ -32,9 +32,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
             Hkv=5, hd=64) head shapes (the ring over a ragged 1000-slot
             ring). The SSD scan at mamba2-780m
             (H=48, P=64, N=128) and hymba (H=50, N=16) widths, T=1, 65,
-            77 and 256, inputs as strided splits of one projection; the SSD decode step over a shuffled state arena
+            77 and 256, and at a rank's heads of each over 2 (H=24, 8
+            prompts of 256; H=25, 2 of 1100), inputs as strided splits of
+            one projection; the SSD decode step over a shuffled state arena
             with a pad and an inactive row (arena after the step compared
-            too), at both widths and at every other branch of its slab
+            too), at both widths, at a rank's 24 and 25 heads, and at
+            every other branch of its slab
             plan (H/P/N 4/32/16, 4/24/12, 4/80/64, 2/64/256), each called
             twice on the same inputs, bit for bit; the grouped-expert FFN at granite-moe widths (E=40,
             D=1536, F=512) for one decode group (C=64) and two per-example
@@ -169,25 +172,36 @@ Phases, each printing its own lines; any failed check exits non-zero:
             tensor-parallel speed.
 5'. slot-mesh — the slot prefill and decode_step in JAX's sharded cache
             layout (cache_specs: the batch over ('pod', 'data'), the
-            ring's K/V and kv_pos slots over 'model', every KV head), one
+            ring's K/V and kv_pos slots over 'model', every KV head, the
+            SSM heads over 'model' where they divide it), one
             process a rank over gloo on the card, fp32 (TF32 off), each
             rank drawing its slab of the weights the single process
             draws: (a) edge-6b at full width and depth on a (1, 2) mesh,
             8 prompts of 500 tokens into a 1024-slot ring (512 slots a
             rank), 32 greedy decode steps under a fixed active pattern;
-            (b) hymba-1.5b at full width, 16 of its 32 layers, on a
+            (b) hymba-1.5b at full width, 8 of its 32 layers, on a
             (2, 2) mesh, 4 prompts of 1100 tokens into its 1024-slot
             window ring (wrapped, then cut in two; 2 rows a data group),
-            16 steps. Against the single process's prefill + decode steps
-            on the whole cache: every rank's logits within MESH_TOL
+            25 of its 50 SSM heads a rank, 16 steps; the same at 16 and
+            32 layers, the logits' error printed; (c) mamba2-780m at full
+            width on a (1, 2) mesh, 24 of its 48 SSM heads a rank, 8
+            prompts of 256 tokens, 32 steps, at 4 layers, and at all 48
+            with the logits' error printed (random fp32 stacks this deep
+            amplify any reordering of a sum past MESH_TOL: see
+            SLOT_MESH_CASES). Against the single process's prefill +
+            decode steps on the whole cache, at a case's first depth:
+            every rank's logits within MESH_TOL
             (prefill, and active rows), greedy streams identical, the
             ranks' caches put together (launch.sharding.gather_cache)
             equal to the process's (positions exact, K/V and SSM state
-            within MESH_TOL of their magnitude), every rank's launches
+            within MESH_TOL of their magnitude); at every depth each
+            rank's SSD state its rows and heads, every rank's launches
             exactly layers x steps ring decodes (with the log-sum-exp
-            output) and a flash prefill (and SSD scan, SSD step) a
-            layer, no JAX imported. Run (a)'s rank 0 launches stand under
-            the time phase's rows at a rank's shapes.
+            output) and a flash prefill a layer where the arch has
+            attention, an SSD scan a layer and layers x steps SSD steps
+            where it has SSM layers, no JAX imported. Runs (a)'s and
+            (c)'s rank 0 launches (at full depth) stand under the time
+            phase's rows at a rank's shapes.
 6. time   — each kernel (device time: CUDA events over 30 calls queued
             behind a spin kernel, so the calls run back to back; the
             kernel's time launched at the host's pace is printed beside
@@ -228,7 +242,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
             prompts; at a rank of run slot-mesh (a), the ring decode
             with its log-sum-exp over rank 0's 512 slots of a 1024-slot
             ring (B=8, every slot live) and the flash prefill of its 8
-            prompts of 500 tokens at 16 query heads and 1 KV head. The
+            prompts of 500 tokens at 16 query heads and 1 KV head; at a
+            rank of run slot-mesh (c) (24 of mamba2-780m's 48 SSM heads),
+            the SSD scan of its 8 prompts of 256 tokens and the SSD step
+            over its 8 rows of the slot cache, cold. The
             multi-pass kernels' rows also print
             each pass's device time (torch.profiler): the ring-cache
             decode's split and combine, the SSD scan's chunk states, state
@@ -238,7 +255,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
             decode_32k, prefill_32k and train_4k on the stand-in pod mesh
             (16, 16) and decode_32k on the multi-pod mesh (2,
             16, 16), every record ok; hubert-xlarge's decode_32k, a skip
-            (encoder-only). The roofline table of the pod records (python
+            (encoder-only); mamba2-780m's decode_32k on the pod mesh, ok,
+            its SSD state not among its departures (3 of the 48 SSM heads
+            a rank). The roofline table of the pod records (python
             -m repro_torch.launch.roofline). Then the H100 roofline of
             three of the graphs phase's captured steps: build_cell and
             count_cell on a 1x1 stand-in mesh at full width in bf16
@@ -938,9 +957,13 @@ def check_hetero_kernels(report):
 
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
+        # mamba2-780m's and hymba-1.5b's widths, then a rank's heads of
+        # each over 2 (slot-mesh (c)'s 8 prompts of 256, (b)'s data
+        # group's 2 prompts of 1100)
         for B, T, H, P, N in ((1, 256, 48, 64, 128), (2, 77, 48, 64, 128),
                               (1, 1, 48, 64, 128), (1, 256, 50, 64, 16),
-                              (2, 65, 50, 64, 16)):
+                              (2, 65, 50, 64, 16), (8, 256, 24, 64, 128),
+                              (2, 1100, 25, 64, 16)):
             x, dtr, b, c, (a_log, d_skip, bias) = ssd_inputs(B, T, H, P, N,
                                                              dtype, seed=T)
             poison((B, T, H, P), dtype)
@@ -959,12 +982,13 @@ def check_hetero_kernels(report):
             scale = max(1.0, hw.abs().max().item())
             report("ssd_scan", case + " final state, fp32, over max(1, |h|)",
                    "float32", (h - hw).abs().max().item() / scale, False)
-        # mamba2-780m's and hymba-1.5b's widths, then every other branch
-        # of the slab plan: the reduced configs' width, N/4 = 3 (row sums
-        # in shared memory), P = 80 (a ragged last slab), N = 256 (a 64 KB
-        # tile, N/4 past a warp)
-        for H, P, N in ((48, 64, 128), (50, 64, 16), (4, 32, 16),
-                        (4, 24, 12), (4, 80, 64), (2, 64, 256)):
+        # mamba2-780m's and hymba-1.5b's widths, a rank's heads of each
+        # over 2, then every other branch of the slab plan: the reduced
+        # configs' width, N/4 = 3 (row sums in shared memory), P = 80 (a
+        # ragged last slab), N = 256 (a 64 KB tile, N/4 past a warp)
+        for H, P, N in ((48, 64, 128), (50, 64, 16), (24, 64, 128),
+                        (25, 64, 16), (4, 32, 16), (4, 24, 12), (4, 80, 64),
+                        (2, 64, 256)):
             B, S = 8, 16
             x, dtr, b, c, (a_log, d_skip, bias) = ssd_inputs(B, 1, H, P, N,
                                                              dtype, seed=H)
@@ -2781,24 +2805,35 @@ def sharded_phase(worst):
 
 
 # (label, arch, (data, model), batch, prompt length, ring slots, decode
-# steps, layers or None for all): (a) edge-6b's prompts fill rank 0's
+# steps, depths: layers or None for all; the logits, streams and caches
+# are checked at the first, launches and SSD state shapes at every one,
+# the others' logits errors printed): (a) edge-6b's prompts fill rank 0's
 # half of the ring and its decode steps cross into rank 1's; (b) hymba's
 # prompts are longer than its 1024-token window, so the ring wraps before
-# it is cut in two. (b) runs 16 of hymba's 32 layers: at 32 the ranks'
-# logits came 1.206e-4 from one process's, over MESH_TOL, the MLP's
-# row-parallel partial sums in fp32 compounding through the layers (the
-# same 900-token prompts into a ring cut over 'model' and into one that
-# is not gave the same error, 8.225e-5: the sequence-parallel merge adds
-# nothing measurable; PERF.md §6)
-SLOT_MESH_CASES = (("(a)", "edge-6b", (1, 2), 8, 500, 1024, 32, None),
-                   ("(b)", "hymba-1.5b", (2, 2), 4, 1100, 1024, 16, 16))
+# it is cut in two, and its 50 SSM heads are cut 25 a rank; (c) mamba2's
+# 48 SSM heads 24 a rank (no attention: the ring is not used). Random
+# fp32 stacks this deep amplify any change in the order of a sum: one
+# process against itself with out_proj's product cut in two and added
+# lands 1.10e-4 from itself at hymba's 16 layers and 3.18e-4 at
+# mamba2's 24, and flips a greedy token at mamba2's 48
+# (launch/slot_mesh_margins.py, PERF.md §6). The ranks' partial sums of
+# the MLP, out_proj and the norm's squares are such changes: (b) came
+# 1.035e-4 from one process at 16 layers (8.401e-5 with the SSM whole),
+# (c) on (1, 2) 4.292e-5 at 4 layers, 1.073e-4 at 8, 1.505e-3 at 48. So
+# (b) is checked at 8 layers and printed at 16 and 32, (c) checked at 4
+# and run at 48
+SLOT_MESH_CASES = (("(a)", "edge-6b", (1, 2), 8, 500, 1024, 32, (None,)),
+                   ("(b)", "hymba-1.5b", (2, 2), 4, 1100, 1024, 16,
+                    (8, 16, 32)),
+                   ("(c)", "mamba2-780m", (1, 2), 8, 256, 512, 32,
+                    (4, None)))
 
 
-def slot_mesh_config(index):
-    """The config of SLOT_MESH_CASES[index], cut to its layers."""
+def slot_mesh_config(index, layers):
+    """The config of SLOT_MESH_CASES[index], cut to ``layers`` (None:
+    all)."""
     from repro_torch.configs import get_config
-    _, arch, *_, layers = SLOT_MESH_CASES[index]
-    cfg = get_config(arch)
+    cfg = get_config(SLOT_MESH_CASES[index][1])
     return cfg if layers is None else dataclasses.replace(cfg,
                                                           n_layers=layers)
 
@@ -2846,15 +2881,19 @@ def slot_mesh_ops(cfg, params, prompts, active, buf_len):
 
 
 def slot_mesh_rank(rank, index):
-    """A rank of case SLOT_MESH_CASES[index]: its slab of the weights
-    (drawn as the single process draws them, fp32, TF32 off) on a gloo
-    mesh sharing the card, slot_mesh_ops under activation_partitioning;
-    also its launches, seconds and any JAX module."""
+    """A rank of case SLOT_MESH_CASES[index], at each of its depths: its
+    slab of the weights (drawn as the single process draws them, fp32,
+    TF32 off) on a gloo mesh sharing the card, slot_mesh_ops under
+    activation_partitioning; also its launches, seconds and any JAX
+    module. A list, one entry a depth."""
+    import gc
+
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-    _, _, shape, batch, prompt, buf_len, steps, _ = SLOT_MESH_CASES[index]
+    _, _, shape, batch, prompt, buf_len, steps, depths = \
+        SLOT_MESH_CASES[index]
     torch.set_num_threads(max(1, (os.cpu_count() or 1)
                               // (shape[0] * shape[1])))
     from repro_torch.kernels import ops
@@ -2862,26 +2901,48 @@ def slot_mesh_rank(rank, index):
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import model as M
     from repro_torch.models.partitioning import activation_partitioning
-    cfg = slot_mesh_config(index)
     mesh = make_serving_mesh(data=shape[0], model=shape[1],
                              device=torch.device("cuda", 0))
-    params = M.init_params(cfg, seed=0, dtype=torch.float32,
-                           device="cuda:0", cut=S.cutter(cfg, mesh))
-    prompts, active = slot_mesh_inputs(cfg, batch, prompt, steps)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    with activation_partitioning(mesh, S.cut_leaves(cfg, shape[1])):
-        out = slot_mesh_ops(cfg, params, prompts, active, buf_len)
-    out.update(launches=dict(ops.LAUNCHES), s=time.perf_counter() - t0,
-               leaked=sorted(m for m in sys.modules if m == "jax"
-                             or m.startswith(("jax.", "repro."))))
-    return out
+    outs = []
+    for layers in depths:
+        cfg = slot_mesh_config(index, layers)
+        params = M.init_params(cfg, seed=0, dtype=torch.float32,
+                               device="cuda:0", cut=S.cutter(cfg, mesh))
+        prompts, active = slot_mesh_inputs(cfg, batch, prompt, steps)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with activation_partitioning(mesh, S.cut_leaves(cfg, shape[1])):
+            out = slot_mesh_ops(cfg, params, prompts, active, buf_len)
+        out.update(launches=dict(ops.LAUNCHES), s=time.perf_counter() - t0,
+                   leaked=sorted(m for m in sys.modules if m == "jax"
+                                 or m.startswith(("jax.", "repro."))))
+        outs.append(out)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs
+
+
+def slot_mesh_errors(one, res, active):
+    """(largest |logits - one process's| over the prefill and the active
+    rows of every step, the prefill's, the steps', the logits' largest
+    magnitude)."""
+    import numpy as np
+    pre = float(np.abs(res["pre"] - one["pre"]).max())
+    dec = max(float(np.abs(a - b)[act].max()) for a, b, act in
+              zip(res["dec"], one["dec"], active.numpy()))
+    scale = max(float(np.abs(x).max()) for x in [one["pre"]] + one["dec"])
+    return max(pre, dec), pre, dec, scale
 
 
 def check_slot_mesh(index):
     """One SLOT_MESH_CASES case: the single-process prefill + decode
-    steps on the whole cache, then the mesh's ranks on theirs; returns
-    rank 0's launches."""
+    steps on the whole cache at each depth, then the mesh's ranks on
+    theirs (one spawn for every depth). At every depth each rank's
+    launches, its SSD state's rows and heads and its imports are checked
+    and its logits' error printed; at the first depth also the logits
+    within MESH_TOL, the streams and the gathered cache. Returns rank 0's
+    launches at the case's full depth (its first depth if it has none)."""
     import gc
 
     import numpy as np
@@ -2889,83 +2950,115 @@ def check_slot_mesh(index):
     from repro_torch.launch import sharding as S
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models import model as M
-    label, arch, shape, batch, prompt, buf_len, steps, _ = \
+    label, arch, shape, batch, prompt, buf_len, steps, depths = \
         SLOT_MESH_CASES[index]
     data, model = shape
-    cfg = slot_mesh_config(index)
-    phase(f"slot-mesh {label}: {arch} ({cfg.n_layers} layers) fp32 prefill "
-          f"+ decode_step in JAX's cache layout on a ({data}, {model}) mesh "
-          f"of {data * model} gloo ranks against one process, {batch} "
-          f"prompts of {prompt} tokens into {buf_len} slots, {steps} steps")
-    params = M.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
-    prompts, active = slot_mesh_inputs(cfg, batch, prompt, steps)
-    t0 = time.perf_counter()
-    one = slot_mesh_ops(cfg, params, prompts, active, buf_len)
-    one_s = time.perf_counter() - t0
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    cfgs = [slot_mesh_config(index, layers) for layers in depths]
+    phase(f"slot-mesh {label}: {arch} fp32 prefill + decode_step in JAX's "
+          f"cache layout on a ({data}, {model}) mesh of {data * model} gloo "
+          f"ranks against one process, {batch} prompts of {prompt} tokens "
+          f"into {buf_len} slots, {steps} steps, at "
+          + ", ".join(str(c.n_layers) for c in cfgs) + " layers (the "
+          f"logits, streams and caches checked at {cfgs[0].n_layers})")
+    ones = []
+    for c in cfgs:
+        params = M.init_params(c, seed=0, dtype=torch.float32, device="cuda")
+        prompts, active = slot_mesh_inputs(c, batch, prompt, steps)
+        t0 = time.perf_counter()
+        ones.append((slot_mesh_ops(c, params, prompts, active, buf_len),
+                     time.perf_counter() - t0))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     ranks = spawn_ranks(slot_mesh_rank, data * model, (index,),
                         backend="gloo", timeout=300)
-    want = {"decode_attention": cfg.n_layers * steps,
-            "flash_prefill": cfg.n_layers}
-    if cfg.has_ssm:
-        want.update(ssd_scan=cfg.n_layers,
-                    ssd_decode_step=cfg.n_layers * steps)
-    for r, res in enumerate(ranks):
-        if res["leaked"]:
-            fail(f"slot-mesh {label} rank {r} imported JAX or the JAX "
-                 f"package: {res['leaked'][:5]}")
-        if not np.array_equal(res["streams"], one["streams"]):
-            fail(f"slot-mesh {label} rank {r}'s greedy streams differ from "
-                 "the single process's")
-        pre_err = float(np.abs(res["pre"] - one["pre"]).max())
-        dec_err = max(float(np.abs(a - b)[act].max()) for a, b, act in
-                      zip(res["dec"], one["dec"], active.numpy()))
-        err = max(pre_err, dec_err)
-        scale = max(float(np.abs(x).max()) for x in [one["pre"]]
-                    + one["dec"])
-        got = {k: res["launches"][k] for k in want}
-        print(f"rank {r}: logits max_abs_err={err:.3e} tol={MESH_TOL:g} "
-              f"(prefill {pre_err:.3e}, {steps} steps' active rows "
-              f"{dec_err:.3e}; logits up to {scale:.3g}), streams identical "
-              f"({batch} x {steps + 1} tokens), launches {got}, ops "
-              f"{res['s']:.2f} s (one process {one_s:.2f} s; ranks sharing "
-              "one H100 over gloo, eager: no tensor-parallel speed)")
-        if not err <= MESH_TOL:
-            fail(f"slot-mesh {label} rank {r}'s logits differ from the "
-                 f"single process's by {err:.3e} > {MESH_TOL:g}")
-        if got != want:
-            fail(f"slot-mesh {label} rank {r} launched {got}, not {want}: "
-                 "every layer of every step must go through the kernels")
-    parts = [{k: torch.from_numpy(v) for k, v in res["cache"].items()}
-             for res in ranks]
-    whole = S.gather_cache(cfg, parts, {"data": data, "model": model},
-                           batch, buf_len)
-    for key, w in one["cache"].items():
-        g = whole[key].numpy()
-        if key in ("length", "kv_pos"):
-            ok, what = np.array_equal(g, w), "exact"
-        else:
-            scale = max(1.0, float(np.abs(w).max()))
-            e = float(np.abs(g - w).max())
-            ok, what = e <= MESH_TOL * scale, (
-                f"max_abs_err={e:.3e} tol={MESH_TOL:g} x {scale:.3g}")
-        print(f"gathered cache {key} {list(g.shape)}: {what}")
-        if not ok:
-            fail(f"slot-mesh {label}: the ranks' gathered cache {key} "
-                 "differs from the single process's")
-    print(f"slot-mesh {label}: rank 0 holds k/v "
-          f"{list(parts[0]['k'].shape)} of {list(one['cache']['k'].shape)}")
-    return ranks[0]["launches"]
+    rows = batch // data if batch % data == 0 else batch
+    for k, (cfg, (one, one_s)) in enumerate(zip(cfgs, ones)):
+        checked = k == 0
+        want = {}
+        if cfg.has_attention:
+            want.update(decode_attention=cfg.n_layers * steps,
+                        flash_prefill=cfg.n_layers)
+        if cfg.has_ssm:
+            want.update(ssd_scan=cfg.n_layers,
+                        ssd_decode_step=cfg.n_layers * steps)
+        heads = (cfg.ssm_heads // model if S.ssm_split(cfg, model)
+                 else cfg.ssm_heads)
+        for r, outs in enumerate(ranks):
+            res = outs[k]
+            if res["leaked"]:
+                fail(f"slot-mesh {label} rank {r} imported JAX or the JAX "
+                     f"package: {res['leaked'][:5]}")
+            same = np.array_equal(res["streams"], one["streams"])
+            err, pre_err, dec_err, scale = slot_mesh_errors(one, res, active)
+            got = {n: res["launches"][n] for n in want}
+            note = "" if checked else " (logits not checked)"
+            print(f"{cfg.n_layers} layers{note} rank {r}: logits max_abs_err={err:.3e} tol="
+                  f"{MESH_TOL:g} (prefill {pre_err:.3e}, {steps} steps' "
+                  f"active rows {dec_err:.3e}; logits up to {scale:.3g}), "
+                  f"streams {'identical' if same else 'DIFFER'} ({batch} x "
+                  f"{steps + 1} tokens), launches {got}, ops {res['s']:.2f} "
+                  f"s (one process {one_s:.2f} s; ranks sharing one H100 "
+                  "over gloo, eager: no tensor-parallel speed)")
+            if checked and not same:
+                fail(f"slot-mesh {label} rank {r}'s greedy streams differ "
+                     "from the single process's")
+            if checked and not err <= MESH_TOL:
+                fail(f"slot-mesh {label} rank {r}'s logits differ from the "
+                     f"single process's by {err:.3e} > {MESH_TOL:g}")
+            if got != want:
+                fail(f"slot-mesh {label} rank {r} launched {got}, not "
+                     f"{want}: every layer of every step must go through "
+                     "the kernels")
+            if cfg.has_ssm:
+                ssm = tuple(res["cache"]["ssm"].shape)
+                if ssm != (cfg.n_layers, rows, heads, cfg.ssm_head_dim,
+                           cfg.ssm_state):
+                    fail(f"slot-mesh {label} rank {r} holds ssm "
+                         f"{list(ssm)}, not its {rows} rows and {heads} "
+                         "heads")
+        if not checked:
+            continue
+        parts = [{n: torch.from_numpy(v) for n, v in outs[0]["cache"].items()}
+                 for outs in ranks]
+        whole = S.gather_cache(cfg, parts, {"data": data, "model": model},
+                               batch, buf_len)
+        for key, w in one["cache"].items():
+            g = whole[key].numpy()
+            if key in ("length", "kv_pos"):
+                ok, what = np.array_equal(g, w), "exact"
+            else:
+                scale = max(1.0, float(np.abs(w).max()))
+                e = float(np.abs(g - w).max())
+                ok, what = e <= MESH_TOL * scale, (
+                    f"max_abs_err={e:.3e} tol={MESH_TOL:g} x {scale:.3g}")
+            print(f"gathered cache {key} {list(g.shape)}: {what}")
+            if not ok:
+                fail(f"slot-mesh {label}: the ranks' gathered cache {key} "
+                     "differs from the single process's")
+        print(f"slot-mesh {label}: rank 0 holds " + ", ".join(
+            f"{n} {list(v.shape)}" for n, v in parts[0].items())
+            + " of " + ", ".join(f"{n} {list(v.shape)}"
+                                 for n, v in one["cache"].items()))
+    full = depths.index(None) if None in depths else 0
+    print(f"slot-mesh {label}: rank 0 at {cfgs[full].n_layers} layers holds "
+          + ", ".join(f"{n} {list(v.shape)}"
+                      for n, v in ranks[0][full]["cache"].items()))
+    return ranks[0][full]["launches"]
 
 
 def slot_mesh_phase():
-    """Both cases; returns case (a)'s run for the time phase (rank 0's
-    launches, under the rows timed at a rank's shapes)."""
+    """Every case; returns cases (a)'s and (c)'s runs for the time phase
+    (rank 0's launches, under the rows timed at a rank's shapes; (c)'s
+    shapes: its batch, prompt and rank's SSM heads)."""
     launches = check_slot_mesh(0)
     check_slot_mesh(1)
-    return {"slot-mesh": ({}, launches)}
+    ssm_launches = check_slot_mesh(2)
+    _, _, shape, batch, prompt, *_ = SLOT_MESH_CASES[2]
+    cfg = slot_mesh_config(2, None)
+    ssm = {"cfg": cfg, "batch": batch, "prompt": prompt, "arena": batch,
+           "heads": cfg.ssm_heads // shape[1]}
+    return {"slot-mesh": ({}, launches), "slot-mesh-ssm": (ssm, ssm_launches)}
 
 
 def time_phase(runs, worst):
@@ -3112,32 +3205,37 @@ def time_phase(runs, worst):
     def ssd_scan_row(run, seed, of_runs):
         """One prompt of ``run``'s median effective length through its
         arch's SSD heads, inputs as strided splits of one projection, as
-        the mixer passes them."""
+        the mixer passes them; for a run whose shapes name a ``prompt``,
+        its batch of prompts of that length at its ``heads`` (a rank's)."""
         sh = runs[run][0]
         c = sh["cfg"]
-        eff, _ = lengths_of(sh)
-        T = sorted(eff)[len(eff) // 2]
-        H, P, N = c.ssm_heads, c.ssm_head_dim, c.ssm_state
-        sx, sdt, sb, sc, sprm = ssd_inputs(1, T, H, P, N, dtype, seed=seed)
+        if "prompt" in sh:
+            B, T = sh["batch"], sh["prompt"]
+        else:
+            eff, _ = lengths_of(sh)
+            B, T = 1, sorted(eff)[len(eff) // 2]
+        H, P, N = sh.get("heads", c.ssm_heads), c.ssm_head_dim, c.ssm_state
+        sx, sdt, sb, sc, sprm = ssd_inputs(B, T, H, P, N, dtype, seed=seed)
         s_args = (sx, sdt, sprm[0], sb, sc, sprm[1], sprm[2])
         s_args32 = f32(s_args)
         pieces = [min(64, T - t0) for t0 in range(0, T, 64)]   # chunks
-        row("ssd_scan", f"B=1 T={T} H={H} P={P} N={N} strided, "
+        row("ssd_scan", f"B={B} T={T} H={H} P={P} N={N} strided, "
             f"{_ssd.chunks(T)} chunks",
             lambda: ops.ssd_scan(*s_args)[0],
             lambda: ref.ssd_scan_ref(*s_args)[0],
             lambda: ref.ssd_scan_ref(*s_args32)[0], None,
-            (2 * T * H * P + T * H + 2 * T * N + 3 * H) * elt
-            + H * P * N * 4,
-            H * sum(n * (n + 1) * (N + P) + 4 * n * P * N
-                    for n in pieces), body=_ssd.body(dtype, P, N),
+            B * (2 * T * H * P + T * H + 2 * T * N) * elt + 3 * H * elt
+            + B * H * P * N * 4,
+            B * H * sum(n * (n + 1) * (N + P) + 4 * n * P * N
+                        for n in pieces), body=_ssd.body(dtype, P, N),
             passes=SSD_PASSES, of_runs=of_runs)
 
     def ssd_step_row(run, seed, of_runs):
         """The full decode batch of ``run``'s engine, every row active, on
         its arena's layout: the paged engine's state arena (2 * batch
         slots, row b at slot 2b) or the slot engine's (a layer of its slot
-        cache, row b at slot b, the spare row past them). The kernel and
+        cache, row b at slot b, the spare row past them; a run's shapes
+        may name its ``arena`` rows, and its ``heads``). The kernel and
         its plain version each step the next of n copies of the arena a
         call, the n copies' live rows twice the L2, so no call finds its
         state there, as in serving, where every layer steps its own
@@ -3145,7 +3243,7 @@ def time_phase(runs, worst):
         starts from."""
         sh = runs[run][0]
         c = sh["cfg"]
-        H, P, N = c.ssm_heads, c.ssm_head_dim, c.ssm_state
+        H, P, N = sh.get("heads", c.ssm_heads), c.ssm_head_dim, c.ssm_state
         B = sh["batch"]
         dx, ddt, dbm, dcm, dprm = ssd_inputs(B, 1, H, P, N, dtype, seed=seed)
         d_args = (dx[:, 0], ddt[:, 0], dprm[0], dbm[:, 0], dcm[:, 0],
@@ -3156,7 +3254,8 @@ def time_phase(runs, worst):
             slots = torch.arange(0, 2 * B, 2, dtype=torch.int32,
                                  device="cuda")
         else:
-            n_arena, layout = B + 1, f"slot-cache layout arena={B + 1}"
+            n_arena = sh.get("arena", B + 1)
+            layout = f"slot-cache layout arena={n_arena}"
             slots = torch.arange(B, dtype=torch.int32, device="cuda")
         g = torch.Generator(device="cuda").manual_seed(seed + 2)
         base = 0.5 * torch.randn(n_arena, H, P, N, generator=g,
@@ -3342,6 +3441,13 @@ def time_phase(runs, worst):
     ssd_step_row("slot-ssm", 19, ("slot-ssm",))
     ssd_step_row("slot-hybrid", 13, ("slot-hybrid",))
 
+    # a rank of the slot-mesh run (c) (mamba2-780m over (1, 2): 24 of its
+    # 48 SSM heads): the SSD scan of its 8 prompts of 256 tokens, and the
+    # SSD step over its 8 rows of the slot cache (row b at slot b, no
+    # spare row), cold
+    ssd_scan_row("slot-mesh-ssm", 30, ("slot-mesh-ssm",))
+    ssd_step_row("slot-mesh-ssm", 31, ("slot-mesh-ssm",))
+
     def moe_row(run, seed, of_runs):
         """The dispatch buffer of ``run``'s full decode batch, C = batch *
         top_k, rows placed by a random top-k routing of the batch's tokens
@@ -3475,7 +3581,8 @@ DRYRUN_CELLS = (("smollm-360m", "decode_32k", "pod", "ok"),
                 ("smollm-360m", "prefill_32k", "pod", "ok"),
                 ("smollm-360m", "train_4k", "pod", "ok"),
                 ("smollm-360m", "decode_32k", "multipod", "ok"),
-                ("hubert-xlarge", "decode_32k", "pod", "skip"))
+                ("hubert-xlarge", "decode_32k", "pod", "skip"),
+                ("mamba2-780m", "decode_32k", "pod", "ok"))
 # (the graphs phase's captured row, arch, (name, seq_len, batch, kind)):
 # the slot engine's masked step computes all 16 slots of a 1024-slot ring
 ROOFLINE_CASES = (
@@ -3551,7 +3658,9 @@ def dryrun_phase():
     """The dry-run (python -m repro_torch.launch.dryrun) in subprocesses,
     started together: smollm-360m's decode_32k, prefill_32k and train_4k
     on the pod mesh, decode_32k on the multipod
-    mesh, hubert-xlarge's decode (a skip); each record must be ok (a skip
+    mesh, hubert-xlarge's decode (a skip), mamba2-780m's decode_32k on the
+    pod mesh (its SSM cut by heads: cache.ssm must not depart from the
+    spec); each record must be ok (a skip
     where JAX skips) and no subprocess may import JAX. Then the roofline
     table of the pod records (python -m repro_torch.launch.roofline).
     Then the card check: build_cell and count_cell at the shapes of the
@@ -3595,6 +3704,10 @@ def dryrun_phase():
                       f"{rec['argument_size_in_bytes']} (JAX's specs "
                       f"{rec['argument_size_in_bytes_spec']}), "
                       f"{len(rec['departures'])} departures")
+                if any(d.startswith("cache.ssm")
+                       for d in rec["departures"]):
+                    fail(f"dryrun {name}: the SSD state departs from its "
+                         f"spec: {rec['departures']}")
         print(run_python("-m", "repro_torch.launch.roofline", "--dir", out,
                          "--out", os.path.join(out, "roofline")).strip())
     rows = []

@@ -39,9 +39,11 @@ A record has JAX's keys where the port has a meaning for them:
   ``opt_state_specs``) give each leaf: what ties the record to JAX's
   ``argument_size_in_bytes``;
 - ``departures``: where the port's rank holds or computes otherwise than
-  the specs say (the whole-head layouts of ``launch.sharding``, the SSM
-  state's whole heads, the trainer's and the encoder forward's
-  unsharded steps);
+  the specs say (the whole-head layouts of ``launch.sharding``: attention
+  weights where the spec splits inside a head, the SSM's in_proj, conv
+  weights and conv tail by the rank's heads with B and C whole, every SSM
+  leaf where 'model' does not divide the heads; the trainer's and the
+  encoder forward's unsharded steps);
 - ``run_s``, in place of ``lower_s`` and ``compile_s``. JAX's
   ``generated_code_size_in_bytes``, ``temp_size_in_bytes`` and
   ``hlo_bytes`` have no counterpart and are left out.

@@ -22,9 +22,12 @@ part (its rows of a batch split over ('pod', 'data'), its slice of the
 K/V and ``kv_pos`` slots over 'model', every KV head), what the slot
 ``prefill`` returns and ``decode_step`` takes under
 ``models.partitioning.activation_partitioning``; ``gather_cache`` puts
-the ranks' parts back together. One departure: the SSM state and conv
-tail keep whole heads on the rank's rows (the SSM weights have no
-tensor-parallel layout).
+the ranks' parts back together. The SSM state ``ssm`` [L,B,H,P,N] is cut
+on H where 'model' divides the heads (``ssm_split``, JAX's ``hshard``),
+as the spec cuts it; the conv tail ``conv`` [L,B,C,K-1] then holds the
+rank's channels ``[x of its heads | B | C]`` (``ssm_index``), where the
+spec cuts C in contiguous blocks that are not whole heads (a named
+departure); where the heads do not divide, both keep every head.
 
 The serving layout (``serving_cuts``, ``local_params``, ``head_slab``)
 is what a rank of ``serving.executor.PagedTorchExecutor(mesh=...)`` holds.
@@ -51,15 +54,25 @@ heads, because a kernel takes whole heads:
   experts [r*E/ways, (r+1)*E/ways)); otherwise tensor-parallel inside
   each expert, wg/wu cut by d_ff columns and wd by d_ff rows when
   ``d_ff % ways == 0``, else whole. The router and ln2 stay whole;
-- norms are replicated. SSM weights have no serving layout: they stay
-  whole (the ``ssm`` group's cuts are all None), and a serving mesh
-  refuses those archs, as in JAX; a dry-run (``launch.dryrun``) counts
-  them whole on every rank.
+- the SSM mixer (the ``ssm`` group) is cut by heads when ``ssm_heads %
+  ways == 0`` (``ssm_split``): rank r holds heads [r*H/ways,
+  (r+1)*H/ways). norm_w is cut in ``ways`` blocks and out_proj by rows,
+  as the spec does (d_inner's blocks are whole heads); a_log, d_skip and
+  dt_bias stay whole, as the spec keeps them (the mixer narrows them to
+  its heads). in_proj's columns are the rank's ``[z | x | B | C | dt]``
+  and conv_w/conv_b's channels its ``[x | B | C]`` (``ssm_index``: the
+  single B/C group whole on every rank), where the spec cuts d_in_proj
+  and conv_dim in contiguous blocks that split heads (JAX's GSPMD moves
+  data inside the step there; a kernel takes whole heads). Where the
+  heads do not divide every SSM leaf stays whole. Only the slot
+  ``prefill`` and ``decode_step`` run on a cut mixer: a serving mesh
+  refuses SSM archs, as in JAX;
+- norms are replicated.
 
-A cut product is a partial sum over 'model' (wo's and wd's rows, an
-expert slab's or a d_ff slab's share of the MoE combine) or a slab of
-the output (the vocabulary); ``models.partitioning`` puts the whole
-together. ``cut_leaves`` names a group's leaves by their path in the
+A cut product is a partial sum over 'model' (wo's, wd's and out_proj's
+rows, an expert slab's or a d_ff slab's share of the MoE combine) or a
+slab of the output (the vocabulary); ``models.partitioning`` puts the
+whole together. ``cut_leaves`` names a group's leaves by their path in the
 group ("moe.wd"), so a dense MLP's "wd" and an MoE's never meet.
 """
 from __future__ import annotations
@@ -77,7 +90,9 @@ from repro_torch.models import ssm as SSM
 
 Spec = Tuple[Any, ...]
 # a serving cut: (dim, how) with how "model" (one of `ways` equal blocks,
-# the rank's) or "kv_group" (one KV head, the one the rank's queries read)
+# the rank's), "kv_group" (one KV head, the one the rank's queries read)
+# or "ssm_heads" (the columns or channels of the rank's SSM heads,
+# ``ssm_index``)
 Cut = Optional[Tuple[int, str]]
 
 
@@ -222,11 +237,17 @@ def _block(shape: Dict[str, int], coords: Dict[str, int],
 def _cache_cuts(cfg: ArchConfig, mesh, cache: Dict[str, Any], batch: int,
                 buf_len: Optional[int]) -> Dict[str, List[Tuple[int, Any]]]:
     """Per leaf of a slot cache, the (dim, axes) ``cache_specs`` cuts, but
-    the SSM heads (``ssm``/``conv`` stay whole on 'model')."""
+    ``conv``'s over 'model': its channels (dim 2) are the rank's ``[x | B
+    | C]`` (``ssm_index``) where 'model' divides the SSM heads, else
+    whole."""
     specs = cache_specs(cfg, mesh, batch, buf_len)
-    return {k: [(d, ax) for d, ax in enumerate(specs[k]) if ax is not None
-                and not (ax == "model" and k in ("ssm", "conv"))]
-            for k in cache}
+    out = {}
+    for k in cache:
+        out[k] = [(d, ax) for d, ax in enumerate(specs[k]) if ax is not None
+                  and not (k == "conv" and ax == "model")]
+        if k == "conv" and ssm_split(cfg, mesh.shape["model"]):
+            out[k].append((2, "model"))
+    return out
 
 
 def local_cache(cfg: ArchConfig, cache: Dict[str, torch.Tensor],
@@ -236,8 +257,9 @@ def local_cache(cfg: ArchConfig, cache: Dict[str, torch.Tensor],
     ``cache_specs`` for the cache's batch and ring length, its rows of
     every leaf where 'data' (('pod', 'data')) divides the batch, and its
     slice of the slots of ``k``, ``v`` and ``kv_pos`` where 'model'
-    divides the ring, with every KV head; ``ssm`` and ``conv`` keep whole
-    heads. Each leaf an own contiguous tensor: the whole cache can be
+    divides the ring, with every KV head; where 'model' divides the SSM
+    heads, its heads of ``ssm`` and its ``[x | B | C]`` channels of
+    ``conv``. Each leaf an own contiguous tensor: the whole cache can be
     freed after."""
     buf_len = cache["k"].shape[3] if "k" in cache else None
     cuts = _cache_cuts(cfg, mesh, cache, cache["length"].shape[0], buf_len)
@@ -245,6 +267,10 @@ def local_cache(cfg: ArchConfig, cache: Dict[str, torch.Tensor],
     for key, x in cache.items():
         for dim, axes in cuts[key]:
             ways, index = _block(mesh.shape, mesh.coords, axes)
+            if key == "conv" and axes == "model":
+                x = x.index_select(dim, ssm_index(cfg, ways, index, "conv",
+                                                  x.device))
+                continue
             n = x.shape[dim] // ways
             x = x.narrow(dim, index * n, n)
         out[key] = x.clone(memory_format=torch.contiguous_format)
@@ -259,7 +285,8 @@ def gather_cache(cfg: ArchConfig, parts: List[Dict[str, torch.Tensor]],
     of a mesh of ``shape`` (ordered axes, 'model' last; a rank's
     coordinates row-major, as ``launch.mesh.make_serving_mesh`` numbers
     them). Where a leaf is not cut over an axis, the first rank's copy
-    stands for the others."""
+    stands for the others: ``conv``'s channels are the ranks' x channels
+    side by side, in rank order, then the first rank's B and C."""
     axes = tuple(shape)
     mesh = types.SimpleNamespace(shape=dict(shape), axis_names=axes)
     coords = [dict(zip(axes, map(int, np.unravel_index(r, tuple(
@@ -277,7 +304,12 @@ def gather_cache(cfg: ArchConfig, parts: List[Dict[str, torch.Tensor]],
                 return grid[at]
             dim, axes = leaf_cuts[len(at)]
             ways = _block(shape, coords[0], axes)[0]
-            return torch.cat([build(at + (i,)) for i in range(ways)], dim)
+            parts = [build(at + (i,)) for i in range(ways)]
+            if key == "conv" and axes == "model":
+                n = cfg.ssm_inner // ways
+                parts = [p.narrow(dim, 0, n) for p in parts] + [
+                    parts[0].narrow(dim, n, 2 * cfg.ssm_state)]
+            return torch.cat(parts, dim)
 
         out[key] = build(())
     return out
@@ -310,6 +342,30 @@ def attention_split(cfg: ArchConfig, ways: int) -> bool:
     return hkv % ways == 0 or (hq // hkv) % (hq // ways) == 0
 
 
+def ssm_split(cfg: ArchConfig, ways: int) -> bool:
+    """Whether the SSM mixer is cut by heads over ``ways`` model ranks
+    (JAX's ``cache_specs`` ``hshard``): the arch has SSM layers and its
+    heads divide."""
+    return cfg.has_ssm and cfg.ssm_heads % ways == 0
+
+
+def ssm_index(cfg: ArchConfig, ways: int, rank: int, leaf: str,
+              device=None) -> torch.Tensor:
+    """int64 indices of model rank ``rank``'s part (of ``ways``) of the
+    SSM heads' dim: for ``leaf`` "in_proj" its output columns ``[z | x |
+    B | C | dt]``, the z, x and dt of its heads and the whole B and C (one
+    group, read by every head); for "conv" (conv_w, conv_b and the cache's
+    conv tail) its channels ``[x | B | C]``."""
+    di, N, H = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+    n, h = di // ways, H // ways
+    x = torch.arange(rank * n, (rank + 1) * n, device=device)
+    bc = torch.arange(di, di + 2 * N, device=device)
+    if leaf == "conv":
+        return torch.cat([x, bc])
+    dt = torch.arange(rank * h, (rank + 1) * h, device=device)
+    return torch.cat([x, di + x, di + bc, 2 * di + 2 * N + dt])
+
+
 def head_slab(cfg: ArchConfig, ways: int, rank: int) -> Tuple[int, int, int]:
     """(query heads, KV heads, first KV head) that model rank ``rank`` of
     ``ways`` holds."""
@@ -324,9 +380,9 @@ def head_slab(cfg: ArchConfig, ways: int, rank: int) -> Tuple[int, int, int]:
 
 def serving_cuts(cfg: ArchConfig, ways: int) -> Dict[str, Any]:
     """The serving layout over ``ways`` model ranks: per leaf of
-    init_params' tree a Cut (the SSM group's all None: whole),
-    (dim, "model") or (dim, "kv_group"), or None (whole). Over one rank
-    every leaf that can be cut is, into one slab."""
+    init_params' tree a Cut, (dim, "model"), (dim, "kv_group") or (dim,
+    "ssm_heads"), or None (whole). Over one rank every leaf that can be
+    cut is, into one slab."""
     attn = attention_split(cfg, ways)
     kv = None
     if attn:
@@ -341,6 +397,11 @@ def serving_cuts(cfg: ArchConfig, ways: int) -> Dict[str, Any]:
         blk["ssm"] = dict.fromkeys(SSM.param_shapes(
             cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim,
             cfg.ssm_conv))
+        if ssm_split(cfg, ways):
+            blk["ssm"].update(in_proj=(-1, "ssm_heads"),
+                              conv_w=(-2, "ssm_heads"),
+                              conv_b=(-1, "ssm_heads"),
+                              norm_w=(-1, "model"), out_proj=(-2, "model"))
     if cfg.block_kind == "moe":
         if _div(cfg.n_experts, ways):         # expert-parallel
             wg = wd = (-3, "model")
@@ -377,9 +438,10 @@ def cut_leaves(cfg: ArchConfig, ways: int) -> frozenset:
 def cutter(cfg: ArchConfig, mesh) -> Callable[[str, torch.Tensor],
                                               torch.Tensor]:
     """``cut(path, x)``: this rank's slab of the leaf at ``path`` ("embed",
-    "blocks.wq", ...), from the whole leaf or one layer of a stacked one
-    (every cut dim counts from the end but the embedding's vocabulary
-    rows), as an own contiguous tensor; a whole leaf is returned as is."""
+    "blocks.wq", "blocks.ssm.in_proj", ...), from the whole leaf or one
+    layer of a stacked one (every cut dim counts from the end but the
+    embedding's vocabulary rows), as an own contiguous tensor; a whole
+    leaf is returned as is."""
     ways, rank = mesh.shape["model"], mesh.coords["model"]
     cuts = serving_cuts(cfg, ways)
     _, _, kv0 = head_slab(cfg, ways, rank)
@@ -395,6 +457,10 @@ def cutter(cfg: ArchConfig, mesh) -> Callable[[str, torch.Tensor],
             hd = cfg.head_dim
             return x.narrow(dim, kv0 * hd, hd).clone(
                 memory_format=torch.contiguous_format)
+        if how == "ssm_heads":
+            leaf = "in_proj" if path.endswith("in_proj") else "conv"
+            return x.index_select(dim, ssm_index(cfg, ways, rank, leaf,
+                                                 x.device))
         n = x.shape[dim] // ways
         return x.narrow(dim, rank * n, n).clone(
             memory_format=torch.contiguous_format)

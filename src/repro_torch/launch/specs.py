@@ -65,7 +65,7 @@ def cache_struct(cfg: ArchConfig, shape: InputShape, dtype=PARAM_DTYPE,
                  mesh=None) -> M.Cache:
     """The slot cache of a decode shape, on meta; with ``mesh``, the part
     of it that the rank at ``mesh.coords`` holds (``launch.sharding.
-    local_cache``: its rows and slots, every KV head)."""
+    local_cache``: its rows and slots, every KV head, its SSM heads)."""
     buf = decode_buf_len(cfg, shape)
     cache = M.init_cache(cfg, shape.global_batch, max(buf, 1), dtype,
                          device=META)

@@ -660,13 +660,16 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
     rows of a batch split over ('pod', 'data') (``batch_rows``; ``inputs``
     whole [B,...], or with ``batch`` given already this rank's rows of a
     batch of ``batch``), attention on its head slab as the paged engine
-    does, and returns the logits of every row (``gather_data``) and its
+    does, SSM layers on its SSM heads where they are cut (``ssm.
+    ssm_mixer_with_state``; a hybrid block adds its two parts once each is
+    whole), and returns the logits of every row (``gather_data``) and its
     part of the cache (``launch.sharding.local_cache``'s layout): its rows,
     every KV head (gathered over 'model' where the heads are cut) and its
     slots (``seq_slice(buf_len)``), each layer narrowed to them before the
-    layers are stacked. With ``kv_slab`` it computes every row and returns
-    the K/V heads of its weights' slab over the whole sequence instead:
-    what the tensor-parallel paged engine splices into its arena
+    layers are stacked, and the SSM state and conv tail of its SSM heads
+    as the mixer returns them. With ``kv_slab`` it computes every row and
+    returns the K/V heads of its weights' slab over the whole sequence
+    instead: what the tensor-parallel paged engine splices into its arena
     (``page_specs``' layout).
     """
     _check_causal(cfg)
@@ -841,7 +844,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Cache,
     rank's part (``launch.sharding.local_cache``): its rows of a batch
     split over ('pod', 'data') and, where 'model' divides the ring of
     ``buf_len`` slots (the whole mesh's; by default the cache's own), its
-    slice of the slots (``seq_slice``) with every KV head. ``tokens`` and
+    slice of the slots (``seq_slice``) with every KV head; where 'model'
+    divides the SSM heads, the state and conv tail of its heads, which
+    the mixer steps in place (``ssm.ssm_mixer_step``). ``tokens`` and
     ``active`` are whole [B] and cut by ``batch_rows`` (or, with ``batch``
     given, already this rank's rows of a batch of ``batch``); the logits
     of every row come back (``gather_data``). Window and ring slot follow

@@ -12,6 +12,9 @@ collectives themselves, Megatron-style:
 - ``gather_model(x, dim)`` puts the ranks' slabs of ``dim`` side by side
   (the vocabulary-sharded logits);
 - ``embed_model(table, ids)`` looks ids up in a vocabulary slab;
+- ``rms_norm_out_model(g, w, out_proj, width)`` is the SSM mixer's gated
+  RMSNorm over a d_inner cut by heads (the rows' sums of squares summed
+  over 'model'), then out_proj's row-parallel product, summed;
 - ``combine_model_lse(out, lse)`` merges attention outputs over the
   ranks' slices of one sequence (the slot cache's K/V cut over 'model',
   JAX's ``cache_specs``; ``seq_slice(buf_len)`` is this rank's slots):
@@ -19,9 +22,11 @@ collectives themselves, Megatron-style:
   of the reweighted outputs and their weights, packed in one buffer.
 
 The model asks ``cut(name)`` whether a leaf ("wo", "wd", "embed",
-"lm_head", the MoE group's "moe.wg", ...) is cut over 'model' on this
+"lm_head", the MoE group's "moe.wg", the SSM group's "ssm.out_proj",
+...) is cut over 'model' on this
 engine, and calls these only where it is; ``model_index()`` is the rank's
-place on 'model' (which experts an expert-parallel slab holds).
+place on 'model' (which experts an expert-parallel slab holds, which SSM
+heads a rank's slab holds).
 
 The batch over 'data' (JAX's ``batch_spec``): a decode or verify step of
 B rows, or a slot prefill's batch, is cut into ``data`` row blocks when
@@ -46,8 +51,8 @@ each rank has written its slab: exact (x + 0 = x), and the one collective
 gloo also runs on CUDA tensors.
 
 ``recording(fn)`` calls ``fn(kind, axis, tensor)`` before each collective
-("all-reduce" for ``reduce_model`` and each of ``combine_model_lse``'s
-two, "all-gather" for the gathers, with the full-width buffer the ranks
+("all-reduce" for ``reduce_model`` and each of ``rms_norm_out_model``'s
+and ``combine_model_lse``'s two, "all-gather" for the gathers, with the full-width buffer the ranks
 all-reduce): what ``launch.collective_stats`` counts.
 """
 from __future__ import annotations
@@ -264,3 +269,19 @@ def embed_model(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     hit = (local >= 0) & (local < n)
     x = table[local.clamp(0, n - 1)].masked_fill(~hit[..., None], 0)
     return reduce_model(x)
+
+
+def rms_norm_out_model(g: torch.Tensor, w: torch.Tensor,
+                       out_proj: torch.Tensor, width: int,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """``layers.rms_norm(g, w, eps) @ out_proj`` of a dim of ``width`` cut
+    over 'model': ``g`` [..., n] and ``w`` [n] this rank's slab of it,
+    ``out_proj`` [n, D] its rows. Two all-reduces: the rows' sums of
+    squares of g (f32 [..., 1]), then, with the rank's slab normed as
+    ``layers.rms_norm`` norms it (mean = sum / width), the partial product
+    with out_proj, in g's type. The same arithmetic without a context."""
+    dt = g.dtype
+    gf = g.float()
+    ss = reduce_model((gf * gf).sum(-1, keepdim=True))
+    y = (gf * torch.rsqrt(ss / width + eps) * (1.0 + w.float())).to(dt)
+    return reduce_model(y @ out_proj)

@@ -18,6 +18,17 @@ mixer does. Softplus is ``torch.logaddexp(x, 0)``, as
 
 Unlike the JAX functions, ``ssm_mixer_step`` updates the state arenas it
 is given in place, as the model's paged decode updates its KV pages.
+
+Under ``models.partitioning.activation_partitioning`` with the SSM cut
+by heads (``cut("ssm.out_proj")``; ``launch.sharding``'s serving
+layout), ``ssm_mixer_with_state`` and ``ssm_mixer_step`` run on this
+rank's heads: ``d_inner`` stays the whole width, the rank's width is
+``norm_w``'s, its in_proj columns ``[z | x | B | C | dt]`` and conv
+channels ``[x | B | C]`` are its heads' with the whole B and C, a_log,
+d_skip and dt_bias are narrowed to its heads, the states are the rank's
+heads, and the gated norm and out_proj's partial sum go through
+``partitioning.rms_norm_out_model``. The training forward (``ssm_mixer``)
+runs without a context: whole heads.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import partitioning as P
 from repro_torch.models.layers import rms_norm
 
 SSMParams = Dict[str, torch.Tensor]
@@ -54,6 +66,27 @@ def _split_proj(zxbcdt: torch.Tensor, d_inner: int, n_state: int):
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * n_state]
     dt = zxbcdt[..., 2 * d_inner + 2 * n_state:]
     return z, xbc, dt
+
+
+def _rank_heads(p: SSMParams, head_dim: int):
+    """(the width of this rank's heads, their count, (a_log, d_skip,
+    dt_bias) narrowed to them): every head without a cut."""
+    di = p["norm_w"].shape[-1]
+    H = di // head_dim
+    prm = (p["a_log"], p["d_skip"], p["dt_bias"])
+    if P.cut("ssm.out_proj"):
+        prm = tuple(t.narrow(-1, P.model_index() * H, H) for t in prm)
+    return di, H, prm
+
+
+def _gated_out(p: SSMParams, y: torch.Tensor, z: torch.Tensor,
+               d_inner: int) -> torch.Tensor:
+    """rms_norm(y * silu(z), norm_w) @ out_proj over the whole d_inner:
+    across the model axis where the heads are cut."""
+    g = y * F.silu(z)
+    if P.cut("ssm.out_proj"):
+        return P.rms_norm_out_model(g, p["norm_w"], p["out_proj"], d_inner)
+    return rms_norm(g, p["norm_w"]) @ p["out_proj"]
 
 
 def causal_conv(xbc: torch.Tensor, w: torch.Tensor,
@@ -190,10 +223,10 @@ def ssm_mixer_with_state(p: SSMParams, x: torch.Tensor, d_inner: int,
     ``ssd_chunked`` on the CPU), as the JAX mixer runs its kernel only
     then; otherwise it runs the plain ``ssd_chunked``."""
     B, T, D = x.shape
-    H = d_inner // head_dim
+    di, H, (a_log, d_skip, dt_bias) = _rank_heads(p, head_dim)
     K = p["conv_w"].shape[-1]
     zxbcdt = x @ p["in_proj"]
-    z, xbc, dt = _split_proj(zxbcdt, d_inner, n_state)
+    z, xbc, dt = _split_proj(zxbcdt, di, n_state)
     if conv0 is not None:
         # prepend the carried raw-input tail, convolve, drop the warm-up
         # rows: position 0 then sees the history of one unchunked call
@@ -202,23 +235,22 @@ def ssm_mixer_with_state(p: SSMParams, x: torch.Tensor, d_inner: int,
     else:
         xbc_ext = xbc
         xbc_conv = causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc_conv[..., :d_inner]
-    b = xbc_conv[..., d_inner:d_inner + n_state]
-    c = xbc_conv[..., d_inner + n_state:]
+    xs = xbc_conv[..., :di]
+    b = xbc_conv[..., di:di + n_state]
+    c = xbc_conv[..., di + n_state:]
     xh = xs.reshape(B, T, H, head_dim)              # a view: strides kept
-    args = (xh, dt, p["a_log"], b, c, p["d_skip"], p["dt_bias"])
+    args = (xh, dt, a_log, b, c, d_skip, dt_bias)
     if use_kernel and h0 is None:
         y, h_last = ops.ssd_scan(*args)
     else:
         y, h_last = ssd_chunked(*args, chunk=chunk, h0=h0)
-    y = y.reshape(B, T, d_inner)
-    y = rms_norm(y * F.silu(z), p["norm_w"])
+    y = _gated_out(p, y.reshape(B, T, di), z, d_inner)
     # conv state = last K-1 raw (pre-conv) inputs, left-padded with zeros
     # when the sequence (with any carried history) is shorter than K-1
     pad = max(K - 1 - xbc_ext.shape[1], 0)
     tail = F.pad(xbc_ext, (0, 0, pad, 0))[:, -(K - 1):]
     conv_state = tail.transpose(1, 2)                          # [B,C,K-1]
-    return y @ p["out_proj"], h_last, conv_state
+    return y, h_last, conv_state
 
 
 def write_slots(slots: torch.Tensor, active: torch.Tensor,
@@ -248,9 +280,9 @@ def ssm_mixer_step(p: SSMParams, x: torch.Tensor, d_inner: int, n_state: int,
     ``ops.ssd_decode_step``, which gathers, steps and writes back the
     slots itself. No host sync. Returns y [B,D]."""
     B, D = x.shape
-    H = d_inner // head_dim
+    di, H, (a_log, d_skip, dt_bias) = _rank_heads(p, head_dim)
     zxbcdt = x @ p["in_proj"]
-    z, xbc, dt = _split_proj(zxbcdt, d_inner, n_state)
+    z, xbc, dt = _split_proj(zxbcdt, di, n_state)
     rd = slots.long().clamp(min=0)
     conv_old = conv_state[rd]
     xbc_c, conv_new = causal_conv_step(xbc, conv_old, p["conv_w"],
@@ -262,11 +294,9 @@ def ssm_mixer_step(p: SSMParams, x: torch.Tensor, d_inner: int, n_state: int,
                                      conv_old)
     else:
         conv_state[write_to] = conv_new
-    xs = xbc_c[:, :d_inner].reshape(B, H, head_dim)
-    b = xbc_c[:, d_inner:d_inner + n_state]
-    c = xbc_c[:, d_inner + n_state:]
-    y = ops.ssd_decode_step(xs, dt, p["a_log"], b, c, p["d_skip"],
-                            p["dt_bias"], ssm_state, slots, active)
-    y = y.reshape(B, d_inner)
-    y = rms_norm(y * F.silu(z), p["norm_w"])
-    return y @ p["out_proj"]
+    xs = xbc_c[:, :di].reshape(B, H, head_dim)
+    b = xbc_c[:, di:di + n_state]
+    c = xbc_c[:, di + n_state:]
+    y = ops.ssd_decode_step(xs, dt, a_log, b, c, d_skip, dt_bias, ssm_state,
+                            slots, active)
+    return _gated_out(p, y.reshape(B, di), z, d_inner)

@@ -67,6 +67,38 @@ def test_torch_dryrun_decode_cell_pod(tmp_path):
         rec["argument_size_in_bytes"] < 1.0e9
 
 
+def test_torch_dryrun_ssm_heads_over_model(tmp_path):
+    """mamba2-780m's decode cell on the pod mesh: its 48 SSM heads over 16
+    ranks, 3 a rank. The rank's SSD state is the spec's per-device shape,
+    norm_w and out_proj are the spec's blocks; only in_proj, conv_w/conv_b
+    and the conv tail depart (the rank's heads with B and C whole, where
+    the spec cuts contiguous blocks). Per layer the norm's sums of squares
+    and out_proj's partial sum are all-reduced over 'model'."""
+    rec = _run_cell("mamba2-780m", "decode_32k", "pod", tmp_path)
+    assert rec["status"] == "ok", rec.get("error")
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    with make_production_mesh() as mesh:
+        cell = D.build_cell(get_config("mamba2-780m"),
+                            get_shape("decode_32k"), mesh)
+        spec = D.spec_shape(cell.whole["cache"]["ssm"].shape,
+                            cell.specs["cache"]["ssm"], mesh)
+    assert tuple(cell.tree["cache"]["ssm"].shape) == spec == (
+        48, 8, 3, 64, 128)
+    named = sorted(d.split(":")[0] for d in rec["departures"])
+    assert named == ["cache.conv", "params.blocks.ssm.conv_b",
+                     "params.blocks.ssm.conv_w", "params.blocks.ssm.in_proj"]
+    # 2,027,315,776 bytes a rank with the SSM whole; JAX's specs hold
+    # 136,077,376
+    assert rec["argument_size_in_bytes_spec"] == 136_077_376
+    assert rec["argument_size_in_bytes_spec"] < \
+        rec["argument_size_in_bytes"] < 0.25e9
+    # two a layer, and the vocabulary-cut embedding's one
+    assert rec["collectives"]["n_all-reduce"] == 2 * 48 + 1
+    assert rec["collectives"]["n_all-gather"] == 2
+
+
 def test_torch_dryrun_multipod(tmp_path):
     rec = _run_cell("smollm-360m", "decode_32k", "multipod", tmp_path)
     assert rec["status"] == "ok", rec.get("error")

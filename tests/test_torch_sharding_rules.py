@@ -231,3 +231,80 @@ def test_local_params_cut_whole_params(ways, kv):
             for r, p in enumerate(parts):
                 kv0 = TS.head_slab(cfg, ways, r)[2]
                 assert torch.equal(p, w[..., kv0 * hd:(kv0 + 1) * hd]), path
+
+
+@pytest.mark.parametrize("ways", [1, 2, 4, 16, 3])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_ssm_head_slabs_cut_whole_params(arch, ways):
+    """The SSM cut by heads (reduced: 16 heads; 3 do not divide them, and
+    every SSM leaf stays whole): each rank's in_proj holds its [z | x | B
+    | C | dt] columns and conv_w/conv_b its [x | B | C] channels, so the
+    ranks' z, x and dt side by side, with B and C once (the same on every
+    rank), give back the whole leaf; norm_w and out_proj put back along
+    their cut; a_log, d_skip, dt_bias whole; init_params(cut=) draws
+    exactly each slab."""
+    cfg = get_config(arch).reduced()
+    di, N, H = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+    full = TM.init_params(cfg, seed=7, device="cpu")["blocks"]["ssm"]
+    cuts = TS.serving_cuts(cfg, ways)["blocks"]["ssm"]
+    meshes = [fake_mesh((1, ways), r) for r in range(ways)]
+    slabs = [TS.local_params(cfg, {"blocks": {"ssm": full}}, m)["blocks"]
+             ["ssm"] for m in meshes]
+    for m, slab in zip(meshes, slabs):
+        drawn = TM.init_params(cfg, seed=7, device="cpu",
+                               cut=TS.cutter(cfg, m))["blocks"]["ssm"]
+        for k in full:
+            assert torch.equal(drawn[k], slab[k]), k
+    if H % ways:
+        assert not TS.ssm_split(cfg, ways)
+        assert set(cuts.values()) == {None}
+        assert all(torch.equal(s[k], full[k]) for s in slabs for k in full)
+        return
+    assert TS.ssm_split(cfg, ways)
+    n, h = di // ways, H // ways
+    for k in ("a_log", "d_skip", "dt_bias"):
+        assert cuts[k] is None and all(torch.equal(s[k], full[k])
+                                       for s in slabs), k
+    for k, dim in (("norm_w", -1), ("out_proj", -2)):
+        assert cuts[k] == (dim, "model")
+        assert torch.equal(torch.cat([s[k] for s in slabs], dim), full[k])
+    # in_proj: [z | x | B | C | dt] a rank
+    w = [s["in_proj"] for s in slabs]
+    assert all(x.shape[-1] == 2 * n + 2 * N + h for x in w)
+    assert all(torch.equal(x[..., 2 * n:2 * n + 2 * N], w[0][..., 2 * n:
+                                                           2 * n + 2 * N])
+               for x in w)
+    whole = torch.cat([x[..., :n] for x in w] + [x[..., n:2 * n] for x in w]
+                      + [w[0][..., 2 * n:2 * n + 2 * N]]
+                      + [x[..., 2 * n + 2 * N:] for x in w], -1)
+    assert torch.equal(whole, full["in_proj"])
+    # conv_w [L, C, K] and conv_b [L, C]: [x | B | C] a rank
+    for k, dim in (("conv_w", -2), ("conv_b", -1)):
+        assert cuts[k] == (dim, "ssm_heads")
+        c = [s[k].movedim(dim, -1) for s in slabs]
+        assert all(torch.equal(x[..., n:], c[0][..., n:]) for x in c)
+        whole = torch.cat([x[..., :n] for x in c] + [c[0][..., n:]], -1)
+        assert torch.equal(whole.movedim(-1, dim), full[k]), k
+
+
+@pytest.mark.parametrize("ways", [2, 4, 16])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_ssm_layout_follows_param_specs(arch, ways):
+    """At full width the SSM group follows param_specs(train=False) where
+    the spec cuts whole heads (norm_w, out_proj by d_inner's blocks; a_log,
+    d_skip, dt_bias whole) and departs only where it cuts d_in_proj and
+    conv_dim in blocks that split heads (in_proj, conv_w, conv_b: the
+    rank's heads with B and C whole); where 'model' does not divide the
+    heads (hymba's 50 over 4 and 16) every SSM leaf stays whole."""
+    cfg = get_config(arch)
+    spec = TS.param_specs(cfg, fake_mesh((1, ways)), False)["blocks"]["ssm"]
+    got = cut_specs(cfg, ways)["blocks"]["ssm"]
+    split = cfg.ssm_heads % ways == 0
+    assert TS.ssm_split(cfg, ways) == split
+    for k, s in got.items():
+        if not split:
+            assert set(s) == {None}, k
+        elif k in ("in_proj", "conv_w", "conv_b"):
+            assert "ssm_heads" in s and s != spec[k], k
+        else:
+            assert s == spec[k], k

@@ -13,9 +13,10 @@ run here on the same weights (JAX's ``init_params`` through
 (``helpers.ATOL``, fp32) on every rank, greedy streams identical, each
 rank's cache after the prefill and after the last step equal to the
 slice of JAX's cache that JAX's own ``cache_specs`` gives its
-coordinates (the SSM state and conv tail on the rank's rows with whole
-heads: the port's named departure; positions exact, K/V and states by
-the slot tests' cache measure), no JAX module in any rank.
+coordinates (the SSM state on the rank's heads as the spec cuts it; the
+conv tail on the rank's ``[x | B | C]`` channels, the port's named
+departure, where the spec cuts contiguous blocks; positions exact, K/V
+and states by the slot tests' cache measure), no JAX module in any rank.
 
 Layouts: smollm with 6 query / 2 KV heads over (1, 2) (heads cut by KV
 slab, the ring cut in two) and over (1, 4) (heads whole: 6 do not
@@ -25,11 +26,16 @@ on a 50-slot one that 'model' does not divide (every rank the whole
 sequence); mamba2 over (2, 1) (rows only) and smollm with a batch of 3
 over (2, 1) (the groups do not divide it: nothing split); granite-moe
 (experts over 'model', rows over 'data') and hymba (two 65-token
-prompts into its 64-slot window ring, cut in two, a row a data group)
-over (2, 2).
+prompts into its 64-slot window ring, cut in two, a row a data group;
+its 16 SSM heads 8 a rank) over (2, 2). The SSM mixer cut by heads
+(``launch.sharding.ssm_split``): mamba2's 16 heads over (1, 2) and
+(1, 4), hymba's over (1, 4) (its attention in the kv_group layout), and
+a mamba2 of 6 heads (d_model 192, heads of 64) over (1, 4), which 'model'
+does not divide: every head on every rank.
 One 2-rank and one 4-rank group, each spawned once, run every case of
 their world. Also: ``local_cache`` and ``gather_cache`` against JAX's
-specs at the production meshes' shapes.
+specs at the production meshes' shapes, and the SSM mixer under a
+one-rank context (the collective path) against the mixer without one.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ CFGS = {
     "mamba2": ("mamba2-780m", {}),
     "granite": ("granite-moe-3b-a800m", {}),
     "hymba": ("hymba-1.5b", {}),
+    "mamba2-6h": ("mamba2-780m", dict(d_model=192, ssm_head_dim=64)),
 }
 # case -> (ranks, (data, model), config, batch, prompt length, buf_len)
 CASES = {
@@ -66,6 +73,14 @@ CASES = {
     "edge-1x4": (4, (1, 4), "edge82", 4, 20, 64),
     "edge-1x4-buf50": (4, (1, 4), "edge82", 4, 20, 50),
     "smollm-1x4": (4, (1, 4), "smollm62", 4, 20, 64),
+    # the SSM cut by heads: 4 prompts of 16 tokens (at mamba2-2x1's 4 of
+    # 20 the single-device port already lands 9.66e-6 from JAX, and
+    # mamba2-1x4's four partial sums of out_proj and of the norm's squares
+    # add 2.6e-6 to it, 1.013e-5 in all: fp32 order, ROADMAP.md Queue C)
+    "mamba2-1x2": (2, (1, 2), "mamba2", 4, 16, 64),
+    "mamba2-1x4": (4, (1, 4), "mamba2", 4, 16, 64),
+    "hymba-1x4": (4, (1, 4), "hymba", 4, 16, 64),
+    "mamba2-6h-1x4": (4, (1, 4), "mamba2-6h", 4, 16, 64),
 }
 
 
@@ -211,12 +226,15 @@ def _jax_run(weights, case):
 
 def _spec_part(cfg, key, arr, shape, coords, batch, buf_len):
     """The part of a whole cache leaf that JAX's ``cache_specs`` gives the
-    device at ``coords`` of a mesh of ``shape`` (the SSM heads whole)."""
+    device at ``coords`` of a mesh of ``shape``, but the conv tail's
+    channels over 'model': where 'model' divides the SSM heads, the x
+    channels of the rank's heads, then the whole B and C (the port's
+    named departure), else every channel."""
     from repro.launch.sharding import cache_specs
     mesh = types.SimpleNamespace(shape=dict(shape), axis_names=tuple(shape))
     spec = cache_specs(cfg, mesh, batch, buf_len=buf_len)[key]
     for dim, axes in enumerate(spec):
-        if axes is None or (axes == "model" and key in ("ssm", "conv")):
+        if axes is None or (axes == "model" and key == "conv"):
             continue
         names = (axes,) if isinstance(axes, str) else tuple(axes)
         ways = math.prod(shape[a] for a in names)
@@ -225,6 +243,12 @@ def _spec_part(cfg, key, arr, shape, coords, batch, buf_len):
             index = index * shape[a] + coords[a]
         n = arr.shape[dim] // ways
         arr = np.take(arr, np.arange(index * n, (index + 1) * n), axis=dim)
+    ways = shape["model"]
+    if key == "conv" and cfg.ssm_heads % ways == 0:
+        di, r = cfg.ssm_inner, coords["model"]
+        n = di // ways
+        arr = np.take(arr, np.r_[r * n:(r + 1) * n,
+                                 di:di + 2 * cfg.ssm_state], axis=2)
     return arr
 
 
@@ -279,17 +303,30 @@ def test_four_ranks_match_jax(weights, ranks4, case):
 
 
 def test_ranks_hold_their_part_only(ranks2, ranks4):
-    """What each layout cuts: hymba's ring of 64 to 32 slots and its batch
-    of 2 to 1 row; the 50-slot ring kept whole over 4; edge-6b's rank
-    holds both KV heads (its weights one); the batch of 3 whole over 2
-    data groups."""
+    """What each layout cuts: hymba's ring of 64 to 32 slots, its batch
+    of 2 to 1 row and its 16 SSM heads to 8; the 50-slot ring kept whole
+    over 4; edge-6b's rank holds both KV heads (its weights one); the
+    batch of 3 whole over 2 data groups; mamba2's 16 SSM heads whole over
+    (2, 1), 8 a rank over (1, 2) and 4 over (1, 4), each with its x
+    channels of the conv tail and the whole B and C (N = 16 each); 6
+    heads whole over 4."""
     hymba = ranks4[0]["hymba-2x2"]["cache"]
     assert hymba["k"].shape == (2, 1, 1, 32, 32)
-    assert hymba["ssm"].shape[1] == 1 and hymba["length"].shape == (1,)
+    assert hymba["ssm"].shape == (2, 1, 8, 32, 16)
+    assert hymba["length"].shape == (1,)
     assert ranks4[1]["edge-1x4-buf50"]["cache"]["k"].shape == (2, 4, 2, 50, 32)
     assert ranks4[3]["edge-1x4"]["cache"]["kv_pos"].shape == (4, 16)
     assert ranks2[1]["smollm-2x1-b3"]["cache"]["k"].shape == (2, 3, 2, 64, 32)
-    assert ranks2[1]["mamba2-2x1"]["cache"]["ssm"].shape[1] == 2
+    assert ranks2[1]["mamba2-2x1"]["cache"]["ssm"].shape == (2, 2, 16, 32, 16)
+    for ranks, case, heads in ((ranks2, "mamba2-1x2", 8),
+                               (ranks4, "mamba2-1x4", 4),
+                               (ranks4, "hymba-1x4", 4),
+                               (ranks4, "mamba2-6h-1x4", 6)):
+        for res in ranks:
+            cache = res[case]["cache"]
+            P = cache["ssm"].shape[3]
+            assert cache["ssm"].shape == (2, 4, heads, P, 16), case
+            assert cache["conv"].shape == (2, 4, heads * P + 32, 3), case
 
 
 # ------------------------------------------------ local_cache, gather_cache
@@ -299,12 +336,20 @@ def test_ranks_hold_their_part_only(ranks2, ranks4):
     ("hymba-1.5b", {"pod": 2, "data": 16, "model": 16}, 64, 1024),
     ("mamba2-780m", {"data": 2, "model": 2}, 4, 64),
     ("edge-6b", {"data": 2, "model": 4}, 3, 50),
+    ("mamba2-780m", {"data": 1, "model": 2}, 4, 64),
+    ("mamba2-780m", {"data": 1, "model": 4}, 4, 64),
+    ("mamba2-780m", {"data": 16, "model": 16}, 32, 64),
+    ("hymba-1.5b", {"data": 1, "model": 2}, 4, 64),
+    ("hymba-1.5b", {"data": 1, "model": 4}, 4, 64),
+    ("hymba-1.5b", {"data": 16, "model": 16}, 32, 64),
 ])
 def test_local_cache_is_jax_spec_part(arch, shape, batch, buf_len):
     """``local_cache`` of a whole cache at a few coordinates is JAX's
-    ``cache_specs`` part (with the SSM heads whole), and ``gather_cache``
-    of every coordinate's part is the whole again. Reduced widths, the
-    production meshes' shapes, batches and rings."""
+    ``cache_specs`` part (the conv tail's channels the port's ``[x | B |
+    C]`` of the rank's SSM heads), and ``gather_cache`` of every
+    coordinate's part is the whole again. Reduced widths (16 SSM heads:
+    one a rank over 16), the production meshes' shapes, batches and
+    rings."""
     from repro.configs import get_config as jax_config
     from repro_torch.configs import get_config
     from repro_torch.launch import sharding as SH
@@ -344,3 +389,80 @@ def test_model_functions_unchanged_without_a_context():
     out = torch.ones(2, 3, 4)
     assert P.seq_slice(64) is None and P.batch_rows(4) is None
     assert P.combine_model_lse(out, torch.zeros(2, 3)) is out
+
+
+def test_ssm_mixer_one_rank_context_is_the_mixer(tmp_path):
+    """Under a one-rank context (a gloo group of one process) the mixer
+    cuts its heads into one slab and takes the collective path (the gated
+    norm and out_proj through ``partitioning.rms_norm_out_model``, two
+    all-reduces a call): its output, final state and conv tail, and the
+    in-place decode step's output and arenas, equal the mixer's without
+    a context at 1e-6 (reduced mamba2, fp32)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.models import partitioning as P
+    from repro_torch.models import ssm as SSM
+    cfg = get_config("mamba2-780m").reduced()
+    params = TM.init_params(cfg, seed=5, device="cpu")
+    p = {k: v[1] for k, v in params["blocks"]["ssm"].items()}
+    # the zero-initialised norm weight and conv bias, drawn instead
+    g = torch.Generator().manual_seed(6)
+    p["norm_w"] = 0.3 * torch.randn(p["norm_w"].shape, generator=g)
+    p["conv_b"] = 0.3 * torch.randn(p["conv_b"].shape, generator=g)
+    x = torch.randn(3, 21, cfg.d_model, generator=g)
+    xt = torch.randn(3, cfg.d_model, generator=g)
+    dims = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim)
+    slots = torch.arange(3, dtype=torch.int32)
+    active = torch.tensor([True, False, True])
+
+    def run():
+        y, h, conv = SSM.ssm_mixer_with_state(p, x, *dims)
+        hs, cs = h.clone(), conv.clone()
+        yt = SSM.ssm_mixer_step(p, xt, *dims, hs, cs, slots, active)
+        return y, h, conv, yt, hs, cs
+
+    want = run()
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_serving_mesh(data=1, model=1)
+        seen = []
+        with P.activation_partitioning(mesh, SH.cut_leaves(cfg, 1)), \
+                P.recording(lambda *a: seen.append(a[:2])):
+            assert P.cut("ssm.out_proj") and P.cut("ssm.in_proj")
+            got = run()
+    finally:
+        dist.destroy_process_group()
+    assert seen == [("all-reduce", "model")] * 4
+    for name, a, b in zip(("y", "state", "conv", "step y", "step state",
+                           "step conv"), got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_margins_cli_on_the_cpu(capsys):
+    """``launch.slot_mesh_margins`` (the card's measurement of how far a
+    mesh lands from one process, by cut leaves, and of one process against
+    a reordering of its own sums) runs on the CPU at a reduced size: a
+    line for the reordered single process and one for each variant, every
+    rank alike, each within 1e-4."""
+    import re
+    from repro_torch.launch import slot_mesh_margins
+    slot_mesh_margins.main([
+        "--arch", "hymba-1.5b", "--reduced", "--device", "cpu", "--mesh",
+        "1,2", "--layers", "2", "--batch", "2", "--prompt", "24", "--buf",
+        "64", "--steps", "2", "--variants", "all,ssm,none", "--reorder",
+        "100"])
+    out = capsys.readouterr().out
+    assert "2 layers, one process, out_proj's product cut at 100" in out
+    for v in ("all", "ssm", "none"):
+        line = next(x for x in out.splitlines()
+                    if x.startswith(f"2 layers, mesh, cut {v}:"))
+        assert line.endswith("every rank alike"), line
+        err = float(re.search(r"max_abs_err=(\S+) ", line).group(1))
+        assert err < 1e-4, line
