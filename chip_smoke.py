@@ -2753,6 +2753,7 @@ def mesh_serve_phase():
                   f"kv={res['heads'][1]} (KV head {res['heads'][2]}), "
                   f"{res['experts']} experts, l(b) "
                   f"{' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probes'])}"
+                  f" (read: {' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probe_read'])})"
                   f", engine clock {res['end_ms']:.1f} ms over "
                   f"{res['decode_iters']} decode steps and {res['prefills']} "
                   f"prefills ({data * model} ranks sharing one H100 over "
@@ -3660,7 +3661,8 @@ def dryrun_phase():
     on the pod mesh, decode_32k on the multipod
     mesh, hubert-xlarge's decode (a skip), mamba2-780m's decode_32k on the
     pod mesh (its SSM cut by heads: cache.ssm must not depart from the
-    spec); each record must be ok (a skip
+    spec; no train or encoder step may run unsharded, a "train:" or
+    "forward" departure); each record must be ok (a skip
     where JAX skips) and no subprocess may import JAX. Then the roofline
     table of the pod records (python -m repro_torch.launch.roofline).
     Then the card check: build_cell and count_cell at the shapes of the
@@ -3708,6 +3710,10 @@ def dryrun_phase():
                        for d in rec["departures"]):
                     fail(f"dryrun {name}: the SSD state departs from its "
                          f"spec: {rec['departures']}")
+                if any(d.startswith(("train:", "forward"))
+                       for d in rec["departures"]):
+                    fail(f"dryrun {name}: the step runs unsharded: "
+                         f"{rec['departures']}")
         print(run_python("-m", "repro_torch.launch.roofline", "--dir", out,
                          "--out", os.path.join(out, "roofline")).strip())
     rows = []
@@ -4083,6 +4089,252 @@ def train_phase():
     print(json.dumps({"train": rows, "card": card}), flush=True)
 
 
+# (a) of train-mesh: (arch, layers kept, batch, sequence, steps, mesh);
+# then the same at full depth, its errors printed
+TRAIN_MESH = ("smollm-360m", 4, 8, 256, 3, (2, 2))
+TRAIN_MESH_DEEP = ("smollm-360m", None, 8, 256, 1, (2, 2))
+# (b): hubert-xlarge's forward with 8 of its 48 layers, B x S frames
+FORWARD_MESH = ("hubert-xlarge", 8, 4, 512, (1, 2))
+TRAIN_MESH_LR = 1e-3
+
+
+def _train_cfg(arch, layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def train_mesh_rank(rank, arch, layers, B, S, steps, shape):
+    """A rank of train-mesh (a): ``arch`` at full width in fp32 (TF32
+    off) on its shards of a ``shape`` (data, model) mesh over gloo on the
+    one card, beside the one-process trainer from the same weights. Each
+    step starts the mesh from the one process's state (its shards of
+    params, mu and nu), then both take the step on the same batch (the
+    rank its rows). Returns per step the two losses and grad norms, the
+    largest |mesh - one process| of the updated params where the one
+    process's gradient is at least 1e-3 of its leaf's largest (there the
+    gradient fixes the update: AdamW moves a component whose gradient is
+    near 0 by up to lr whatever its last bits say), the largest excess
+    elsewhere over two diverging AdamW steps' bound, 2 lr (1 + wd |p|),
+    and the largest over every component; the rank's seconds and any JAX
+    module."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (shape[0]
+                                                             * shape[1])))
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.trainer import (local_batch, make_train_step,
+                                              step_grads)
+    mesh = make_serving_mesh(data=shape[0], model=shape[1],
+                             device=torch.device("cuda", 0))
+    cfg = _train_cfg(arch, layers)
+    kw = dict(peak_lr=TRAIN_MESH_LR, warmup=1, total=10, device="cuda")
+    weights = M.init_params(cfg, seed=0, device="cuda")
+    init_one, step_one = make_train_step(cfg, **kw)
+    one = init_one(weights)
+    init_mesh, step_mesh = make_train_step(cfg, mesh=mesh, **kw)
+    mine = init_mesh(weights)
+    del weights
+    opts = M.ModelOptions(remat=True)
+
+    def flat(tree):
+        return dict(zip(leaf_names(tree), leaves(tree)))
+
+    out = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        batch = train_batch(cfg, B, S, "cuda", 10 + i)
+        with torch.no_grad():
+            for a, b in ((mine[0], one[0]), (mine[1].mu, one[1].mu),
+                         (mine[1].nu, one[1].nu)):
+                want = flat(SH.local_train_params(cfg, b, mesh))
+                for k, v in flat(a).items():
+                    v.copy_(want[k])
+            mine[1].step.copy_(one[1].step)
+        p0 = {k: v.detach().clone() for k, v in flat(mine[0]).items()}
+        _, grads, _ = step_grads(cfg, one[0], batch, opts)
+        g = flat(SH.local_train_params(cfg, grads, mesh))
+        g_max = {k: float(v.abs().max()) for k, v in flat(grads).items()}
+        del grads
+        one, m_one = step_one(one, batch)
+        mine, m_mesh = step_mesh(mine, local_batch(batch, mesh))
+        big_err = over = all_err = 0.0
+        with torch.no_grad():
+            p_one = flat(SH.local_train_params(cfg, one[0], mesh))
+            for k, p in flat(mine[0]).items():
+                d = (p - p_one[k]).abs()
+                all_err = max(all_err, float(d.max()))
+                big = g[k].abs() >= 1e-3 * g_max[k]
+                if big.any():
+                    big_err = max(big_err, float(d[big].max()))
+                bound = 2 * TRAIN_MESH_LR * (1 + 0.1 * p0[k].abs()) + MESH_TOL
+                over = max(over, float((d - bound).max()))
+        out.append({"loss": (float(m_mesh["loss"]), float(m_one["loss"])),
+                    "norm": (float(m_mesh["grad_norm"]),
+                             float(m_one["grad_norm"])),
+                    "big_err": big_err, "over": over, "all_err": all_err})
+    torch.cuda.synchronize()
+    return {"steps": out, "s": time.perf_counter() - t0,
+            "leaked": sorted(m for m in sys.modules if m == "jax"
+                             or m.startswith(("jax.", "repro.")))}
+
+
+def forward_mesh_rank(rank, arch, layers, B, S, shape):
+    """A rank of train-mesh (b): ``arch``'s ``forward`` at full width in
+    fp32 on its serving slab of the weights and its rows of the frames;
+    the largest |mesh - one process| over its rows of the logits (the one
+    process's computed here too) and their largest magnitude."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.partitioning import activation_partitioning
+    mesh = make_serving_mesh(data=shape[0], model=shape[1],
+                             device=torch.device("cuda", 0))
+    cfg = _train_cfg(arch, layers)
+    weights = M.init_params(cfg, seed=0, device="cuda")
+    x = train_batch(cfg, B, S, "cuda", 20)["inputs"] * 0.02
+    n = B // shape[0]
+    rows = slice(mesh.coords["data"] * n, (mesh.coords["data"] + 1) * n)
+    with torch.no_grad():
+        want, _ = M.forward(cfg, weights, x[rows])
+        params = SH.local_params(cfg, weights, mesh)
+        with activation_partitioning(mesh, SH.cut_leaves(cfg, shape[1])):
+            got, _ = M.forward(cfg, params, x[rows])
+    return {"shape": tuple(got.shape),
+            "err": float((got - want).abs().max()),
+            "scale": float(want.abs().max())}
+
+
+def _cli_peaks(out):
+    """The peak memory lines of a training CLI run: one process's (GiB)
+    or every rank's list."""
+    try:
+        for line in out.splitlines():
+            if "peak memory a rank [" in line:
+                return [float(v) for v in line.split("[")[1].split("]")[0]
+                        .split(",")]
+        for line in out.splitlines():
+            if line.startswith("median ") and "peak memory" in line:
+                return [float(line.split("peak memory ")[1].split()[0])]
+    except ValueError:              # "n/a (cpu)"
+        pass
+    return None
+
+
+def train_mesh_phase():
+    """train-mesh: the trainer under FSDP over 'data' x tensor parallelism
+    over 'model' on gloo ranks that share the one H100 (eager, every
+    collective through the host: no tensor-parallel speed is read here).
+    (a) smollm-360m at full width in fp32 with 4 of its 32 layers, B=8,
+    S=256, on a (2, 2) mesh for 3 steps against one process from the same
+    weights and batches: loss within 1e-5 and grad_norm within 1e-4
+    (relative), the params within MESH_TOL where the gradient fixes the
+    update (elsewhere within two diverging AdamW steps); then at full
+    depth for one step, its errors printed. (b) hubert-xlarge's forward
+    with 8 of its 48 layers on (1, 2) within MESH_TOL of one process.
+    (c) The CLI with --mesh-shape 2,2 at full width, each rank's peak
+    memory printed beside one process's."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    card = card_line()
+    rows = []
+    for label, run, check in (("(a)", TRAIN_MESH, True),
+                              ("(a')", TRAIN_MESH_DEEP, False)):
+        arch, layers, B, S, steps, shape = run
+        depth = "every" if layers is None else layers
+        phase(f"train-mesh {label}: {arch} fp32 ({depth} layers) B={B} "
+              f"S={S}, a {shape} mesh of {shape[0] * shape[1]} gloo ranks "
+              "sharing the card, against one process")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(train_mesh_rank, shape[0] * shape[1], run,
+                            backend="gloo", timeout=600)
+        wall = time.perf_counter() - t0
+        worst = {"loss": 0.0, "norm": 0.0, "big_err": 0.0, "over": 0.0,
+                 "all_err": 0.0}
+        for r, res in enumerate(ranks):
+            if res["leaked"]:
+                fail(f"train-mesh rank {r} imported JAX: {res['leaked'][:5]}")
+            for i, st in enumerate(res["steps"]):
+                for key in ("loss", "norm"):
+                    a, b = st[key]
+                    worst[key] = max(worst[key], abs(a - b) / abs(b))
+                for key in ("big_err", "over", "all_err"):
+                    worst[key] = max(worst[key], st[key])
+                if r == 0:
+                    print(f"step {i}: loss {st['loss'][0]:.6f} (one process "
+                          f"{st['loss'][1]:.6f}) grad_norm "
+                          f"{st['norm'][0]:.6f} ({st['norm'][1]:.6f})")
+        print(f"train-mesh {label} on {card}: loss rel err "
+              f"{worst['loss']:.3e} (tol 1e-5), grad_norm rel err "
+              f"{worst['norm']:.3e} (tol 1e-4), params max_abs_err where "
+              f"the gradient fixes the update {worst['big_err']:.3e} (tol "
+              f"{MESH_TOL:g}), excess over two AdamW steps elsewhere "
+              f"{worst['over']:.3e} (tol 0), over every component "
+              f"{worst['all_err']:.3e} (printed); ranks {res['s']:.1f} s of "
+              f"{wall:.1f} s wall{'' if check else ' (printed, not held)'}",
+              flush=True)
+        rows.append({"run": label, "arch": arch, "layers": layers, "B": B,
+                     "S": S, "mesh": list(shape), "wall_s": wall, **worst})
+        if check and (worst["loss"] > 1e-5 or worst["norm"] > 1e-4
+                      or worst["big_err"] > MESH_TOL or worst["over"] > 0):
+            fail(f"train-mesh {label}: the mesh's step differs from one "
+                 "process's")
+    arch, layers, B, S, shape = FORWARD_MESH
+    phase(f"train-mesh (b): {arch} forward ({layers} layers) B={B} S={S} "
+          f"on a {shape} mesh against one process")
+    ranks = spawn_ranks(forward_mesh_rank, shape[0] * shape[1],
+                        FORWARD_MESH, backend="gloo", timeout=600)
+    err = max(res["err"] for res in ranks)
+    print(f"train-mesh (b) on {card}: {arch} forward logits "
+          f"{ranks[0]['shape']} a rank, max_abs_err {err:.3e} (tol "
+          f"{MESH_TOL:g}; |logits| up to {ranks[0]['scale']:.3f})",
+          flush=True)
+    rows.append({"run": "(b)", "arch": arch, "layers": layers, "B": B,
+                 "S": S, "mesh": list(shape), "max_abs_err": err})
+    if not err <= MESH_TOL:
+        fail(f"train-mesh (b): {arch}'s forward on the mesh differs from "
+             f"one process's by {err:.3e}")
+    phase("train-mesh (c): the training CLI at full width, --mesh-shape "
+          "2,2 and one process")
+    peaks = {}
+    for how, extra in (("mesh", ["--mesh-shape", "2,2"]), ("one", [])):
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "smollm-360m", "--steps", "2", "--batch", "8", "--seq", "256"]
+            + extra, cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        print(cli.stdout.strip())
+        print(f"CLI ({how}) exit {cli.returncode} in "
+              f"{time.perf_counter() - t0:.1f}s")
+        peaks[how] = _cli_peaks(cli.stdout)
+        if cli.returncode != 0 or peaks[how] is None:
+            fail(f"the training CLI ({how}) failed: {cli.stderr[-2000:]}")
+        if how == "mesh" and "losses equal on every rank" not in cli.stdout:
+            fail("the training CLI's ranks disagree on the losses")
+    print(f"train-mesh (c) on {card}: peak memory a rank "
+          f"{peaks['mesh']} GiB (4 ranks of (2, 2)) against one process's "
+          f"{peaks['one'][0]} GiB", flush=True)
+    rows.append({"run": "(c)", "peak_gib_ranks": peaks["mesh"],
+                 "peak_gib_one": peaks["one"][0]})
+    print(json.dumps({"train_mesh": rows, "card": card}), flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4120,6 +4372,7 @@ def main() -> None:
     dryrun_phase()
     examples_phase()
     train_phase()
+    train_mesh_phase()
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked:

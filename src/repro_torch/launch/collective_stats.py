@@ -9,16 +9,20 @@ the bytes of the tensor the ranks all-reduce, per device:
 
 - ``reduce_model`` counts as "all-reduce", at the bytes of the partial
   sum;
-- ``gather_model`` and ``gather_data`` count as "all-gather", at the bytes
-  of the full-width buffer that every rank fills with its slab and
-  zeros. On the wire the port's gather is an all-reduce of that buffer
-  (``partitioning._gather``), so these are the bytes that buffer holds,
-  not the bytes of one slab.
+- ``gather_model``, ``gather_data`` and FSDP's ``gather_fsdp`` count as
+  "all-gather", at the bytes of the full-width buffer that every rank
+  fills with its slab and zeros. On the wire the port's gather is an
+  all-reduce of that buffer (``partitioning._gather``), so these are the
+  bytes that buffer holds, not the bytes of one slab;
+- ``gather_fsdp``'s backward counts as "reduce-scatter", at the bytes of
+  the full-width gradient the ranks all-reduce before each keeps its
+  shard; a training step's other sums (``enter_model``'s backward,
+  ``sum_data``, ``sum_grads``) as "all-reduce".
 
 ``stats()`` has ``collective_bytes``' keys: the five kinds, ``n_<kind>``
-(calls) and ``total`` (bytes). The port issues no reduce-scatter,
-all-to-all or collective-permute, so those stay 0. ``by_axis()`` splits
-the bytes by mesh axis ("model", "data"), for the roofline's link rates.
+(calls) and ``total`` (bytes). The port issues no all-to-all or
+collective-permute, so those stay 0. ``by_axis()`` splits the bytes by
+mesh axis ("model", "data", "pod"), for the roofline's link rates.
 """
 from __future__ import annotations
 

@@ -10,7 +10,10 @@ rank, so a cell is rank 0's program: its slab of the weights
 (``launch.sharding.local_params``, the serving layout), its part of the
 cache and inputs (``launch.sharding.local_cache``: the rows of a batch
 split over ('pod', 'data'), the slots of a ring cut over 'model'; JAX's
-``cache_specs`` and ``batch_spec``), and the step run under
+``cache_specs`` and ``batch_spec``), in a train cell its shards of the
+params and AdamW moments (``launch.sharding.local_train_params``: FSDP
+over 'data' as ``param_specs(train=True)``, the serving slabs over
+'model') and its rows of the batch, and the step run under
 ``models.partitioning``'s ``activation_partitioning`` over
 ``launch.mesh.make_production_mesh``, whose collectives are a fake
 process group's. Meta tensors hold no data, so a cell takes seconds
@@ -42,8 +45,9 @@ A record has JAX's keys where the port has a meaning for them:
   the specs say (the whole-head layouts of ``launch.sharding``: attention
   weights where the spec splits inside a head, the SSM's in_proj, conv
   weights and conv tail by the rank's heads with B and C whole, every SSM
-  leaf where 'model' does not divide the heads; the trainer's and the
-  encoder forward's unsharded steps);
+  leaf where 'model' does not divide the heads; in a train cell the same
+  leaves of the params and of mu and nu, and a leaf whose model slab
+  does not divide over 'data' where the spec cuts it);
 - ``run_s``, in place of ``lower_s`` and ``compile_s``. JAX's
   ``generated_code_size_in_bytes``, ``temp_size_in_bytes`` and
   ``hlo_bytes`` have no counterpart and are left out.
@@ -128,8 +132,11 @@ class Cell:
 def build_cell(cfg: ArchConfig, shape: InputShape, mesh,
                opts: Optional[M.ModelOptions] = None) -> Cell:
     """The step of this shape's kind for rank 0 of ``mesh``: train
-    (``make_train_step`` with AdamW, one step), prefill (``prefill``, or
-    ``forward`` for encoder-only archs) or slot ``decode_step``."""
+    (``make_train_step(mesh=mesh)`` with AdamW, one step, on the rank's
+    shards of the params and moments, ``param_specs(train=True)``'s and
+    ``opt_state_specs``' layout, and its rows of the batch), prefill
+    (``prefill``, or ``forward`` for encoder-only archs, on the rank's
+    slab and rows) or slot ``decode_step``."""
     opts = opts or M.ModelOptions(remat=(shape.kind == "train"))
     B = shape.global_batch
     whole = SP.param_specs_struct(cfg)
@@ -139,44 +146,40 @@ def build_cell(cfg: ArchConfig, shape: InputShape, mesh,
 
     if train:
         from repro_torch.training.trainer import make_train_step
-        init_state, train_step = make_train_step(cfg, opts, device="meta")
+        init_state, train_step = make_train_step(cfg, opts, device="meta",
+                                                 mesh=mesh)
         params, opt = init_state(whole, dtype=SP.PARAM_DTYPE)
+        ins = SP.input_specs(cfg, shape, mesh=mesh)
         batch = {"inputs": ins["inputs"], "labels": ins["labels"]}
         o_spec = SH.opt_state_specs(p_spec)
-        tree = {"params": params, "opt": {"step": opt.step, "mu": opt.mu,
-                                          "nu": opt.nu}, **batch}
-        full = {"params": whole, "opt": {"step": opt.step, "mu": opt.mu,
-                                         "nu": opt.nu}, **batch}
+        opt_tree = {"step": opt.step, "mu": opt.mu, "nu": opt.nu}
+        tree = {"params": params, "opt": opt_tree, **batch}
+        moments = SP.param_specs_struct(cfg, torch.float32)
+        full = {"params": whole, "opt": {"step": opt.step, "mu": moments,
+                                         "nu": moments},
+                "inputs": whole_ins["inputs"], "labels": whole_ins["labels"]}
         specs = {"params": p_spec, "opt": {"step": o_spec.step,
                                            "mu": o_spec.mu, "nu": o_spec.nu},
                  "inputs": SH.batch_spec(mesh, B, batch["inputs"].ndim),
                  "labels": SH.batch_spec(mesh, B, 2)}
-        notes = ["train: the port's trainer runs on one device (no FSDP "
-                 "over 'data', no tensor parallelism over 'model'): every "
-                 "device computes the whole step on the whole batch"]
-        return Cell(train_step, ((params, opt), batch), frozenset(), True,
-                    tree, full, specs, notes)
+        return Cell(train_step, ((params, opt), batch),
+                    SH.cut_leaves(cfg, mesh.shape["model"]), True, tree,
+                    full, specs, [])
 
     ways = mesh.shape["model"]
     if shape.kind == "prefill":
         x_spec = SH.batch_spec(mesh, B, ins["inputs"].ndim)
+        params = SH.local_params(cfg, whole, mesh)
+        ins = SP.input_specs(cfg, shape, mesh=mesh)
         if cfg.is_encoder_only:
             fn = lambda p, x: M.forward(cfg, p, x, opts)[0]  # noqa: E731
-            params, cut = whole, frozenset()
-            notes = ["forward (encoder-only prefill) runs on whole weights "
-                     "and the whole batch: the training forward has no "
-                     "tensor-parallel layout"]
         else:
             fn = lambda p, x: M.prefill(  # noqa: E731
                 cfg, p, x, buf_len=shape.seq_len, batch=B)
-            params = SH.local_params(cfg, whole, mesh)
-            cut = SH.cut_leaves(cfg, ways)
-            ins = SP.input_specs(cfg, shape, mesh=mesh)
-            notes = []
-        return Cell(fn, (params, ins["inputs"]), cut, False,
-                    {"params": params, "inputs": ins["inputs"]},
+        return Cell(fn, (params, ins["inputs"]), SH.cut_leaves(cfg, ways),
+                    False, {"params": params, "inputs": ins["inputs"]},
                     {"params": whole, "inputs": whole_ins["inputs"]},
-                    {"params": p_spec, "inputs": x_spec}, notes)
+                    {"params": p_spec, "inputs": x_spec}, [])
 
     if shape.kind == "decode":
         buf = SP.decode_buf_len(cfg, shape)

@@ -43,7 +43,8 @@ class ServingMesh:
     place on each axis (rank = data * model_size + model). ``model_group``
     is the process group of the ranks that share this rank's data index
     (the model's collectives), ``data_group`` that of the ranks that share
-    its model index (the gathers of a batch split over 'data'), and
+    its model index (the gathers of a batch split over 'data', and FSDP's
+    shards of a training step: ``fsdp_group`` is that group too), and
     ``data_cpu_group`` a gloo twin of it for host tensors (the group
     itself under gloo). ``world_cpu_group`` is a gloo group of every rank:
     every rank runs the same control plane, so ``agree``, ``check_same``
@@ -61,6 +62,7 @@ class ServingMesh:
         self.rank = rank
         self.model_group = model_group
         self.data_group = data_group
+        self.fsdp_group = data_group
         self.data_cpu_group = data_cpu_group
         self.world_cpu_group = world_cpu_group
         self.device = torch.device(device)
@@ -147,7 +149,9 @@ class StandInMesh:
     are groups of a process group of the "fake" backend
     (``torch.testing._internal.distributed.fake_pg``, which ships with
     PyTorch): its collectives return at once and move nothing, which is
-    what a dry-run on meta tensors needs. The mesh inits that group when
+    what a dry-run on meta tensors needs. ``fsdp_group`` (rank 0's ranks
+    over 'data' alone, FSDP's shards) and, with a 'pod' axis,
+    ``pod_group`` (over 'pod' alone) serve a training step. The mesh inits that group when
     it is made and destroys it at ``close()`` (or the end of a ``with``
     block)."""
 
@@ -166,6 +170,11 @@ class StandInMesh:
                                 world_size=n)
         self.model_group = dist.new_group(list(range(model)))
         self.data_group = dist.new_group(list(range(0, n, model)))
+        self.fsdp_group = self.data_group
+        if "pod" in shape:
+            pod_size = n // shape["pod"]
+            self.fsdp_group = dist.new_group(list(range(0, pod_size, model)))
+            self.pod_group = dist.new_group(list(range(0, n, pod_size)))
 
     def close(self) -> None:
         if dist.is_initialized():

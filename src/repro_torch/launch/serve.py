@@ -272,7 +272,14 @@ def _slice_scheduler(lat, args, page_budget=None,
 
 
 def _curve(ex) -> str:
-    return " ".join(f"l({b})={ms:.3f}ms" for b, ms in ex.probe_samples)
+    """The probed l(b) curve, with the samples as read where they fell
+    (``serving.executor.monotone_samples``)."""
+    def line(samples):
+        return " ".join(f"l({b})={ms:.3f}ms" for b, ms in samples)
+    out = line(ex.probe_samples)
+    if ex.probe_read != ex.probe_samples:
+        out += f" (read: {line(ex.probe_read)})"
+    return out
 
 
 def _make_trace(args) -> Optional[TraceRecorder]:
@@ -499,6 +506,7 @@ def _serve_rank(rank: int, args: argparse.Namespace, cfg,
             "experts": 0 if moe is None else moe["wg"].shape[1],
             "digest": ex.digest, "digests": digests,
             "launches": dict(ops.LAUNCHES), "probes": list(run.probes),
+            "probe_read": list(ex.probe_read),
             "end_ms": res.end_ms, "n_tasks": len(res.tasks),
             "tasks": [(t.prompt_len, t.output_len) for t in res.tasks],
             "unfinished": [t.task_id for t in res.tasks

@@ -74,12 +74,24 @@ rows, an expert slab's or a d_ff slab's share of the MoE combine) or a
 slab of the output (the vocabulary); ``models.partitioning`` puts the
 whole together. ``cut_leaves`` names a group's leaves by their path in the
 group ("moe.wd"), so a dense MLP's "wd" and an MoE's never meet.
+
+The training layout (``train_cuts``, ``local_train_params``,
+``gather_train_params``) is what a rank of
+``training.trainer.make_train_step(mesh=...)`` holds of the params and
+of mu and nu: the serving layout's slab over 'model', then, over
+'data', its block of the dim that ``param_specs(train=True)`` cuts there
+(FSDP), wherever the slab's length of that dim divides (a whole head's
+slab of a dim the spec cuts inside heads may not: that leaf stays whole
+over 'data', a departure by leaf). After the backward,
+``reduce_train_grads`` sums the gradients of what several ranks hold
+copies of, and ``counted_parts`` names what a rank counts in the whole
+gradient's norm.
 """
 from __future__ import annotations
 
 import math
 import types
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +99,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import batch_axes, batch_ways
 from repro_torch.models import ssm as SSM
+from repro_torch.models.model import param_shapes
 
 Spec = Tuple[Any, ...]
 # a serving cut: (dim, how) with how "model" (one of `ways` equal blocks,
@@ -420,19 +433,29 @@ def serving_cuts(cfg: ArchConfig, ways: int) -> Dict[str, Any]:
     return out
 
 
+def _paths(tree, prefix=""):
+    """(dotted path, leaf) pairs of a tree shaped as init_params'."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def _name(path: str) -> str:
+    """A leaf's name from its dotted path: a top-level or block leaf by
+    its name, a group's by its path in the group ("moe.wd"), the names
+    ``models.partitioning`` reads (``cut_leaves``, ``TrainLayout.fsdp``)."""
+    return path.removeprefix("blocks.")
+
+
 def cut_leaves(cfg: ArchConfig, ways: int) -> frozenset:
     """Names of the leaves cut over ``ways`` model ranks, for
     ``models.partitioning.activation_partitioning``: a top-level or block
     leaf by its name ("wd"), a group's by its path in the group
     ("moe.wd")."""
-    def names(node, prefix):
-        for k, v in node.items():
-            if isinstance(v, dict):
-                yield from names(v, prefix if k == "blocks"
-                                 else f"{prefix}{k}.")
-            elif v is not None:
-                yield prefix + k
-    return frozenset(names(serving_cuts(cfg, ways), ""))
+    return frozenset(_name(path) for path, c in _paths(serving_cuts(cfg, ways))
+                     if c is not None)
 
 
 def cutter(cfg: ArchConfig, mesh) -> Callable[[str, torch.Tensor],
@@ -473,10 +496,272 @@ def local_params(cfg: ArchConfig, params: Dict[str, Any],
     """This rank's slab of whole parameters (the counterpart of
     ``jax.device_put(params, to_shardings(mesh, param_specs(...)))``, with
     the serving layout above); the whole params can be freed after."""
-    cut = cutter(cfg, mesh)
+    return _cut_tree(params, cutter(cfg, mesh))
 
+
+def _cut_tree(params: Dict[str, Any], cut) -> Dict[str, Any]:
+    """``params`` with ``cut(path, leaf)`` in place of each leaf."""
     def walk(node, prefix):
         return {k: walk(v, f"{prefix}{k}.") if isinstance(v, dict)
                 else cut(f"{prefix}{k}", v) for k, v in node.items()}
 
     return walk(params, "")
+
+
+# --------------------------------------------------------- training layout
+
+class TrainCut(NamedTuple):
+    """A leaf's cut in the training layout: ``model`` the serving
+    layout's Cut over 'model'; ``data`` the dim (counted from the end)
+    that ``param_specs(train=True)`` puts over 'data' (FSDP), or None
+    where the spec keeps it whole over 'data' or where the rank's model
+    slab of that dim does not divide over 'data'."""
+    model: Cut
+    data: Optional[int]
+
+
+def _slab_len(cfg: ArchConfig, ways: int, cut: Cut, shape: tuple, dim: int,
+              leaf: str) -> int:
+    """The length of dim ``dim`` (>= 0) of a leaf of ``shape`` in the rank's
+    model slab under ``cut``."""
+    if cut is None or cut[0] % len(shape) != dim:
+        return shape[dim]
+    how = cut[1]
+    if how == "kv_group":
+        return cfg.head_dim
+    if how == "ssm_heads":
+        return len(ssm_index(cfg, ways, 0, leaf, "meta"))
+    return shape[dim] // ways
+
+
+def train_cuts(cfg: ArchConfig, mesh) -> Dict[str, Any]:
+    """The training layout over ``mesh``: per leaf of init_params' tree a
+    ``TrainCut``. Over 'model' it is the serving layout (whole heads, the
+    kv_group layout, the SSM by heads with B and C whole, the MoE's
+    expert-parallel or in-expert cut); over 'data' the dim that
+    ``param_specs(train=True)`` (``fs()``) cuts, wherever the rank's
+    slab of it divides. mu and nu follow the params
+    (``opt_state_specs``)."""
+    ways, dways = mesh.shape["model"], mesh.shape["data"]
+
+    def walk(cuts, specs, shapes):
+        out = {}
+        for k, c in cuts.items():
+            if isinstance(c, dict):
+                out[k] = walk(c, specs[k], shapes[k])
+                continue
+            spec, shape = specs[k], shapes[k]
+            d = spec.index("data") if "data" in spec else None
+            if d is not None:
+                leaf = "in_proj" if k == "in_proj" else "conv"
+                if _slab_len(cfg, ways, c, shape, d, leaf) % dways:
+                    d = None
+            out[k] = TrainCut(c, None if d is None else d - len(shape))
+        return out
+
+    return walk(serving_cuts(cfg, ways), param_specs(cfg, mesh, train=True),
+                param_shapes(cfg))
+
+
+class TrainLayout(NamedTuple):
+    """What a training step over a mesh reads of the layout, made once for
+    the mesh (``train_layout``): ``cuts`` each leaf's ``TrainCut`` by its
+    dotted path; ``model`` the leaves cut over 'model' (``cut_leaves``);
+    ``fsdp`` those cut over 'data', by name, each with its dim (from the
+    end): the maps ``models.partitioning.activation_partitioning``
+    takes."""
+    cuts: Dict[str, TrainCut]
+    model: frozenset
+    fsdp: Dict[str, int]
+
+
+def train_layout(cfg: ArchConfig, mesh) -> TrainLayout:
+    """The training layout over ``mesh``, as a step reads it."""
+    cuts = dict(_paths(train_cuts(cfg, mesh)))
+    return TrainLayout(cuts, cut_leaves(cfg, mesh.shape["model"]),
+                       {_name(p): tc.data for p, tc in cuts.items()
+                        if tc.data is not None})
+
+
+def train_cutter(cfg: ArchConfig, mesh) -> Callable[[str, torch.Tensor],
+                                                    torch.Tensor]:
+    """``cut(path, x)``: this rank's shard of the leaf at ``path`` in the
+    training layout, from the whole leaf or one layer of a stacked one:
+    its model slab (``cutter``), then its block of the 'data' dim, as an
+    own contiguous tensor."""
+    model_cut = cutter(cfg, mesh)
+    cuts = train_layout(cfg, mesh).cuts
+    dways, index = mesh.shape["data"], mesh.coords["data"]
+
+    def cut(path: str, x: torch.Tensor) -> torch.Tensor:
+        x = model_cut(path, x)
+        d = cuts[path].data
+        if d is None:
+            return x
+        n = x.shape[d] // dways
+        return x.narrow(d, index * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    return cut
+
+
+def local_train_params(cfg: ArchConfig, params: Dict[str, Any],
+                       mesh) -> Dict[str, Any]:
+    """This rank's shards of whole parameters in the training layout (the
+    counterpart of ``jax.device_put(params, to_shardings(mesh,
+    param_specs(cfg, mesh, train=True)))``); the whole params can be
+    freed after. The same cut takes whole AdamW moments to the rank's."""
+    return _cut_tree(params, train_cutter(cfg, mesh))
+
+
+def _mesh_coords(shape: Dict[str, int], n: int) -> List[Dict[str, int]]:
+    """Each rank's coordinates on a mesh of ``shape`` (ordered axes,
+    'model' last; ranks row-major, as ``launch.mesh`` numbers them)."""
+    return [dict(zip(shape, map(int, np.unravel_index(r, tuple(
+        shape.values()))))) for r in range(n)]
+
+
+def gather_train_params(cfg: ArchConfig, parts: List[Dict[str, Any]],
+                        shape: Dict[str, int]) -> Dict[str, Any]:
+    """Whole parameters (or moments, or gradients) from every rank's
+    shards in the training layout, ``parts`` in rank order of a mesh of
+    ``shape``. Where a leaf is not cut over an axis, the first rank's copy
+    stands for the others: a KV head from the first rank holding it, the
+    SSM's B and C columns and channels from model rank 0."""
+    mesh = types.SimpleNamespace(shape=dict(shape), axis_names=tuple(shape))
+    cuts = train_layout(cfg, mesh).cuts
+    coords = _mesh_coords(shape, len(parts))
+    ways = shape["model"]
+    kv0 = [head_slab(cfg, ways, m)[2] for m in range(ways)]
+    di, N = cfg.ssm_inner, cfg.ssm_state
+    n, h = di // max(ways, 1), cfg.ssm_heads // max(ways, 1)
+
+    flat = [dict(_paths(p)) for p in parts]
+
+    def leaf(path: str) -> torch.Tensor:
+        model_cut, d = cuts[path]
+        slabs = []
+        for m in range(ways):
+            mine = sorted((c["data"], r) for r, c in enumerate(coords)
+                          if c["model"] == m and c.get("pod", 0) == 0)
+            xs = [flat[r][path] for _, r in mine]
+            slabs.append(xs[0] if d is None else torch.cat(xs, d))
+        if model_cut is None:
+            return slabs[0]
+        dim, how = model_cut
+        if how == "model":
+            return torch.cat(slabs, dim)
+        if how == "kv_group":
+            return torch.cat([slabs[kv0.index(j)]
+                              for j in range(cfg.n_kv_heads)], dim)
+        if path.endswith("in_proj"):      # [z | x | B | C | dt] a rank
+            pieces = ([s.narrow(dim, 0, n) for s in slabs]
+                      + [s.narrow(dim, n, n) for s in slabs]
+                      + [slabs[0].narrow(dim, 2 * n, 2 * N)]
+                      + [s.narrow(dim, 2 * n + 2 * N, h) for s in slabs])
+        else:                             # [x | B | C] a rank
+            pieces = ([s.narrow(dim, 0, n) for s in slabs]
+                      + [slabs[0].narrow(dim, n, 2 * N)])
+        return torch.cat(pieces, dim)
+
+    def walk(node, prefix):
+        return {k: walk(v, f"{prefix}{k}.") if isinstance(v, dict)
+                else leaf(f"{prefix}{k}") for k, v in node.items()}
+
+    return walk(parts[0], "")
+
+
+def _model_shared(cfg: ArchConfig, path: str, tc: TrainCut, ways: int):
+    """What of a leaf's rank copy other model ranks hold too, and so gets
+    only a part of its gradient on each: "all" (a_log, d_skip and dt_bias,
+    whole on every rank, of which the SSM cut by heads reads the rank's
+    heads), "kv_group" (the KV head the rank's queries share with other
+    ranks'), "ssm_bc" (B and C, read by every head) or None."""
+    if tc.model is None:
+        return ("all" if path.split(".")[-1] in ("a_log", "d_skip", "dt_bias")
+                and ssm_split(cfg, ways) else None)
+    return {"kv_group": "kv_group", "ssm_heads": "ssm_bc"}.get(tc.model[1])
+
+
+def _bc_at(cfg: ArchConfig, path: str, ways: int) -> int:
+    """Where the B and C columns (in_proj's ``[z | x | B | C | dt]``) or
+    channels (the conv's ``[x | B | C]``) start in a rank's SSM slab;
+    2 * ssm_state of them."""
+    n = cfg.ssm_inner // ways
+    return 2 * n if path.endswith("in_proj") else n
+
+
+def reduce_train_grads(cfg: ArchConfig, mesh, layout: TrainLayout,
+                       grads: Dict[str, Any]) -> None:
+    """Complete a rank's gradients in place, after the backward of a step
+    on its shards (``models.partitioning``, the collectives through it):
+    the parts other model ranks hold too (``_model_shared``) summed over
+    'model', the ranks sharing a KV head over a zero-filled buffer of
+    every KV head; the leaves whole over 'data' summed over the data
+    groups (the shards over 'data' were summed by FSDP's backward, and
+    on a mesh with 'pod' are summed over the pods here)."""
+    from repro_torch.models import partitioning as P
+    ways = mesh.shape["model"]
+    rank = mesh.coords["model"]
+    cuts = layout.cuts
+    _, _, kv0 = head_slab(cfg, ways, rank)
+    hd = cfg.head_dim
+    model, kv, data, pod = [], [], [], []
+    for path, g in _paths(grads):
+        tc = cuts[path]
+        shared = _model_shared(cfg, path, tc, ways)
+        if shared == "all":
+            model.append(g)
+        elif shared == "ssm_bc":
+            model.append(g.narrow(tc.model[0], _bc_at(cfg, path, ways),
+                                  2 * cfg.ssm_state))
+        elif shared == "kv_group":
+            dim = tc.model[0]
+            shape = list(g.shape)
+            shape[dim] = cfg.n_kv_heads * hd
+            full = g.new_zeros(shape)
+            full.narrow(dim, kv0 * hd, hd).copy_(g)
+            kv.append((g, full, dim))
+            model.append(full)
+        (data if tc.data is None else pod).append(g)
+    if ways > 1:
+        P.sum_grads(model, "model")
+        for g, full, dim in kv:
+            g.copy_(full.narrow(dim, kv0 * hd, hd))
+    if P.data_ways() > 1:
+        P.sum_grads(data, "data")
+    if "pod" in mesh.shape and mesh.shape["pod"] > 1:
+        P.sum_grads(pod, "pod")
+
+
+def counted_parts(cfg: ArchConfig, mesh, layout: TrainLayout,
+                  grads: Dict[str, Any]) -> List[torch.Tensor]:
+    """The parts of a rank's (completed) gradients that it counts in the
+    whole gradient's norm: every block of every leaf once over the mesh,
+    however many ranks hold a copy (a leaf whole over 'data' on the first
+    data group, whole over 'model' on model rank 0, a shared KV head on
+    the first rank holding it, the SSM's B and C on model rank 0)."""
+    ways, rank = mesh.shape["model"], mesh.coords["model"]
+    cuts = layout.cuts
+    first_data = all(mesh.coords.get(a, 0) == 0 for a in ("pod", "data"))
+    first_pod = mesh.coords.get("pod", 0) == 0
+    kv0 = [head_slab(cfg, ways, m)[2] for m in range(ways)]
+    out = []
+    for path, g in _paths(grads):
+        tc = cuts[path]
+        if not (first_data if tc.data is None else first_pod):
+            continue
+        if tc.model is None:
+            if rank == 0:
+                out.append(g)
+        elif tc.model[1] == "kv_group":
+            if rank == 0 or kv0[rank] != kv0[rank - 1]:
+                out.append(g)
+        elif tc.model[1] == "ssm_heads" and rank > 0:
+            dim, at = tc.model[0], _bc_at(cfg, path, ways)
+            end = at + 2 * cfg.ssm_state
+            out += [g.narrow(dim, 0, at),
+                    g.narrow(dim, end, g.shape[dim] - end)]
+        else:
+            out.append(g)
+    return out

@@ -75,17 +75,16 @@ def cache_struct(cfg: ArchConfig, shape: InputShape, dtype=PARAM_DTYPE,
 def input_specs(cfg: ArchConfig, shape: InputShape, dtype=PARAM_DTYPE,
                 mesh=None) -> Dict[str, Any]:
     """Model inputs for the step function of this shape's kind; with
-    ``mesh``, the rank's part of the prefill and decode inputs: its rows
-    where ('pod', 'data') divides the batch (``batch_spec``) and its part
-    of the cache."""
+    ``mesh``, the rank's part of them: its rows where ('pod', 'data')
+    divides the batch (``batch_spec``) and its part of the cache."""
     B, S = shape.global_batch, shape.seq_len
+    b = B if mesh is None or B % batch_ways(mesh) else B // batch_ways(mesh)
     if shape.kind == "train":
         if cfg.embedding_inputs:
-            inputs = _meta((B, S, cfg.d_model), dtype)
+            inputs = _meta((b, S, cfg.d_model), dtype)
         else:
-            inputs = _meta((B, S), torch.int32)
-        return {"inputs": inputs, "labels": _meta((B, S), torch.int32)}
-    b = B if mesh is None or B % batch_ways(mesh) else B // batch_ways(mesh)
+            inputs = _meta((b, S), torch.int32)
+        return {"inputs": inputs, "labels": _meta((b, S), torch.int32)}
     if shape.kind == "prefill":
         if cfg.embedding_inputs:
             return {"inputs": _meta((b, S, cfg.d_model), dtype)}

@@ -342,12 +342,14 @@ def embed_inputs(cfg: ArchConfig, params: Params,
     """Token ids [B,S] -> embeddings [B,S,D]; embedding-input archs
     (audio frames, vision patches) pass [B,S,D] through. A rank's
     vocabulary slab of the table looks up through
-    ``partitioning.embed_model``."""
+    ``partitioning.embed_model``; a table cut over 'data' (FSDP) is
+    gathered first."""
     if inputs.ndim == 3:
         return inputs
+    table = P.gather_fsdp(params["embed"], "embed")
     if P.cut("embed"):
-        return P.embed_model(params["embed"], inputs)
-    return params["embed"][inputs.long()]
+        return P.embed_model(table, inputs)
+    return table[inputs.long()]
 
 
 def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor,
@@ -358,10 +360,14 @@ def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor,
     rank's vocabulary slab of the head gives a slab of the logits, which
     ``partitioning.gather_model`` puts together."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
-    logits = x @ head
+    name = "embed" if cfg.tied_embeddings else "lm_head"
+    head = P.gather_fsdp(params[name], name)
+    if cfg.tied_embeddings:
+        head = head.T
+    cut = P.cut(name)
+    logits = (P.enter_model(x) if cut else x) @ head
     Vp, V = cfg.padded_vocab, cfg.vocab_size
-    if P.cut("embed" if cfg.tied_embeddings else "lm_head"):
+    if cut:
         logits = P.gather_model(logits, -1)
     if Vp == V:
         return logits
@@ -383,9 +389,7 @@ def _ffn(cfg: ArchConfig, blk: Params, layer: int,
     if cfg.block_kind == "moe":
         h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
         mp = {k: v[layer] for k, v in blk["moe"].items()}
-        # an expert-parallel slab: E_local of the E experts, the rank's
-        first = P.model_index() * mp["wg"].shape[0] if (
-            mp["wg"].shape[0] < cfg.n_experts) else 0
+        first = _first_expert(cfg, mp)
         if h.ndim == 3 and h.shape[1] > 1:
             y = MOE.moe_ffn_grouped(mp, h, cfg.top_k, first_expert=first)[0]
         else:
@@ -516,27 +520,58 @@ def _layers(node):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _fsdp_layer(node: Params, prefix: str = "") -> Params:
+    """One layer's weights with each leaf's 'data' shards side by side
+    (FSDP: ``partitioning.gather_fsdp``, by the leaf's name in the
+    block, "wq", "ssm.in_proj"); the weights themselves without an
+    ``fsdp`` map."""
+    return {k: _fsdp_layer(v, f"{k}.") if isinstance(v, dict)
+            else P.gather_fsdp(v, prefix + k) for k, v in node.items()}
+
+
+def _first_expert(cfg: ArchConfig, moe: Params) -> int:
+    """The first of the experts a layer's MoE weights hold: an
+    expert-parallel slab holds E_local of the E experts, the rank's."""
+    n = moe["wg"].shape[-3]
+    return P.model_index() * n if n < cfg.n_experts else 0
+
+
 def _ffn_seq(cfg: ArchConfig, lp: Params, x: torch.Tensor,
              moe_impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward's post-mixer FFN over one layer's weights ``lp``
-    (residual applied by the caller): (out, aux), JAX's ``_ffn``."""
+    (residual applied by the caller): (out, aux), JAX's ``_ffn``. A
+    rank's slab of the d_ff columns, or of the experts, gives a partial
+    sum, summed over 'model'. With a batch split over data groups the
+    MoE load-balance statistics are every group's (``moe.route``). The
+    sorted path (``moe.moe_ffn``), whose capacity and drops are the whole
+    layer's and the whole batch's, is refused under a mesh."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_kind == "moe":
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         grouped = moe_impl in ("grouped", "grouped_kernel")
+        cut = P.cut("moe.wd")
+        if (cut or P.data_ways() > 1) and not grouped and moe_impl != "dense":
+            raise NotImplementedError(
+                f"moe_impl={moe_impl!r} under a mesh: its capacity and "
+                "drops are the whole layer's and the whole batch's")
+        kw = dict(first_expert=_first_expert(cfg, lp["moe"]))
         if grouped and h.ndim == 3 and h.shape[1] > 1:
-            return MOE.moe_ffn_grouped(lp["moe"], h, cfg.top_k,
-                                       use_kernel=False)
-        if grouped:
-            return MOE.moe_ffn_grouped_decode(
+            y, aux = MOE.moe_ffn_grouped(lp["moe"], h, cfg.top_k,
+                                         use_kernel=False, **kw)
+        elif grouped:
+            y, aux = MOE.moe_ffn_grouped_decode(
                 lp["moe"], h, cfg.top_k,
-                use_kernel=moe_impl == "grouped_kernel")
-        if moe_impl == "dense":
-            return MOE.moe_ffn_dense(lp["moe"], h, cfg.top_k)
-        return MOE.moe_ffn(lp["moe"], h, cfg.top_k)
+                use_kernel=moe_impl == "grouped_kernel", **kw)
+        elif moe_impl == "dense":
+            y, aux = MOE.moe_ffn_dense(lp["moe"], h, cfg.top_k, **kw)
+        else:
+            y, aux = MOE.moe_ffn(lp["moe"], h, cfg.top_k)
+        return (P.reduce_model(y) if cut else y), aux
     if cfg.d_ff > 0:
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return L.gated_mlp(h, lp["wg"], lp["wu"], lp["wd"]), zero
+        cut = P.cut("wd")
+        return L.gated_mlp(P.enter_model(h) if cut else h, lp["wg"],
+                           lp["wu"], lp["wd"], partial=cut), zero
     return torch.zeros_like(x), zero
 
 
@@ -544,14 +579,23 @@ def _block_seq(cfg: ArchConfig, lp: Params, x: torch.Tensor,
                positions: torch.Tensor, impl: str, window: Optional[int],
                opts: ModelOptions) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer over a full sequence: (x, aux), JAX's ``_block_seq``
-    without the cache."""
+    without the cache. On a rank's slab (tensor parallelism over 'model')
+    each cut region (attention's heads, the SSM's heads, the MLP's d_ff
+    columns, the experts) enters through ``enter_model`` and leaves
+    through ``reduce_model``; the layer's shards over 'data' (FSDP) are
+    gathered here, inside the layer's checkpoint, so remat gathers them
+    again in the backward."""
+    lp = _fsdp_layer(lp)
     B, S, _ = x.shape
+    hd = cfg.head_dim
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     parts = []
     if cfg.has_attention:
-        q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        cut = P.cut("wo")
+        ha = P.enter_model(h) if cut else h
+        q = (ha @ lp["wq"]).reshape(B, S, -1, hd)
+        k = (ha @ lp["wk"]).reshape(B, S, -1, hd)
+        v = (ha @ lp["wv"]).reshape(B, S, -1, hd)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         if impl == "dense":
@@ -560,9 +604,11 @@ def _block_seq(cfg: ArchConfig, lp: Params, x: torch.Tensor,
         else:
             a = L.chunked_attention(q, k, v, positions, positions,
                                     causal=cfg.causal, window=window)
-        parts.append(a.reshape(B, S, cfg.q_dim) @ lp["wo"])
+        y = a.reshape(B, S, -1) @ lp["wo"]
+        parts.append(P.reduce_model(y) if cut else y)
     if cfg.has_ssm:
-        parts.append(SSM.ssm_mixer(lp["ssm"], h, cfg.ssm_inner,
+        hs = P.enter_model(h) if P.cut("ssm.out_proj") else h
+        parts.append(SSM.ssm_mixer(lp["ssm"], hs, cfg.ssm_inner,
                                    cfg.ssm_state, cfg.ssm_head_dim,
                                    use_kernel=opts.use_ssd_kernel))
     x = x + _mix(parts)
@@ -604,7 +650,9 @@ def loss_fn(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
             aux_weight: float = 0.01) -> torch.Tensor:
     """Next-token (causal) or per-frame (encoder) cross-entropy in f32,
     over the labels >= 0 (negative labels are ignored), plus
-    ``aux_weight`` times the MoE load-balance loss: JAX's ``loss_fn``."""
+    ``aux_weight`` times the MoE load-balance loss: JAX's ``loss_fn``.
+    Under a context with ``split_batch`` the rows are this data group's
+    and the loss is the whole batch's, on every rank."""
     logits, aux = forward(cfg, params, inputs, opts, keep_padded=True)
     if cfg.causal:
         logits = logits[:, :-1]
@@ -618,7 +666,10 @@ def loss_fn(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
     picked = torch.gather(logits, -1,
                           targets.long().clamp(min=0)[..., None])[..., 0]
     valid = (targets >= 0).float()
-    ce = ((lse - picked) * valid).sum() / valid.sum().clamp(min=1.0)
+    # a batch split over data groups: the global mean, every group's
+    # numerator and count summed (``partitioning.sum_data``)
+    num = P.sum_data(((lse - picked) * valid).sum())
+    ce = num / P.sum_data(valid.sum()).clamp(min=1.0)
     return ce + aux_weight * aux
 
 

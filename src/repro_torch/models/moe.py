@@ -30,7 +30,10 @@ of the d_ff columns and the kernel runs with those columns. Either way
 each rank's output is a partial sum, which the model sums over 'model'
 after the combine (``partitioning.reduce_model``): one all-reduce a
 layer, no all-to-all. With the whole experts (no mesh) the functions are
-the single-device ones.
+the single-device ones. In training (``models.model.forward`` on a
+rank's slab) the tokens and routing weights enter the slab through
+``partitioning.enter_model``, and with a batch split over data groups
+the load-balance loss takes every group's statistics (``route``).
 
 The grouped paths combine a token's K expert outputs without atomics:
 the weighted outputs go back to (token, k) order through the sort's
@@ -46,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import partitioning as P
 
 MoEParams = Dict[str, torch.Tensor]
 
@@ -60,16 +64,26 @@ def param_shapes(d_model: int, d_ff: int, n_experts: int) -> Dict[str, tuple]:
 def route(router: torch.Tensor, x: torch.Tensor, top_k: int
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [N,D] -> (weights [N,K] in x's type, expert_ids [N,K], aux_loss
-    scalar f32, the Switch-style load-balance loss)."""
+    scalar f32, the Switch-style load-balance loss). With a training
+    batch split over data groups (``partitioning.data_ways``) the loss is
+    the whole batch's: each expert's mean probability and share of
+    assignments are summed over the groups first (it is not linear in
+    them)."""
     logits = (x @ router).float()                       # [N,E]
     probs = torch.softmax(logits, dim=-1)
     w, ids = torch.topk(probs, top_k, dim=-1)
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
     E = router.shape[-1]
-    me = probs.mean(0)
+    ways = P.data_ways()
+    if ways > 1:
+        me = P.sum_data(probs.sum(0)) / (probs.shape[0] * ways)
+    else:
+        me = probs.mean(0)
     ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
     ce.index_add_(0, ids.reshape(-1),
                   torch.ones((ids.numel(),), device=x.device))
+    if ways > 1:
+        ce = P.sum_data(ce)
     ce = ce / ce.sum().clamp(min=1.0)
     aux = E * torch.sum(me * ce)
     return w.to(x.dtype), ids, aux
@@ -128,6 +142,18 @@ def _experts(p: MoEParams, buf: torch.Tensor) -> torch.Tensor:
     return torch.einsum("becf,efd->becd", h, p["wd"])
 
 
+def _entered(x: torch.Tensor, w: torch.Tensor):
+    """(x, w) entering a layer's slab of the experts (``cut("moe.wd")``):
+    every rank routes its replicated tokens alike, and its experts' share
+    of the combine gives a part of x's and the weights' gradients, summed
+    over 'model' (``partitioning.enter_model``). The load-balance loss
+    reads the router's output before this point, so its gradient counts
+    once."""
+    if not P.cut("moe.wd"):
+        return x, w
+    return P.enter_model(x), P.enter_model(w)
+
+
 def _local(es: torch.Tensor, p: MoEParams, first_expert: int):
     """(E_local, whether each sorted assignment's expert is one of the
     slab's, its index in the slab): the slab holds experts
@@ -155,6 +181,7 @@ def moe_ffn_grouped(p: MoEParams, x: torch.Tensor, top_k: int,
     B, T, D = x.shape
     E, K = p["router"].shape[-1], top_k
     w, ids, aux = route(p["router"], x.reshape(-1, D), K)
+    x, w = _entered(x, w)
     C = max(int(T * K / E * capacity_factor + 0.999), K)
     order, es, ts, pos, counts = _dispatch(ids.reshape(B, T * K), K, E)
     ws = torch.gather(w.reshape(B, T * K), 1, order)
@@ -200,6 +227,7 @@ def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int,
     B = x2.shape[0]
     E, K = p["router"].shape[-1], top_k
     w, ids, aux = route(p["router"], x2, K)
+    x2, w = _entered(x2, w)
     order, es, ts, pos, counts = _dispatch(ids.reshape(1, B * K), K, E)
     es, ts, pos = es[0], ts[0], pos[0]
     ws = w.reshape(-1)[order[0]]
@@ -222,18 +250,22 @@ def moe_ffn_grouped_decode(p: MoEParams, x: torch.Tensor, top_k: int,
     return y_tk.view(B, K, D).sum(1).reshape(orig_shape), aux
 
 
-def moe_ffn_dense(p: MoEParams, x: torch.Tensor, top_k: int
+def moe_ffn_dense(p: MoEParams, x: torch.Tensor, top_k: int,
+                  first_expert: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Oracle: every expert over every token, combined with the top-k
-    weights."""
+    weights. On a slab of E_local experts from ``first_expert`` (or of
+    every expert's d_ff columns), the slab's share of the output."""
     orig_shape = x.shape
     x2 = x.reshape(-1, orig_shape[-1])
     w, ids, aux = route(p["router"], x2, top_k)
+    x2, w = _entered(x2, w)
     h = torch.einsum("nd,edf->enf", x2, p["wg"])
     h = F.silu(h) * torch.einsum("nd,edf->enf", x2, p["wu"])
-    all_out = torch.einsum("enf,efd->end", h, p["wd"])   # [E,N,D]
-    E = p["router"].shape[-1]
+    all_out = torch.einsum("enf,efd->end", h, p["wd"])   # [E_local,N,D]
+    E, El = p["router"].shape[-1], p["wg"].shape[0]
     onehot = F.one_hot(ids, E).to(x2.dtype)              # [N,K,E]
+    onehot = onehot[..., first_expert:first_expert + El]
     comb = torch.einsum("nke,nk->en", onehot, w)
     y = torch.einsum("end,en->nd", all_out, comb)
     return y.reshape(orig_shape), aux

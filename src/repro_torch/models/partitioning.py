@@ -21,6 +21,26 @@ collectives themselves, Megatron-style:
   an all-reduce MAX of the rows' log-sum-exps, then one all-reduce SUM
   of the reweighted outputs and their weights, packed in one buffer.
 
+Training (``training.trainer.make_train_step(mesh=...)``) runs the same
+functions under autograd, where each becomes one of Megatron's conjugate
+pairs (``torch.autograd.Function``s; with no gradient to carry they are
+the plain collectives above, so a serving step computes the same bits):
+
+- ``enter_model(x)``: identity forward, sum over 'model' backward ("f",
+  at the entry of each region cut over 'model': the rank's slab computes
+  a partial gradient of its replicated input);
+- ``reduce_model(x)``: sum forward, identity backward ("g", at the exit);
+  ``enter_model(reduce_model(x))`` sums both ways (the gated norm's sums
+  of squares, which every rank's slab reads);
+- ``gather_model(x, dim)``: backward keeps the rank's slice;
+- ``gather_fsdp(w, name)``: FSDP, the 'data' shards of the weight leaf
+  ``name`` side by side (its dim from the installed ``fsdp`` map);
+  backward sums the gradient over 'data' and keeps the rank's shard (a
+  reduce-scatter: an all-reduce, then ``narrow``);
+- ``sum_data(x)``: a sum over the data groups of a batch split over them
+  (``split_batch``: the loss's numerator and count, the MoE load-balance
+  statistics), identity backward.
+
 The model asks ``cut(name)`` whether a leaf ("wo", "wd", "embed",
 "lm_head", the MoE group's "moe.wg", the SSM group's "ssm.out_proj",
 ...) is cut over 'model' on this
@@ -51,13 +71,16 @@ each rank has written its slab: exact (x + 0 = x), and the one collective
 gloo also runs on CUDA tensors.
 
 ``recording(fn)`` calls ``fn(kind, axis, tensor)`` before each collective
-("all-reduce" for ``reduce_model`` and each of ``rms_norm_out_model``'s
-and ``combine_model_lse``'s two, "all-gather" for the gathers, with the full-width buffer the ranks
-all-reduce): what ``launch.collective_stats`` counts.
+("all-reduce" for ``reduce_model``, ``enter_model``'s backward,
+``sum_data``, ``sum_grads`` and each of ``rms_norm_out_model``'s and
+``combine_model_lse``'s two, "all-gather" for the gathers, with the
+full-width buffer the ranks all-reduce, "reduce-scatter" for
+``gather_fsdp``'s backward), in either direction: what
+``launch.collective_stats`` counts.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -70,11 +93,18 @@ class activation_partitioning:
     """Context manager: ``with activation_partitioning(mesh, cut): ...``
     installs ``mesh`` (a ``launch.mesh.ServingMesh``) for the collectives
     below and ``cut``, the names of the leaves cut over 'model'
-    (``launch.sharding.cut_leaves``)."""
+    (``launch.sharding.cut_leaves``). A training step adds ``fsdp``, the
+    dim (from the end) of each leaf, by the same names, that is cut over
+    'data' (``launch.sharding.train_layout``), and ``split_batch``: the
+    step's batch is this rank's rows of a batch split over the data
+    groups, so its loss and MoE statistics are summed over them."""
 
-    def __init__(self, mesh, cut=()):
+    def __init__(self, mesh, cut=(), fsdp: Optional[Dict[str, int]] = None,
+                 split_batch: bool = False):
         self.mesh = mesh
         self.cut = frozenset(cut)
+        self.fsdp = dict(fsdp or {})
+        self.split_batch = split_batch
         self._prev = None
 
     def __enter__(self):
@@ -120,9 +150,9 @@ class recording:
         return False
 
 
-def _data_axis(mesh) -> Tuple[int, int]:
-    """(data groups, this rank's group): ('pod', 'data') folded, pod-major,
-    where the mesh has a 'pod' axis."""
+def data_axis(mesh) -> Tuple[int, int]:
+    """(data groups, this rank's group) of ``mesh``: ('pod', 'data')
+    folded, pod-major, where it has a 'pod' axis."""
     ways, index = 1, 0
     for a in ("pod", "data"):
         if a in mesh.shape:
@@ -137,7 +167,7 @@ def batch_rows(batch: int):
     one data group, or when the groups do not divide it."""
     if _CTX is None:
         return None
-    ways, d = _data_axis(_CTX.mesh)
+    ways, d = data_axis(_CTX.mesh)
     if ways == 1 or batch % ways:
         return None
     n = batch // ways
@@ -157,6 +187,14 @@ def seq_slice(buf_len: int):
     n = buf_len // ways
     r = _CTX.mesh.coords["model"]
     return slice(r * n, (r + 1) * n)
+
+
+def data_ways() -> int:
+    """The data groups a training batch is split over (``split_batch``),
+    1 otherwise."""
+    if _CTX is None or not _CTX.split_batch:
+        return 1
+    return data_axis(_CTX.mesh)[0]
 
 
 def _weighed(out: torch.Tensor, lse: torch.Tensor,
@@ -204,15 +242,96 @@ def combine_model_lse(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     return _merged(total, out.dtype)
 
 
+def _grad(x: torch.Tensor) -> bool:
+    """Whether ``x`` carries a gradient here: the collectives are then
+    autograd Functions, else the plain (in-place) ones."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce(x: torch.Tensor, axis: str, group,
+                kind: str = "all-reduce") -> torch.Tensor:
+    """Sum ``x`` over ``group`` in place (recorded as ``kind`` on
+    ``axis``)."""
+    if _RECORD is not None:
+        _RECORD(kind, axis, x)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), "model", ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        group = (_CTX.mesh.model_group if axis == "model"
+                 else _CTX.mesh.data_group)
+        return _all_reduce(x.clone(), axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """x itself; under autograd with a context, its gradient is summed
+    over the 'model' axis in the backward (the entry of a region cut over
+    'model', whose slabs each give a part of it)."""
+    if _CTX is None or not _grad(x):
+        return x
+    return _Enter.apply(x, _CTX.mesh.model_group)
+
+
 def reduce_model(x: torch.Tensor) -> torch.Tensor:
-    """Sum of x over the 'model' axis (in place); x itself without a
-    context."""
+    """Sum of x over the 'model' axis (in place without a gradient to
+    carry); x itself without a context. The backward passes the gradient
+    of the sum through unchanged: every rank's copy of the sum feeds the
+    same computation."""
     if _CTX is None:
         return x
-    if _RECORD is not None:
-        _RECORD("all-reduce", "model", x)
-    dist.all_reduce(x, group=_CTX.mesh.model_group)
-    return x
+    if _grad(x):
+        return _Reduce.apply(x, "model")
+    return _all_reduce(x, "model", _CTX.mesh.model_group)
+
+
+def sum_data(x: torch.Tensor) -> torch.Tensor:
+    """Sum of x over the data groups of a batch split over them
+    (``split_batch``); x itself otherwise. Identity backward, as
+    ``reduce_model``'s."""
+    if data_ways() == 1:
+        return x
+    if _grad(x):
+        return _Reduce.apply(x, "data")
+    return _all_reduce(x, "data", _CTX.mesh.data_group)
+
+
+def sum_grads(xs: List[torch.Tensor], axis: str) -> None:
+    """Sum each of ``xs`` (gradients: no autograd) over ``axis`` ("model";
+    "data", the data groups of the batch; "pod"), in place, in one
+    collective over one flat buffer."""
+    if _CTX is None or not xs:
+        return
+    mesh = _CTX.mesh
+    group = {"model": mesh.model_group, "data": mesh.data_group,
+             "pod": getattr(mesh, "pod_group", None)}[axis]
+    flat = xs[0].new_empty(sum(x.numel() for x in xs))
+    at = 0
+    for x in xs:       # each copied in, views of strided slices included
+        flat[at:at + x.numel()].view_as(x).copy_(x)
+        at += x.numel()
+    _all_reduce(flat, axis, group)
+    at = 0
+    for x in xs:
+        x.copy_(flat[at:at + x.numel()].view_as(x))
+        at += x.numel()
 
 
 def _gather(x: torch.Tensor, dim: int, axis: str, ways: int, index: int,
@@ -230,14 +349,50 @@ def _gather(x: torch.Tensor, dim: int, axis: str, ways: int, index: int,
     return full
 
 
+class _Gather(torch.autograd.Function):
+    """Forward: the slabs of ``dim`` over ``axis`` side by side. Backward:
+    the rank's slice of the gradient, over 'model' as it is (every rank's
+    copy feeds the same computation); over 'data' (FSDP) summed first,
+    each data group having taken its own part of the batch."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis, ways, index, group):
+        ctx.args = (dim, axis, x.shape[dim], index, group)
+        return _gather(x, dim, axis, ways, index, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, axis, n, index, group = ctx.args
+        if axis == "data":
+            g = _all_reduce(g.contiguous().clone(), axis, group,
+                            "reduce-scatter")
+        return (g.narrow(dim, index * n, n).contiguous(),
+                None, None, None, None, None)
+
+
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The ranks' slabs of ``dim`` side by side, in rank order; x itself
     without a context."""
     if _CTX is None:
         return x
     mesh = _CTX.mesh
-    return _gather(x, dim, "model", mesh.shape["model"],
-                   mesh.coords["model"], mesh.model_group)
+    args = (dim, "model", mesh.shape["model"], mesh.coords["model"],
+            mesh.model_group)
+    return _Gather.apply(x, *args) if _grad(x) else _gather(x, *args)
+
+
+def gather_fsdp(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The weight leaf ``name`` (a whole stacked leaf or one layer of it)
+    with its shards over 'data' side by side, where the installed
+    ``fsdp`` map cuts it (FSDP); x itself otherwise. Over the 'data' axis
+    alone: a mesh with a 'pod' axis keeps a copy of the weights a pod."""
+    dim = None if _CTX is None else _CTX.fsdp.get(name)
+    if dim is None:
+        return x
+    mesh = _CTX.mesh
+    args = (dim, "data", mesh.shape["data"], mesh.coords["data"],
+            mesh.fsdp_group)
+    return _Gather.apply(x, *args) if _grad(x) else _gather(x, *args)
 
 
 def gather_data(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -248,7 +403,7 @@ def gather_data(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return xs
     n = xs[0].shape[0]
     full = _gather(torch.cat([x.reshape(n, -1) for x in xs], 1), 0, "data",
-                   *_data_axis(_CTX.mesh), _CTX.mesh.data_group)
+                   *data_axis(_CTX.mesh), _CTX.mesh.data_group)
     out, at = [], 0
     for x in xs:
         w = x[0].numel()
@@ -279,9 +434,11 @@ def rms_norm_out_model(g: torch.Tensor, w: torch.Tensor,
     ``out_proj`` [n, D] its rows. Two all-reduces: the rows' sums of
     squares of g (f32 [..., 1]), then, with the rank's slab normed as
     ``layers.rms_norm`` norms it (mean = sum / width), the partial product
-    with out_proj, in g's type. The same arithmetic without a context."""
+    with out_proj, in g's type. The same arithmetic without a context.
+    Every rank's slab reads the sums of squares, so under autograd their
+    gradient is summed over 'model' too."""
     dt = g.dtype
     gf = g.float()
-    ss = reduce_model((gf * gf).sum(-1, keepdim=True))
+    ss = enter_model(reduce_model((gf * gf).sum(-1, keepdim=True)))
     y = (gf * torch.rsqrt(ss / width + eps) * (1.0 + w.float())).to(dt)
     return reduce_model(y @ out_proj)

@@ -27,8 +27,10 @@ rank's heads: ``d_inner`` stays the whole width, the rank's width is
 channels ``[x | B | C]`` are its heads' with the whole B and C, a_log,
 d_skip and dt_bias are narrowed to its heads, the states are the rank's
 heads, and the gated norm and out_proj's partial sum go through
-``partitioning.rms_norm_out_model``. The training forward (``ssm_mixer``)
-runs without a context: whole heads.
+``partitioning.rms_norm_out_model``. The training forward's
+``ssm_mixer`` runs on a rank's heads the same way under a training
+mesh (``training.trainer.make_train_step(mesh=...)``), its input entering
+through ``partitioning.enter_model``.
 """
 from __future__ import annotations
 

@@ -143,16 +143,37 @@ def _prompt_tokens(seed: int, task: Task, vocab: int, length: int):
     return toks
 
 
-def _probe_latency_curve(executor: "Executor", warm_tasks, probes):
+def monotone_samples(samples: Sequence[Tuple[int, float]]
+                     ) -> List[Tuple[int, float]]:
+    """The (batch, ms) samples of l(b) made non-decreasing in b: each
+    sample is the least of its own and every larger batch's. A smaller
+    batch on the same engine never costs more than a larger one, so a
+    sample above a larger batch's is a slow reading (a host shared with
+    other processes, a mesh's slowest rank); where the samples already
+    rise nothing changes."""
+    out: List[Tuple[int, float]] = []
+    low = float("inf")
+    for b, ms in sorted(samples, reverse=True):
+        low = min(low, ms)
+        out.append((b, low))
+    return out[::-1]
+
+
+def _probe_latency_curve(executor: "Executor", warm_tasks, probes
+                         ) -> Tuple[MeasuredLatencyModel,
+                                    List[Tuple[int, float]]]:
     """Warm min-of-3 decode timings at each probe batch size over tasks the
-    caller has already admitted to the engine."""
+    caller has already admitted to the engine: (the model over them made
+    non-decreasing in the batch (``monotone_samples``; JAX's probe keeps
+    them as read), the (batch, ms) samples as read)."""
     samples = []
     for b in probes:
         sub = warm_tasks[:b]
         executor.decode(sub)  # warm compile/caches
         ms = min(executor.decode(sub) for _ in range(3))
         samples.append((b, ms))
-    return MeasuredLatencyModel(samples, _PREFILL_PRIOR)
+    return (MeasuredLatencyModel(monotone_samples(samples), _PREFILL_PRIOR),
+            samples)
 
 
 class Executor:
@@ -437,8 +458,10 @@ class TorchExecutor(Executor):
         self.tokens = np.zeros((max_slots,), np.int32)  # last token per slot
         self._chunk_progress: Dict[int, int] = {}
         self._gen: Dict[int, List[int]] = {}     # generated tokens per task
-        # (batch, ms) samples of the last latency_model() probe
+        # (batch, ms) samples of the last latency_model() probe: the curve
+        # the model uses, and the samples as read
         self.probe_samples: List[Tuple[int, float]] = []
+        self.probe_read: List[Tuple[int, float]] = []
         # the masked step, the compacted buckets' steps (DESIGN.md §3),
         # the chunk steps and the whole-prompt steps
         self.graphs = StepGraphs(self.device, cuda_graphs)
@@ -623,7 +646,7 @@ class TorchExecutor(Executor):
         warm = [qa_task() for _ in range(self.max_slots)]
         for t in warm:
             self._assign_slot(t)
-        lat = _probe_latency_curve(self, warm, probes)
+        lat, self.probe_read = _probe_latency_curve(self, warm, probes)
         for t in warm:
             self.release(t)
         self.probe_samples = [(b, lat.decode_ms(b)) for b in probes]
@@ -849,8 +872,10 @@ class PagedTorchExecutor(Executor):
             self.device, cuda_graphs,
             ring=max_in_flight + 1 if async_dispatch else 1,
             quiesce=self.ledger.wait)
-        # (batch, ms) samples of the last latency_model() probe
+        # (batch, ms) samples of the last latency_model() probe: the curve
+        # the model uses, and the samples as read
         self.probe_samples: List[Tuple[int, float]] = []
+        self.probe_read: List[Tuple[int, float]] = []
         # speculative decoding (DESIGN.md §8)
         self.draft = None
         self.spec_depth = 0
@@ -1930,7 +1955,7 @@ class PagedTorchExecutor(Executor):
                 if self.states is not None:
                     self.states.alloc(t.task_id)
                 self._last_tok[t.task_id] = 0
-            lat = _probe_latency_curve(self, warm, probes)
+            lat, self.probe_read = _probe_latency_curve(self, warm, probes)
             for t in warm:
                 self.release(t)
         self.probe_samples = [(b, lat.decode_ms(b)) for b in probes]

@@ -123,6 +123,48 @@ def test_torch_dryrun_multipod(tmp_path):
         assert cell.tree["cache"]["k"].shape[1::2] == (4, 2048)
 
 
+TRAIN_DEPARTURES = {
+    # 15 query heads over 16 (and here over 2): the port keeps whole heads
+    "smollm-360m": {"blocks.wq", "blocks.wk", "blocks.wv", "blocks.wo"},
+    # the rank's SSM heads with B and C whole, where the spec cuts blocks
+    "mamba2-780m": {"blocks.ssm.in_proj", "blocks.ssm.conv_w",
+                    "blocks.ssm.conv_b"},
+    "granite-moe-3b-a800m": set(),
+    "hubert-xlarge": set(),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_DEPARTURES))
+def test_torch_dryrun_train_rank_holds_its_shards(arch):
+    """A train_4k cell's rank on a (2, 2) stand-in mesh: the params, mu
+    and nu are its shards in ``param_specs(train=True)``'s and
+    ``opt_state_specs``' layout and the batch its 128 of 256 rows, so
+    every leaf but the named departures holds exactly its spec's bytes;
+    the departures are the whole-head leaves, in the params and in both
+    moments alike."""
+    import math
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_stand_in_mesh
+    with make_stand_in_mesh({"data": 2, "model": 2}) as mesh:
+        cell = D.build_cell(get_config(arch), get_shape("train_4k"), mesh)
+        spec = D.spec_leaf_bytes(cell, mesh)
+        departed = {d.split(":")[0] for d in D.departures(cell, mesh)}
+    mine = dict(D._leaves(cell.tree))
+    want = {f"{tree}.{leaf}" for tree in ("params", "opt.mu", "opt.nu")
+            for leaf in TRAIN_DEPARTURES[arch]}
+    assert departed == want
+    for path, n in spec.items():
+        t = mine[path]
+        if path not in departed:
+            assert math.prod(t.shape) * t.element_size() == n, path
+    assert mine["labels"].shape == (128, 4096)
+    held = sum(math.prod(t.shape) * t.element_size() for t in mine.values())
+    assert held >= sum(spec.values())
+    assert held == sum(spec.values()) or departed
+
+
 def test_torch_dryrun_encoder_skip(tmp_path):
     rec = _run_cell("hubert-xlarge", "decode_32k", "pod", tmp_path)
     assert rec["status"] == "skip"

@@ -217,17 +217,15 @@ def test_extrapolation_equals_direct_count(arch):
                 rec["collectives"]["total"]
             assert ext["flops_nonlayer"] >= 0
             # the batch of 4 splits over 2 data groups in JAX's specs: the
-            # port's slot prefill and decode split it too (the rows, the
-            # cache's rows and slots: no departure); the trainer and the
-            # encoder forward do not (a named departure)
+            # port's train step, encoder forward, slot prefill and decode
+            # split it too (the rows, the cache's rows and slots: no
+            # departure), and no step is a departure of its own any more
             deps = rec["departures"]
-            if shape.kind == "train" or cfg.is_encoder_only:
-                assert deps[0].startswith(("train:", "forward"))
-            else:
-                assert not any(
-                    d.startswith(("cache.length", "cache.k", "cache.v",
-                                  "cache.kv_pos", "tokens", "inputs"))
-                    or "data > 1" in d for d in deps), deps
+            assert not any(d.startswith(("train:", "forward")) for d in deps)
+            assert not any(
+                d.startswith(("cache.length", "cache.k", "cache.v",
+                              "cache.kv_pos", "tokens", "inputs", "labels"))
+                or "data > 1" in d for d in deps), deps
             assert rec["argument_size_in_bytes_spec"] > 0
     assert not torch.distributed.is_initialized()
 

@@ -304,8 +304,14 @@ def test_serve_cli_mesh_shape_2x2_moe(capfd):
     """``--mesh-shape 2,2 --arch granite-moe-3b-a800m --reduced``: 4 ranks
     over gloo, every task finishes on every rank, the pools end empty,
     the four digests are equal, each rank holds 2 of the 4 experts and
-    no rank imported JAX."""
+    no rank imported JAX. Four ranks probing on a shared host can read a
+    smaller batch slower than a larger one, and a curve that fell made
+    SLICE defer every task as infeasible: each rank's model is its
+    samples as read made non-decreasing (``serving.executor.
+    monotone_samples``, ``tests/test_torch_probe.py``), and the engine
+    ran decode steps whatever the host's pace."""
     from repro_torch.launch import serve
+    from repro_torch.serving.executor import monotone_samples
     run = serve.run(serve.parse_args([
         "--reduced", "--device", "cpu", "--arch", MOE, "--duration", "2",
         "--rate", "3", "--slots", "4", "--max-seq", "128", "--ratio", "0",
@@ -319,5 +325,7 @@ def test_serve_cli_mesh_shape_2x2_moe(capfd):
         assert res["digests"] == [run.ranks[0]["digest"]] * 4
         assert res["experts"] == 2
         assert res["jax_modules"] == []
+        assert res["probes"] == monotone_samples(res["probe_read"]), res
+        assert res["decode_iters"] > 0, res["probe_read"]
     assert any(line.startswith("mesh data=2 model=2 backend=gloo") and
                line.endswith("equal") for line in out)
