@@ -3491,8 +3491,9 @@ def time_phase(runs, worst):
 
     # grouped-expert FFN: run paged-moe's batch over all 40 experts, and a
     # rank's rows of a full batch of the paged-mesh-moe run on its 20
-    mbuf, mwg, mwu, mwd = moe_row("paged-moe", 9, ("paged-moe",))
-    moe_row("paged-mesh-moe", 25, ("paged-mesh-moe",))
+    moe_bufs = {"paged-moe": moe_row("paged-moe", 9, ("paged-moe",)),
+                "paged-mesh-moe": moe_row("paged-mesh-moe", 25,
+                                          ("paged-mesh-moe",))}
 
     # a rank of the paged-mesh-moe run (granite-moe over a (2, 2) mesh: 12
     # query heads, 4 KV heads), paged decode over its rows of a full batch
@@ -3563,11 +3564,15 @@ def time_phase(runs, worst):
     for e in out:
         e["max_abs_err"] = worst[e["name"]]
     # no single PyTorch call computes the grouped FFN: the chain of
-    # batched matmuls over the same buffer is a yardstick, used nowhere
-    chain_ms = time_ms(lambda: torch.bmm(
-        F.silu(torch.bmm(mbuf, mwg)) * torch.bmm(mbuf, mwu), mwd))
-    print(f"moe_grouped_ffn yardstick (not one library call): "
-          f"bmm/silu/bmm/bmm chain over the same buffer {chain_ms:.4f} ms")
+    # batched matmuls over the same buffer is a yardstick, used nowhere;
+    # at the whole layer's shape and at a rank's slab of paged-mesh-moe
+    for run, (mbuf, mwg, mwu, mwd) in moe_bufs.items():
+        chain_ms = time_ms(lambda: torch.bmm(
+            F.silu(torch.bmm(mbuf, mwg)) * torch.bmm(mbuf, mwu), mwd))
+        print(f"moe_grouped_ffn yardstick (not one library call) at {run}'s "
+              f"shape (G=E={mbuf.shape[0]} C={mbuf.shape[1]}): "
+              f"bmm/silu/bmm/bmm chain over the same buffer {chain_ms:.4f} "
+              "ms")
     return out
 
 
@@ -4106,43 +4111,102 @@ def _train_cfg(arch, layers):
                                                           n_layers=layers)
 
 
-def train_mesh_rank(rank, arch, layers, B, S, steps, shape):
-    """A rank of train-mesh (a): ``arch`` at full width in fp32 (TF32
-    off) on its shards of a ``shape`` (data, model) mesh over gloo on the
-    one card, beside the one-process trainer from the same weights. Each
-    step starts the mesh from the one process's state (its shards of
-    params, mu and nu), then both take the step on the same batch (the
-    rank its rows). Returns per step the two losses and grad norms, the
-    largest |mesh - one process| of the updated params where the one
-    process's gradient is at least 1e-3 of its leaf's largest (there the
-    gradient fixes the update: AdamW moves a component whose gradient is
-    near 0 by up to lr whatever its last bits say), the largest excess
-    elsewhere over two diverging AdamW steps' bound, 2 lr (1 + wd |p|),
-    and the largest over every component; the rank's seconds and any JAX
-    module."""
+def _train_rank_setup(ways):
+    """A train-mesh rank on the one card: TF32 off, its share of the
+    host's cores."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (shape[0]
-                                                             * shape[1])))
-    from repro_torch.launch import sharding as SH
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // ways))
+
+
+def _card_mesh(shape):
+    """A ('data', 'model') or ('pod', 'data', 'model') mesh of ``shape``
+    over the rank's gloo group, on the card."""
+    import torch
     from repro_torch.launch.mesh import make_serving_mesh
+    *pod, data, model = shape
+    return make_serving_mesh(pod=pod[0] if pod else 1, data=data,
+                             model=model, device=torch.device("cuda", 0))
+
+
+def skew_moe(params):
+    """Skew an MoE arch's weights (in place) so that expert 0 takes every
+    token and the sorted dispatch drops assignments: every embedding row
+    shifted by the table's mean |entry|, and d_model^-0.5 * 4 added to
+    every layer's router column of expert 0."""
+    import torch
+    with torch.no_grad():
+        embed = params["embed"]
+        embed += embed.abs().mean()
+        router = params["blocks"]["moe"]["router"]
+        router[..., 0] += 4.0 * embed.shape[-1] ** -0.5
+
+
+def sorted_drops(cfg, params, batch):
+    """Assignments the sorted dispatch drops over the whole ``batch`` in
+    one process, summed over the layers: each expert's assignments past
+    its capacity C = max(int(N K / E * 1.25 + 0.999), K)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    route, seen = MOE.route, []
+
+    def record(*args, **kw):
+        out = route(*args, **kw)
+        seen.append(out[1])
+        return out
+
+    MOE.route = record
+    try:
+        with torch.no_grad():
+            M.loss_fn(cfg, params, batch["inputs"], batch["labels"],
+                      M.ModelOptions(moe_impl="sorted"))
+    finally:
+        MOE.route = route
+    E, K = cfg.n_experts, cfg.top_k
+    drops = 0
+    for ids in seen:
+        C = max(int(ids.numel() / E * 1.25 + 0.999), K)
+        load = torch.bincount(ids.reshape(-1), minlength=E)
+        drops += int((load - C).clamp(min=0).sum())
+    return drops
+
+
+def mesh_vs_one(mesh, arch, layers, B, S, steps, moe_impl="grouped"):
+    """``arch`` at full width in fp32 (TF32 off) on this rank's shards of
+    ``mesh`` beside the one-process trainer from the same weights (on the
+    sorted MoE path skewed, ``skew_moe``). Each step starts the mesh from
+    the one process's state (its shards of params, mu and nu), then both
+    take the step on the same batch (the rank its rows). Returns per step
+    the two losses and grad norms, the largest |mesh - one process| of
+    the updated params where the one process's gradient is at least 1e-3
+    of its leaf's largest (there the gradient fixes the update: AdamW
+    moves a component whose gradient is near 0 by up to lr whatever its
+    last bits say), the largest excess elsewhere over two diverging AdamW
+    steps' bound, 2 lr (1 + wd |p|), and the largest over every
+    component; the rank's seconds, the whole first batch's drops on the
+    sorted path, and any JAX module."""
+    import torch
+    from repro_torch.launch import sharding as SH
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import leaves
     from repro_torch.training.trainer import (local_batch, make_train_step,
                                               step_grads)
-    mesh = make_serving_mesh(data=shape[0], model=shape[1],
-                             device=torch.device("cuda", 0))
     cfg = _train_cfg(arch, layers)
+    opts = M.ModelOptions(remat=True, moe_impl=moe_impl)
     kw = dict(peak_lr=TRAIN_MESH_LR, warmup=1, total=10, device="cuda")
     weights = M.init_params(cfg, seed=0, device="cuda")
-    init_one, step_one = make_train_step(cfg, **kw)
+    drops = None
+    if moe_impl == "sorted":
+        skew_moe(weights)
+        drops = sorted_drops(cfg, weights, train_batch(cfg, B, S, "cuda", 10))
+    init_one, step_one = make_train_step(cfg, opts, **kw)
     one = init_one(weights)
-    init_mesh, step_mesh = make_train_step(cfg, mesh=mesh, **kw)
+    init_mesh, step_mesh = make_train_step(cfg, opts, mesh=mesh, **kw)
     mine = init_mesh(weights)
     del weights
-    opts = M.ModelOptions(remat=True)
 
     def flat(tree):
         return dict(zip(leaf_names(tree), leaves(tree)))
@@ -4181,9 +4245,162 @@ def train_mesh_rank(rank, arch, layers, B, S, steps, shape):
                              float(m_one["grad_norm"])),
                     "big_err": big_err, "over": over, "all_err": all_err})
     torch.cuda.synchronize()
-    return {"steps": out, "s": time.perf_counter() - t0,
+    return {"steps": out, "s": time.perf_counter() - t0, "drops": drops,
             "leaked": sorted(m for m in sys.modules if m == "jax"
                              or m.startswith(("jax.", "repro.")))}
+
+
+def train_mesh_rank(rank, arch, layers, B, S, steps, shape):
+    """A rank of train-mesh (a): ``mesh_vs_one`` on a ``shape`` (data,
+    model) mesh over gloo on the one card."""
+    _train_rank_setup(shape[0] * shape[1])
+    return mesh_vs_one(_card_mesh(shape), arch, layers, B, S, steps)
+
+
+# (d): smollm-360m at full width with 4 of its 32 layers, B x S tokens: its
+# (2, 2) state after one step saved, restored onto CKPT_ONTO and in one
+# process, each taking the second step; (e): granite-moe-3b-a800m on the
+# sorted MoE path, skewed, 4 of 32 layers, on each of SORTED_MESHES against
+# one process for SORTED_STEPS steps; (f): TRAIN_MESH on the pod mesh
+CKPT_MESH = ("smollm-360m", 4, 8, 256, (2, 2))
+CKPT_ONTO = ((1, 2), (2, 1, 2))
+SORTED_MESH = ("granite-moe-3b-a800m", 4, 8, 256)
+SORTED_MESHES = ((2, 2), (1, 2))
+SORTED_STEPS = 2
+POD_MESH = (2, 1, 2)
+
+
+def _ckpt_files():
+    d = os.path.join(ROOT, "build", "train_mesh_ckpt")
+    return (os.path.join(d, "after_step1.npz"),
+            os.path.join(d, "after_step2.npz"))
+
+
+def ckpt_next_step(cfg, state, train_step, batch, opts, mesh, want_path):
+    """The second step of a restored ``state`` (the rank's shards, or the
+    whole state without ``mesh``) held to the (2, 2) run's second step
+    (its saved state, read back in this layout): the loss and grad norm,
+    the largest |difference| of the params where the step's gradient is
+    at least 1e-3 of its leaf's largest (the whole leaf's, over the
+    mesh), and the largest excess elsewhere over two diverging AdamW
+    steps' bound."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.trainer import step_grads
+    for p in leaves(state[0]):
+        p.requires_grad_(True)
+    _, grads, _ = step_grads(cfg, state[0], batch, opts, mesh)
+    g = list(leaves(grads))
+    g_max = torch.tensor([float(v.abs().max()) for v in g])
+    if mesh is not None:
+        dist.all_reduce(g_max, op=dist.ReduceOp.MAX,
+                        group=mesh.world_cpu_group)
+    p0 = [p.detach().clone() for p in leaves(state[0])]
+    state, m = train_step(state, batch)
+    want = CK.restore(want_path, state, cfg=cfg, mesh=mesh)
+    big_err = over = 0.0
+    with torch.no_grad():
+        for p, q, gk, gm, a in zip(leaves(state[0]), leaves(want[0]), g,
+                                   g_max.tolist(), p0):
+            d = (p - q).abs()
+            big = gk.abs() >= 1e-3 * gm
+            if big.any():
+                big_err = max(big_err, float(d[big].max()))
+            bound = 2 * TRAIN_MESH_LR * (1 + 0.1 * a.abs()) + MESH_TOL
+            over = max(over, float((d - bound).max()))
+    return {"loss": float(m["loss"]), "norm": float(m["grad_norm"]),
+            "big_err": big_err, "over": over}
+
+
+def ckpt_restore(mesh):
+    """(d) on ``mesh`` (None: one process): the (2, 2) state's file
+    restored, and its second step (``ckpt_next_step``)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training.trainer import local_batch, make_train_step
+    arch, layers, B, S, _ = CKPT_MESH
+    cfg = _train_cfg(arch, layers)
+    opts = M.ModelOptions(remat=True)
+    after1, after2 = _ckpt_files()
+    init, step = make_train_step(cfg, opts, peak_lr=TRAIN_MESH_LR, warmup=1,
+                                 total=10, device="cuda", mesh=mesh)
+    t0 = time.perf_counter()
+    state = CK.restore(after1, init(0), cfg=cfg, mesh=mesh)
+    restore_s = time.perf_counter() - t0
+    batch = train_batch(cfg, B, S, "cuda", 31)
+    if mesh is not None:
+        batch = local_batch(batch, mesh)
+    out = ckpt_next_step(cfg, state, step, batch, opts, mesh, after2)
+    torch.cuda.synchronize()
+    return {**out, "restore_s": restore_s}
+
+
+def ckpt_save(mesh):
+    """(d) on CKPT_MESH's (2, 2) mesh: seed-0 weights, one step, the state
+    saved (``checkpoint.save(mesh=...)``); the second step, and that state
+    saved too, for the restored runs to be held to."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training.trainer import local_batch, make_train_step
+    arch, layers, B, S, _ = CKPT_MESH
+    cfg = _train_cfg(arch, layers)
+    opts = M.ModelOptions(remat=True)
+    after1, after2 = _ckpt_files()
+    init, step = make_train_step(cfg, opts, peak_lr=TRAIN_MESH_LR, warmup=1,
+                                 total=10, device="cuda", mesh=mesh)
+    state = init(0)
+    state, _ = step(state, local_batch(train_batch(cfg, B, S, "cuda", 30),
+                                       mesh))
+    t0 = time.perf_counter()
+    CK.save(after1, state, cfg=cfg, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    state, m = step(state, local_batch(train_batch(cfg, B, S, "cuda", 31),
+                                       mesh))
+    CK.save(after2, state, cfg=cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    return {"loss": float(m["loss"]), "norm": float(m["grad_norm"]),
+            "save_s": save_s}
+
+
+def train_mesh_more_rank(rank, world):
+    """A rank of train-mesh (d)-(f), every part of ``world`` ranks in
+    turn, each mesh made once: with 4, (d)'s save on (2, 2) and its
+    restore on (2, 1, 2), (e) on (2, 2), (f) on (2, 1, 2); with 2, (d)'s
+    restore and (e) on (1, 2). Returns {part: what the rank saw} and its
+    seconds per part."""
+    _train_rank_setup(world)
+    meshes, out = {}, {}
+
+    def mesh(shape):
+        if shape not in meshes:
+            meshes[shape] = _card_mesh(shape)
+        return meshes[shape]
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        out[key]["s"] = time.perf_counter() - t0
+
+    arch, layers, B, S, steps, _ = TRAIN_MESH
+    if world == 4:
+        timed(("d", CKPT_MESH[-1]), ckpt_save, mesh(CKPT_MESH[-1]))
+    for shape in CKPT_ONTO:
+        if math.prod(shape) == world:
+            timed(("d", shape), ckpt_restore, mesh(shape))
+    for shape in SORTED_MESHES:
+        if math.prod(shape) == world:
+            timed(("e", shape), mesh_vs_one, mesh(shape), *SORTED_MESH,
+                  SORTED_STEPS, "sorted")
+    if math.prod(POD_MESH) == world:
+        timed(("f", POD_MESH), mesh_vs_one, mesh(POD_MESH), arch, layers, B,
+              S, steps)
+    out["leaked"] = sorted(m for m in sys.modules if m == "jax"
+                           or m.startswith(("jax.", "repro.")))
+    return out
 
 
 def forward_mesh_rank(rank, arch, layers, B, S, shape):
@@ -4244,7 +4461,10 @@ def train_mesh_phase():
     depth for one step, its errors printed. (b) hubert-xlarge's forward
     with 8 of its 48 layers on (1, 2) within MESH_TOL of one process.
     (c) The CLI with --mesh-shape 2,2 at full width, each rank's peak
-    memory printed beside one process's."""
+    memory printed beside one process's. (d)-(f) (``train_mesh_more``): a
+    (2, 2) state's checkpoint restored onto (1, 2), (2, 1, 2) and one
+    process; the sorted MoE path on a split batch and a rank's experts;
+    (a) on the pod mesh (2, 1, 2)."""
     import gc
 
     import torch
@@ -4332,7 +4552,157 @@ def train_mesh_phase():
           f"{peaks['one'][0]} GiB", flush=True)
     rows.append({"run": "(c)", "peak_gib_ranks": peaks["mesh"],
                  "peak_gib_one": peaks["one"][0]})
+    rows += train_mesh_more(card)
     print(json.dumps({"train_mesh": rows, "card": card}), flush=True)
+
+
+def _worst(steps):
+    """(a)'s errors over a mesh_vs_one run's steps."""
+    worst = {"loss": 0.0, "norm": 0.0, "big_err": 0.0, "over": 0.0,
+             "all_err": 0.0}
+    for st in steps:
+        for key in ("loss", "norm"):
+            a, b = st[key]
+            worst[key] = max(worst[key], abs(a - b) / abs(b))
+        for key in ("big_err", "over", "all_err"):
+            worst[key] = max(worst[key], st[key])
+    return worst
+
+
+def _held(label, worst):
+    """Fail unless ``worst`` meets (a)'s bounds."""
+    if (worst["loss"] > 1e-5 or worst["norm"] > 1e-4
+            or worst["big_err"] > MESH_TOL or worst["over"] > 0):
+        fail(f"train-mesh {label}: {worst} over (a)'s bounds")
+
+
+def train_mesh_more(card):
+    """train-mesh (d)-(f), on gloo ranks sharing the card as (a)'s: one
+    4-rank group, then one 2-rank group (``train_mesh_more_rank``), then
+    (d)'s restore in this process. (d) smollm-360m (4 of 32 layers, B=8,
+    S=256): the (2, 2) state after one step saved by
+    ``checkpoint.save(mesh=...)``, the file's keys and shapes held to
+    ``param_shapes``, restored onto (1, 2), (2, 1, 2) and in one process,
+    each run's second step within (a)'s bounds of (2, 2)'s own (loss,
+    grad_norm, the params against (2, 2)'s saved second state read back in
+    the run's layout). (e) granite-moe-3b-a800m on the sorted MoE path (4
+    of 32 layers, skewed so expert 0 takes every token) on (2, 2) and (1,
+    2) against one process, within (a)'s bounds; the whole batch's drops
+    printed, and none fails. (f) (a) on the pod mesh (2, 1, 2). Returns
+    the rows of the phase's JSON line."""
+    import gc
+    import shutil
+    import types
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training.optimizer import AdamWState
+    rows = []
+    after1, _ = _ckpt_files()
+    shutil.rmtree(os.path.dirname(after1), ignore_errors=True)
+    res = {}
+    for world in (4, 2):
+        phase(f"train-mesh (d)-(f): {world} gloo ranks sharing the card")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(train_mesh_more_rank, world, (world,),
+                            backend="gloo", timeout=900)
+        print(f"{world} ranks {time.perf_counter() - t0:.1f} s wall",
+              flush=True)
+        for r, got in enumerate(ranks):
+            if got.pop("leaked"):
+                fail(f"train-mesh rank {r} of {world} imported JAX")
+        res.update({k: [got[k] for got in ranks] for k in ranks[0]})
+    phase("train-mesh (d): the (2, 2) checkpoint in one process")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    arch, layers, B, S, from_shape = CKPT_MESH
+    cfg = _train_cfg(arch, layers)
+
+    def shaped(node):
+        return {k: shaped(v) if isinstance(v, dict) else
+                types.SimpleNamespace(shape=tuple(v)) for k, v in node.items()}
+
+    tree = shaped(M.param_shapes(cfg))
+    want = {k: leaf.shape for k, _, leaf in CK._items(
+        (tree, AdamWState(types.SimpleNamespace(shape=()), tree, tree)))}
+    with np.load(after1) as f:
+        got = {k: tuple(f[k].shape) for k in f.files}
+    one = ckpt_restore(None)
+    one["s"] = time.perf_counter() - t0
+    res[("d", None)] = [one]
+    print(f"checkpoint {os.path.getsize(after1) / 2**30:.3f} GiB, "
+          f"{len(got)} keys", flush=True)
+    shutil.rmtree(os.path.dirname(after1), ignore_errors=True)
+    ref = res[("d", from_shape)][0]
+    for shape in CKPT_ONTO + (None,):
+        runs = res[("d", shape)]
+        worst = {"loss": max(abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+                             for r in runs),
+                 "norm": max(abs(r["norm"] - ref["norm"]) / ref["norm"]
+                             for r in runs),
+                 "big_err": max(r["big_err"] for r in runs),
+                 "over": max(r["over"] for r in runs), "all_err": 0.0}
+        where = "one process" if shape is None else f"{shape}"
+        print(f"train-mesh (d) on {card}: {arch} ({layers} layers) saved on "
+              f"{from_shape} after one step (save "
+              f"{res[('d', from_shape)][0]['save_s']:.1f} s), restored on "
+              f"{where} (restore {runs[0]['restore_s']:.1f} s): second step "
+              f"loss rel err {worst['loss']:.3e} (tol 1e-5), grad_norm rel "
+              f"err {worst['norm']:.3e} (tol 1e-4), params max_abs_err "
+              f"where the gradient fixes the update {worst['big_err']:.3e} "
+              f"(tol {MESH_TOL:g}), excess elsewhere {worst['over']:.3e} "
+              f"(tol 0); {max(r['s'] for r in runs):.1f} s", flush=True)
+        rows.append({"run": "(d)", "arch": arch, "layers": layers, "B": B,
+                     "S": S, "saved_on": list(from_shape),
+                     "mesh": None if shape is None else list(shape),
+                     **worst})
+        _held(f"(d) {where}", worst)
+    if got != want:
+        bad = sorted(set(got) ^ set(want)) or [
+            k for k in got if got[k] != want[k]]
+        fail(f"train-mesh (d): the checkpoint's keys or shapes differ from "
+             f"param_shapes' (params, mu, nu) and the step at {bad[:5]}")
+    arch, layers, B, S = SORTED_MESH
+    for shape in SORTED_MESHES:
+        runs = res[("e", shape)]
+        worst = _worst(st for r in runs for st in r["steps"])
+        drops = runs[0]["drops"]
+        print(f"train-mesh (e) on {card}: {arch} ({layers} layers) sorted "
+              f"MoE, skewed, B={B} S={S} on {shape} against one process, "
+              f"{SORTED_STEPS} steps: the whole batch drops {drops} "
+              f"assignments over the layers; loss rel err "
+              f"{worst['loss']:.3e} (tol 1e-5), grad_norm rel err "
+              f"{worst['norm']:.3e} (tol 1e-4), params max_abs_err where "
+              f"the gradient fixes the update {worst['big_err']:.3e} (tol "
+              f"{MESH_TOL:g}), excess elsewhere {worst['over']:.3e} (tol 0), "
+              f"over every component {worst['all_err']:.3e} (printed); "
+              f"{max(r['s'] for r in runs):.1f} s", flush=True)
+        rows.append({"run": "(e)", "arch": arch, "layers": layers, "B": B,
+                     "S": S, "mesh": list(shape), "drops": drops, **worst})
+        if not drops:
+            fail("train-mesh (e): the skewed batch drops no assignment")
+        _held(f"(e) {shape}", worst)
+    arch, layers, B, S, steps, _ = TRAIN_MESH
+    runs = res[("f", POD_MESH)]
+    worst = _worst(st for r in runs for st in r["steps"])
+    print(f"train-mesh (f) on {card}: {arch} ({layers} layers) B={B} S={S} "
+          f"on the pod mesh {POD_MESH} against one process, {steps} steps: "
+          f"loss rel err {worst['loss']:.3e} (tol 1e-5), grad_norm rel err "
+          f"{worst['norm']:.3e} (tol 1e-4), params max_abs_err where the "
+          f"gradient fixes the update {worst['big_err']:.3e} (tol "
+          f"{MESH_TOL:g}), excess elsewhere {worst['over']:.3e} (tol 0), "
+          f"over every component {worst['all_err']:.3e} (printed); "
+          f"{max(r['s'] for r in runs):.1f} s", flush=True)
+    rows.append({"run": "(f)", "arch": arch, "layers": layers, "B": B,
+                 "S": S, "mesh": list(POD_MESH), **worst})
+    _held("(f)", worst)
+    return rows
 
 
 def main() -> None:

@@ -6,8 +6,9 @@ Mesh``. The port runs SPMD instead: one process per rank, each the same
 control plane in lockstep on its own copy of the host state, computing on
 its slab of the weights and of the KV arena, meeting the other ranks only
 at the collectives of ``models.partitioning``. ``make_serving_mesh``
-describes this rank's place in a ('data', 'model') mesh over an
-initialised process group; ``spawn_ranks`` starts such a group on one host.
+describes this rank's place in a ('data', 'model') mesh, or a ('pod',
+'data', 'model') one, over an initialised process group;
+``spawn_ranks`` starts such a group on one host.
 
 ``make_production_mesh`` (the 256- and 512-device meshes of the dry-run)
 and ``make_stand_in_mesh`` describe rank 0 of a mesh that is counted, not
@@ -33,38 +34,45 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 
 class ServingMesh:
-    """This rank's view of a (data, model) serving mesh.
+    """This rank's view of a ('data', 'model') mesh, or of a ('pod',
+    'data', 'model') one (JAX's multi-pod shape).
 
-    ``shape`` maps each axis to its size and ``axis_names`` is ('data',
-    'model'), all that the sharding rules read. ``coords`` is this rank's
-    place on each axis (rank = data * model_size + model). ``model_group``
-    is the process group of the ranks that share this rank's data index
-    (the model's collectives), ``data_group`` that of the ranks that share
-    its model index (the gathers of a batch split over 'data', and FSDP's
-    shards of a training step: ``fsdp_group`` is that group too), and
-    ``data_cpu_group`` a gloo twin of it for host tensors (the group
-    itself under gloo). ``world_cpu_group`` is a gloo group of every rank:
-    every rank runs the same control plane, so ``agree``, ``check_same``
-    and ``gather`` span the whole mesh, one loop clock and one digest
-    across the data groups. ``device`` is the rank's device and
-    ``backend`` the model group's."""
+    ``shape`` maps each axis to its size and ``axis_names`` is the axes
+    in order, 'model' last, all that the sharding rules read. ``coords``
+    is this rank's place on each axis (ranks row-major, 'model' last:
+    rank = (pod * data + d) * model + m). ``model_group`` is the process
+    group of the ranks that share this rank's place on every other axis
+    (the model's collectives); ``data_group`` that of the ranks that
+    share its model index, over ('pod', 'data') folded, pod-major (the
+    gathers of a batch split over the data groups, JAX's ``batch_axes``);
+    ``fsdp_group`` that of those over 'data' alone (FSDP's shards of a
+    training step: the weights and moments are replicated over 'pod', as
+    ``param_specs(train=True)`` puts them), the data group itself without
+    a 'pod' axis; with one, ``pod_group`` that of those over 'pod' alone.
+    ``data_cpu_group``, ``fsdp_cpu_group`` and ``pod_cpu_group`` are gloo
+    twins of them for host tensors (the groups themselves under gloo).
+    ``world_cpu_group`` is a gloo group of every rank: every rank runs
+    the same control plane, so ``agree``, ``check_same`` and ``gather``
+    span the whole mesh, one loop clock and one digest across the data
+    groups and pods. ``device`` is the rank's device and ``backend`` the
+    model group's."""
 
-    axis_names = AXES
-
-    def __init__(self, data: int, model: int, rank: int, model_group,
-                 data_group, data_cpu_group, world_cpu_group,
-                 device: torch.device, backend: str):
-        self.shape = {"data": data, "model": model}
-        self.coords = {"data": rank // model, "model": rank % model}
+    def __init__(self, shape: Dict[str, int], rank: int,
+                 groups: Dict[str, Any], device: torch.device, backend: str):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.coords = mesh_coords(self.shape, rank)
         self.rank = rank
-        self.model_group = model_group
-        self.data_group = data_group
-        self.fsdp_group = data_group
-        self.data_cpu_group = data_cpu_group
-        self.world_cpu_group = world_cpu_group
+        self.model_group = groups["model"]
+        self.data_group, self.data_cpu_group = groups["data"]
+        self.fsdp_group, self.fsdp_cpu_group = groups["fsdp"]
+        if "pod" in shape:
+            self.pod_group, self.pod_cpu_group = groups["pod"]
+        self.world_cpu_group = groups["world_cpu"]
         self.device = torch.device(device)
         self.backend = backend
 
@@ -89,26 +97,37 @@ class ServingMesh:
 
     def gather(self, obj) -> List[Any]:
         """Every rank's ``obj`` (picklable), in rank order, on every rank."""
-        out: List[Any] = [None] * (self.shape["data"] * self.shape["model"])
+        out: List[Any] = [None] * math.prod(self.shape.values())
         dist.all_gather_object(out, obj, group=self.world_cpu_group)
         return out
 
 
-def make_serving_mesh(*, model: int, data: int = 1,
+def mesh_coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
+    """A rank's place on each axis of a mesh of ``shape`` (ordered axes,
+    'model' last; ranks row-major, the last axis fastest)."""
+    return dict(zip(shape, map(int, np.unravel_index(rank, tuple(
+        shape.values())))))
+
+
+def make_serving_mesh(*, model: int, data: int = 1, pod: int = 1,
                       device: Optional[torch.device] = None) -> ServingMesh:
-    """Tensor-parallel serving mesh (data, model) over the initialised
-    default process group, whose world must hold data * model ranks. Every
-    rank must call it, in the same order as any other group it makes.
-    ``device``: the rank's device; by default its own card under NCCL
-    (rank modulo the cards), else the CPU."""
+    """Tensor-parallel mesh ('data', 'model'), or with ``pod`` > 1 ('pod',
+    'data', 'model'), over the initialised default process group, whose
+    world must hold pod * data * model ranks. Every rank must call it, in
+    the same order as any other group it makes. ``device``: the rank's
+    device; by default its own card under NCCL (rank modulo the cards),
+    else the CPU. The serving engines take ('data', 'model') meshes only,
+    as JAX's; a 'pod' axis serves a training step."""
     if not dist.is_initialized():
         raise RuntimeError("make_serving_mesh needs an initialised process "
                            "group (torch.distributed.init_process_group, or "
                            "spawn_ranks)")
-    n = data * model
+    shape = ({"pod": pod} if pod > 1 else {})
+    shape.update(data=data, model=model)
+    n = math.prod(shape.values())
     world = dist.get_world_size()
     if world != n:
-        raise ValueError(f"serving mesh ({data}, {model}) needs {n} ranks, "
+        raise ValueError(f"mesh {tuple(shape.values())} needs {n} ranks, "
                          f"the process group has {world}")
     rank = dist.get_rank()
     backend = dist.get_backend()
@@ -126,17 +145,27 @@ def make_serving_mesh(*, model: int, data: int = 1,
                 mine = (g, c)
         return mine
 
-    model_group, _ = groups([list(range(d * model, (d + 1) * model))
-                             for d in range(data)], twin=False)
-    data_group, data_cpu_group = groups([list(range(m, n, model))
-                                         for m in range(model)], twin=True)
-    world_cpu_group = (dist.group.WORLD if backend == "gloo"
-                       else dist.new_group(list(range(n)), backend="gloo"))
+    grid = np.arange(n).reshape(pod, data, model)
+    made = {
+        "model": groups([list(map(int, grid[p, d])) for p in range(pod)
+                         for d in range(data)], twin=False)[0],
+        "data": groups([list(map(int, grid[:, :, m].reshape(-1)))
+                        for m in range(model)], twin=True)}
+    if pod > 1:
+        made["fsdp"] = groups([list(map(int, grid[p, :, m]))
+                               for p in range(pod) for m in range(model)],
+                              twin=True)
+        made["pod"] = groups([list(map(int, grid[:, d, m]))
+                              for d in range(data) for m in range(model)],
+                             twin=True)
+    else:
+        made["fsdp"] = made["data"]
+    made["world_cpu"] = (dist.group.WORLD if backend == "gloo"
+                         else dist.new_group(list(range(n)), backend="gloo"))
     if device is None:
         device = (torch.device("cuda", rank % torch.cuda.device_count())
                   if backend == "nccl" else torch.device("cpu"))
-    return ServingMesh(data, model, rank, model_group, data_group,
-                       data_cpu_group, world_cpu_group, device, backend)
+    return ServingMesh(shape, rank, made, device, backend)
 
 
 class StandInMesh:

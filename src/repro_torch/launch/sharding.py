@@ -97,7 +97,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.mesh import batch_axes, batch_ways
+from repro_torch.launch.mesh import batch_axes, batch_ways, mesh_coords
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import param_shapes
 
@@ -614,38 +614,31 @@ def local_train_params(cfg: ArchConfig, params: Dict[str, Any],
     return _cut_tree(params, train_cutter(cfg, mesh))
 
 
-def _mesh_coords(shape: Dict[str, int], n: int) -> List[Dict[str, int]]:
-    """Each rank's coordinates on a mesh of ``shape`` (ordered axes,
-    'model' last; ranks row-major, as ``launch.mesh`` numbers them)."""
-    return [dict(zip(shape, map(int, np.unravel_index(r, tuple(
-        shape.values()))))) for r in range(n)]
-
-
-def gather_train_params(cfg: ArchConfig, parts: List[Dict[str, Any]],
-                        shape: Dict[str, int]) -> Dict[str, Any]:
-    """Whole parameters (or moments, or gradients) from every rank's
-    shards in the training layout, ``parts`` in rank order of a mesh of
-    ``shape``. Where a leaf is not cut over an axis, the first rank's copy
-    stands for the others: a KV head from the first rank holding it, the
-    SSM's B and C columns and channels from model rank 0."""
+def train_gatherer(cfg: ArchConfig, shape: Dict[str, int]
+                   ) -> Callable[[str, List[torch.Tensor]], torch.Tensor]:
+    """``leaf(path, shards)``: the whole leaf at ``path`` (of the params,
+    or of a moment or gradient) from every rank's shard of it in the
+    training layout, ``shards`` in rank order of a mesh of ``shape``.
+    Where a leaf is not cut over an axis, the first rank's copy stands
+    for the others: pod 0's, a KV head from the first rank holding it,
+    the SSM's B and C columns and channels from model rank 0."""
     mesh = types.SimpleNamespace(shape=dict(shape), axis_names=tuple(shape))
     cuts = train_layout(cfg, mesh).cuts
-    coords = _mesh_coords(shape, len(parts))
+    coords = [mesh_coords(shape, r)
+              for r in range(math.prod(shape.values()))]
     ways = shape["model"]
     kv0 = [head_slab(cfg, ways, m)[2] for m in range(ways)]
     di, N = cfg.ssm_inner, cfg.ssm_state
     n, h = di // max(ways, 1), cfg.ssm_heads // max(ways, 1)
+    # per model rank, pod 0's ranks (row-major: in data order)
+    first = [[r for r, c in enumerate(coords)
+              if c["model"] == m and c.get("pod", 0) == 0]
+             for m in range(ways)]
 
-    flat = [dict(_paths(p)) for p in parts]
-
-    def leaf(path: str) -> torch.Tensor:
+    def leaf(path: str, shards: List[torch.Tensor]) -> torch.Tensor:
         model_cut, d = cuts[path]
-        slabs = []
-        for m in range(ways):
-            mine = sorted((c["data"], r) for r, c in enumerate(coords)
-                          if c["model"] == m and c.get("pod", 0) == 0)
-            xs = [flat[r][path] for _, r in mine]
-            slabs.append(xs[0] if d is None else torch.cat(xs, d))
+        slabs = [shards[rs[0]] if d is None else
+                 torch.cat([shards[r] for r in rs], d) for rs in first]
         if model_cut is None:
             return slabs[0]
         dim, how = model_cut
@@ -664,11 +657,18 @@ def gather_train_params(cfg: ArchConfig, parts: List[Dict[str, Any]],
                       + [slabs[0].narrow(dim, n, 2 * N)])
         return torch.cat(pieces, dim)
 
-    def walk(node, prefix):
-        return {k: walk(v, f"{prefix}{k}.") if isinstance(v, dict)
-                else leaf(f"{prefix}{k}") for k, v in node.items()}
+    return leaf
 
-    return walk(parts[0], "")
+
+def gather_train_params(cfg: ArchConfig, parts: List[Dict[str, Any]],
+                        shape: Dict[str, int]) -> Dict[str, Any]:
+    """Whole parameters (or moments, or gradients) from every rank's
+    shards in the training layout, ``parts`` in rank order of a mesh of
+    ``shape`` (``train_gatherer`` leaf by leaf)."""
+    leaf = train_gatherer(cfg, shape)
+    flat = [dict(_paths(p)) for p in parts]
+    return _cut_tree(parts[0], lambda path, _: leaf(
+        path, [f[path] for f in flat]))
 
 
 def _model_shared(cfg: ArchConfig, path: str, tc: TrainCut, ways: int):

@@ -19,6 +19,12 @@ the CUDA card by default (``--device cpu`` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --batch 8 --mesh-shape 2,2
 
+  # JAX's multi-pod shape ('pod', 'data', 'model'): FSDP over 'data'
+  # inside a pod, the weights and moments replicated over 'pod', each
+  # batch over ('pod', 'data') and the gradients summed over both
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+      --steps 3 --mesh-shape 2,1,2
+
 Each step takes a fresh batch of random tokens (random [B,S,D] frames for
 embedding-input archs, labels random tokens) from a seeded
 ``torch.Generator`` on the device. Prints the JAX launcher's
@@ -26,9 +32,9 @@ embedding-input archs, labels random tokens) from a seeded
 first, each ended by a device sync), tokens/s and the peak device memory.
 With ``--mesh-shape`` every rank draws the same weights and batches and
 keeps its shards and rows (``training.trainer``); the first line names
-the mesh and its backend, rank 0 prints the step lines, the median of
-the agreed ms a step (each step's slowest rank's), and a last line
-whether every rank's losses are equal and each rank's peak memory.
+the mesh's axes and its backend, rank 0 prints the step lines, the
+median of the agreed ms a step (each step's slowest rank's), and a last
+line whether every rank's losses are equal and each rank's peak memory.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import argparse
 import contextlib
 import dataclasses
 import io
+import math
 import os
 import statistics
 import sys
@@ -68,7 +75,7 @@ class TrainRun:
 
 @dataclasses.dataclass
 class MeshTrainRun:
-    shape: Tuple[int, int]       # (data, model)
+    shape: Tuple[int, ...]       # (data, model) or (pod, data, model)
     backend: str
     ranks: List[dict]            # each rank's summary, in rank order
 
@@ -87,9 +94,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="train the reduced (CPU-feasible) config instead "
                          "of the full-width one")
     ap.add_argument("--mesh-shape", default=None,
-                    help="'data,model': FSDP over data x tensor parallelism "
-                         "over model, one process a rank (the batch must "
-                         "divide over data)")
+                    help="'data,model' or 'pod,data,model': FSDP over "
+                         "data x tensor parallelism over model (the weights "
+                         "replicated over pod), one process a rank (the "
+                         "batch must divide over pod x data)")
     return ap.parse_args(argv)
 
 
@@ -158,37 +166,53 @@ def _train(args: argparse.Namespace, cfg, dev: torch.device,
                     tokens_per_s=tps, peak_bytes=peak)
 
 
-def _mesh_shape(args: argparse.Namespace) -> Tuple[int, int]:
+def _mesh_shape(args: argparse.Namespace) -> Tuple[int, ...]:
     try:
-        data, model = (int(v) for v in args.mesh_shape.split(","))
+        shape = tuple(int(v) for v in args.mesh_shape.split(","))
     except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3):
         raise SystemExit(f"--mesh-shape {args.mesh_shape!r}: expected "
-                         "'data,model', e.g. 2,2") from None
-    if data < 1 or model < 1:
-        raise SystemExit("--mesh-shape: both axes must be >= 1")
-    if args.batch % data:
+                         "'data,model' or 'pod,data,model', e.g. 2,2 or "
+                         "2,1,2")
+    if min(shape) < 1:
+        raise SystemExit("--mesh-shape: every axis must be >= 1")
+    groups = math.prod(shape[:-1])
+    if args.batch % groups:
         raise SystemExit(f"--batch {args.batch} does not split over "
-                         f"{data} data groups")
+                         f"{groups} data groups")
     if dist.is_initialized():
         raise SystemExit("--mesh-shape starts its own process group")
-    return data, model
+    return shape
+
+
+def _axes(mesh_shape: Tuple[int, ...]) -> str:
+    """'data=D model=M', or 'pod=P data=D model=M'."""
+    names = ("pod", "data", "model")[-len(mesh_shape):]
+    return " ".join(f"{a}={n}" for a, n in zip(names, mesh_shape))
+
+
+def _make_mesh(mesh_shape: Tuple[int, ...], device: torch.device):
+    *pod, data, model = mesh_shape
+    return make_serving_mesh(pod=pod[0] if pod else 1, data=data,
+                             model=model, device=device)
 
 
 def run_mesh(args: argparse.Namespace,
-             mesh_shape: Tuple[int, int]) -> MeshTrainRun:
-    """Train on a (data, model) mesh, one process a rank: the ranks are
-    spawned here and rendezvous through a FileStore in a temporary
-    directory, or, under torchrun (RANK and WORLD_SIZE set), this process
-    is its rank. Returns the ranks' summaries (under torchrun, this
-    rank's)."""
-    ways = mesh_shape[0] * mesh_shape[1]
+             mesh_shape: Tuple[int, ...]) -> MeshTrainRun:
+    """Train on a (data, model) or (pod, data, model) mesh, one process a
+    rank: the ranks are spawned here and rendezvous through a FileStore
+    in a temporary directory, or, under torchrun (RANK and WORLD_SIZE
+    set), this process is its rank. Returns the ranks' summaries (under
+    torchrun, this rank's)."""
+    ways = math.prod(mesh_shape)
     backend = backend_for(args.device, ways)
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     if not torchrun or os.environ["RANK"] == "0":
         where = ("each on its own card" if backend == "nccl"
                  else f"sharing {rank_device(args.device, backend, 0)}")
-        print(f"mesh data={mesh_shape[0]} model={mesh_shape[1]}: {ways} "
-              f"ranks over {backend}, {where}", flush=True)
+        print(f"mesh {_axes(mesh_shape)}: {ways} ranks over {backend}, "
+              f"{where}", flush=True)
     if torchrun:
         rank = int(os.environ["RANK"])
         dist.init_process_group(backend)
@@ -203,18 +227,17 @@ def run_mesh(args: argparse.Namespace,
 
 
 def _train_rank(rank: int, args: argparse.Namespace,
-                mesh_shape: Tuple[int, int], backend: str) -> dict:
+                mesh_shape: Tuple[int, ...], backend: str) -> dict:
     """One rank of ``run_mesh``: train on this rank's shards and rows
     (only rank 0 prints), then gather the ranks' losses and peak memory;
     rank 0 prints them. Returns the rank's summary."""
-    ways = mesh_shape[0] * mesh_shape[1]
+    ways = math.prod(mesh_shape)
     device = rank_device(args.device, backend, rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     else:       # ranks on one host's CPU: threads of their own, not shared
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // ways))
-    mesh = make_serving_mesh(data=mesh_shape[0], model=mesh_shape[1],
-                             device=device)
+    mesh = _make_mesh(mesh_shape, device)
     quiet = (contextlib.nullcontext() if rank == 0
              else contextlib.redirect_stdout(io.StringIO()))
     with quiet:
@@ -225,8 +248,7 @@ def _train_rank(rank: int, args: argparse.Namespace,
         same = all(v == losses[0] for v in losses)
         mem = ("n/a (cpu)" if peaks[0] is None else
                "[" + ", ".join(f"{p / 2**30:.2f}" for p in peaks) + "] GiB")
-        print(f"mesh data={mesh_shape[0]} model={mesh_shape[1]} "
-              f"backend={backend}: losses "
+        print(f"mesh {_axes(mesh_shape)} backend={backend}: losses "
               f"{'equal on every rank' if same else 'DIFFER'}, peak memory "
               f"a rank {mem}", flush=True)
     return {"rank": rank, "device": str(device), "losses": tr.losses,

@@ -542,18 +542,14 @@ def _ffn_seq(cfg: ArchConfig, lp: Params, x: torch.Tensor,
     (residual applied by the caller): (out, aux), JAX's ``_ffn``. A
     rank's slab of the d_ff columns, or of the experts, gives a partial
     sum, summed over 'model'. With a batch split over data groups the
-    MoE load-balance statistics are every group's (``moe.route``). The
-    sorted path (``moe.moe_ffn``), whose capacity and drops are the whole
-    layer's and the whole batch's, is refused under a mesh."""
+    MoE load-balance statistics are every group's (``moe.route``), and
+    the sorted path's capacity and drops the whole batch's
+    (``moe.moe_ffn``)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_kind == "moe":
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         grouped = moe_impl in ("grouped", "grouped_kernel")
         cut = P.cut("moe.wd")
-        if (cut or P.data_ways() > 1) and not grouped and moe_impl != "dense":
-            raise NotImplementedError(
-                f"moe_impl={moe_impl!r} under a mesh: its capacity and "
-                "drops are the whole layer's and the whole batch's")
         kw = dict(first_expert=_first_expert(cfg, lp["moe"]))
         if grouped and h.ndim == 3 and h.shape[1] > 1:
             y, aux = MOE.moe_ffn_grouped(lp["moe"], h, cfg.top_k,
@@ -565,7 +561,7 @@ def _ffn_seq(cfg: ArchConfig, lp: Params, x: torch.Tensor,
         elif moe_impl == "dense":
             y, aux = MOE.moe_ffn_dense(lp["moe"], h, cfg.top_k, **kw)
         else:
-            y, aux = MOE.moe_ffn(lp["moe"], h, cfg.top_k)
+            y, aux = MOE.moe_ffn(lp["moe"], h, cfg.top_k, **kw)
         return (P.reduce_model(y) if cut else y), aux
     if cfg.d_ff > 0:
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)

@@ -33,7 +33,11 @@ layer, no all-to-all. With the whole experts (no mesh) the functions are
 the single-device ones. In training (``models.model.forward`` on a
 rank's slab) the tokens and routing weights enter the slab through
 ``partitioning.enter_model``, and with a batch split over data groups
-the load-balance loss takes every group's statistics (``route``).
+the load-balance loss takes every group's statistics (``route``). The
+sorted path (``moe_ffn``) runs on the same slabs, and on a data group's
+rows keeps the whole batch's capacity and drops: each group offsets its
+assignments' places in their experts' queues by the earlier groups'
+counts (one gather of E integers a layer).
 
 The grouped paths combine a token's K expert outputs without atomics:
 the weighted outputs go back to (token, k) order through the sort's
@@ -108,28 +112,49 @@ def _dispatch(e_flat: torch.Tensor, K: int, E: int):
 
 
 def moe_ffn(p: MoEParams, x: torch.Tensor, top_k: int,
-            capacity_factor: float = 1.25
+            capacity_factor: float = 1.25, first_expert: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global-argsort dispatch. x: [B,T,D] or [N,D] -> (y same shape,
-    aux_loss). Assignments past an expert's capacity are dropped."""
+    aux_loss). Capacity C = max(int(N*K/E*cf + 0.999), K) over the whole
+    batch's N tokens; an assignment past its expert's C-th, in the order
+    of a stable sort by expert over the whole batch's assignments, is
+    dropped.
+
+    On a data group's rows of a batch split over the data groups
+    (``partitioning.data_ways``, in row order: group g holds rows
+    [g*n, (g+1)*n)) the order is the same sort's: an assignment's place in
+    its expert's queue is its place among the group's own plus the
+    earlier groups' assignments to that expert (their counts, gathered
+    over the data groups; integers, no gradient), and C is the whole
+    batch's. On a slab of E_local experts from ``first_expert`` a rank
+    keeps its experts' assignments and gives their share of the output;
+    on a slab of every expert's d_ff columns, its columns' share (the
+    model sums the shares over 'model'). The buffer [E_local, C, D] holds
+    the group's kept assignments only, each in a row of its own, so every
+    kept row gets the arithmetic of the single device's einsums."""
     orig_shape = x.shape
     D = orig_shape[-1]
     x2 = x.reshape(-1, D)
     N = x2.shape[0]
     E, K = p["router"].shape[-1], top_k
     w, ids, aux = route(p["router"], x2, K)
-    order, es, ts, pos, _ = _dispatch(ids.reshape(1, -1), K, E)
+    x2, w = _entered(x2, w)
+    order, es, ts, pos, counts = _dispatch(ids.reshape(1, -1), K, E)
     es, ts, pos = es[0], ts[0], pos[0]
     ws = w.reshape(-1)[order[0]]
-    C = max(int(N * K / E * capacity_factor + 0.999), K)
-    keep = pos < C
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
-    buf[es[keep], pos[keep]] = x2[ts[keep]]
-    h = torch.einsum("ecd,edf->ecf", buf, p["wg"])
-    h = F.silu(h) * torch.einsum("ecd,edf->ecf", buf, p["wu"])
-    out = torch.einsum("ecf,efd->ecd", h, p["wd"])
-    y_assign = out[es, pos.clamp(max=C - 1)] * keep[:, None]
-    y = torch.zeros((N, D), dtype=x.dtype, device=x.device)
+    C = max(int(N * P.data_ways() * K / E * capacity_factor + 0.999), K)
+    earlier = P.sum_earlier_groups(counts[0])            # [E]
+    El, mine, le = _local(es, p, first_expert)
+    keep = (pos + earlier[es] < C) & mine
+    # row of each kept assignment in the flat [El*C] buffer (its place in
+    # the group's own part of the queue, below C); the others go to one
+    # spare row past its end, so no boolean mask, and no host sync
+    row = torch.where(keep, le * C + pos, El * C)
+    buf = torch.zeros((El * C + 1, D), dtype=x2.dtype, device=x2.device)
+    buf[row] = x2[ts]
+    out = _experts(p, buf[:-1].view(1, El, C, D))[0].reshape(El * C, D)
+    y_assign = out[row.clamp(max=El * C - 1)] * keep[:, None]
+    y = torch.zeros((N, D), dtype=x2.dtype, device=x2.device)
     y.index_add_(0, ts, y_assign * ws[:, None])
     return y.reshape(orig_shape), aux
 

@@ -395,6 +395,20 @@ def gather_fsdp(x: torch.Tensor, name: str) -> torch.Tensor:
     return _Gather.apply(x, *args) if _grad(x) else _gather(x, *args)
 
 
+def sum_earlier_groups(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` (no gradient: counts) over the data groups before
+    this rank's, in data order, of a batch split over them
+    (``split_batch``): zeros in the first group, and without a split. One
+    gather over the data groups."""
+    ways = data_ways()
+    if ways == 1:
+        return torch.zeros_like(x)
+    index = data_axis(_CTX.mesh)[1]
+    every = _gather(x.detach()[None], 0, "data", ways, index,
+                    _CTX.mesh.data_group)
+    return every[:index].sum(0, dtype=x.dtype)
+
+
 def gather_data(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Each of ``xs`` (one type; rows on dim 0, this data group's
     ``batch_rows``) with every data group's rows, in data order, all in

@@ -395,9 +395,10 @@ def _check_mesh(cfg, mesh, cuda_graphs: bool, device) -> None:
     """The mesh refusal that is the port's own: captured steps over gloo
     (its collectives cannot be captured). SSM and hybrid archs refuse a
     mesh as in JAX, before this."""
-    if "model" not in mesh.axis_names or "data" not in mesh.axis_names:
-        raise ValueError("serving mesh needs ('data', 'model') axes — see "
-                         "launch.mesh.make_serving_mesh")
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError("serving mesh needs ('data', 'model') axes, as "
+                         "JAX's engine does (a 'pod' axis serves a training "
+                         "step) — see launch.mesh.make_serving_mesh")
     if (cuda_graphs and getattr(mesh, "backend", None) == "gloo"
             and torch.device(device).type == "cuda"):
         raise ValueError("cuda_graphs=True over a gloo process group: gloo "
@@ -678,6 +679,8 @@ class PagedTorchExecutor(Executor):
     chunked prefill starts at the first uncached chunk; admission
     (page_budget) counts shared pages once and treats idle cached pages as
     reclaimable headroom, evicted under pressure (``_reserve``).
+    ``prefix_cache_pages`` bounds the index's own pages (default
+    ``n_pages``): an insert past it evicts the least recently used leaves.
 
     ``suspend``/``resume`` swap a task's private pages to the host arena
     (serving.kv_swap, DESIGN.md §7) and back; with ``host_arena_bytes``
@@ -762,6 +765,7 @@ class PagedTorchExecutor(Executor):
                  max_batch: int = 16, dtype=torch.float32, device="cuda",
                  prefill_chunk_size: Optional[int] = None,
                  prefix_cache: bool = False,
+                 prefix_cache_pages: Optional[int] = None,
                  host_arena_bytes: Optional[int] = None,
                  spec_decode: bool = False, draft_cfg=None,
                  draft_params=None, max_spec_depth: int = 4, mesh=None,
@@ -820,7 +824,8 @@ class PagedTorchExecutor(Executor):
             if cfg.has_attention else 1)
         self.prefix_cache = None
         if prefix_cache:
-            self.prefix_cache = RadixPrefixCache(self.pool, max_pages=n_pages)
+            self.prefix_cache = RadixPrefixCache(
+                self.pool, max_pages=prefix_cache_pages or n_pages)
         self.max_pages_per_seq = -(-max_seq // page_size)
         self.pages = M.init_paged_cache(cfg, n_pages, page_size,
                                         dtype=self.params["embed"].dtype,

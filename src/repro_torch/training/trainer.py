@@ -114,7 +114,13 @@ def make_train_step(cfg: ArchConfig, opts: Optional[M.ModelOptions] = None,
     local_train_params``), ``batch`` is the rank's rows (``local_batch``),
     and ``train_step`` returns the same loss and grad_norm on every rank:
     the whole batch's loss and the exact norm of the whole gradient,
-    every block counted once (``launch.sharding.counted_parts``)."""
+    every block counted once (``launch.sharding.counted_parts``).
+
+    A state saved with ``checkpoint.save`` (on a mesh: ``save(path,
+    state, cfg=cfg, mesh=mesh)``, the whole state in one file) comes back
+    as ``checkpoint.restore(path, init_state(0), cfg=cfg, mesh=mesh)``
+    on any mesh, or in one process, and ``train_step`` takes it as it
+    is."""
     opts = opts or M.ModelOptions(remat=True)
     dev = M.resolve_device(device)
     opt_init, opt_update = adamw(cosine_schedule(peak_lr, warmup, total))
@@ -139,6 +145,8 @@ def make_train_step(cfg: ArchConfig, opts: Optional[M.ModelOptions] = None,
     def train_step(state: State, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[State, Dict[str, torch.Tensor]]:
         params, opt_state = state
+        for p in leaves(params):         # a state from checkpoint.restore
+            p.requires_grad_(True)
         loss, grads, gnorm = step_grads(cfg, params, batch, opts, mesh,
                                         layout)
         params, opt_state = opt_update(grads, opt_state, params)

@@ -5,8 +5,9 @@ package on the CPU.
 engine and ``PagedJaxExecutor(prefix_cache=True)``: cache-hit prefill and
 decode logits, shared page tables, chunked prefill starting at the first
 uncached chunk, the page budget's prefix discount, eviction under pool
-pressure, and a priced SLICE loop with the prefix hint that ends with an
-empty pool (the JAX models are ``tests/test_prefix_cache.py`` and
+pressure and under the index's own page budget (``prefix_cache_pages``),
+and priced SLICE loops with the prefix hint that end with an empty pool
+(the JAX models are ``tests/test_prefix_cache.py`` and
 ``tests/test_kv_swap.py``). Suspend/resume: decode logits across a swap
 equal the never-suspended engine's and JAX's, a shared prefix page stays
 resident, and ``HostArenaFull`` rolls the swap back. Same weights (the JAX
@@ -218,6 +219,61 @@ def test_priced_prefix_slice_loop_matches_jax_and_leaks_nothing(weights):
         assert a.token_times_ms == b.token_times_ms
     assert ts == js and all(len(s) > 1 for s in ts.values())
     assert tx.prefix_cache.hits == jx.prefix_cache.hits >= 1
+    _clear(tx)
+
+
+def test_prefix_cache_page_budget_evicts_and_matches_jax(weights):
+    """``prefix_cache_pages=2`` (the radix index's own page budget, as
+    JAX's engine takes it) under SLICE with the prefix hint on a priced
+    clock, over two prefix groups (two tasks of one, two of the other,
+    then one of each) whose 2-page prefixes cannot both stay indexed: the
+    index evicts, never holds more than 2 pages,
+    and the decisions, token times, hits and streams equal JAX's engine
+    under the same budget; the pool ends empty."""
+    runs = {}
+    for name, ex, mod, sched, lat_cls, loop in (
+            ("jax", _jax(weights, n_pages=24, prefix_cache=True,
+                         prefix_cache_pages=2), jtask, jsched, JLat, jax_loop),
+            ("torch", _torch(weights, n_pages=24, prefix_cache=True,
+                             prefix_cache_pages=2), ttask, tsched, TLat,
+             torch_loop)):
+        lat = lat_cls([(1, 8.0), (2, 9.0), (4, 11.0)], [(8, 4.0), (64, 12.0)])
+        a = _grouped(mod, 3, 5500, group=5, out=5)
+        b = _grouped(mod, 3, 5510, group=6, out=5)
+        tasks = a[:2] + b[:2] + [a[2], b[2]]
+        for i, t in enumerate(tasks):
+            t.arrival_ms = 6.0 * i
+        cache, held, evicted = ex.prefix_cache, [], []
+        evict = cache.evict
+
+        def counted(n, protect=None, evict=evict, evicted=evicted):
+            evicted.append(evict(n, protect))
+            return evicted[-1]
+
+        cache.evict = counted
+        priced = Priced(ex, lat)
+        prefill = priced.prefill
+
+        def watched(task, prefill=prefill, held=held, cache=cache):
+            ms = prefill(task)
+            held.append(cache.pages_indexed)
+            return ms
+
+        priced.prefill = watched
+        res = loop(sched.SliceScheduler(
+            lat, page_budget=ex.page_budget(),
+            prefix_hint=ex.cached_prompt_tokens), priced, tasks)
+        runs[name] = (res, priced.streams, ex, held, sum(evicted))
+    (jres, js, jx, jheld, _), (tres, ts, tx, theld, tev) = (runs["jax"],
+                                                            runs["torch"])
+    assert all(t.finished for t in tres.tasks)
+    for f in ("decode_iterations", "prefills", "end_ms", "defers_by_reason"):
+        assert getattr(tres, f) == getattr(jres, f), f
+    for x, y in zip(jres.tasks, tres.tasks):
+        assert x.token_times_ms == y.token_times_ms
+    assert ts == js and all(len(v) > 1 for v in ts.values())
+    assert tx.prefix_cache.hits == jx.prefix_cache.hits >= 1
+    assert theld == jheld and max(theld) <= 2 and tev >= 1
     _clear(tx)
 
 

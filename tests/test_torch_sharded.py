@@ -480,6 +480,20 @@ def test_mesh_refusals():
         PagedTorchExecutor(cfg, mesh=mesh(), **{**kw, "device": "cuda"})
 
 
+def test_pod_mesh_refused_by_the_engine():
+    """A ('pod', 'data', 'model') mesh serves a training step; the paged
+    engine, as JAX's, takes ('data', 'model') meshes only and raises
+    before any process group is touched."""
+    from repro_torch.serving.executor import PagedTorchExecutor
+    pod = types.SimpleNamespace(shape={"pod": 2, "data": 1, "model": 2},
+                                axis_names=("pod", "data", "model"),
+                                coords={"pod": 0, "data": 0, "model": 0},
+                                backend="gloo", agree=float)
+    with pytest.raises(ValueError, match="'data', 'model'"):
+        PagedTorchExecutor(_port_cfg(4), mesh=pod, device="cpu", n_pages=8,
+                           page_size=8, max_seq=32, max_batch=2)
+
+
 # ------------------------------------------------- op-level equivalence
 
 def test_sharded_prefill_and_decode_match(weights, ranks4):
