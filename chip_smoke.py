@@ -91,9 +91,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
             Prints both engines' l(b) and prefill engine clock, the
             spread of 20 steps at the largest batch and the peak memory
             with and without graphs.
-4. serve  — SLICE through the serve entry point, edge-6b at full width in
-            bf16, every step captured: measured l(b), a few Poisson
-            requests, in seven runs: (a) the paged engine with atomic
+4. serve  — the serve entry point, edge-6b at full width in bf16, every
+            step captured: measured l(b), a few Poisson requests; under
+            SLICE in seven runs: (a) the paged engine with atomic
             prefill, (a') the same with realtime tasks beside voice/QA
             (--ratio 0.5, the CLI's default mix; every other run but (c')
             serves voice/QA only), (b) the slot engine with
@@ -108,6 +108,24 @@ Phases, each printing its own lines; any failed check exits non-zero:
             (after the radix index is cleared), runs (d) and (d') must run
             verify steps and hit the prefix cache, and each run must
             launch the kernels of its path.
+            Then the paper's baselines, on the paged engine at --ratio
+            0.5: (o) paged-orca (--scheduler orca) and (p)
+            paged-fastserve (--scheduler fastserve), on the 512-page
+            pool; (q) paged-fastserve-swap (fastserve --kv-swap) and (r)
+            paged-slice-swap (SLICE --kv-swap), both on 28 pages at 12
+            requests/s, where arrivals overlap past the pool. Each
+            launches paged decode and flash prefill and finishes every
+            task; each swap run must suspend at least SWAP_MIN_SUSPENDS
+            times, resume every suspension, move bytes, restore each
+            suspended task's private K/V pages bit for bit (a digest of
+            their bytes in logical order before the suspension, held to
+            the same after the resume, by wrapping the engine's suspend
+            and resume), and end with no page held and an empty host
+            arena; it prints suspends, resumes, swapped MB and the pool.
+            One line then sets these runs' attainment (all, realtime,
+            non-realtime) beside paged-realtime's, each with its SLO
+            scale l(4) / 50: a smoke reading, as each run scales its SLOs
+            from its own probed l(b).
             Then (e) mamba2-780m and (f) granite-moe-3b-a800m at full width
             in bf16 on the paged engine, with the same workload: every task
             finishes, no page or state slot is left held, (e) launches the
@@ -211,7 +229,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
             none for the paged kernels, which no single PyTorch call
             gathers), at the shapes its serving run used (the paged
             kernels over a full batch of the run's first requests, each
-            mid-way through its output; verify windows of depth+1
+            mid-way through its output, run (a)'s rows also reporting
+            the launches of every other edge-6b paged run, (o)-(r)
+            among them, at the same heads, page size and pages a
+            sequence; verify windows of depth+1
             queries; paged decode and flash prefill also at granite-moe's
             heads over run (f)'s batch and median prompt and at
             smollm-360m's over run (h)'s smollm instance's; each paged row
@@ -391,6 +412,32 @@ SERVE_RUNS = (
                             "--async-pipeline", "--trace", "{trace}",
                             "--metrics-every", "16"],
      ("paged_decode_attention", "flash_prefill")),
+    # the paper's baselines on the CLI's default mix: Orca (FCFS, every
+    # resident in every step) and FastServe (skip-join MLFQ, a priority
+    # subset each step), both with the CLI's batch cap, which the 512-page
+    # pool leaves at 8
+    ("paged-orca", ["--executor", "paged", "--scheduler", "orca",
+                    "--ratio", "0.5"],
+     ("paged_decode_attention", "flash_prefill")),
+    ("paged-fastserve", ["--executor", "paged", "--scheduler", "fastserve",
+                         "--ratio", "0.5"],
+     ("paged_decode_attention", "flash_prefill")),
+    # KV swap under real page pressure: 28 pages of 16 hold one QA peak
+    # ((256 + 32) / 16 = 18 pages) and a little more, and at 12 requests/s
+    # arrivals overlap. FastServe swaps out its most demoted resident for
+    # an arrival that does not fit and swaps in by priority; SLICE
+    # suspends low-utility residents for starved realtime arrivals. Each
+    # must suspend at least SWAP_MIN_SUSPENDS times and restore every
+    # suspended task's K/V pages bit for bit (swap_digests). At 40 pages
+    # and 8/s SLICE suspended 1 task, and 0 or 1 at 28 pages and 8/s; 28
+    # pages at 12/s suspended 7 twice (PERF.md §6)
+    ("paged-fastserve-swap", ["--executor", "paged", "--scheduler",
+                              "fastserve", "--kv-swap", "--pages", "28",
+                              "--rate", "12", "--ratio", "0.5"],
+     ("paged_decode_attention", "flash_prefill")),
+    ("paged-slice-swap", ["--executor", "paged", "--kv-swap", "--pages",
+                          "28", "--rate", "12", "--ratio", "0.5"],
+     ("paged_decode_attention", "flash_prefill")),
     # SSM and MoE serving (DESIGN.md §12): the later --arch overrides
     # SERVE_ARGS's
     ("paged-ssm", ["--executor", "paged", "--arch", "mamba2-780m"],
@@ -411,6 +458,11 @@ SERVE_RUNS = (
                      "hymba-1.5b"],
      ("decode_attention", "flash_prefill", "ssd_scan", "ssd_decode_step")),
 )
+SWAP_MIN_SUSPENDS = 2      # suspensions each --kv-swap run must make
+# the runs whose attainment the serve phase prints side by side, each with
+# its own SLO scale (a smoke reading: the scale follows each run's l(b))
+BASELINE_RUNS = ("paged-realtime", "paged-orca", "paged-fastserve",
+                 "paged-fastserve-swap", "paged-slice-swap")
 KERNELS = {
     "paged_decode_attention": {
         "source": "src/repro_torch/csrc/paged_decode_attention.cu",
@@ -1991,13 +2043,15 @@ def serve_phase(run_name, extra, required):
         argv = SERVE_ARGS + [a.replace("{trace}", trace_path) for a in extra]
         args = serve.parse_args(argv)
         phase(f"serve {run_name}: {args.fleet or args.arch} at full width "
-              "(bf16) under SLICE")
+              f"(bf16) under --scheduler {args.scheduler}")
         print("serve args:", " ".join(argv))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ops.reset_launches()
         with (launches_by_engine() if args.fleet
-              else contextlib.nullcontext({})) as by_engine:
+              else contextlib.nullcontext({})) as by_engine, \
+                (swap_digests() if args.kv_swap
+                 else contextlib.nullcontext(None)) as swaps:
             run = serve.run(args)
         launches = dict(ops.LAUNCHES)
         wall = time.perf_counter() - t0
@@ -2047,6 +2101,8 @@ def serve_phase(run_name, extra, required):
                   f"{ex.store.state_bytes} B each, all free at the end")
     elif ex.slot_of:
         fail(f"{run_name}: slots still held by {sorted(ex.slot_of)}")
+    if swaps is not None:
+        check_swap_run(run_name, ex, res, swaps)
     logits = ex.last_logits
     if (logits is None or logits.shape[1] != ex.cfg.vocab_size
             or not np.isfinite(logits).all()):
@@ -2074,7 +2130,9 @@ def serve_phase(run_name, extra, required):
     print(f"prefill of {L} prompt tokens {how}: {min(probe_ms):.3f} ms "
           f"(min of {', '.join(f'{m:.3f}' for m in probe_ms)})")
     shapes = {"cfg": ex.cfg, "max_seq": ex.max_seq, "tasks": res.tasks,
-              "chunk": args.prefill_chunk}
+              "chunk": args.prefill_chunk,
+              "slo_scale": max(run.lat.decode_ms(max(2, args.slots // 2))
+                               / 50.0, 0.02)}
     if args.spec_decode:
         print(f"speculative decoding: verify steps={ex.spec_steps} "
               f"spec_extra={res.spec_extra_tokens} "
@@ -2139,6 +2197,101 @@ def launches_by_engine():
                 delattr(cls, n)
             else:
                 setattr(cls, n, f)
+
+
+@contextlib.contextmanager
+def swap_digests():
+    """Hold every suspension of the paged engine to its resume: before a
+    suspend, a digest of the bytes of the task's private K/V pages (the
+    ones the swap releases), in logical order; after the resume, the same
+    digest of the pages now at those logical positions. Yields
+    {"suspended": n, "restored": n, "differ": [task ids]}, filled as the
+    engines run; a call that raises records nothing."""
+    import hashlib
+
+    import torch
+    from repro_torch.serving.executor import PagedTorchExecutor as cls
+    out = {"suspended": 0, "restored": 0, "differ": []}
+    before = {}
+    saved = {"suspend": cls.suspend, "resume": cls.resume}
+
+    def digest(ex, tid, logical):
+        table = ex.pool.page_table(tid)
+        idx = torch.as_tensor([table[i] for i in logical], device=ex.device)
+        h = hashlib.sha256()
+        for name in ("k_pages", "v_pages"):
+            h.update(ex.pages[name][:, idx].contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def suspend(self, task):
+        tid = task.task_id
+        logical = [i for i, p in enumerate(self.pool.page_table(tid))
+                   if self.pool.ref_count(p) == 1]
+        seen = digest(self, tid, logical)
+        ms = saved["suspend"](self, task)
+        before[tid] = (logical, seen)
+        out["suspended"] += 1
+        return ms
+
+    def resume(self, task):
+        ms = saved["resume"](self, task)
+        logical, seen = before.pop(task.task_id)
+        if digest(self, task.task_id, logical) != seen:
+            out["differ"].append(task.task_id)
+        out["restored"] += 1
+        return ms
+
+    cls.suspend, cls.resume = suspend, resume
+    try:
+        yield out
+    finally:
+        cls.suspend, cls.resume = saved["suspend"], saved["resume"]
+
+
+def check_swap_run(run_name, ex, res, swaps):
+    """A --kv-swap run: at least SWAP_MIN_SUSPENDS suspensions, each
+    resumed, bytes moved, every resumed task's K/V pages bit for bit what
+    they were before its suspension, and the host arena empty."""
+    print(f"swap: suspends={res.suspends} resumes={res.resumes} swapped="
+          f"{res.swapped_bytes / 1e6:.1f}MB pool={ex.n_pages} pages of "
+          f"{ex.page_size}; {swaps['restored']} resumes held to their "
+          f"suspension's K/V digest, {len(swaps['differ'])} differ; host "
+          f"arena {ex.arena.bytes_held} B held at the end (peak "
+          f"{ex.arena.peak_bytes / 1e6:.1f}MB)")
+    if res.suspends < SWAP_MIN_SUSPENDS:
+        fail(f"{run_name}: {res.suspends} suspensions, fewer than "
+             f"{SWAP_MIN_SUSPENDS}: the pool was under no pressure")
+    if (res.resumes != res.suspends or swaps["suspended"] != res.suspends
+            or swaps["restored"] != res.resumes):
+        fail(f"{run_name}: {res.suspends} suspends and {res.resumes} "
+             f"resumes in the loop, {swaps['suspended']} and "
+             f"{swaps['restored']} in the engine")
+    if res.swapped_bytes <= 0:
+        fail(f"{run_name}: suspensions moved no bytes")
+    if swaps["differ"]:
+        fail(f"{run_name}: resumed K/V pages differ from the suspended "
+             f"ones for tasks {swaps['differ']}")
+    ex.arena.check()
+    if ex.arena.bytes_held or ex.arena.owners_held:
+        fail(f"{run_name}: the host arena still holds "
+             f"{ex.arena.bytes_held} B of {ex.arena.owners_held} tasks")
+
+
+def print_baseline_attainment(runs):
+    """One line: the attainment of the baseline and swap runs beside
+    paged-realtime's, each with the SLO scale of its own probed l(b)."""
+    from repro_torch.serving.metrics import summarize
+    parts = []
+    for name in BASELINE_RUNS:
+        shapes = runs[name][0]
+        att = summarize(shapes["tasks"])
+        parts.append(f"{name} {att['all'].slo:.1%} / "
+                     f"{att['realtime'].slo:.1%} / "
+                     f"{att['non_realtime'].slo:.1%} (scale "
+                     f"{shapes['slo_scale']:.4f})")
+    print("attainment, all / realtime / non-realtime, a smoke reading (each "
+          "run scales its SLOs by its own l(4) / 50): " + "; ".join(parts))
 
 
 def check_fleet_run(run_name, run, launches, by_engine, wall, path,
@@ -3287,12 +3440,14 @@ def time_phase(runs, worst):
             floor=lambda: _ssdd.launch_empty(B, H, P, N, dx.device))
 
     # paged decode: edge-6b's heads over run paged-atomic's batch (its
-    # runs and the fleet's edge-6b instance), granite-moe's over run
-    # paged-moe's, smollm-360m's over the fleet's smollm instance's
+    # runs, the baseline and swap runs and the fleet's edge-6b instance),
+    # granite-moe's over run paged-moe's, smollm-360m's over the fleet's
+    # smollm instance's
     paged_decode_row("paged-atomic", 1, (
         "paged-atomic", "paged-realtime", "paged-chunked",
         "paged-chunked-realtime", "paged-spec", "paged-spec-rate8",
-        "paged-async-traced", "fleet-traced/edge-6b"))
+        "paged-async-traced", "paged-orca", "paged-fastserve",
+        "paged-fastserve-swap", "paged-slice-swap", "fleet-traced/edge-6b"))
     paged_decode_row("paged-moe", 11, ("paged-moe",))
     paged_decode_row("fleet-traced/smollm-360m", 15,
                      ("fleet-traced/smollm-360m",))
@@ -3301,7 +3456,8 @@ def time_phase(runs, worst):
     # slot-hybrid's prompts
     prefill_row("paged-atomic", 2, (
         "paged-atomic", "paged-realtime", "paged-spec", "paged-spec-rate8",
-        "paged-async-traced", "fleet-traced/edge-6b"))
+        "paged-async-traced", "paged-orca", "paged-fastserve",
+        "paged-fastserve-swap", "paged-slice-swap", "fleet-traced/edge-6b"))
     prefill_row("paged-moe", 10, ("paged-moe",))
     prefill_row("slot-hybrid", 12, ("slot-hybrid",))
     prefill_row("fleet-traced/smollm-360m", 16,
@@ -4732,6 +4888,7 @@ def main() -> None:
     runs = {}
     for name, extra, required in SERVE_RUNS:
         runs.update(serve_phase(name, extra, required))
+    print_baseline_attainment(runs)
     mesh_runs, moe_slabs = sharded_phase(worst)
     runs.update(mesh_runs)
     runs.update(slot_mesh_phase())

@@ -1269,3 +1269,44 @@ def test_async_capture_while_a_transfer_is_outstanding():
         [asy.generated_tokens(t) for t in tasks + [late]]
     assert asy.ledger.started == 1 and asy.ledger.outstanding() == 0
     asy.pool.check()
+
+
+def _fastserve_swap_run(device):
+    """Reduced edge-6b on a pool that holds one task's peak (5 of 8
+    pages), four tasks arriving at once, served by FastServe with
+    proactive KV swap; returns the engine and the LoopResult."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedulers import FastServeScheduler
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    from repro_torch.serving.loop import run_serving_loop
+    cfg = get_config("edge-6b").reduced()
+    ex = PagedTorchExecutor(cfg, params=M.init_params(cfg, seed=0,
+                                                      device=device),
+                            n_pages=8, page_size=16, max_seq=128,
+                            max_batch=4, device=device)
+    sched = FastServeScheduler(max_batch=4, page_budget=ex.page_budget(),
+                               kv_swap=True)
+    res = run_serving_loop(sched, ex, _tasks((40, 33, 47, 21), 8800),
+                           max_ms=3e7)
+    return ex, res
+
+
+@pytest.mark.cuda
+def test_fastserve_kv_swap_under_page_pressure():
+    """FastServe with KV swap on the card, the pool too small for two
+    tasks: arrivals suspend residents, every suspended task is resumed and
+    finishes, the pool and the host arena end empty, the paged kernels
+    ran."""
+    _need_cuda()
+    ops.reset_launches()
+    ex, res = _fastserve_swap_run("cuda")
+    assert res.suspends >= 1 and res.resumes == res.suspends
+    assert res.swapped_bytes > 0
+    assert all(t.finished for t in res.tasks)
+    ex.pool.check()
+    ex.arena.check()
+    assert ex.pool.used_pages == 0 and not ex.pool.owners()
+    assert ex.arena.bytes_held == 0 and ex.arena.owners_held == 0
+    assert ops.LAUNCHES["paged_decode_attention"] > 0
+    assert ops.LAUNCHES["flash_prefill"] > 0
