@@ -69,7 +69,14 @@ Phases, each printing its own lines; any failed check exits non-zero:
             engine_fleet under the structural gate of
             benchmarks/fleet_routing.py. The SSD decode step also over
             the slot engine's layout (row b at slot b, a spare row,
-            inactive rows) at the same shapes. Every reduced engine on
+            inactive rows) at the same shapes. The async pipelined paged
+            engine against the synchronous one, reduced edge-6b,
+            granite-moe-3b-a800m (chunked prefill and speculative
+            decoding on), mamba2-780m and hymba-1.5b (off, as JAX gates
+            them): a bucket change with steps in flight, a suspend behind
+            an in-flight decode, resume; logits bit for bit, and for the
+            SSM archs the resumed state slot bit for bit what it held at
+            the suspension. Every reduced engine on
             the card runs its steps captured as CUDA graphs (the
             engines' default).
 3. graphs — each step the engines capture, at full width in bf16, run
@@ -79,18 +86,22 @@ Phases, each printing its own lines; any failed check exits non-zero:
             K = 4 (verify step and the draft's catch-up and masked decode),
             the slot engine's masked and compacted steps (16 slots) of
             edge-6b, mamba2-780m and hymba-1.5b, and the paged decode of
-            mamba2-780m and granite-moe-3b-a800m; 16 steps each.
-            Prefill-type: the whole prompt at 64, 128 and 256 tokens
-            (edge-6b, mamba2-780m, granite-moe-3b-a800m on the paged
-            engine; mamba2-780m and hymba-1.5b on the slot engine;
-            edge-6b's slot engine at 256), a 256-token
+            mamba2-780m, granite-moe-3b-a800m and hymba-1.5b; 16 steps
+            each. Prefill-type: the whole prompt at 64, 128 and 256 tokens
+            (edge-6b, mamba2-780m, granite-moe-3b-a800m and hymba-1.5b on
+            the paged engine; mamba2-780m and hymba-1.5b on the slot
+            engine; edge-6b's slot engine at 256), a 256-token
             prompt in chunks of 64 on the paged and the slot engine, and
             a prefix hit's suffix in power-of-two pieces; 5 prompts a
             length, then 4 decode steps. Logits within the bf16
             tolerance, greedy streams identical, launch counts equal.
             Prints both engines' l(b) and prefill engine clock, the
             spread of 20 steps at the largest batch and the peak memory
-            with and without graphs.
+            with and without graphs. Then the async engine against the
+            synchronous one at full width for edge-6b, mamba2-780m,
+            hymba-1.5b and granite-moe-3b-a800m: the scripted drive and
+            32 decode steps at b=8, streams bit for bit, no staging wait,
+            commit waits at most the stalls, both clocks per step.
 4. serve  — the serve entry point, edge-6b at full width in bf16, every
             step captured: measured l(b), a few Poisson requests; under
             SLICE in seven runs: (a) the paged engine with atomic
@@ -127,10 +138,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
             scale l(4) / 50: a smoke reading, as each run scales its SLOs
             from its own probed l(b).
             Then (e) mamba2-780m and (f) granite-moe-3b-a800m at full width
-            in bf16 on the paged engine, with the same workload: every task
+            in bf16 on the paged engine, with the same workload, each also
+            through the async pipelined engine (paged-ssm-async,
+            paged-moe-async: the engine idle at the end, no step in
+            flight and no transfer outstanding), and hymba-1.5b on the
+            paged engine (paged-hybrid): every task
             finishes, no page or state slot is left held, (e) launches the
             SSD scan and decode-step kernels, (f) the grouped-expert FFN,
-            paged decode and flash prefill at head_dim 64, group 3.
+            paged decode and flash prefill at head_dim 64, group 3,
+            paged-hybrid all four.
             Then (h) the fleet (--fleet smollm-360m,edge-6b, --ratio 0.5,
             traced): every task finishes, the per-instance results
             partition the tasks, both pools end empty, each QA task is
@@ -178,7 +194,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
             steps, on reduced edge-6b and granite-moe: whole and chunked
             prefill, decode, speculative verify. (d) The CLI with
             --mesh-shape 1,2 (run paged-mesh): edge-6b at full width in
-            bf16 on the serve phase's workload, 2 ranks over gloo on the
+            bf16 on the serve phase's workload cut to its first 2 s (8
+            requests), 2 ranks over gloo on the
             card; every task finishes, every rank's pool ends empty, the
             ranks' digests are equal, each rank launches paged decode and
             flash prefill at its 16 query heads and 1 KV head. (d') The
@@ -187,7 +204,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
             heads and 20 experts launches the grouped FFN too. The ranks
             import no JAX. Prints each rank's l(b) and engine clock,
             labelled as ranks sharing one H100 over gloo: no
-            tensor-parallel speed.
+            tensor-parallel speed. (b), (f), the slot-mesh cases and
+            train-mesh's rank parts run on two groups of gloo ranks, one
+            of 4 ranks, then one of 2 (``gloo_phase``), after the single
+            process's references, with the dry-run cells and two
+            examples and train-mesh (c)'s CLIs beside them
+            (``start_background``); (d) and (d') each run alone.
 5'. slot-mesh — the slot prefill and decode_step in JAX's sharded cache
             layout (cache_specs: the batch over ('pod', 'data'), the
             ring's K/V and kv_pos slots over 'model', every KV head, the
@@ -200,13 +222,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
             (b) hymba-1.5b at full width, 8 of its 32 layers, on a
             (2, 2) mesh, 4 prompts of 1100 tokens into its 1024-slot
             window ring (wrapped, then cut in two; 2 rows a data group),
-            25 of its 50 SSM heads a rank, 16 steps; the same at 16 and
-            32 layers, the logits' error printed; (c) mamba2-780m at full
-            width on a (1, 2) mesh, 24 of its 48 SSM heads a rank, 8
-            prompts of 256 tokens, 32 steps, at 4 layers, and at all 48
-            with the logits' error printed (random fp32 stacks this deep
-            amplify any reordering of a sum past MESH_TOL: see
-            SLOT_MESH_CASES). Against the single process's prefill +
+            25 of its 50 SSM heads a rank, 16 steps; (c) mamba2-780m at
+            4 of its 48 layers on a (1, 2) mesh, 24 of its 48 SSM heads a
+            rank, 8 prompts of 256 tokens, 32 steps (random fp32 stacks
+            deeper amplify any reordering of a sum past MESH_TOL: see
+            SLOT_MESH_CASES). The cases run on the sharded phase's gloo
+            groups ((a) and (c) on its 2 ranks, (b) on its 4).
+            Against the single process's prefill +
             decode steps on the whole cache, at a case's first depth:
             every rank's logits within MESH_TOL
             (prefill, and active rows), greedy streams identical, the
@@ -218,7 +240,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
             output) and a flash prefill a layer where the arch has
             attention, an SSD scan a layer and layers x steps SSD steps
             where it has SSM layers, no JAX imported. Runs (a)'s and
-            (c)'s rank 0 launches (at full depth) stand under the time
+            (c)'s rank 0 launches stand under the time
             phase's rows at a rank's shapes.
 6. time   — each kernel (device time: CUDA events over 30 calls queued
             behind a spin kernel, so the calls run back to back; the
@@ -235,11 +257,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
             sequence; verify windows of depth+1
             queries; paged decode and flash prefill also at granite-moe's
             heads over run (f)'s batch and median prompt and at
-            smollm-360m's over run (h)'s smollm instance's; each paged row
+            smollm-360m's over run (h)'s smollm instance's and at
+            hymba-1.5b's over run paged-hybrid's; each paged row
             names its page splits); ring-cache decode over run (b)'s slot
             array and over run (j)'s at hymba's heads and window; the SSD
             scan over one median prompt of run (e) and of run (j); the SSD
-            step over the full decode batch of runs (e), (i) and (j), each
+            step over the full decode batch of runs (e), (i), (j) and
+            paged-hybrid, each
             on its own arena layout and timed cold (the next of as many
             arena copies as fill twice the L2 each call), beside an empty
             kernel on the same grid timed the same way, its launch floor
@@ -272,7 +296,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
             decode's split and combine, the SSD scan's chunk states, state
             passing and chunk outputs (JSON key "passes_us").
 7. dryrun — python -m repro_torch.launch.dryrun in subprocesses (no JAX
-            may be imported), started together: smollm-360m's
+            may be imported), started together in the background before
+            the gloo ranks of the sharded phase (they use the CPU only,
+            one thread each), read right after them: smollm-360m's
             decode_32k, prefill_32k and train_4k on the stand-in pod mesh
             (16, 16) and decode_32k on the multi-pod mesh (2,
             16, 16), every record ok; hubert-xlarge's decode_32k, a skip
@@ -289,9 +315,11 @@ Phases, each printing its own lines; any failed check exits non-zero:
             bound / clock, which must not exceed 1.05 (JSON line
             {"roofline": [...]}).
 8. examples — examples/torch_quickstart.py and
-            torch_multi_slo_serving.py at their defaults,
-            torch_train_tiny.py (300 steps) and torch_edge_serving_sim.py
-            at --duration 20, each in a subprocess: exit 0, its SLO or
+            torch_multi_slo_serving.py at their defaults, one after the
+            other, torch_train_tiny.py (300 steps) and
+            torch_edge_serving_sim.py at --duration 20 (the CPU only),
+            these two started with the dry-run cells, each in a
+            subprocess: exit 0, its SLO or
             loss line (the loss must fall), its kernels launched
             (flash_prefill and decode_attention; ssd_scan and
             ssd_decode_step), no JAX imported.
@@ -324,7 +352,21 @@ Phases, each printing its own lines; any failed check exits non-zero:
             peak memory and the card's name and power limit; a JSON line
             {"train": [...]} collects them. (d) python -m
             repro_torch.launch.train --arch smollm-360m --steps 20 in a
-            subprocess must exit 0.
+            subprocess must exit 0. The order on the card is: sharded
+            (a), (e), the gloo ranks (the background jobs beside them),
+            dryrun, train-mesh (c), sharded (c), the mesh serve runs,
+            time, train, examples, the train-mesh checks.
+10. train-mesh — the trainer over gloo ranks sharing the card
+            (``train_mesh_phase``): (a) smollm-360m at 4 of 32 layers on
+            (2, 2) against one process, (b) hubert-xlarge's forward on
+            (1, 2), (d) a (2, 2) checkpoint of smollm-360m at 2 layers
+            restored onto (1, 2), (2, 1, 2) and one process, (e)
+            granite-moe's sorted MoE path (2 layers) on a split batch,
+            (f) (a) on the pod mesh, run by the gloo groups of the
+            sharded phase (one of 4 ranks and one of 2, with sharded (b),
+            (f) and slot-mesh); (c) the training CLI with --mesh-shape
+            2,2 and in one process, one step each, run together beside
+            the gloo ranks.
 
 The kernels JSON has one entry per kernel; each also names its shape and
 the kernel body it ran ("tensor_core" or "cuda_core"), and a kernel timed
@@ -332,7 +374,8 @@ at a second shape lists it under "other_shapes" (its launches then sum
 over every serving run). Each run's launches of a kernel stand under the
 one row timed at that run's shapes (heads, state widths, arena layout):
 the script fails if a run's launches stand under no row or under two.
-The last lines are the kernels JSON, the card's name and power limit, and
+The last lines are one line of each phase's seconds (largest first), the
+kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 CUDA is not available or the repository's sources are not beside it.
 """
@@ -345,6 +388,7 @@ import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -442,8 +486,22 @@ SERVE_RUNS = (
     # SERVE_ARGS's
     ("paged-ssm", ["--executor", "paged", "--arch", "mamba2-780m"],
      ("ssd_scan", "ssd_decode_step")),
+    # the same through the async pipelined engine: the state slots of
+    # steps in flight
+    ("paged-ssm-async", ["--executor", "paged", "--arch", "mamba2-780m",
+                         "--async-pipeline"],
+     ("ssd_scan", "ssd_decode_step")),
     ("paged-moe", ["--executor", "paged", "--arch", "granite-moe-3b-a800m"],
      ("moe_grouped_ffn", "paged_decode_attention", "flash_prefill")),
+    # the MoE step's live-row counts under a queued step
+    ("paged-moe-async", ["--executor", "paged", "--arch",
+                         "granite-moe-3b-a800m", "--async-pipeline"],
+     ("moe_grouped_ffn", "paged_decode_attention", "flash_prefill")),
+    # the hybrid arch on the paged engine: attention over the pages and
+    # the SSM mixer over the state arena in every step
+    ("paged-hybrid", ["--executor", "paged", "--arch", "hymba-1.5b"],
+     ("paged_decode_attention", "flash_prefill", "ssd_scan",
+      "ssd_decode_step")),
     # the fleet tier (DESIGN.md §11): smollm-360m (tier 0) and edge-6b
     # (tier 1) behind one router on the CLI's default mix, traced; QA
     # traffic wants tier 1
@@ -497,11 +555,27 @@ def fail(msg: str) -> None:
 
 
 _START = time.perf_counter()
+# (label, start) of every phase header so far: a header's label is its
+# text before the first ": "
+PHASES = []
 
 
 def phase(name: str) -> None:
     """A phase's header line, with the seconds since the script started."""
+    PHASES.append((name.split(": ")[0], time.perf_counter()))
     print(f"== {name} (at {time.perf_counter() - _START:.1f}s)", flush=True)
+
+
+def phase_seconds() -> str:
+    """One line: each phase's seconds (from its header to the next one's,
+    the last to now; headers with one label summed), largest first."""
+    took = {}
+    ends = [t for _, t in PHASES[1:]] + [time.perf_counter()]
+    for (label, t0), t1 in zip(PHASES, ends):
+        took[label] = took.get(label, 0.0) + t1 - t0
+    return "phase seconds, largest first: " + "; ".join(
+        f"{label} {s:.1f}" for label, s in sorted(took.items(),
+                                                   key=lambda kv: -kv[1]))
 
 
 def poison(shape, dtype):
@@ -1641,123 +1715,186 @@ def async_drive(ex, tasks, spare, observe):
     return tasks
 
 
+# the archs the async engine runs on: edge-6b with chunked prefill and
+# speculative decoding on in the reduced check, granite-moe with them too,
+# mamba2-780m (SSM) and hymba-1.5b (hybrid) without them, as JAX gates
+# them for recurrent state (DESIGN.md §12)
+ASYNC_ARCHS = ("edge-6b", "mamba2-780m", "hymba-1.5b", "granite-moe-3b-a800m")
+
+
 def check_async_engines():
     """The async pipelined engine against the synchronous one on the card
-    (reduced edge-6b, fp32, steps captured, same weights, chunked prefill
-    and speculative decoding on): one scripted sequence (``async_drive``),
-    logits bit for bit at every observed point, greedy streams equal, the
-    pool consistent and the ledger idle after drain()."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.core.task import SLOSpec, Task
-    from repro_torch.models import model as M
-    from repro_torch.serving.executor import PagedTorchExecutor
-    phase("check the async engine against the sync engine on the card")
-    cfg = get_config("edge-6b").reduced()
-    params = M.init_params(cfg, seed=0, device="cuda")
-    out = {}
-    for async_dispatch in (False, True):
-        ex = PagedTorchExecutor(cfg, params=params, n_pages=64, page_size=16,
-                                max_seq=128, max_batch=4, device="cuda",
-                                prefill_chunk_size=16, spec_decode=True,
-                                max_spec_depth=2,
-                                async_dispatch=async_dispatch)
-        tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n,
-                      output_len=40, task_id=7600 + i)
-                 for i, n in enumerate((5, 17, 40, 29))]
-        seen = []
-        tasks = async_drive(ex, tasks[:3], tasks[3],
-                            lambda what, a: seen.append((what, a)))
-        ex.pool.check()
-        ex.ledger.check()
-        out[async_dispatch] = dict(
-            seen=seen, streams=[ex.generated_tokens(t) for t in tasks],
-            stalls=ex.gap_stats.stalls, idle=ex.ledger.outstanding() == 0,
-            swaps=ex.ledger.started, stage_waits=ex.graphs.stage_waits)
-    sync, asy = out[False], out[True]
-    same = all(np.array_equal(a, b) for (_, a), (_, b) in
-               zip(sync["seen"], asy["seen"]))
-    print(f"engine async vs sync (reduced edge-6b, captured): logits bit for "
-          f"bit at {[w for w, _ in asy['seen']]}: {same}; streams_equal="
-          f"{sync['streams'] == asy['streams']}; stalls {asy['stalls']}, "
-          f"transfers {asy['swaps']}, staging waits {asy['stage_waits']}, "
-          f"ledger idle {asy['idle']}")
-    if (not same or sync["streams"] != asy["streams"] or not asy["idle"]
-            or asy["stalls"] == 0 or asy["swaps"] != 1):
-        fail("the async engine on the card disagrees with the sync engine")
-
-
-ASYNC_STEPS = 32          # timed steady-state decode steps at b=8
-
-
-def async_graphs_phase():
-    """The async engine at full width (edge-6b paged, bf16, captured)
-    against the synchronous one on the same weights: the scripted drive
-    (``async_drive`` over 3 tasks, no chunking or drafting) and then
-    ASYNC_STEPS decode steps at b=8 over 8 tasks, greedy streams bit for
-    bit; prints both modes' engine clock per step (the host time of the
-    steps, the async drive's ending in drain()), the async dispatch ms,
-    staging waits (must be 0) and commit waits (at most one a stall) per
-    step."""
-    import gc
-
+    (reduced, fp32, steps captured, same weights), one scripted sequence
+    (``async_drive``) an arch of ASYNC_ARCHS, chunked prefill and
+    speculative decoding on where the arch takes them: logits bit for
+    bit at every observed point, greedy streams equal, the pool and store
+    consistent and the ledger idle after drain(); for the SSM archs the
+    suspended task's state slot (SSD state and conv tail) after its
+    resume bit for bit what it held when the suspension was issued
+    behind the in-flight decode."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.task import SLOSpec, Task
     from repro_torch.models import model as M
     from repro_torch.serving.executor import PagedTorchExecutor
-    phase("graphs: the async engine against the sync engine, full width "
-          "(bf16)")
-    cfg = get_config("edge-6b")
-    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    out = {}
-    for async_dispatch in (False, True):
-        ex = PagedTorchExecutor(cfg, params=params, n_pages=512, page_size=16,
-                                max_seq=1024, max_batch=8, device="cuda",
-                                async_dispatch=async_dispatch)
-        tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=96 + 9 * i,
-                      output_len=512, task_id=9800 + i) for i in range(8)]
-        async_drive(ex, tasks[:3], None, lambda what, a: None)
-        for t in tasks[3:]:
-            ex.prefill(t)
-        for _ in range(3):                   # warm the b=8 step
-            ex.decode(tasks)
-        ex.drain()
-        torch.cuda.synchronize()
-        g = ex.graphs
-        w0 = (g.stage_waits, g.commit_waits, ex.gap_stats.stalls)
-        t0 = time.perf_counter()
-        disp = sum(ex.decode(tasks) for _ in range(ASYNC_STEPS))
-        # the waits of the dispatch loop; the drain's commits come after
-        w1 = (g.stage_waits, g.commit_waits, ex.gap_stats.stalls)
-        ex.drain()
-        wall = (time.perf_counter() - t0) * 1e3
-        out[async_dispatch] = dict(
-            ms=wall / ASYNC_STEPS, disp=disp / ASYNC_STEPS,
-            stage=w1[0] - w0[0], commit=w1[1] - w0[1],
-            stalls=w1[2] - w0[2], drained=g.commit_waits - w1[1],
-            streams=[ex.generated_tokens(t) for t in tasks])
-        del ex
+    phase("check the async engine against the sync engine on the card")
+    for arch in ASYNC_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = M.init_params(cfg, seed=0, device="cuda")
+        feats = {} if cfg.has_ssm else dict(prefill_chunk_size=16,
+                                            spec_decode=True,
+                                            max_spec_depth=2)
+        out = {}
+        for async_dispatch in (False, True):
+            ex = PagedTorchExecutor(cfg, params=params, n_pages=64,
+                                    page_size=16, max_seq=128, max_batch=4,
+                                    device="cuda",
+                                    async_dispatch=async_dispatch, **feats)
+            tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0, prompt_len=n,
+                          output_len=40, task_id=7600 + i)
+                     for i, n in enumerate((5, 17, 40, 29))]
+            if cfg.has_ssm:                     # a prompt below the conv width
+                tasks[2].prompt_len = 2
+            seen, restored = [], []
+            if cfg.has_ssm:
+                held_state(ex, restored)
+            tasks = async_drive(ex, tasks[:3], tasks[3],
+                                lambda what, a: seen.append((what, a)))
+            ex.pool.check()
+            ex.store.check()
+            ex.ledger.check()
+            out[async_dispatch] = dict(
+                seen=seen, streams=[ex.generated_tokens(t) for t in tasks],
+                stalls=ex.gap_stats.stalls, idle=ex.ledger.outstanding() == 0,
+                swaps=ex.ledger.started, stage_waits=ex.graphs.stage_waits,
+                restored=restored)
+            del ex
+        sync, asy = out[False], out[True]
+        same = all(np.array_equal(a, b) for (_, a), (_, b) in
+                   zip(sync["seen"], asy["seen"]))
+        state = ("" if not cfg.has_ssm else
+                 f"; state slot restored bit for bit {asy['restored']}")
+        print(f"engine async vs sync ({cfg.name}, captured): logits bit for "
+              f"bit at {[w for w, _ in asy['seen']]}: {same}; streams_equal="
+              f"{sync['streams'] == asy['streams']}; stalls {asy['stalls']}, "
+              f"transfers {asy['swaps']}, staging waits "
+              f"{asy['stage_waits']}, ledger idle {asy['idle']}{state}")
+        if (not same or sync["streams"] != asy["streams"] or not asy["idle"]
+                or asy["stalls"] == 0 or asy["swaps"] != 1
+                or (cfg.has_ssm and sync["restored"] + asy["restored"]
+                    != [True, True])):
+            fail(f"the async engine on the card disagrees with the sync "
+                 f"engine ({cfg.name})")
+        del params
+        torch.cuda.empty_cache()
+
+
+def held_state(ex, restored):
+    """Wrap ``ex``'s suspend and resume (this instance only): at a
+    suspension, a copy of the task's state slot taken on the compute
+    stream, so behind any step in flight; after its resume, whether the
+    slot it got back holds that copy bit for bit, appended to
+    ``restored``."""
+    import torch
+    suspend, resume, held = ex.suspend, ex.resume, {}
+    names = ("ssm_state", "conv_state")
+
+    def slot_of(task):
+        return ex.states.slot_of(task.task_id)
+
+    def on_suspend(task):
+        held[task.task_id] = [ex.pages[n][:, slot_of(task)].clone()
+                              for n in names]
+        return suspend(task)
+
+    def on_resume(task):
+        ms = resume(task)
+        restored.append(all(torch.equal(ex.pages[n][:, slot_of(task)], h)
+                            for n, h in zip(names,
+                                            held.pop(task.task_id))))
+        return ms
+
+    ex.suspend, ex.resume = on_suspend, on_resume
+
+
+ASYNC_STEPS = 32          # timed steady-state decode steps at b=8
+
+
+def async_graphs_phase():
+    """The async engine at full width (paged, bf16, captured) against the
+    synchronous one on the same weights, for each arch of ASYNC_ARCHS:
+    the scripted drive (``async_drive`` over 3 tasks, no chunking or
+    drafting) and then ASYNC_STEPS decode steps at b=8 over 8 tasks,
+    greedy streams bit for bit; prints both modes' engine clock per step
+    (the host time of the steps, the async drive's ending in drain()),
+    the async dispatch ms, staging waits (must be 0) and commit waits (at
+    most one a stall) per step."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import SLOSpec, Task
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    phase("graphs async: the async engine against the sync engine, full "
+          "width (bf16)")
+    for arch in ASYNC_ARCHS:
+        cfg = get_config(arch)
+        params = M.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                               device="cuda")
+        out = {}
+        for async_dispatch in (False, True):
+            ex = PagedTorchExecutor(cfg, params=params, n_pages=512,
+                                    page_size=16, max_seq=1024, max_batch=8,
+                                    device="cuda",
+                                    async_dispatch=async_dispatch)
+            tasks = [Task(SLOSpec(tpot_ms=100.0), 1.0,
+                          prompt_len=96 + 9 * i, output_len=512,
+                          task_id=9800 + i) for i in range(8)]
+            async_drive(ex, tasks[:3], None, lambda what, a: None)
+            for t in tasks[3:]:
+                ex.prefill(t)
+            for _ in range(3):                   # warm the b=8 step
+                ex.decode(tasks)
+            ex.drain()
+            torch.cuda.synchronize()
+            g = ex.graphs
+            w0 = (g.stage_waits, g.commit_waits, ex.gap_stats.stalls)
+            t0 = time.perf_counter()
+            disp = sum(ex.decode(tasks) for _ in range(ASYNC_STEPS))
+            # the waits of the dispatch loop; the drain's commits come after
+            w1 = (g.stage_waits, g.commit_waits, ex.gap_stats.stalls)
+            ex.drain()
+            wall = (time.perf_counter() - t0) * 1e3
+            out[async_dispatch] = dict(
+                ms=wall / ASYNC_STEPS, disp=disp / ASYNC_STEPS,
+                stage=w1[0] - w0[0], commit=w1[1] - w0[1],
+                stalls=w1[2] - w0[2], drained=g.commit_waits - w1[1],
+                streams=[ex.generated_tokens(t) for t in tasks])
+            del ex
+            gc.collect()
+            torch.cuda.empty_cache()
+        params = None
         gc.collect()
         torch.cuda.empty_cache()
-    params = None
-    gc.collect()
-    torch.cuda.empty_cache()
-    sync, asy = out[False], out[True]
-    same = sync["streams"] == asy["streams"]
-    print(f"edge-6b paged b=8, {ASYNC_STEPS} steps: engine clock sync "
-          f"{sync['ms']:.3f} ms/step, async {asy['ms']:.3f} ms/step "
-          f"(dispatch {asy['disp']:.3f} ms/step); async host waits per step "
-          f"while dispatching: staging {asy['stage'] / ASYNC_STEPS:.2f}, "
-          f"commits {asy['commit'] / ASYNC_STEPS:.2f} ({asy['commit']} over "
-          f"{asy['stalls']} stalls), then {asy['drained']} in the drain; "
-          f"streams_equal={same} ({sum(map(len, asy['streams']))} tokens)")
-    if not same:
-        fail("full-width async engine: streams differ from the sync engine")
-    if asy["stage"] or asy["commit"] > asy["stalls"]:
-        fail("full-width async engine: host waits beyond the commits its "
-             "queue's depth forces")
+        sync, asy = out[False], out[True]
+        same = sync["streams"] == asy["streams"]
+        print(f"{arch} paged b=8, {ASYNC_STEPS} steps: engine clock sync "
+              f"{sync['ms']:.3f} ms/step, async {asy['ms']:.3f} ms/step "
+              f"(dispatch {asy['disp']:.3f} ms/step); async host waits per "
+              f"step while dispatching: staging "
+              f"{asy['stage'] / ASYNC_STEPS:.2f}, commits "
+              f"{asy['commit'] / ASYNC_STEPS:.2f} ({asy['commit']} over "
+              f"{asy['stalls']} stalls), then {asy['drained']} in the "
+              f"drain; streams_equal={same} "
+              f"({sum(map(len, asy['streams']))} tokens)", flush=True)
+        if not same:
+            fail(f"full-width async engine ({arch}): streams differ from the "
+                 "sync engine")
+        if asy["stage"] or asy["commit"] > asy["stalls"]:
+            fail(f"full-width async engine ({arch}): host waits beyond the "
+                 "commits its queue's depth forces")
 
 
 # (case, arch, engine, engine arguments, batch sizes, verify depth): the
@@ -1779,6 +1916,9 @@ GRAPH_CASES = (
     ("hymba-1.5b slot masked", "hymba-1.5b", "slot", {}, (1, 2, 4, 8), None),
     ("hymba-1.5b slot compacted", "hymba-1.5b", "slot",
      {"compact_buckets": True}, (1, 2, 4, 8), None),
+    # attention over the pages and the SSM mixer over the state arena in
+    # one step (decode_step_paged's hybrid _mix)
+    ("hymba-1.5b paged", "hymba-1.5b", "paged", {}, (1, 2, 4, 8), None),
 )
 GRAPH_STEPS = 16          # compared steps an engine, spread over its batches
 SPREAD_STEPS = 20         # timed steps at the case's largest batch
@@ -1806,6 +1946,8 @@ PREFILL_CASES = (
      (64, 128, 256)),
     ("hymba-1.5b slot whole prefill", "hymba-1.5b", "slot", {}, "whole",
      (64, 128, 256)),
+    ("hymba-1.5b whole prefill", "hymba-1.5b", "paged", {}, "whole",
+     (64, 128, 256)),
 )
 PREFILL_REPS = 5          # timed prompts an engine at each length
 # the graphs phase's captured clocks (ms, median): a decode case's step at
@@ -1815,7 +1957,8 @@ CAPTURED = {}
 
 def graphs_phase():
     """Each decode-type step the engines capture (paged decode of edge-6b,
-    mamba2-780m and granite-moe at b = 1, 2, 4, 8; edge-6b's verify step
+    mamba2-780m, granite-moe and hymba-1.5b at b = 1, 2, 4, 8; edge-6b's
+    verify step
     at b = 4, K = 4; the slot engine's masked and compacted steps over 16
     slots) run by two engines on the same weights and tasks: one eager
     (``cuda_graphs=False``), one captured. GRAPH_STEPS steps each: logits
@@ -2064,6 +2207,8 @@ def serve_phase(run_name, extra, required):
             return out
         if run.trace is not None:
             check_trace(run, trace_path)
+        if args.async_pipeline:
+            check_async_run(run_name, run)
     ex, res = run.executor, run.result
     peak = torch.cuda.max_memory_allocated()
     print("l(b) curve: " + " ".join(f"l({b})={ms:.3f}ms" for b, ms in run.probes))
@@ -2388,11 +2533,10 @@ def check_fleet_run(run_name, run, launches, by_engine, wall, path,
 
 
 def check_trace(run, path):
-    """The traced async serve run: the replay ledger reproduces the loop's
-    counters, the Perfetto file loads back, the pipeline counters are
-    there (stalls, a positive dispatch time) and the engine is idle."""
+    """The traced serve run: the replay ledger reproduces the loop's
+    counters and the Perfetto file loads back."""
     from repro_torch.serving.trace import events_conserved, replay_counters
-    tr, res, ex = run.trace, run.result, run.executor
+    tr, res = run.trace, run.result
     conserved = events_conserved(tr.events, res)
     with open(path) as f:
         doc = json.load(f)
@@ -2402,16 +2546,23 @@ def check_trace(run, path):
           f"rows read back, {len(tr.snapshots)} snapshots, kinds {kinds}; "
           f"events_conserved={conserved}; replayed "
           f"{replay_counters(tr.events)['decode_iterations']} decode steps")
+    if not conserved or tr.dropped or not rows:
+        fail("traced run: the event stream does not reproduce the loop's "
+             "counters, or the Perfetto file is empty")
+
+
+def check_async_run(run_name, run):
+    """An --async-pipeline serve run: the pipeline counters are there
+    (stalls, a positive dispatch time) and the engine is idle: no step
+    in flight, no transfer outstanding."""
+    res, ex = run.result, run.executor
     print(f"pipeline: stalls={res.pipeline_stalls} dispatch_ms="
           f"{res.dispatch_ms:.3f} wait_ms={res.wait_ms:.3f} schedule_ms="
           f"{res.schedule_ms:.3f} swap_overlap_ms={res.swap_overlap_ms:.3f} "
           f"host_gap_ms={res.dispatch_ms + res.wait_ms:.3f}; staging waits "
           f"{ex.graphs.stage_waits}, commit waits {ex.graphs.commit_waits}")
-    if not conserved or tr.dropped or not rows:
-        fail("traced run: the event stream does not reproduce the loop's "
-             "counters, or the Perfetto file is empty")
     if res.dispatch_ms <= 0 or len(ex._queue) or ex.ledger.outstanding():
-        fail("async run: no dispatch time booked, or steps or transfers "
+        fail(f"{run_name}: no dispatch time booked, or steps or transfers "
              "left in flight")
 
 
@@ -2668,24 +2819,16 @@ def mesh_ops(ex):
     return pre, dec, streams
 
 
-def mesh_rank(rank, arch, shape):
-    """A rank of (b) or (f): ``arch`` at full width in fp32 (TF32 off) on
-    its slab of a ``shape`` (data, model) mesh, over gloo on the one card,
+def mesh_engine_run(mesh, arch):
+    """(b) or (f) on a rank (``gloo_rank``): ``arch`` at full width in
+    fp32 (TF32 off) on its slab of ``mesh``, over gloo on the one card,
     eager steps. Returns what mesh_ops saw, the rank's launches during
     them, its heads, the experts it holds, its digest and loop clock (the
-    agreed ms of its ops) and any JAX module."""
+    agreed ms of its ops)."""
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (shape[0]
-                                                             * shape[1])))
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serving.executor import PagedTorchExecutor
-    mesh = make_serving_mesh(data=shape[0], model=shape[1],
-                             device=torch.device("cuda", 0))
     ex = PagedTorchExecutor(get_config(arch), mesh=mesh, device="cuda:0",
                             cuda_graphs=False, **MESH_ENGINE)
     ops.reset_launches()
@@ -2696,36 +2839,27 @@ def mesh_rank(rank, arch, shape):
     return {"pre": pre, "dec": dec, "streams": streams, "heads": ex.heads,
             "experts": 0 if moe is None else moe["wg"].shape[1],
             "digest": ex.digest, "clock": ex.gap_stats.wait_ms,
-            "launches": dict(ops.LAUNCHES), "s": time.perf_counter() - t0,
-            "leaked": sorted(m for m in sys.modules if m == "jax"
-                             or m.startswith(("jax.", "repro.")))}
+            "launches": dict(ops.LAUNCHES), "ops_s": time.perf_counter() - t0}
 
 
-def check_mesh_equivalence(arch="edge-6b", shape=(1, 2), label="(b)"):
-    """(b) edge-6b at full width, fp32: the single-process paged engine,
-    then 2 ranks over gloo sharing the card, on the same ops: streams
-    identical, logits within MESH_TOL, equal launches on the ranks. (f)
-    granite-moe the same way on a (2, 2) mesh, 4 ranks: mesh_ops's
-    decode bucket of 4 split 2 + 2 over the data groups, each rank on 20
-    of the 40 experts; also equal digests and loop clocks on the four
-    ranks and the grouped FFN launched on every rank."""
+# sharded (b) and (f): (label, arch, (data, model) mesh)
+MESH_EQUIV = (("(b)", "edge-6b", (1, 2)),
+              ("(f)", "granite-moe-3b-a800m", (2, 2)))
+
+
+def mesh_one(label, arch, shape):
+    """(b) or (f)'s reference: the single-process paged engine at full
+    width in fp32 on mesh_ops; (prefill logits, decode logits, streams,
+    seconds)."""
     import gc
 
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch import sharding as S
-    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.serving.executor import PagedTorchExecutor
-    data, model = shape
-    ways = data * model
-    cfg = get_config(arch)
-    experts = (cfg.n_experts // model if cfg.block_kind == "moe"
-               and cfg.n_experts % model == 0 else cfg.n_experts)
-    phase(f"sharded {label}: {arch} fp32, a ({data}, {model}) mesh of "
-          f"{ways} ranks over gloo against one engine")
-    ex = PagedTorchExecutor(cfg, device="cuda", cuda_graphs=False,
-                            **MESH_ENGINE)
+    phase(f"sharded {label}: {arch} fp32, one engine (the reference of a "
+          f"{shape} mesh of {shape[0] * shape[1]} gloo ranks)")
+    ex = PagedTorchExecutor(get_config(arch), device="cuda",
+                            cuda_graphs=False, **MESH_ENGINE)
     t0 = time.perf_counter()
     pre, dec, streams = mesh_ops(ex)
     torch.cuda.synchronize()
@@ -2733,13 +2867,28 @@ def check_mesh_equivalence(arch="edge-6b", shape=(1, 2), label="(b)"):
     del ex
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = spawn_ranks(mesh_rank, ways, (arch, shape), backend="gloo",
-                        timeout=300)
+    return pre, dec, streams, one_s
+
+
+def check_mesh_equivalence(label, arch, shape, one, ranks):
+    """(b) edge-6b at full width, fp32: 2 ranks over gloo sharing the card
+    against the single-process paged engine (``one``), on the same ops:
+    streams identical, logits within MESH_TOL, equal launches, digests
+    and loop clocks on the ranks. (f) granite-moe the same way on a (2,
+    2) mesh, 4 ranks: mesh_ops's decode bucket of 4 split 2 + 2 over the
+    data groups, each rank on 20 of the 40 experts, the grouped FFN
+    launched on every rank. ``ranks``: each rank's ``mesh_engine_run``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as S
+    data, model = shape
+    ways = data * model
+    cfg = get_config(arch)
+    experts = (cfg.n_experts // model if cfg.block_kind == "moe"
+               and cfg.n_experts % model == 0 else cfg.n_experts)
+    pre, dec, streams, one_s = one
     for r, res in enumerate(ranks):
         heads = S.head_slab(cfg, model, r % model)
-        if res["leaked"]:
-            fail(f"{label} rank {r} imported JAX or the JAX package: "
-                 f"{res['leaked'][:5]}")
         if res["heads"] != heads or res["experts"] != experts:
             fail(f"{label} rank {r} holds heads {res['heads']} and "
                  f"{res['experts']} experts, not {heads} and {experts}")
@@ -2748,13 +2897,14 @@ def check_mesh_equivalence(arch="edge-6b", shape=(1, 2), label="(b)"):
                  f"engine's: {res['streams']} != {streams}")
         err = max(float(np.abs(a - b).max()) for a, b in
                   zip(res["pre"] + res["dec"], pre + dec))
-        print(f"rank {r}: heads {res['heads']}, {res['experts']} experts, "
-              f"streams identical ({len(MESH_PROMPTS)} x "
-              f"{MESH_STEPS + 1} tokens), logits max_abs_err={err:.3e} "
-              f"tol={MESH_TOL:g}, launches {res['launches']}, digest "
-              f"{res['digest']:#x}, loop clock {res['clock']:.3f} ms, ops "
-              f"{res['s']:.2f} s (single engine {one_s:.2f} s; {ways} ranks "
-              "sharing one H100 over gloo, eager: no tensor-parallel speed)")
+        print(f"sharded {label} rank {r}: heads {res['heads']}, "
+              f"{res['experts']} experts, streams identical "
+              f"({len(MESH_PROMPTS)} x {MESH_STEPS + 1} tokens), logits "
+              f"max_abs_err={err:.3e} tol={MESH_TOL:g}, launches "
+              f"{res['launches']}, digest {res['digest']:#x}, loop clock "
+              f"{res['clock']:.3f} ms, ops {res['ops_s']:.2f} s (single "
+              f"engine {one_s:.2f} s; {ways} ranks sharing one H100 over "
+              "gloo, eager: no tensor-parallel speed)")
         if not err <= MESH_TOL:
             fail(f"{label} rank {r}'s logits differ from the single engine's "
                  f"by {err:.3e} > {MESH_TOL:g}")
@@ -2854,108 +3004,110 @@ def check_mesh_nccl_captured():
 
 
 # (d) and (d'): (run, extra serve arguments, kernels every rank must
-# launch) on the serve phase's workload, the ranks sharing the card over
-# gloo with eager steps
+# launch) on the serve phase's workload cut to its first 2 s (8 requests,
+# the batch cap: at 4 s the 14 requests queued behind it for 131 eager
+# steps of 160-250 ms), the ranks sharing the card over gloo with eager
+# steps
+MESH_SERVE_CUT = ["--duration", "2"]
 MESH_SERVE_RUNS = (
-    ("paged-mesh", ["--mesh-shape", "1,2"],
+    ("paged-mesh", ["--mesh-shape", "1,2"] + MESH_SERVE_CUT,
      ("paged_decode_attention", "flash_prefill")),
     # granite-moe expert-parallel (20 of its 40 experts a rank), the
     # decode batches of 2, 4 and 8 split over two data groups
     ("paged-mesh-moe", ["--arch", "granite-moe-3b-a800m", "--mesh-shape",
-                        "2,2"],
+                        "2,2"] + MESH_SERVE_CUT,
      ("paged_decode_attention", "flash_prefill", "moe_grouped_ffn")),
 )
 
 
 def mesh_serve_phase():
-    """(d) The CLI with --mesh-shape 1,2: edge-6b at full width in bf16 on
-    the serve phase's workload, 2 ranks over gloo on the one card. (d')
-    granite-moe the same way with --mesh-shape 2,2, 4 ranks. Every task
+    """(d) The serve CLI with --mesh-shape 1,2: edge-6b at full width in
+    bf16 on the serve phase's workload, 2 ranks over gloo on the one
+    card. (d') granite-moe the same way with --mesh-shape 2,2, 4 ranks.
+    Each runs alone: SLICE schedules by the clock, and beside the other
+    run it deferred tasks past the end of the workload. Every task
     finishes, every rank's pool ends empty, the ranks' digests are
     equal, each rank holds its slab (heads, experts) and launches its
     run's kernels. Returns the runs' entries for the time phase: the
     shapes a rank's kernels saw (a rank's heads, experts and rows of a
     full decode batch), the ranks' launches summed."""
-    import dataclasses
-    import types
-
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.launch import sharding as S
     entries = {}
     for name, extra, required in MESH_SERVE_RUNS:
         argv = SERVE_ARGS + ["--executor", "paged"] + extra
         args = serve.parse_args(argv)
         data, model = serve._mesh_shape(args)
-        cfg = get_config(args.arch)
-        experts = (cfg.n_experts // model if cfg.block_kind == "moe"
-                   and cfg.n_experts % model == 0 else cfg.n_experts)
         phase(f"sharded serve {name}: {args.arch} at full width (bf16), "
               f"{data * model} ranks of a ({data}, {model}) mesh over gloo "
               "sharing the card")
         print("serve args:", " ".join(argv))
         t0 = time.perf_counter()
         run = serve.run(args)
-        wall = time.perf_counter() - t0
-        if not isinstance(run, serve.MeshRun) or run.backend != "gloo":
-            fail(f"{name}: not a gloo mesh run")
-        launches = dict.fromkeys(KERNELS, 0)
-        for r, res in enumerate(run.ranks):
-            heads = S.head_slab(cfg, model, r % model)
-            print(f"rank {r} ({res['device']}): heads q={res['heads'][0]} "
-                  f"kv={res['heads'][1]} (KV head {res['heads'][2]}), "
-                  f"{res['experts']} experts, l(b) "
-                  f"{' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probes'])}"
-                  f" (read: {' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probe_read'])})"
-                  f", engine clock {res['end_ms']:.1f} ms over "
-                  f"{res['decode_iters']} decode steps and {res['prefills']} "
-                  f"prefills ({data * model} ranks sharing one H100 over "
-                  f"gloo, eager: no tensor-parallel speed), launches "
-                  f"{res['launches']}, digest {res['digest']:#x}")
-            if res["unfinished"] or not res["n_tasks"]:
-                fail(f"{name}: rank {r} left tasks unfinished: "
-                     f"{res['unfinished']} of {res['n_tasks']}")
-            if res["used_pages"] or res["leaked"]:
-                fail(f"{name}: rank {r} ends with {res['used_pages']} pages "
-                     "held")
-            if res["jax_modules"]:
-                fail(f"{name}: rank {r} imported JAX or the JAX package: "
-                     f"{res['jax_modules'][:5]}")
-            if res["digests"] != [run.ranks[0]["digest"]] * len(run.ranks):
-                fail(f"{name}: the ranks' digests differ: {res['digests']}")
-            if res["heads"] != heads or res["experts"] != experts:
-                fail(f"{name}: rank {r} holds heads {res['heads']} and "
-                     f"{res['experts']} experts, not {heads} and {experts}")
-            for kernel in required:
-                if res["launches"][kernel] <= 0:
-                    fail(f"{name}: rank {r} never launched {kernel}")
-            for kernel, n in res["launches"].items():
-                launches[kernel] += n
-        print(f"{name}: {run.ranks[0]['n_tasks']} tasks, wall {wall:.1f} s")
-        hq, hkv, _ = S.head_slab(cfg, model, 0)
-        shapes = {"cfg": dataclasses.replace(cfg, n_heads=hq,
-                                             n_kv_heads=hkv),
-                  "experts": experts, "max_seq": args.max_seq,
-                  "chunk": None,
-                  "tasks": [types.SimpleNamespace(prompt_len=p, output_len=o)
-                            for p, o in run.ranks[0]["tasks"]],
-                  "batch": args.slots // data,
-                  "page_size": args.page_size,
-                  "n_pages": (args.slots * args.max_seq) // args.page_size,
-                  "maxp": -(-args.max_seq // args.page_size)}
-        entries[name] = (shapes, launches)
+        entries[name] = check_mesh_serve(name, args, required, run,
+                                         time.perf_counter() - t0)
     return entries
 
 
-def sharded_phase(worst):
-    """(a)-(f); returns the serving runs' entries for the time phase and
-    (e)'s timed cases."""
-    check_sharded_kernels(worst)
-    moe_slabs = check_sharded_moe(worst)
-    check_mesh_equivalence()
-    check_mesh_equivalence("granite-moe-3b-a800m", (2, 2), "(f)")
-    check_mesh_nccl_captured()
-    return mesh_serve_phase(), moe_slabs
+def check_mesh_serve(name, args, required, run, wall):
+    """One MESH_SERVE_RUNS run's checks (``mesh_serve_phase``); returns
+    its entry for the time phase."""
+    import dataclasses
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as S
+    data, model = serve._mesh_shape(args)
+    cfg = get_config(args.arch)
+    experts = (cfg.n_experts // model if cfg.block_kind == "moe"
+               and cfg.n_experts % model == 0 else cfg.n_experts)
+    if not isinstance(run, serve.MeshRun) or run.backend != "gloo":
+        fail(f"{name}: not a gloo mesh run")
+    launches = dict.fromkeys(KERNELS, 0)
+    for r, res in enumerate(run.ranks):
+        heads = S.head_slab(cfg, model, r % model)
+        print(f"rank {r} ({res['device']}): heads q={res['heads'][0]} "
+              f"kv={res['heads'][1]} (KV head {res['heads'][2]}), "
+              f"{res['experts']} experts, l(b) "
+              f"{' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probes'])}"
+              f" (read: {' '.join(f'l({b})={ms:.3f}ms' for b, ms in res['probe_read'])})"
+              f", engine clock {res['end_ms']:.1f} ms over "
+              f"{res['decode_iters']} decode steps and {res['prefills']} "
+              f"prefills ({data * model} ranks sharing one H100 over "
+              f"gloo, eager: no tensor-parallel speed), launches "
+              f"{res['launches']}, digest {res['digest']:#x}")
+        if res["unfinished"] or not res["n_tasks"]:
+            fail(f"{name}: rank {r} left tasks unfinished: "
+                 f"{res['unfinished']} of {res['n_tasks']}")
+        if res["used_pages"] or res["leaked"]:
+            fail(f"{name}: rank {r} ends with {res['used_pages']} pages "
+                 "held")
+        if res["jax_modules"]:
+            fail(f"{name}: rank {r} imported JAX or the JAX package: "
+                 f"{res['jax_modules'][:5]}")
+        if res["digests"] != [run.ranks[0]["digest"]] * len(run.ranks):
+            fail(f"{name}: the ranks' digests differ: {res['digests']}")
+        if res["heads"] != heads or res["experts"] != experts:
+            fail(f"{name}: rank {r} holds heads {res['heads']} and "
+                 f"{res['experts']} experts, not {heads} and {experts}")
+        for kernel in required:
+            if res["launches"][kernel] <= 0:
+                fail(f"{name}: rank {r} never launched {kernel}")
+        for kernel, n in res["launches"].items():
+            launches[kernel] += n
+    print(f"{name}: {run.ranks[0]['n_tasks']} tasks, wall {wall:.1f} s")
+    hq, hkv, _ = S.head_slab(cfg, model, 0)
+    shapes = {"cfg": dataclasses.replace(cfg, n_heads=hq,
+                                         n_kv_heads=hkv),
+              "experts": experts, "max_seq": args.max_seq,
+              "chunk": None,
+              "tasks": [types.SimpleNamespace(prompt_len=p, output_len=o)
+                        for p, o in run.ranks[0]["tasks"]],
+              "batch": args.slots // data,
+              "page_size": args.page_size,
+              "n_pages": (args.slots * args.max_seq) // args.page_size,
+              "maxp": -(-args.max_seq // args.page_size)}
+    return shapes, launches
 
 
 # (label, arch, (data, model), batch, prompt length, ring slots, decode
@@ -2974,13 +3126,12 @@ def sharded_phase(worst):
 # the MLP, out_proj and the norm's squares are such changes: (b) came
 # 1.035e-4 from one process at 16 layers (8.401e-5 with the SSM whole),
 # (c) on (1, 2) 4.292e-5 at 4 layers, 1.073e-4 at 8, 1.505e-3 at 48. So
-# (b) is checked at 8 layers and printed at 16 and 32, (c) checked at 4
-# and run at 48
+# (b) is checked at 8 layers and (c) at 4 (deeper stacks could only print
+# their errors; launch/slot_mesh_margins.py measures them). The cases run
+# on the gloo groups of gloo_phase
 SLOT_MESH_CASES = (("(a)", "edge-6b", (1, 2), 8, 500, 1024, 32, (None,)),
-                   ("(b)", "hymba-1.5b", (2, 2), 4, 1100, 1024, 16,
-                    (8, 16, 32)),
-                   ("(c)", "mamba2-780m", (1, 2), 8, 256, 512, 32,
-                    (4, None)))
+                   ("(b)", "hymba-1.5b", (2, 2), 4, 1100, 1024, 16, (8,)),
+                   ("(c)", "mamba2-780m", (1, 2), 8, 256, 512, 32, (4,)))
 
 
 def slot_mesh_config(index, layers):
@@ -3034,29 +3185,21 @@ def slot_mesh_ops(cfg, params, prompts, active, buf_len):
             "cache": {k: host(v) for k, v in cache.items()}}
 
 
-def slot_mesh_rank(rank, index):
-    """A rank of case SLOT_MESH_CASES[index], at each of its depths: its
-    slab of the weights (drawn as the single process draws them, fp32,
-    TF32 off) on a gloo mesh sharing the card, slot_mesh_ops under
-    activation_partitioning; also its launches, seconds and any JAX
-    module. A list, one entry a depth."""
+def slot_mesh_run(mesh, index):
+    """Case SLOT_MESH_CASES[index] on a rank (``gloo_rank``), at each of
+    its depths: its slab of the weights (drawn as the single process
+    draws them, fp32, TF32 off) on ``mesh``, slot_mesh_ops under
+    activation_partitioning; also its launches and seconds. A list, one
+    entry a depth."""
     import gc
 
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    _, _, shape, batch, prompt, buf_len, steps, depths = \
-        SLOT_MESH_CASES[index]
-    torch.set_num_threads(max(1, (os.cpu_count() or 1)
-                              // (shape[0] * shape[1])))
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding as S
-    from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import model as M
     from repro_torch.models.partitioning import activation_partitioning
-    mesh = make_serving_mesh(data=shape[0], model=shape[1],
-                             device=torch.device("cuda", 0))
+    _, _, shape, batch, prompt, buf_len, steps, depths = \
+        SLOT_MESH_CASES[index]
     outs = []
     for layers in depths:
         cfg = slot_mesh_config(index, layers)
@@ -3067,9 +3210,7 @@ def slot_mesh_rank(rank, index):
         t0 = time.perf_counter()
         with activation_partitioning(mesh, S.cut_leaves(cfg, shape[1])):
             out = slot_mesh_ops(cfg, params, prompts, active, buf_len)
-        out.update(launches=dict(ops.LAUNCHES), s=time.perf_counter() - t0,
-                   leaked=sorted(m for m in sys.modules if m == "jax"
-                                 or m.startswith(("jax.", "repro."))))
+        out.update(launches=dict(ops.LAUNCHES), ops_s=time.perf_counter() - t0)
         outs.append(out)
         del params
         gc.collect()
@@ -3089,20 +3230,13 @@ def slot_mesh_errors(one, res, active):
     return max(pre, dec), pre, dec, scale
 
 
-def check_slot_mesh(index):
-    """One SLOT_MESH_CASES case: the single-process prefill + decode
-    steps on the whole cache at each depth, then the mesh's ranks on
-    theirs (one spawn for every depth). At every depth each rank's
-    launches, its SSD state's rows and heads and its imports are checked
-    and its logits' error printed; at the first depth also the logits
-    within MESH_TOL, the streams and the gathered cache. Returns rank 0's
-    launches at the case's full depth (its first depth if it has none)."""
+def slot_mesh_one(index):
+    """The single process's prefill + decode steps of case
+    SLOT_MESH_CASES[index] on the whole cache at each depth: [(what
+    slot_mesh_ops returned, its seconds)]."""
     import gc
 
-    import numpy as np
     import torch
-    from repro_torch.launch import sharding as S
-    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models import model as M
     label, arch, shape, batch, prompt, buf_len, steps, depths = \
         SLOT_MESH_CASES[index]
@@ -3124,8 +3258,26 @@ def check_slot_mesh(index):
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    ranks = spawn_ranks(slot_mesh_rank, data * model, (index,),
-                        backend="gloo", timeout=300)
+    return ones
+
+
+def check_slot_mesh(index, ones, ranks):
+    """One SLOT_MESH_CASES case: the single process's results at each
+    depth (``slot_mesh_one``) against the mesh's ranks' (``ranks``: each
+    rank's list, one entry a depth). At every depth each rank's launches,
+    its SSD state's rows and heads and its imports are checked and its
+    logits' error printed; at the first depth also the logits within
+    MESH_TOL, the streams and the gathered cache. Returns rank 0's
+    launches at the case's full depth (its first depth if it has
+    none)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import sharding as S
+    label, arch, shape, batch, prompt, buf_len, steps, depths = \
+        SLOT_MESH_CASES[index]
+    data, model = shape
+    cfgs = [slot_mesh_config(index, layers) for layers in depths]
+    _, active = slot_mesh_inputs(cfgs[0], batch, prompt, steps)
     rows = batch // data if batch % data == 0 else batch
     for k, (cfg, (one, one_s)) in enumerate(zip(cfgs, ones)):
         checked = k == 0
@@ -3140,18 +3292,17 @@ def check_slot_mesh(index):
                  else cfg.ssm_heads)
         for r, outs in enumerate(ranks):
             res = outs[k]
-            if res["leaked"]:
-                fail(f"slot-mesh {label} rank {r} imported JAX or the JAX "
-                     f"package: {res['leaked'][:5]}")
             same = np.array_equal(res["streams"], one["streams"])
             err, pre_err, dec_err, scale = slot_mesh_errors(one, res, active)
             got = {n: res["launches"][n] for n in want}
             note = "" if checked else " (logits not checked)"
-            print(f"{cfg.n_layers} layers{note} rank {r}: logits max_abs_err={err:.3e} tol="
+            print(f"slot-mesh {label} at {cfg.n_layers} layers{note} rank "
+                  f"{r}: logits max_abs_err={err:.3e} tol="
                   f"{MESH_TOL:g} (prefill {pre_err:.3e}, {steps} steps' "
                   f"active rows {dec_err:.3e}; logits up to {scale:.3g}), "
                   f"streams {'identical' if same else 'DIFFER'} ({batch} x "
-                  f"{steps + 1} tokens), launches {got}, ops {res['s']:.2f} "
+                  f"{steps + 1} tokens), launches {got}, ops "
+                  f"{res['ops_s']:.2f} "
                   f"s (one process {one_s:.2f} s; ranks sharing one H100 "
                   "over gloo, eager: no tensor-parallel speed)")
             if checked and not same:
@@ -3186,7 +3337,8 @@ def check_slot_mesh(index):
                 e = float(np.abs(g - w).max())
                 ok, what = e <= MESH_TOL * scale, (
                     f"max_abs_err={e:.3e} tol={MESH_TOL:g} x {scale:.3g}")
-            print(f"gathered cache {key} {list(g.shape)}: {what}")
+            print(f"slot-mesh {label}: gathered cache {key} "
+                  f"{list(g.shape)}: {what}")
             if not ok:
                 fail(f"slot-mesh {label}: the ranks' gathered cache {key} "
                      "differs from the single process's")
@@ -3201,18 +3353,22 @@ def check_slot_mesh(index):
     return ranks[0][full]["launches"]
 
 
-def slot_mesh_phase():
-    """Every case; returns cases (a)'s and (c)'s runs for the time phase
-    (rank 0's launches, under the rows timed at a rank's shapes; (c)'s
-    shapes: its batch, prompt and rank's SSM heads)."""
-    launches = check_slot_mesh(0)
-    check_slot_mesh(1)
-    ssm_launches = check_slot_mesh(2)
+def slot_mesh_checks(ones, res):
+    """Every case against its single process (``ones[index]``, from
+    ``slot_mesh_one``) and its ranks (``res[("slot", index)]``: each
+    rank's list, from ``slot_mesh_run``); returns cases (a)'s and (c)'s
+    runs for the time phase (rank 0's launches, under the rows timed at
+    a rank's shapes; (c)'s shapes: its batch, prompt and rank's SSM
+    heads)."""
+    launches = {index: check_slot_mesh(index, ones[index],
+                                       res[("slot", index)])
+                for index in range(len(SLOT_MESH_CASES))}
     _, _, shape, batch, prompt, *_ = SLOT_MESH_CASES[2]
     cfg = slot_mesh_config(2, None)
     ssm = {"cfg": cfg, "batch": batch, "prompt": prompt, "arena": batch,
            "heads": cfg.ssm_heads // shape[1]}
-    return {"slot-mesh": ({}, launches), "slot-mesh-ssm": (ssm, ssm_launches)}
+    return {"slot-mesh": ({}, launches[0]),
+            "slot-mesh-ssm": (ssm, launches[2])}
 
 
 def time_phase(runs, worst):
@@ -3442,24 +3598,25 @@ def time_phase(runs, worst):
     # paged decode: edge-6b's heads over run paged-atomic's batch (its
     # runs, the baseline and swap runs and the fleet's edge-6b instance),
     # granite-moe's over run paged-moe's, smollm-360m's over the fleet's
-    # smollm instance's
+    # smollm instance's, hymba-1.5b's over run paged-hybrid's
     paged_decode_row("paged-atomic", 1, (
         "paged-atomic", "paged-realtime", "paged-chunked",
         "paged-chunked-realtime", "paged-spec", "paged-spec-rate8",
         "paged-async-traced", "paged-orca", "paged-fastserve",
         "paged-fastserve-swap", "paged-slice-swap", "fleet-traced/edge-6b"))
-    paged_decode_row("paged-moe", 11, ("paged-moe",))
+    paged_decode_row("paged-moe", 11, ("paged-moe", "paged-moe-async"))
     paged_decode_row("fleet-traced/smollm-360m", 15,
                      ("fleet-traced/smollm-360m",))
+    paged_decode_row("paged-hybrid", 32, ("paged-hybrid",))
 
     # whole-prompt prefill, the same way, and hymba-1.5b's heads over run
-    # slot-hybrid's prompts
+    # slot-hybrid's prompts (run paged-hybrid's are the same)
     prefill_row("paged-atomic", 2, (
         "paged-atomic", "paged-realtime", "paged-spec", "paged-spec-rate8",
         "paged-async-traced", "paged-orca", "paged-fastserve",
         "paged-fastserve-swap", "paged-slice-swap", "fleet-traced/edge-6b"))
-    prefill_row("paged-moe", 10, ("paged-moe",))
-    prefill_row("slot-hybrid", 12, ("slot-hybrid",))
+    prefill_row("paged-moe", 10, ("paged-moe", "paged-moe-async"))
+    prefill_row("slot-hybrid", 12, ("slot-hybrid", "paged-hybrid"))
     prefill_row("fleet-traced/smollm-360m", 16,
                 ("fleet-traced/smollm-360m",))
 
@@ -3588,15 +3745,19 @@ def time_phase(runs, worst):
         8 * 4 * (500 * 501 // 2) * 16 * 128, body=_fp.body(dtype, 128),
         of_runs=("slot-mesh",))
 
-    # SSD scan: mamba2-780m's heads (runs paged-ssm and slot-ssm give it
-    # the same prompts), hymba-1.5b's over run slot-hybrid's prompts
-    ssd_scan_row("paged-ssm", 6, ("paged-ssm", "slot-ssm"))
-    ssd_scan_row("slot-hybrid", 18, ("slot-hybrid",))
+    # SSD scan: mamba2-780m's heads (runs paged-ssm, paged-ssm-async and
+    # slot-ssm give it the same prompts), hymba-1.5b's over run
+    # slot-hybrid's prompts (and paged-hybrid's, the same)
+    ssd_scan_row("paged-ssm", 6, ("paged-ssm", "slot-ssm", "paged-ssm-async"))
+    ssd_scan_row("slot-hybrid", 18, ("slot-hybrid", "paged-hybrid"))
 
-    # SSD decode step: each run's own batch and arena layout
-    ssd_step_row("paged-ssm", 7, ("paged-ssm",))
+    # SSD decode step: each run's own batch and arena layout (the paged
+    # engine's state arena for runs paged-ssm, paged-ssm-async and
+    # paged-hybrid)
+    ssd_step_row("paged-ssm", 7, ("paged-ssm", "paged-ssm-async"))
     ssd_step_row("slot-ssm", 19, ("slot-ssm",))
     ssd_step_row("slot-hybrid", 13, ("slot-hybrid",))
+    ssd_step_row("paged-hybrid", 33, ("paged-hybrid",))
 
     # a rank of the slot-mesh run (c) (mamba2-780m over (1, 2): 24 of its
     # 48 SSM heads): the SSD scan of its 8 prompts of 256 tokens, and the
@@ -3647,7 +3808,8 @@ def time_phase(runs, worst):
 
     # grouped-expert FFN: run paged-moe's batch over all 40 experts, and a
     # rank's rows of a full batch of the paged-mesh-moe run on its 20
-    moe_bufs = {"paged-moe": moe_row("paged-moe", 9, ("paged-moe",)),
+    moe_bufs = {"paged-moe": moe_row("paged-moe", 9, ("paged-moe",
+                                                      "paged-moe-async")),
                 "paged-mesh-moe": moe_row("paged-mesh-moe", 25,
                                           ("paged-mesh-moe",))}
 
@@ -3769,10 +3931,14 @@ _SUBPROCESS = ("import runpy, sys\n"
                "or m.startswith(('jax.', 'repro.'))))\n")
 
 
-def python_job(how, what, *args):
+def python_job(how, what, *args, one_thread=False):
     """Start ``python -m what args`` (how "-m") or ``python what args``
-    (how "file") in a subprocess with the repository's src on the path."""
+    (how "file") in a subprocess with the repository's src on the path;
+    ``one_thread``: PyTorch's CPU ops on one thread (a job that runs
+    beside a phase keeps the other cores to it)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    if one_thread:
+        env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     return subprocess.Popen([sys.executable, "-c", _SUBPROCESS, how, what,
                              *args], env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, cwd=ROOT)
@@ -3816,9 +3982,10 @@ def run_python(how, what, *args, timeout=600):
         return python_result(proc, f"{what} {' '.join(args)}", timeout)
 
 
-def dryrun_phase():
+def dryrun_phase(background):
     """The dry-run (python -m repro_torch.launch.dryrun) in subprocesses,
-    started together: smollm-360m's decode_32k, prefill_32k and train_4k
+    started together in the background (``start_background``):
+    smollm-360m's decode_32k, prefill_32k and train_4k
     on the pod mesh, decode_32k on the multipod
     mesh, hubert-xlarge's decode (a skip), mamba2-780m's decode_32k on the
     pod mesh (its SSM cut by heads: cache.ssm must not depart from the
@@ -3839,44 +4006,41 @@ def dryrun_phase():
     from repro_torch.launch.mesh import make_stand_in_mesh
     phase("dryrun: stand-in production meshes on meta tensors, the H100 "
           "roofline, and the captured steps against it")
-    with tempfile.TemporaryDirectory() as out:
-        t0 = time.perf_counter()
-        with ended_on_exit([python_job(
-                "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-                shape, "--mesh", mesh, "--out", out)
-                for arch, shape, mesh, _ in DRYRUN_CELLS]) as procs:
-            for (arch, shape, mesh, _), proc in zip(DRYRUN_CELLS, procs):
-                print(python_result(proc, f"dryrun {arch} {shape} {mesh}")
-                      .strip())
-                print(f"dryrun {arch} {shape} {mesh}: done at "
-                      f"{time.perf_counter() - t0:.1f}s", flush=True)
-        for name in sorted(os.listdir(out)):
-            with open(os.path.join(out, name)) as f:
-                rec = json.load(f)
-            want = next(st for a, sh, m, st in DRYRUN_CELLS
-                        if (a, sh, m) == (rec["arch"], rec["shape"],
-                                          rec["mesh"]))
-            if rec["status"] != want:
-                fail(f"dryrun {name}: status {rec['status']}, {want} "
-                     f"expected: {rec.get('error', rec.get('reason'))}")
-            if rec["status"] == "ok":
-                print(f"dryrun {name}: flops/dev {rec['flops_per_device']:.4g}"
-                      f", bytes/dev floor {rec['bytes_floor_per_device']:.4g} "
-                      f"eager {rec['bytes_per_device']:.4g}, collectives "
-                      f"{rec['collectives']['total']:.4g} B, arguments "
-                      f"{rec['argument_size_in_bytes']} (JAX's specs "
-                      f"{rec['argument_size_in_bytes_spec']}), "
-                      f"{len(rec['departures'])} departures")
-                if any(d.startswith("cache.ssm")
-                       for d in rec["departures"]):
-                    fail(f"dryrun {name}: the SSD state departs from its "
-                         f"spec: {rec['departures']}")
-                if any(d.startswith(("train:", "forward"))
-                       for d in rec["departures"]):
-                    fail(f"dryrun {name}: the step runs unsharded: "
-                         f"{rec['departures']}")
-        print(run_python("-m", "repro_torch.launch.roofline", "--dir", out,
-                         "--out", os.path.join(out, "roofline")).strip())
+    out, t0 = background["dir"], background["t0"]
+    for (arch, shape, mesh, _), proc in zip(DRYRUN_CELLS,
+                                            background["dryrun"]):
+        print(python_result(proc, f"dryrun {arch} {shape} {mesh}").strip())
+        print(f"dryrun {arch} {shape} {mesh}: done at "
+              f"{time.perf_counter() - t0:.1f}s of the background jobs",
+              flush=True)
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name)) as f:
+            rec = json.load(f)
+        want = next(st for a, sh, m, st in DRYRUN_CELLS
+                    if (a, sh, m) == (rec["arch"], rec["shape"],
+                                      rec["mesh"]))
+        if rec["status"] != want:
+            fail(f"dryrun {name}: status {rec['status']}, {want} "
+                 f"expected: {rec.get('error', rec.get('reason'))}")
+        if rec["status"] == "ok":
+            print(f"dryrun {name}: flops/dev {rec['flops_per_device']:.4g}"
+                  f", bytes/dev floor {rec['bytes_floor_per_device']:.4g} "
+                  f"eager {rec['bytes_per_device']:.4g}, collectives "
+                  f"{rec['collectives']['total']:.4g} B, arguments "
+                  f"{rec['argument_size_in_bytes']} (JAX's specs "
+                  f"{rec['argument_size_in_bytes_spec']}), "
+                  f"{len(rec['departures'])} departures")
+            if any(d.startswith("cache.ssm")
+                   for d in rec["departures"]):
+                fail(f"dryrun {name}: the SSD state departs from its "
+                     f"spec: {rec['departures']}")
+            if any(d.startswith(("train:", "forward"))
+                   for d in rec["departures"]):
+                fail(f"dryrun {name}: the step runs unsharded: "
+                     f"{rec['departures']}")
+    print(run_python("-m", "repro_torch.launch.roofline", "--dir", out,
+                     "--out", os.path.join(out, "roofline")).strip())
+    shutil.rmtree(out, ignore_errors=True)
     rows = []
     with make_stand_in_mesh({"data": 1, "model": 1}) as mesh:
         for key, arch, (name, S, B, kind) in ROOFLINE_CASES:
@@ -3910,37 +4074,80 @@ def dryrun_phase():
     print(json.dumps({"roofline": rows}))
 
 
-# (file, arguments, a line its output must hold, kernels it must launch)
+# (file, arguments, a line its output must hold, kernels it must launch,
+# whether it starts with the background jobs): the simulation (the CPU
+# only) and train_tiny (its loss line does not depend on time) run
+# beside the gloo ranks; the serving examples run in the examples phase,
+# one after the other (their SLICE runs schedule by the l(b) each probes)
 EXAMPLES = (
     ("torch_quickstart.py", (), r"SLO attainment: \d+%",
-     ("flash_prefill", "decode_attention")),
+     ("flash_prefill", "decode_attention"), False),
     ("torch_multi_slo_serving.py", (), r"SLICE delivered DIFFERENT",
-     ("ssd_scan", "ssd_decode_step")),
-    ("torch_train_tiny.py", (), r"loss [\d.]+ -> [\d.]+ \(improved\)", ()),
+     ("ssd_scan", "ssd_decode_step"), False),
+    ("torch_train_tiny.py", (), r"loss [\d.]+ -> [\d.]+ \(improved\)", (),
+     True),
     ("torch_edge_serving_sim.py", ("--duration", "20"),
-     r"(?m)^SLICE +[\d.]+% ", ()))
+     r"(?m)^SLICE +[\d.]+% ", (), True))
 
 
-def examples_phase():
+def example_job(name, args, tmp, one_thread=False):
+    """``python_job`` of examples/``name``; torch_train_tiny.py writes its
+    checkpoint under ``tmp``."""
+    if name == "torch_train_tiny.py":
+        args += ("--ckpt", os.path.join(tmp, "tiny.npz"))
+    return python_job("file", os.path.join(ROOT, "examples", name), *args,
+                      one_thread=one_thread)
+
+
+def start_background():
+    """Start the work whose checks do not depend on time, to run beside
+    the gloo ranks (``gloo_phase``), whose checks do not either: the
+    dry-run cells (``dryrun_phase``, read right after the gloo ranks) and
+    the examples EXAMPLES marks, each in a subprocess on one thread, and
+    train-mesh (c)'s two training CLIs (``train_clis``, about 18 GB of
+    the card). Beside the train phase instead, with a pool of threads
+    each and then with one, the first two slowed mamba2-780m's host-bound
+    training step from 1302.9 to 1773.9 and 1940.1 ms on the H100.
+    Returns what the phases that read them take; its "procs" are to be
+    ended when the script leaves (``ended_on_exit``)."""
+    out, tmp = tempfile.mkdtemp(prefix="dryrun-"), tempfile.mkdtemp()
+    dry = [python_job("-m", "repro_torch.launch.dryrun", "--arch", arch,
+                      "--shape", shape, "--mesh", mesh, "--out", out,
+                      one_thread=True)
+           for arch, shape, mesh, _ in DRYRUN_CELLS]
+    jobs = {name: example_job(name, args, tmp, one_thread=True)
+            for name, args, _, _, early in EXAMPLES if early}
+    clis = train_clis()
+    print(f"background: {len(dry)} dry-run cells, {', '.join(jobs)} and "
+          "train-mesh (c)'s two training CLIs started", flush=True)
+    return {"dir": out, "tmp": tmp, "t0": time.perf_counter(),
+            "dryrun": dry, "examples": jobs, "train_clis": clis,
+            "procs": dry + list(jobs.values()) + clis}
+
+
+def examples_phase(background):
     """The four examples/torch_*.py on the card in subprocesses:
     quickstart, multi-SLO and train_tiny (300 steps, ~5 s on the card;
-    its checkpoint in a temporary directory) at their defaults, the
-    simulation at
-    --duration 20, as the JAX package's CI runs its examples. Each must
-    exit 0, print its SLO or loss line, launch its kernels (printed by
-    the example) and import no JAX."""
+    its checkpoint in a temporary directory) at their defaults, and the
+    simulation at --duration 20, as the JAX package's CI runs its
+    examples; the two serving ones here, one after the other, the others
+    started with the background jobs (EXAMPLES). Each must exit 0, print
+    its SLO or loss line, launch its kernels (printed by the example) and
+    import no JAX."""
     import re
     phase("examples: examples/torch_*.py on the card")
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, args, line, kernels in EXAMPLES:
-            t0 = time.perf_counter()
-            if name == "torch_train_tiny.py":
-                args += ("--ckpt", os.path.join(tmp, "tiny.npz"))
-            out = run_python("file", os.path.join(ROOT, "examples", name),
-                             *args)
-            print("\n".join(f"{name}: {x}" for x in out.strip().splitlines()
-                            [-8:]))
-            print(f"{name}: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    with ended_on_exit([]) as started:
+        for name, args, line, kernels, _ in EXAMPLES:
+            proc = background["examples"].get(name)
+            if proc is None:
+                proc = example_job(name, args, background["tmp"])
+                started.append(proc)
+            out = python_result(proc, f"{name} {' '.join(args)}")
+            print("\n".join(f"{name}: {x}" for x in
+                            out.strip().splitlines()[-8:]))
+            print(f"{name}: done at {time.perf_counter() - t0:.1f}s",
+                  flush=True)
             if not re.search(line, out):
                 fail(f"{name}: no line matching {line!r}")
             launched = dict(re.findall(r"(\w+)=(\d+)", "".join(
@@ -3950,6 +4157,7 @@ def examples_phase():
             if missing:
                 fail(f"{name}: launched none of {missing} "
                      f"(launches {launched})")
+    shutil.rmtree(background["tmp"], ignore_errors=True)
 
 
 TRAIN_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-4, "steps": 1e-4}
@@ -4250,10 +4458,8 @@ def train_phase():
     print(json.dumps({"train": rows, "card": card}), flush=True)
 
 
-# (a) of train-mesh: (arch, layers kept, batch, sequence, steps, mesh);
-# then the same at full depth, its errors printed
+# (a) of train-mesh: (arch, layers kept, batch, sequence, steps, mesh)
 TRAIN_MESH = ("smollm-360m", 4, 8, 256, 3, (2, 2))
-TRAIN_MESH_DEEP = ("smollm-360m", None, 8, 256, 1, (2, 2))
 # (b): hubert-xlarge's forward with 8 of its 48 layers, B x S frames
 FORWARD_MESH = ("hubert-xlarge", 8, 4, 512, (1, 2))
 TRAIN_MESH_LR = 1e-3
@@ -4406,21 +4612,16 @@ def mesh_vs_one(mesh, arch, layers, B, S, steps, moe_impl="grouped"):
                              or m.startswith(("jax.", "repro.")))}
 
 
-def train_mesh_rank(rank, arch, layers, B, S, steps, shape):
-    """A rank of train-mesh (a): ``mesh_vs_one`` on a ``shape`` (data,
-    model) mesh over gloo on the one card."""
-    _train_rank_setup(shape[0] * shape[1])
-    return mesh_vs_one(_card_mesh(shape), arch, layers, B, S, steps)
-
-
-# (d): smollm-360m at full width with 4 of its 32 layers, B x S tokens: its
+# (d): smollm-360m at full width with 2 of its 32 layers, B x S tokens: its
 # (2, 2) state after one step saved, restored onto CKPT_ONTO and in one
 # process, each taking the second step; (e): granite-moe-3b-a800m on the
-# sorted MoE path, skewed, 4 of 32 layers, on each of SORTED_MESHES against
-# one process for SORTED_STEPS steps; (f): TRAIN_MESH on the pod mesh
-CKPT_MESH = ("smollm-360m", 4, 8, 256, (2, 2))
+# sorted MoE path, skewed, 2 of 32 layers, on each of SORTED_MESHES against
+# one process for SORTED_STEPS steps; (f): TRAIN_MESH on the pod mesh.
+# (d) and (e) at 2 layers: their checks do not depend on the depth, and
+# the script's time limit holds every phase
+CKPT_MESH = ("smollm-360m", 2, 8, 256, (2, 2))
 CKPT_ONTO = ((1, 2), (2, 1, 2))
-SORTED_MESH = ("granite-moe-3b-a800m", 4, 8, 256)
+SORTED_MESH = ("granite-moe-3b-a800m", 2, 8, 256)
 SORTED_MESHES = ((2, 2), (1, 2))
 SORTED_STEPS = 2
 POD_MESH = (2, 1, 2)
@@ -4522,12 +4723,19 @@ def ckpt_save(mesh):
             "save_s": save_s}
 
 
-def train_mesh_more_rank(rank, world):
-    """A rank of train-mesh (d)-(f), every part of ``world`` ranks in
-    turn, each mesh made once: with 4, (d)'s save on (2, 2) and its
-    restore on (2, 1, 2), (e) on (2, 2), (f) on (2, 1, 2); with 2, (d)'s
-    restore and (e) on (1, 2). Returns {part: what the rank saw} and its
-    seconds per part."""
+def gloo_rank(rank, world):
+    """A rank of the script's gloo work (``gloo_phase``), every part for
+    ``world`` ranks in turn, each mesh made once, the card's cache
+    emptied after each part: with 4, sharded (f) on (2, 2), slot-mesh
+    (b) on (2, 2), train-mesh (a) on (2, 2), (d)'s save on (2, 2) and its
+    restore on (2, 1, 2), (e) on (2, 2), (f) on (2, 1, 2); with 2,
+    sharded (b) on (1, 2), slot-mesh (a) and (c) on (1, 2), train-mesh
+    (b) on (1, 2), (d)'s restore and (e) on (1, 2). Returns {part: what
+    the rank saw} (with the part's seconds) and any JAX module it
+    imported."""
+    import gc
+
+    import torch
     _train_rank_setup(world)
     meshes, out = {}, {}
 
@@ -4536,44 +4744,106 @@ def train_mesh_more_rank(rank, world):
             meshes[shape] = _card_mesh(shape)
         return meshes[shape]
 
-    def timed(key, fn, *args):
+    def timed(key, shape, fn, *args):
         t0 = time.perf_counter()
-        out[key] = fn(*args)
-        out[key]["s"] = time.perf_counter() - t0
+        out[key] = fn(mesh(shape), *args)
+        if isinstance(out[key], dict):
+            out[key]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    arch, layers, B, S, steps, _ = TRAIN_MESH
-    if world == 4:
-        timed(("d", CKPT_MESH[-1]), ckpt_save, mesh(CKPT_MESH[-1]))
+    for label, arch, shape in MESH_EQUIV:
+        if math.prod(shape) == world:
+            timed(("sharded", label), shape, mesh_engine_run, arch)
+    for index, case in enumerate(SLOT_MESH_CASES):
+        if math.prod(case[2]) == world:
+            timed(("slot", index), case[2], slot_mesh_run, index)
+    arch, layers, B, S, steps, shape = TRAIN_MESH
+    if math.prod(shape) == world:
+        timed(("a", shape), shape, mesh_vs_one, arch, layers, B, S, steps)
+    *forward, shape = FORWARD_MESH
+    if math.prod(shape) == world:
+        timed(("b", shape), shape, forward_vs_one, *forward)
+    if math.prod(CKPT_MESH[-1]) == world:
+        timed(("d", CKPT_MESH[-1]), CKPT_MESH[-1], ckpt_save)
     for shape in CKPT_ONTO:
         if math.prod(shape) == world:
-            timed(("d", shape), ckpt_restore, mesh(shape))
+            timed(("d", shape), shape, ckpt_restore)
     for shape in SORTED_MESHES:
         if math.prod(shape) == world:
-            timed(("e", shape), mesh_vs_one, mesh(shape), *SORTED_MESH,
+            timed(("e", shape), shape, mesh_vs_one, *SORTED_MESH,
                   SORTED_STEPS, "sorted")
     if math.prod(POD_MESH) == world:
-        timed(("f", POD_MESH), mesh_vs_one, mesh(POD_MESH), arch, layers, B,
-              S, steps)
+        timed(("f", POD_MESH), POD_MESH, mesh_vs_one, arch, layers, B, S,
+              steps)
     out["leaked"] = sorted(m for m in sys.modules if m == "jax"
                            or m.startswith(("jax.", "repro.")))
     return out
 
 
-def forward_mesh_rank(rank, arch, layers, B, S, shape):
-    """A rank of train-mesh (b): ``arch``'s ``forward`` at full width in
+def gloo_references():
+    """The single process's references of the gloo work, in this process
+    before the ranks start: sharded (b), (f) (``mesh_one``) and the
+    slot-mesh cases (``slot_mesh_one``)."""
+    return ({label: mesh_one(label, arch, shape)
+             for label, arch, shape in MESH_EQUIV},
+            {index: slot_mesh_one(index)
+             for index in range(len(SLOT_MESH_CASES))})
+
+
+def gloo_phase(refs):
+    """The script's work on gloo ranks that share the card, in two
+    spawns, one group of 4 ranks, then one of 2 (``gloo_rank``; the
+    4-rank group saves the checkpoint the 2-rank group restores; at once,
+    they ran the card out of memory): sharded (b) and (f), slot-mesh
+    (a)-(c), train-mesh (a), (b) and (d)-(f). Checks sharded (b), (f) and
+    slot-mesh against ``refs`` (``gloo_references``); returns {part: each
+    rank's result} (read by the train-mesh phase) and slot-mesh's entries
+    for the time phase."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    ones, slot_ones = refs
+    after1, _ = _ckpt_files()
+    shutil.rmtree(os.path.dirname(after1), ignore_errors=True)
+    res = {}
+    for world in (4, 2):
+        sharded = [lb for lb, _, sh in MESH_EQUIV if math.prod(sh) == world]
+        slots = [c[0] for c in SLOT_MESH_CASES if math.prod(c[2]) == world]
+        phase(f"gloo ranks {world}: sharded {', '.join(sharded)}, slot-mesh "
+              f"{', '.join(slots)} and train-mesh's parts on {world} gloo "
+              "ranks sharing the card")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(gloo_rank, world, (world,), backend="gloo",
+                            timeout=900)
+        print(f"{world} ranks {time.perf_counter() - t0:.1f} s wall, rank "
+              "0's parts: " + ", ".join(
+                  f"{k[0]} {k[1]} {ranks[0][k]['s']:.1f} s" for k in ranks[0]
+                  if isinstance(ranks[0][k], dict)), flush=True)
+        for r, got in enumerate(ranks):
+            if got.pop("leaked"):
+                fail(f"gloo rank {r} of {world} imported JAX or the JAX "
+                     "package")
+        res.update({k: [got[k] for got in ranks] for k in ranks[0]})
+    for label, arch, shape in MESH_EQUIV:
+        check_mesh_equivalence(label, arch, shape, ones[label],
+                               res[("sharded", label)])
+    return res, slot_mesh_checks(slot_ones, res)
+
+
+def forward_vs_one(mesh, arch, layers, B, S):
+    """Train-mesh (b) on a rank: ``arch``'s ``forward`` at full width in
     fp32 on its serving slab of the weights and its rows of the frames;
     the largest |mesh - one process| over its rows of the logits (the one
     process's computed here too) and their largest magnitude."""
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
     from repro_torch.launch import sharding as SH
-    from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import model as M
     from repro_torch.models.partitioning import activation_partitioning
-    mesh = make_serving_mesh(data=shape[0], model=shape[1],
-                             device=torch.device("cuda", 0))
+    shape = (mesh.shape["data"], mesh.shape["model"])
     cfg = _train_cfg(arch, layers)
     weights = M.init_params(cfg, seed=0, device="cuda")
     x = train_batch(cfg, B, S, "cuda", 20)["inputs"] * 0.02
@@ -4605,7 +4875,47 @@ def _cli_peaks(out):
     return None
 
 
-def train_mesh_phase():
+def train_clis():
+    """Start train-mesh (c): the training CLI at full width, one step of
+    B=8, S=256, with --mesh-shape 2,2 and in one process."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm-360m", "--steps", "1", "--batch", "8", "--seq", "256"]
+        + extra, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for extra in (["--mesh-shape", "2,2"], [])]
+
+
+def train_cli_row(clis, card):
+    """Train-mesh (c)'s checks over ``train_clis``'s processes (started
+    with the background jobs, beside the gloo ranks): both exit 0 and
+    print their peak memory, the mesh's ranks their equal losses; each
+    rank's peak printed beside the one process's. Returns (c)'s row of
+    the train-mesh JSON line."""
+    phase("train-mesh (c): the training CLI at full width, --mesh-shape "
+          "2,2 and one process, started beside the gloo ranks")
+    peaks = {}
+    for how, proc in zip(("mesh", "one"), clis):
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail(f"the training CLI ({how}) still ran after 600 s")
+        print(out.strip())
+        print(f"train-mesh (c): CLI ({how}) exit {proc.returncode}",
+              flush=True)
+        peaks[how] = _cli_peaks(out)
+        if proc.returncode != 0 or peaks[how] is None:
+            fail(f"the training CLI ({how}) failed: {err[-2000:]}")
+        if how == "mesh" and "losses equal on every rank" not in out:
+            fail("the training CLI's ranks disagree on the losses")
+    print(f"train-mesh (c) on {card}: peak memory a rank "
+          f"{peaks['mesh']} GiB (4 ranks of (2, 2)) against one process's "
+          f"{peaks['one'][0]} GiB", flush=True)
+    return {"run": "(c)", "peak_gib_ranks": peaks["mesh"],
+            "peak_gib_one": peaks["one"][0]}
+
+
+def train_mesh_phase(gloo, cli_row):
     """train-mesh: the trainer under FSDP over 'data' x tensor parallelism
     over 'model' on gloo ranks that share the one H100 (eager, every
     collective through the host: no tensor-parallel speed is read here).
@@ -4613,102 +4923,18 @@ def train_mesh_phase():
     S=256, on a (2, 2) mesh for 3 steps against one process from the same
     weights and batches: loss within 1e-5 and grad_norm within 1e-4
     (relative), the params within MESH_TOL where the gradient fixes the
-    update (elsewhere within two diverging AdamW steps); then at full
-    depth for one step, its errors printed. (b) hubert-xlarge's forward
-    with 8 of its 48 layers on (1, 2) within MESH_TOL of one process.
-    (c) The CLI with --mesh-shape 2,2 at full width, each rank's peak
-    memory printed beside one process's. (d)-(f) (``train_mesh_more``): a
-    (2, 2) state's checkpoint restored onto (1, 2), (2, 1, 2) and one
-    process; the sorted MoE path on a split batch and a rank's experts;
-    (a) on the pod mesh (2, 1, 2)."""
-    import gc
-
-    import torch
-    from repro_torch.launch.mesh import spawn_ranks
+    update (elsewhere within two diverging AdamW steps). (b)
+    hubert-xlarge's forward with 8 of its 48 layers on (1, 2) within
+    MESH_TOL of one process. (d)-(f): a (2, 2) state's checkpoint
+    restored onto (1, 2), (2, 1, 2) and one process; the sorted MoE path
+    on a split batch and a rank's experts; (a) on the pod mesh (2, 1, 2).
+    (a), (b) and (d)-(f) ran on the gloo groups of ``gloo_phase``
+    (``gloo``: their results), checked here (``train_mesh_checks``). (c)
+    The CLI with --mesh-shape 2,2 at full width and the CLI in one
+    process ran beside the gloo ranks (``cli_row``: its row,
+    ``train_cli_row``)."""
     card = card_line()
-    rows = []
-    for label, run, check in (("(a)", TRAIN_MESH, True),
-                              ("(a')", TRAIN_MESH_DEEP, False)):
-        arch, layers, B, S, steps, shape = run
-        depth = "every" if layers is None else layers
-        phase(f"train-mesh {label}: {arch} fp32 ({depth} layers) B={B} "
-              f"S={S}, a {shape} mesh of {shape[0] * shape[1]} gloo ranks "
-              "sharing the card, against one process")
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ranks = spawn_ranks(train_mesh_rank, shape[0] * shape[1], run,
-                            backend="gloo", timeout=600)
-        wall = time.perf_counter() - t0
-        worst = {"loss": 0.0, "norm": 0.0, "big_err": 0.0, "over": 0.0,
-                 "all_err": 0.0}
-        for r, res in enumerate(ranks):
-            if res["leaked"]:
-                fail(f"train-mesh rank {r} imported JAX: {res['leaked'][:5]}")
-            for i, st in enumerate(res["steps"]):
-                for key in ("loss", "norm"):
-                    a, b = st[key]
-                    worst[key] = max(worst[key], abs(a - b) / abs(b))
-                for key in ("big_err", "over", "all_err"):
-                    worst[key] = max(worst[key], st[key])
-                if r == 0:
-                    print(f"step {i}: loss {st['loss'][0]:.6f} (one process "
-                          f"{st['loss'][1]:.6f}) grad_norm "
-                          f"{st['norm'][0]:.6f} ({st['norm'][1]:.6f})")
-        print(f"train-mesh {label} on {card}: loss rel err "
-              f"{worst['loss']:.3e} (tol 1e-5), grad_norm rel err "
-              f"{worst['norm']:.3e} (tol 1e-4), params max_abs_err where "
-              f"the gradient fixes the update {worst['big_err']:.3e} (tol "
-              f"{MESH_TOL:g}), excess over two AdamW steps elsewhere "
-              f"{worst['over']:.3e} (tol 0), over every component "
-              f"{worst['all_err']:.3e} (printed); ranks {res['s']:.1f} s of "
-              f"{wall:.1f} s wall{'' if check else ' (printed, not held)'}",
-              flush=True)
-        rows.append({"run": label, "arch": arch, "layers": layers, "B": B,
-                     "S": S, "mesh": list(shape), "wall_s": wall, **worst})
-        if check and (worst["loss"] > 1e-5 or worst["norm"] > 1e-4
-                      or worst["big_err"] > MESH_TOL or worst["over"] > 0):
-            fail(f"train-mesh {label}: the mesh's step differs from one "
-                 "process's")
-    arch, layers, B, S, shape = FORWARD_MESH
-    phase(f"train-mesh (b): {arch} forward ({layers} layers) B={B} S={S} "
-          f"on a {shape} mesh against one process")
-    ranks = spawn_ranks(forward_mesh_rank, shape[0] * shape[1],
-                        FORWARD_MESH, backend="gloo", timeout=600)
-    err = max(res["err"] for res in ranks)
-    print(f"train-mesh (b) on {card}: {arch} forward logits "
-          f"{ranks[0]['shape']} a rank, max_abs_err {err:.3e} (tol "
-          f"{MESH_TOL:g}; |logits| up to {ranks[0]['scale']:.3f})",
-          flush=True)
-    rows.append({"run": "(b)", "arch": arch, "layers": layers, "B": B,
-                 "S": S, "mesh": list(shape), "max_abs_err": err})
-    if not err <= MESH_TOL:
-        fail(f"train-mesh (b): {arch}'s forward on the mesh differs from "
-             f"one process's by {err:.3e}")
-    phase("train-mesh (c): the training CLI at full width, --mesh-shape "
-          "2,2 and one process")
-    peaks = {}
-    for how, extra in (("mesh", ["--mesh-shape", "2,2"]), ("one", [])):
-        t0 = time.perf_counter()
-        cli = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             "smollm-360m", "--steps", "2", "--batch", "8", "--seq", "256"]
-            + extra, cwd=ROOT, capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
-        print(cli.stdout.strip())
-        print(f"CLI ({how}) exit {cli.returncode} in "
-              f"{time.perf_counter() - t0:.1f}s")
-        peaks[how] = _cli_peaks(cli.stdout)
-        if cli.returncode != 0 or peaks[how] is None:
-            fail(f"the training CLI ({how}) failed: {cli.stderr[-2000:]}")
-        if how == "mesh" and "losses equal on every rank" not in cli.stdout:
-            fail("the training CLI's ranks disagree on the losses")
-    print(f"train-mesh (c) on {card}: peak memory a rank "
-          f"{peaks['mesh']} GiB (4 ranks of (2, 2)) against one process's "
-          f"{peaks['one'][0]} GiB", flush=True)
-    rows.append({"run": "(c)", "peak_gib_ranks": peaks["mesh"],
-                 "peak_gib_one": peaks["one"][0]})
-    rows += train_mesh_more(card)
+    rows = train_mesh_checks(card, gloo) + [cli_row]
     print(json.dumps({"train_mesh": rows, "card": card}), flush=True)
 
 
@@ -4732,47 +4958,63 @@ def _held(label, worst):
         fail(f"train-mesh {label}: {worst} over (a)'s bounds")
 
 
-def train_mesh_more(card):
-    """train-mesh (d)-(f), on gloo ranks sharing the card as (a)'s: one
-    4-rank group, then one 2-rank group (``train_mesh_more_rank``), then
-    (d)'s restore in this process. (d) smollm-360m (4 of 32 layers, B=8,
+def train_mesh_checks(card, res):
+    """train-mesh (a), (b) and (d)-(f) from the gloo groups' results
+    (``res``), then (d)'s restore in this process. (a) and (b) as
+    ``train_mesh_phase`` says. (d) smollm-360m (2 of 32 layers, B=8,
     S=256): the (2, 2) state after one step saved by
     ``checkpoint.save(mesh=...)``, the file's keys and shapes held to
     ``param_shapes``, restored onto (1, 2), (2, 1, 2) and in one process,
     each run's second step within (a)'s bounds of (2, 2)'s own (loss,
     grad_norm, the params against (2, 2)'s saved second state read back in
-    the run's layout). (e) granite-moe-3b-a800m on the sorted MoE path (4
+    the run's layout). (e) granite-moe-3b-a800m on the sorted MoE path (2
     of 32 layers, skewed so expert 0 takes every token) on (2, 2) and (1,
     2) against one process, within (a)'s bounds; the whole batch's drops
     printed, and none fails. (f) (a) on the pod mesh (2, 1, 2). Returns
     the rows of the phase's JSON line."""
     import gc
-    import shutil
     import types
 
     import numpy as np
     import torch
-    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models import model as M
     from repro_torch.training import checkpoint as CK
     from repro_torch.training.optimizer import AdamWState
+    phase("train-mesh (a), (b), (d)-(f): the gloo groups' results")
     rows = []
     after1, _ = _ckpt_files()
-    shutil.rmtree(os.path.dirname(after1), ignore_errors=True)
-    res = {}
-    for world in (4, 2):
-        phase(f"train-mesh (d)-(f): {world} gloo ranks sharing the card")
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ranks = spawn_ranks(train_mesh_more_rank, world, (world,),
-                            backend="gloo", timeout=900)
-        print(f"{world} ranks {time.perf_counter() - t0:.1f} s wall",
-              flush=True)
-        for r, got in enumerate(ranks):
-            if got.pop("leaked"):
-                fail(f"train-mesh rank {r} of {world} imported JAX")
-        res.update({k: [got[k] for got in ranks] for k in ranks[0]})
+    arch, layers, B, S, steps, shape = TRAIN_MESH
+    runs = res[("a", shape)]
+    for i, st in enumerate(runs[0]["steps"]):
+        print(f"step {i}: loss {st['loss'][0]:.6f} (one process "
+              f"{st['loss'][1]:.6f}) grad_norm {st['norm'][0]:.6f} "
+              f"({st['norm'][1]:.6f})")
+    worst = _worst(st for r in runs for st in r["steps"])
+    print(f"train-mesh (a) on {card}: {arch} ({layers} layers) B={B} S={S} "
+          f"on {shape} against one process, {steps} steps: loss rel err "
+          f"{worst['loss']:.3e} (tol 1e-5), grad_norm rel err "
+          f"{worst['norm']:.3e} (tol 1e-4), params max_abs_err where the "
+          f"gradient fixes the update {worst['big_err']:.3e} (tol "
+          f"{MESH_TOL:g}), excess over two AdamW steps elsewhere "
+          f"{worst['over']:.3e} (tol 0), over every component "
+          f"{worst['all_err']:.3e} (printed); "
+          f"{max(r['s'] for r in runs):.1f} s", flush=True)
+    rows.append({"run": "(a)", "arch": arch, "layers": layers, "B": B,
+                 "S": S, "mesh": list(shape), **worst})
+    _held("(a)", worst)
+    arch, layers, B, S, shape = FORWARD_MESH
+    runs = res[("b", shape)]
+    err = max(r["err"] for r in runs)
+    print(f"train-mesh (b) on {card}: {arch} forward ({layers} layers) "
+          f"B={B} S={S} on {shape}, logits {runs[0]['shape']} a rank, "
+          f"max_abs_err {err:.3e} (tol {MESH_TOL:g}; |logits| up to "
+          f"{runs[0]['scale']:.3f}); {max(r['s'] for r in runs):.1f} s",
+          flush=True)
+    rows.append({"run": "(b)", "arch": arch, "layers": layers, "B": B,
+                 "S": S, "mesh": list(shape), "max_abs_err": err})
+    if not err <= MESH_TOL:
+        fail(f"train-mesh (b): {arch}'s forward on the mesh differs from "
+             f"one process's by {err:.3e}")
     phase("train-mesh (d): the (2, 2) checkpoint in one process")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4889,23 +5131,31 @@ def main() -> None:
     for name, extra, required in SERVE_RUNS:
         runs.update(serve_phase(name, extra, required))
     print_baseline_attainment(runs)
-    mesh_runs, moe_slabs = sharded_phase(worst)
-    runs.update(mesh_runs)
-    runs.update(slot_mesh_phase())
-    kernels = time_phase(runs, worst)
-    for k in kernels:
-        if k["name"] == "moe_grouped_ffn":
-            k["rank_slabs"] = moe_slabs
-    dryrun_phase()
-    examples_phase()
-    train_phase()
-    train_mesh_phase()
+    check_sharded_kernels(worst)
+    moe_slabs = check_sharded_moe(worst)
+    refs = gloo_references()
+    background = start_background()
+    with ended_on_exit(background["procs"]):
+        gloo, slot_runs = gloo_phase(refs)
+        dryrun_phase(background)
+        cli_row = train_cli_row(background["train_clis"], card_line())
+        check_mesh_nccl_captured()
+        runs.update(mesh_serve_phase())
+        runs.update(slot_runs)
+        kernels = time_phase(runs, worst)
+        for k in kernels:
+            if k["name"] == "moe_grouped_ffn":
+                k["rank_slabs"] = moe_slabs
+        train_phase()
+        examples_phase(background)
+    train_mesh_phase(gloo, cli_row)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     if leaked:
         fail(f"JAX or the JAX package was imported: {leaked[:5]}")
     card = card_line()
     print(f"total {time.perf_counter() - t0:.1f}s")
+    print(phase_seconds())
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

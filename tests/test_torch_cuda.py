@@ -1204,6 +1204,56 @@ def test_async_engine_matches_sync_on_the_card(arch):
 
 
 @pytest.mark.cuda
+def test_async_hybrid_paged_matches_sync_on_the_card():
+    """Reduced hymba-1.5b on the paged engine (attention over pages and
+    the SSM mixer over the state arena in one step), async against sync
+    on the card, both captured: prefill with a 2-token prompt, a bucket
+    change with steps in flight, a suspend behind an in-flight decode,
+    resume; logits bit for bit, streams equal, the resumed task's K/V
+    pages and state slot bit for bit the synchronous twin's, nothing held
+    after release."""
+    _need_cuda()
+    engines = _sync_and_async("hymba-1.5b")
+    tasks = _tasks((5, 17, 2), 8900)
+    tid = tasks[0].task_id
+    logits, state = ([], []), []
+    for e, ex in enumerate(engines):
+        for t in tasks:
+            ex.prefill(t)
+        logits[e].append(ex.last_prefill_logits)
+        for n in (3, 3, 1, 1, 3):
+            ex.decode(tasks[:n])
+        ex.suspend(tasks[0])
+        for _ in range(2):
+            ex.decode(tasks[1:])
+        ex.resume(tasks[0])
+        ex.drain()
+        pages = torch.as_tensor(ex.pool.page_table(tid), device="cuda")
+        slot = ex.states.slot_of(tid)
+        state.append([ex.pages[n][:, pages] for n in ("k_pages", "v_pages")]
+                     + [ex.pages[n][:, slot].clone()
+                        for n in ("ssm_state", "conv_state")])
+        for _ in range(3):
+            ex.decode(tasks)
+        logits[e].append(ex.last_logits)
+        ex.drain()
+    for a, b in zip(*logits):
+        np.testing.assert_array_equal(b, a)
+    for a, b in zip(*state):
+        assert torch.equal(a, b)
+    sync, asy = engines
+    assert [sync.generated_tokens(t) for t in tasks] == \
+        [asy.generated_tokens(t) for t in tasks]
+    assert asy.graphs.stage_waits == 0 and asy.ledger.started == 1
+    for ex in engines:
+        for t in tasks:
+            ex.release(t)
+        ex.store.check()
+        assert not ex.store.leaked()
+    asy.ledger.check()
+
+
+@pytest.mark.cuda
 def test_async_suspend_copy_lands_before_resume():
     """An async suspension behind an in-flight decode, while later steps
     reuse the freed pages: once the ledger has retired the side-stream
