@@ -62,6 +62,7 @@ time and the serving loop adds the commit waits to its clock
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -86,10 +87,11 @@ from repro_torch.serving.spec_decode import (DraftModel, default_draft_config,
                                              pow2_pieces)
 from repro_torch.serving.state_store import (CacheStore, OutOfStates,
                                              SSMStateStore)
-from repro_torch.serving.step_graphs import (LazyLogits, Snapshot,
-                                             StepGraphs, chunk_step,
-                                             masked_step, slot_cache,
-                                             wait_event, with_argmax)
+from repro_torch.serving.step_graphs import (LazyLogits, PhaseTimer,
+                                             Snapshot, StepGraphs,
+                                             chunk_step, masked_step,
+                                             slot_cache, wait_event,
+                                             with_argmax)
 
 _PREFILL_PRIOR = [(64, 10.0), (512, 40.0)]   # prefill ms prior until measured
 
@@ -373,6 +375,21 @@ class PagedSimExecutor(SimExecutor):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _phased(op):
+    """A paged engine's op whose phases its ``PhaseTimer`` times when a
+    trace is attached (``last_phases``); untraced, one ``is None`` test."""
+    @functools.wraps(op)
+    def timed(self, *args, **kwargs):
+        ph = self._phases
+        if ph is None:
+            return op(self, *args, **kwargs)
+        ph.enter()
+        out = op(self, *args, **kwargs)
+        ph.leave()
+        return out
+    return timed
 
 
 class _RankStats(GapStats):
@@ -756,6 +773,16 @@ class PagedTorchExecutor(Executor):
     nothing falls back to the synchronous engine. The synchronous engine
     runs the same code and commits each step as it is dispatched.
 
+    ``attach_trace`` (called by ``serving.loop.InstanceDriver`` when it
+    is given a trace) times the phases of every later op of a synchronous
+    engine (``step_graphs.PhaseTimer``): ``last_phases`` holds the last
+    op's ``stage_ms``, ``graph_ms``, ``gaps_ms``, ``commit_ms``, ``graphs``
+    and ``captures`` (None for an op that ran no step: a suspend or a
+    resume), which the driver adds to that action's span. The async
+    engine reports no phases: its ops return before their steps end, and
+    reading their events would add the wait it exists to avoid. Untraced,
+    an op makes no event and reads no clock of the timer's.
+
     Sequences are hard-capped at max_seq (the paged cache is append-only)
     and prompts at max_seq // 2, as in the JAX engine.
     """
@@ -877,6 +904,8 @@ class PagedTorchExecutor(Executor):
             self.device, cuda_graphs,
             ring=max_in_flight + 1 if async_dispatch else 1,
             quiesce=self.ledger.wait)
+        # phases of traced ops (attach_trace); None untraced
+        self._phases: Optional[PhaseTimer] = None
         # (batch, ms) samples of the last latency_model() probe: the curve
         # the model uses, and the samples as read
         self.probe_samples: List[Tuple[int, float]] = []
@@ -1272,6 +1301,23 @@ class PagedTorchExecutor(Executor):
             held_states=lambda t: self.states.resident_slot_count(t.task_id),
             **kw)
 
+    @property
+    def last_phases(self) -> Optional[Dict[str, float]]:
+        """The last op's phases once a trace is attached (the class
+        docstring), else None."""
+        return self._phases.last() if self._phases is not None else None
+
+    def attach_trace(self) -> Dict[str, float]:
+        """Start timing the phases of every op (a synchronous engine only;
+        see the class docstring) and return the set-up so far: the steps
+        made (``captures``) and the host ms making them took
+        (``make_ms``)."""
+        if not self.async_dispatch and self._phases is None:
+            self._phases = PhaseTimer(self.graphs)
+            self.graphs.timer = self._phases
+        return {"captures": self.graphs.captures,
+                "make_ms": self.graphs.make_ms}
+
     def trace_gauges(self) -> Dict[str, int]:
         """Pool (and state-slot) occupancy for a trace's metrics
         snapshots."""
@@ -1337,6 +1383,8 @@ class PagedTorchExecutor(Executor):
         if async_on:
             return t_disp
         _sync(self.device)
+        if self._phases is not None:
+            self._phases.anchor()
         return time.perf_counter()
 
     def _finish(self, step: PendingStep, t0: float, async_on: bool) -> float:
@@ -1476,6 +1524,7 @@ class PagedTorchExecutor(Executor):
         return t.to(self.device, non_blocking=True)
 
     # -- ops --
+    @_phased
     def prefill(self, task: Task) -> float:
         tid = task.task_id
         L = self._effective_prompt(task)
@@ -1563,6 +1612,7 @@ class PagedTorchExecutor(Executor):
         credit included."""
         return self._chunk_progress.get(task.task_id, 0)
 
+    @_phased
     def prefill_chunk(self, task: Task, n_tokens: int) -> Tuple[float, bool]:
         """Run the next ``n_tokens`` of the task's prompt, piece by piece
         (``_chunk_pieces``), starting at the first uncached chunk when the
@@ -1609,6 +1659,7 @@ class PagedTorchExecutor(Executor):
         return self._finish(self._prefill_pending(tid, logits, argmax,
                                                   **undo), t0, async_on), True
 
+    @_phased
     def decode(self, tasks: Sequence[Task],
                depths: Optional[Sequence[int]] = None) -> float:
         if len(tasks) > self.max_batch:
@@ -1814,6 +1865,7 @@ class PagedTorchExecutor(Executor):
             done.record(self._swap_stream)
         return hosts, done
 
+    @_phased
     def suspend(self, task: Task) -> float:
         """Swap the task's private pages, and for SSM/hybrid archs its
         recurrent state, to the host arena: snapshot their device
@@ -1895,6 +1947,7 @@ class PagedTorchExecutor(Executor):
         for name, key in (("ssm_state", "ssm"), ("conv_state", "conv")):
             self.pages[name][:, slot] = self._h2d(blob[key])
 
+    @_phased
     def resume(self, task: Task) -> float:
         """Re-allocate the task's state slot (SSM/hybrid archs) and device
         pages for the swapped-out positions (evicting idle prefix-cache

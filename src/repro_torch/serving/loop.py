@@ -22,7 +22,9 @@ byte-identically.
 
 Async pipelining (DESIGN.md §10): an executor exposing ``gap_stats`` gets
 its host/device gap breakdown (schedule/dispatch/wait/swap-overlap ms)
-measured per run and surfaced in LoopResult. Under ``async_dispatch`` the
+measured per run and surfaced in LoopResult (in the synchronous torch
+engine ``wait_ms`` is each op's own clock, not a wait: see
+``serving.pipeline``). Under ``async_dispatch`` the
 executor returns dispatch-only times, so the loop folds each commit's
 blocked time into ``now`` as it lands (exactly once — tracked by a
 wait-ms watermark) and drains the pipeline before reporting, keeping
@@ -76,6 +78,9 @@ class LoopResult:
     # dispatch work, host blocked on device results, and transfer time
     # overlapped on the background swap worker — deltas over this run,
     # from the executor's GapStats (all 0.0 for executors without one).
+    # In the port's synchronous engine wait_ms is each op's own clock,
+    # not a wait, and its staging before that clock is in no field here
+    # (a traced span's stage_ms holds it; pipeline.py's docstring).
     # Timing floats: excluded from the sync/async equivalence contract.
     schedule_ms: float = 0.0
     dispatch_ms: float = 0.0
@@ -113,10 +118,18 @@ class InstanceDriver:
         self.trace = trace
         self.name = name
         self.steps = 0
+        self.now = 0.0
+        # an engine with ``attach_trace`` (the paged torch engine) times
+        # its ops' phases once traced: the driver emits its set-up so far
+        # as one ``engine_setup`` instant, and adds each op's phases
+        # (``last_phases``) to its action's span. A method call, so that a
+        # wrapper forwarding attribute reads reaches the engine.
         if trace is not None:
             scheduler.trace = trace
             scheduler.trace_name = name
-        self.now = 0.0
+            attach = getattr(executor, "attach_trace", None)
+            if attach is not None:
+                trace.emit("engine_setup", self.now, -1, name, **attach())
         self.n_decode = 0
         self.n_prefill = 0
         self.n_chunks = 0
@@ -324,6 +337,12 @@ class InstanceDriver:
                     for k in ("schedule_ms", "dispatch_ms", "wait_ms",
                               "swap_overlap_ms"):
                         args[k] = end[k] - g0[k]
+                # the op's phases (PagedTorchExecutor.last_phases):
+                # stage_ms + graph_ms + gaps_ms + commit_ms is its host
+                # time from entry to return
+                ph = getattr(executor, "last_phases", None)
+                if ph is not None:
+                    args.update(ph)
                 # span starts at the pre-action clock; under async dispatch
                 # the folded commit wait is inside dur, so spans on one
                 # track stay monotonic and non-overlapping

@@ -40,6 +40,15 @@ free of jax so they can be unit-tested with a deterministic fake clock
     books an op's whole blocking time as ``wait_ms``; the async engine
     splits it — ``host_gap_ms()`` (= dispatch + wait) is the number the
     async-pipeline benchmark gate requires to strictly shrink.
+
+    In the port's synchronous paged engine ``wait_ms`` is the op's own
+    clock (``_finish``/``_book``: from the device sync before its first
+    step to the end of its commit, staging, launch and the host's
+    bookkeeping included), not only a wait; the host work before that clock (step lookup, pool
+    reservations, page tables, the token chain) is booked in no field
+    here, only in a traced op's ``stage_ms``
+    (``serving.step_graphs.PhaseTimer``), which also splits the rest
+    into the steps' device time and the commit.
 """
 from __future__ import annotations
 
@@ -74,7 +83,8 @@ class FakeClock:
 
 
 class GapStats:
-    """Host/device gap accumulator (see module docstring for the fields).
+    """Host/device gap accumulator (see module docstring for the fields,
+    and for what ``wait_ms`` holds in the port's synchronous engine).
     ``swap_overlap_ms`` is written from the background transfer worker, so
     its add goes through a lock; everything else is single-threaded."""
 

@@ -41,7 +41,15 @@ holds) and its function of them. A ``Step`` owns:
   nothing), added to ``ops.LAUNCHES`` on every replay: a replayed step
   counts as the eager step does;
 - the ``data_ptr`` of every arena tensor at capture: a replay raises if
-  the engine's arenas are no longer those tensors.
+  the engine's arenas are no longer those tensors;
+- ``marks``, a pair of timing events captured in the graph (``external``:
+  each replay records them on the device), the first after a one-element
+  kernel that opens the graph, the second as its last node, so the
+  graph's device time is read from its kernels: a mark as the first node
+  fires as the launch begins, before the kernels have reached the device.
+  The kernels can still wait inside the graph on a launch under way (a
+  launch takes 0.05-0.15 ms at full size, ~1 ms with a profiler attached,
+  PERF.md); the marks cannot tell those waits from the kernels' own gaps.
 
 A step's outputs are static, so what outlives the next replay is copied
 out at once: ``Snapshot`` takes a step's argmax ints into a device copy
@@ -53,6 +61,14 @@ step only; ``LazyLogits`` keeps a device copy of its logits until read.
 (a snapshot read before its step finished). The async engine's steady
 state makes no stage wait, and commit waits only where its queue's
 depth forces a commit.
+
+``StepGraphs`` also counts the steps it made (``captures``; on the card
+each one a capture) and the host ms making them took (``make_ms``: the
+step's buffers, the eager warm-up and the capture). With a ``PhaseTimer``
+set as its ``timer`` (an engine's traced ops, ``PhaseTimer``'s docstring)
+every run is timed: a captured graph by its ``marks``, an uncaptured step
+by the host clock around its function. With no timer a run makes no
+event and reads no clock.
 
 On the CPU, or with ``capture=False``, the same staging runs the step
 function on the static inputs at every ``run``, uncaptured: the CPU tests
@@ -71,6 +87,7 @@ of these steps write.
 from __future__ import annotations
 
 import gc
+import time
 from typing import (Callable, Dict, Hashable, List, Optional, Sequence,
                     Tuple, Union)
 
@@ -123,6 +140,8 @@ class Step:
         self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
         self.launches: Dict[str, int] = {}
         self._arena_ptrs: List[int] = []
+        self.marks: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
+        self._tick: Optional[torch.Tensor] = None   # the graph's first kernel
         self.runs = 0
 
     # -- staging --
@@ -210,10 +229,19 @@ class Step:
             ops.recorded_launches(lambda: self.fn(self.inputs))
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        marks = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                      for _ in range(2))
+        for m in marks:          # made outside the capture
+            m.record()
+        tick = torch.zeros((1,), dtype=torch.int32, device=self.device)
 
         def capture():
             with torch.cuda.graph(graph, pool=self.pool):
-                return self.fn(self.inputs)
+                tick.add_(1)     # see the module docstring's ``marks``
+                marks[0].record()
+                out = self.fn(self.inputs)
+                marks[1].record()
+                return out
 
         # the collector stays off while the stream captures: collecting an
         # engine that died in a reference cycle destroys its graphs and
@@ -226,6 +254,7 @@ class Step:
             if collecting:
                 gc.enable()
         self.graph = graph
+        self.marks, self._tick = marks, tick
         self._arena_ptrs = [t.data_ptr() for t in self.arenas()]
 
     def replay(self) -> Tuple[torch.Tensor, ...]:
@@ -253,7 +282,12 @@ class Step:
         captured step's are its static outputs, overwritten by its next
         run."""
         self.stage(host, dev)
+        tm = self.owner.timer if self.owner is not None else None
+        if tm is not None:
+            tm.start(self)
         out = self.replay() if self.capture else self.fn(self.inputs)
+        if tm is not None:
+            tm.stop(self)
         self.runs += 1
         return out
 
@@ -262,7 +296,9 @@ class StepGraphs:
     """The steps of one engine by key, sharing one graph memory pool.
     ``capture`` asks for CUDA graphs; it holds only on a CUDA device.
     ``ring`` is the depth of each step's staging ring and of the argmax
-    snapshots' host ring; ``quiesce`` runs before every capture."""
+    snapshots' host ring; ``quiesce`` runs before every capture.
+    ``captures`` and ``make_ms`` count the steps made and the host ms it
+    took; ``timer``, a ``PhaseTimer`` or None, times every run."""
 
     def __init__(self, device: torch.device, capture: bool = True,
                  ring: int = 1, quiesce: Optional[Callable[[], None]] = None):
@@ -277,6 +313,9 @@ class StepGraphs:
         self.commit_waits = 0
         self._snap_slots: List[Optional["Snapshot"]] = [None] * ring
         self._snap_next = 0
+        self.captures = 0
+        self.make_ms = 0.0
+        self.timer: Optional[PhaseTimer] = None
 
     def step(self, key: Hashable, spec: InputSpec, fn: StepFn,
              arenas: Callable[[], List[torch.Tensor]]) -> Step:
@@ -285,6 +324,7 @@ class StepGraphs:
         raises and keeps no step."""
         st = self.steps.get(key)
         if st is None:
+            t0 = time.perf_counter()
             st = Step(self.device, spec, fn, arenas, self.capture, self.pool,
                       owner=self, ring=self.ring)
             if self.capture:
@@ -292,6 +332,8 @@ class StepGraphs:
                     self.quiesce()
                 st.capture_graph()
             self.steps[key] = st
+            self.captures += 1
+            self.make_ms += (time.perf_counter() - t0) * 1000.0
         return st
 
     def snapshot(self, t: torch.Tensor) -> "Snapshot":
@@ -308,6 +350,132 @@ class StepGraphs:
 
 
 DevRows = Tuple[torch.Tensor, np.ndarray, np.ndarray]
+
+
+class PhaseTimer:
+    """The phases of a synchronous engine's ops, on the host's
+    ``time.perf_counter`` clock. The engine calls ``enter`` at an op's
+    entry, ``anchor`` where the stream is idle (right after its clock's
+    device sync), and ``leave`` at its return, once the op has waited on
+    what its steps computed; its ``StepGraphs`` calls ``start`` and
+    ``stop`` around each step it runs. ``last`` gives the op's phases,
+    None for an op that ran no step or did not return, else, in ms:
+
+    - ``stage_ms``: entry to the first step's start (step lookup and any
+      capture, pool and page-table work, the sync, staging, and the
+      launch up to the graph's first kernel);
+    - ``graph_ms``: the op's steps' summed run time, on the card from each
+      graph's first kernel to its last node (the module docstring's
+      ``marks``: waits inside a graph on its launch are in it);
+      ``graphs`` their count;
+    - ``gaps_ms``: the time between its steps (0 for one step);
+    - ``commit_ms``: the last step's end to the return (the snapshot and
+      logits copies, the wake, the argmax read, the bookkeeping);
+    - ``captures``: the steps the op made.
+
+    The four times partition the op's host time from entry to return. A
+    captured step is timed on the device by its graph's ``marks``, put on
+    the host's clock by the anchor's event. A graph that runs again in
+    the same op records its marks anew, so the earlier run's are read
+    just before that replay if they have completed, and that run falls
+    back otherwise to a pair of events recorded around its replay (one
+    pair a run, reused from op to op): its end then holds while the
+    stream is busy with the graph, its start holds the launch too.
+    ``leave`` only reads the clock: the events are read, and the fields
+    made, by ``last``, after the op has returned and its events have
+    completed, so timing adds no wait and little host time to the op. An
+    uncaptured step's time is the host's around its function."""
+
+    def __init__(self, graphs: StepGraphs):
+        self.graphs = graphs
+        self.on_device = graphs.capture
+        self._pairs: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self._steps: List[Step] = []        # each run's step, in order
+        self._read: List[List[Optional[float]]] = []  # marks read early
+        self._unread: Dict[Step, int] = {}  # step -> run its marks hold
+        self._host: List[float] = []       # uncaptured: start, end, ...
+        self._anchor = (torch.cuda.Event(enable_timing=True)
+                        if self.on_device else None)
+        self._t_anchor = 0.0
+        self._n = 0
+        self._entry = self._ret = 0.0
+        self._captures = 0
+        self._left = False
+        self._last: Optional[Dict[str, float]] = None
+
+    def enter(self) -> None:
+        self._n = 0
+        self._host.clear()
+        self._steps.clear()
+        self._read.clear()
+        self._unread.clear()
+        self._left = False
+        self._last = None
+        self._captures = self.graphs.captures
+        self._entry = time.perf_counter()
+
+    def anchor(self) -> None:
+        if self.on_device:
+            self._anchor.record()
+        self._t_anchor = time.perf_counter()
+
+    def start(self, step: Step) -> None:
+        if not self.on_device:
+            self._host.append(time.perf_counter())
+            return
+        i = self._unread.pop(step, None)
+        if i is not None:                # its marks are about to be reused
+            self._read[i] = [self._anchor.elapsed_time(m) if m.query()
+                             else None for m in step.marks]
+        if self._n == len(self._pairs):
+            self._pairs.append((torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True)))
+        self._pairs[self._n][0].record()
+
+    def stop(self, step: Step) -> None:
+        if self.on_device:
+            self._pairs[self._n][1].record()
+            self._steps.append(step)
+            self._read.append([None, None])
+            self._unread[step] = self._n
+        else:
+            self._host.append(time.perf_counter())
+        self._n += 1
+
+    def leave(self) -> None:
+        self._ret = time.perf_counter()
+        self._left = True
+
+    def _stamps(self) -> List[float]:
+        """[start, end] of each run in ms after the anchor, in order."""
+        out = []
+        for i, step in enumerate(self._steps):
+            read = self._read[i]
+            if self._unread.get(step) == i:
+                read = [self._anchor.elapsed_time(m) for m in step.marks]
+            out += [self._anchor.elapsed_time(h) if r is None else r
+                    for r, h in zip(read, self._pairs[i])]
+        return out
+
+    def last(self) -> Optional[Dict[str, float]]:
+        """The phases of the last op (see the class docstring)."""
+        if self._last is not None or not self._left or self._n == 0:
+            return self._last
+        n = self._n
+        if self.on_device:
+            base = self._t_anchor * 1000.0
+            h = [base + t for t in self._stamps()]
+        else:
+            h = [t * 1000.0 for t in self._host]
+        # h: [start, end] of each step, in order
+        graph = sum(h[i + 1] - h[i] for i in range(0, 2 * n, 2))
+        gaps = sum((h[i + 1] - h[i] for i in range(1, 2 * n - 1, 2)), 0.0)
+        self._last = {"stage_ms": h[0] - self._entry * 1000.0,
+                      "graph_ms": graph, "gaps_ms": gaps,
+                      "commit_ms": self._ret * 1000.0 - h[-1],
+                      "graphs": n,
+                      "captures": self.graphs.captures - self._captures}
+        return self._last
 
 
 def wait_event(ev: "torch.cuda.Event", owner: Optional[StepGraphs],

@@ -15,19 +15,27 @@ The overhead contract:
   * enabled   — events are READ-ONLY observations of decisions already
     taken. Policy code never branches on the recorder, so token streams
     and every benchmark-gate metric are byte-identical traced vs.
-    untraced (tests/test_trace.py); a traced sim run stays within 10% of
-    the untraced wall-clock (benchmarks/observability.py gate).
+    untraced (tests/test_trace.py, tests/test_torch_trace.py). On an
+    H100 serving edge-6b (the port's benchmark, ``servebench/``), the
+    decode ops of a traced run, phases timed (below), took within 1% of
+    an untraced run's at each batch size; in a traced run in which
+    torch.profiler had been started once before (the benchmark's warm-up)
+    they took ~10% longer (PERF.md).
 
 Event kinds (the lifecycle stream of DESIGN.md §13):
 
   instant   arrive / admit / defer(reason=pages|states|time|batch|tier) /
             route(tier, score, degraded) / spec_grant(depth) / drop /
-            finish(tier, ok)
+            finish(tier, ok) / engine_setup(captures, make_ms: the steps
+            the engine made before the trace was attached, and their host
+            ms; the port's paged engine only)
   span      prefill / prefill_chunk / decode(n, commits, spec_extra) /
             suspend(ok) / resume(ok)     — ``dur`` > 0, one per executed
             loop action, carrying the executor GapStats deltas
             (schedule/dispatch/wait/swap-overlap ms) measured across the
-            action when the executor keeps them
+            action when the executor keeps them, and the synchronous
+            paged engine's phases of the op (stage_ms, graph_ms, gaps_ms,
+            commit_ms, graphs, captures: ``step_graphs.PhaseTimer``)
 
 The trace is a SECOND LEDGER: ``replay_counters`` recomputes the
 ``LoopResult`` counters (decode iterations, prefills, chunks, suspends,
@@ -61,8 +69,8 @@ class TraceEvent(NamedTuple):
     ``args`` holds the kind-specific payload (defer reason, spec depth,
     route score, decode batch size, GapStats deltas, ...). A NamedTuple,
     not a dataclass: constructed once per loop action on the traced hot
-    path, so tuple-speed allocation is what keeps the <10% overhead gate
-    honest (benchmarks/observability.py)."""
+    path, so tuple-speed allocation keeps a traced run's cost low (the
+    module docstring gives it)."""
     ts: float
     kind: str
     task_id: int = -1
@@ -117,7 +125,7 @@ class TraceRecorder:
         (per-action spans in the loop, per-candidate defers in the
         scheduler): no kwargs repacking, and ``tuple.__new__`` skips the
         generated NamedTuple constructor — together these keep the traced
-        run inside the observability overhead band."""
+        run's cost low."""
         ring = self._ring
         if len(ring) == self.capacity:
             self.dropped += 1

@@ -28,7 +28,8 @@ the ring-cache kernel's two split bodies (hd 32 to 256, rings of 77 to
 SSD scan from 1 to 1024 steps at mamba2-780m and hymba-1.5b widths.
 Then the engines' captured steps against the same steps run eagerly
 (the slot engine also on mamba2-780m and hymba-1.5b, the SSD state in its
-slot cache), and a reduced two-tier fleet on the card.
+slot cache), a traced engine's decode ``graph_ms`` against events timed
+around its graph's replay, and a reduced two-tier fleet on the card.
 Before a checked call that must write exact zeros, a block of the
 output's size is filled with NaN and freed, so the wrapper's torch.empty
 gets poisoned memory back. Tolerances: fp32 1e-4 (summation order over
@@ -768,6 +769,52 @@ def test_captured_paged_decode_matches_eager(arch):
     assert set(steps) == {("decode", 1), ("decode", 2), ("decode", 4)}
     assert all(s.graph is not None and s.runs > 0 for s in steps.values())
     assert not any(s.graph is not None for s in eager.graphs.steps.values())
+
+
+@pytest.mark.cuda
+def test_traced_decode_graph_ms_matches_events_around_its_replay():
+    """A traced engine's captured decode step: the ``graph_ms`` its ops
+    report (``step_graphs.PhaseTimer``) against a CUDA-event pair timed
+    here around replays of the same graph on the same inputs, medians of
+    20 within 10%; every phase >= 0 and one graph an op. The stream is
+    held busy (``torch.cuda._sleep``) while the pair's first event is
+    recorded and the graph launched, so the pair times the graph's
+    device work without the host's launch, as ``graph_ms`` must."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    cfg = get_config("edge-6b").reduced()
+    ex = PagedTorchExecutor(cfg, params=M.init_params(cfg, seed=0,
+                                                      device="cuda"),
+                            n_pages=48, page_size=16, max_seq=128,
+                            max_batch=4, device="cuda")
+    tasks = _tasks((5, 17, 40, 9), 8300)
+    for t in tasks:
+        ex.prefill(t)
+    ex.decode(tasks)                          # captures the step
+    ex.attach_trace()
+    phases = []
+    for _ in range(20):
+        ex.decode(tasks)
+        phases.append(ex.last_phases)
+    assert all(p["graphs"] == 1 and p["captures"] == 0 and p["gaps_ms"] == 0
+               and min(p["stage_ms"], p["graph_ms"], p["commit_ms"]) >= 0
+               for p in phases)
+    graph = ex.graphs.steps[("decode", 4)].graph
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    timed = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)          # ~1 ms: longer than a launch
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        timed.append(a.elapsed_time(b))
+    got = float(np.median([p["graph_ms"] for p in phases]))
+    want = float(np.median(timed))
+    assert abs(got - want) <= 0.1 * want, (got, want)
 
 
 @pytest.mark.cuda

@@ -58,6 +58,11 @@ ENGINE = dict(n_pages=12, page_size=8, max_seq=64, max_batch=4)
 SAMPLES = [(1, 8.0), (2, 9.0), (4, 11.0)]
 PREFILL = [(8, 4.0), (64, 12.0)]
 GAP_KEYS = ("schedule_ms", "dispatch_ms", "wait_ms", "swap_overlap_ms")
+# the port's own: the synchronous paged engine's phases of an op (the
+# async engine reports none) and its set-up counters, in the
+# engine_setup instant that the JAX package never emits
+PHASE_KEYS = ("stage_ms", "graph_ms", "gaps_ms", "commit_ms", "graphs",
+              "captures", "make_ms")
 
 
 class Priced:
@@ -166,11 +171,15 @@ def _fingerprint(res):
               tuple(t.token_times_ms)) for t in res.tasks])
 
 
-def _stream(events):
-    """Events with the GapStats deltas (host clock readings) left out."""
+def _stream(events, jax_kinds=False):
+    """Events with the GapStats deltas (host clock readings) and the
+    port's phase and set-up fields left out; with ``jax_kinds`` also the
+    port's ``engine_setup`` instant."""
     return [(e.ts, e.kind, e.task_id, e.instance, e.dur,
-             {k: v for k, v in e.args.items() if k not in GAP_KEYS})
-            for e in events]
+             {k: v for k, v in e.args.items()
+              if k not in GAP_KEYS and k not in PHASE_KEYS})
+            for e in events
+            if not (jax_kinds and e.kind == "engine_setup")]
 
 
 MODES = pytest.mark.parametrize("async_dispatch", [False, True],
@@ -269,7 +278,7 @@ def test_priced_trace_matches_jax(weights):
     jres, jstreams = _jax_run(weights, jtr)
     tres, tstreams, _ = _torch_run(weights, ttr)
     assert jres.suspends > 0
-    assert _stream(ttr.events) == _stream(jtr.events)
+    assert _stream(ttr.events, jax_kinds=True) == _stream(jtr.events)
     assert _fingerprint(tres) == _fingerprint(jres)
     assert tstreams == jstreams
 
