@@ -418,7 +418,8 @@ SERVE_ARGS = ["--arch", "edge-6b", "--dtype", "bfloat16", "--device", "cuda",
 # 16 slots hold every request of this workload at once.
 SERVE_RUNS = (
     ("paged-atomic", ["--executor", "paged"],
-     ("paged_decode_attention", "flash_prefill")),
+     ("paged_decode_attention", "flash_prefill", "add_rms_norm",
+      "rope_kv_write", "silu_mul")),
     # realtime beside voice/QA, the CLI's default mix
     ("paged-realtime", ["--executor", "paged", "--ratio", "0.5"],
      ("paged_decode_attention", "flash_prefill")),
@@ -485,14 +486,15 @@ SERVE_RUNS = (
     # SSM and MoE serving (DESIGN.md §12): the later --arch overrides
     # SERVE_ARGS's
     ("paged-ssm", ["--executor", "paged", "--arch", "mamba2-780m"],
-     ("ssd_scan", "ssd_decode_step")),
+     ("ssd_scan", "ssd_decode_step", "add_rms_norm")),
     # the same through the async pipelined engine: the state slots of
     # steps in flight
     ("paged-ssm-async", ["--executor", "paged", "--arch", "mamba2-780m",
                          "--async-pipeline"],
      ("ssd_scan", "ssd_decode_step")),
     ("paged-moe", ["--executor", "paged", "--arch", "granite-moe-3b-a800m"],
-     ("moe_grouped_ffn", "paged_decode_attention", "flash_prefill")),
+     ("moe_grouped_ffn", "paged_decode_attention", "flash_prefill",
+      "add_rms_norm", "rope_kv_write")),
     # the MoE step's live-row counts under a queued step
     ("paged-moe-async", ["--executor", "paged", "--arch",
                          "granite-moe-3b-a800m", "--async-pipeline"],
@@ -501,7 +503,7 @@ SERVE_RUNS = (
     # the SSM mixer over the state arena in every step
     ("paged-hybrid", ["--executor", "paged", "--arch", "hymba-1.5b"],
      ("paged_decode_attention", "flash_prefill", "ssd_scan",
-      "ssd_decode_step")),
+      "ssd_decode_step", "add_rms_norm", "rope_kv_write", "silu_mul")),
     # the fleet tier (DESIGN.md §11): smollm-360m (tier 0) and edge-6b
     # (tier 1) behind one router on the CLI's default mix, traced; QA
     # traffic wants tier 1
@@ -546,7 +548,23 @@ KERNELS = {
     "moe_grouped_ffn": {
         "source": "src/repro_torch/csrc/moe_grouped_ffn.cu",
         "replaces": "src/repro/kernels/moe_dispatch.py:32"},
+    # the paged decode step's fused elementwise chain: no TPU kernel (the
+    # JAX package leaves these chains to XLA's fusion)
+    "add_rms_norm": {
+        "source": "src/repro_torch/csrc/decode_fused.cu",
+        "replaces": "none (XLA fusion of layers.py rms_norm)"},
+    "rope_kv_write": {
+        "source": "src/repro_torch/csrc/decode_fused.cu",
+        "replaces": "none (XLA fusion of layers.py apply_rope)"},
+    "silu_mul": {
+        "source": "src/repro_torch/csrc/decode_fused.cu",
+        "replaces": "none (XLA fusion of layers.py gated_mlp)"},
 }
+# (Hq, Hkv, hd) of the fused RoPE + K/V write's checks: edge-6b, granite,
+# hymba, smollm, a rank's slab of edge-6b and of granite, the reduced
+# configs
+FUSED_HEADS = ((32, 2, 128), (24, 8, 64), (25, 5, 64), (15, 5, 64),
+               (16, 1, 128), (12, 4, 64), (4, 1, 32))
 
 
 def fail(msg: str) -> None:
@@ -907,7 +925,117 @@ def check_kernels():
                (out.float() - want)[seen].abs().max().item())
     check_hetero_kernels(report)
     check_ring_lse(report)
+    check_fused(report)
     return worst
+
+
+def fused_inputs(dtype, B, D=0, F=0, heads=None, n_pages=80, psz=16,
+                 seed=0):
+    """Inputs of the fused decode chain, scaled so every output stays
+    below 2 (one bf16 ulp there is at most 2^-7, under TOL): add_rms_norm
+    x, delta [B,D] and w [D] near -0.5 (so 1 + w halves the normed row);
+    silu_mul g [B,F] at 0.5 and u at 0.25; rope_kv_write (``heads`` =
+    (Hq, Hkv, hd)) q, k, v at 0.25, positions up to 1023 on distinct
+    pages, rows 0 and 1 sent to the spare page at offset 0 as an untabled
+    and an inactive row are. Returns a dict."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(scale, *shape):
+        return (scale * torch.randn(*shape, generator=g,
+                                    device="cuda")).to(dtype)
+    out = {}
+    if D:
+        out["norm"] = (rnd(1.0, B, D), rnd(1.0, B, D),
+                       (-0.5 + 0.05 * torch.randn(D, generator=g,
+                                                  device="cuda")).to(dtype))
+    if F:
+        out["silu"] = (rnd(0.5, B, F), rnd(0.25, B, F))
+    if heads is not None:
+        Hq, Hkv, hd = heads
+        rng = np.random.default_rng(seed)
+        q_pos = torch.from_numpy(rng.integers(0, 1024, B).astype(np.int32))
+        w_page = torch.from_numpy(rng.permutation(n_pages - 1)[:B]).long()
+        w_off = (q_pos % psz).long()
+        w_page[:min(B, 2)], w_off[:min(B, 2)] = n_pages - 1, 0
+        out["rope"] = (rnd(0.25, B, Hq, hd), rnd(0.25, B, Hkv, hd),
+                       rnd(0.25, B, Hkv, hd), q_pos.cuda(),
+                       L.rope_table(hd, 10000.0, torch.device("cuda", 0)),
+                       rnd(1.0, n_pages, Hkv, psz, hd),
+                       rnd(1.0, n_pages, Hkv, psz, hd), w_page.cuda(),
+                       w_off.cuda())
+    return out
+
+
+def check_fused(report):
+    """The paged decode step's fused chain (csrc/decode_fused.cu) against
+    its plain versions on the same inputs in the working type (the
+    kernels round where the plain path rounds; bf16 outputs below 2,
+    ``fused_inputs``), rows 1, 8 and 32: add_rms_norm at the serving
+    archs' widths (the residual sum exact), rope_kv_write at FUSED_HEADS
+    (written K within the tolerance and V exact, a spare-page row and an
+    inactive row, every other page slot untouched), silu_mul at the
+    dense archs' d_ff and a rank's slab."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for B in (1, 8, 32):
+            for D in (4096, 1536, 1600, 960, 256):
+                x, delta, w = fused_inputs(dtype, B, D=D, seed=B + D)["norm"]
+                want_x, want_h = ref.add_rms_norm_ref(x.clone(), delta, w,
+                                                      1e-5)
+                got_x, got_h = ops.add_rms_norm(x, delta, w, 1e-5)
+                torch.cuda.synchronize()
+                if not torch.equal(got_x, want_x):
+                    fail(f"add_rms_norm B={B} D={D} {dt}: the residual sum "
+                         "differs from x + delta")
+                report("add_rms_norm", f"B={B} D={D}, residual exact", dt,
+                       (got_h.float() - want_h.float()).abs().max().item())
+            for F in (13696, 6848, 5504, 2560, 512):
+                gt, up = fused_inputs(dtype, B, F=F, seed=B + F)["silu"]
+                got = ops.silu_mul(gt, up)
+                torch.cuda.synchronize()
+                report("silu_mul", f"B={B} F={F}", dt,
+                       (got.float() - ref.silu_mul_ref(gt, up).float())
+                       .abs().max().item())
+            for heads in FUSED_HEADS:
+                (q, k, v, qp, fr, kp, vp, wp,
+                 wo) = fused_inputs(dtype, B, heads=heads, seed=B)["rope"]
+                kp0, vp0 = kp.clone(), vp.clone()
+                want_q = ref.rope_kv_write_ref(q, k, v, qp, fr, kp0.clone(),
+                                               vp0.clone(), wp, wo)
+                want_k = L.rope_rotate(k[:, None], qp[:, None], fr)[:, 0]
+                got_q = ops.rope_kv_write(q, k, v, qp, fr, kp, vp, wp, wo)
+                torch.cuda.synchronize()
+                lo = min(B, 2)                # rows 0, 1: the spare page
+                # rows that meet on the spare page write it in no fixed
+                # order, 16 bytes at a time: each element is one of theirs
+                errs = [(got_q.float() - want_q.float()).abs().max().item(),
+                        torch.stack([(kp[-1, :, 0].float()
+                                      - want_k[r].float()).abs()
+                                     for r in range(lo)]).amin(0)
+                        .max().item()]
+                if B > lo:
+                    errs.append((kp[wp[lo:], :, wo[lo:]].float()
+                                 - want_k[lo:].float()).abs().max().item())
+                err = max(errs)
+                written = torch.zeros(kp.shape[0], kp.shape[2],
+                                      dtype=torch.bool, device="cuda")
+                written[wp, wo] = True
+                keep = ~written[:, None, :, None].expand_as(kp)
+                if not (torch.equal(vp[wp[lo:], :, wo[lo:]], v[lo:])
+                        and torch.equal(kp[keep], kp0[keep])
+                        and torch.equal(vp[keep], vp0[keep])
+                        and torch.stack([vp[-1, :, 0] == v[r]
+                                         for r in range(lo)]).any(0).all()):
+                    fail(f"rope_kv_write B={B} heads={heads} {dt}: V not "
+                         "written exactly, or a slot no row writes changed")
+                report("rope_kv_write", f"B={B} Hq,Hkv,hd={heads}, spare "
+                       "and inactive rows, V and other slots exact", dt, err)
 
 
 def check_ring_lse(report):
@@ -3818,6 +3946,72 @@ def time_phase(runs, worst):
     # and whole-prompt prefill over its prompts
     paged_decode_row("paged-mesh-moe", 26, ("paged-mesh-moe",))
     prefill_row("paged-mesh-moe", 27, ("paged-mesh-moe",))
+
+    def fused_rows(run, seed, of_runs, batch=None):
+        """The paged decode step's fused chain at ``run``'s shapes: its
+        full decode batch (or ``batch`` rows, a cell's, launched by no
+        run here), its arch's D, its heads and d_ff slab (a rank's, for a
+        mesh run), each kernel the arch launches. Checked against the
+        plain version in the working type on the same inputs
+        (``check_fused``); the norm's kernel updates its own copy of x."""
+        from repro_torch.configs import get_config
+        c = runs[run][0]["cfg"]
+        B = batch or runs[run][0]["batch"]
+        ways = get_config(c.name).n_heads // c.n_heads if c.n_heads else 1
+        dense = c.block_kind != "moe" and c.d_ff > 0
+        F_ = c.d_ff // ways if dense else 0
+        heads = ((c.n_heads, c.n_kv_heads, c.head_dim) if c.has_attention
+                 else None)
+        ins = fused_inputs(dtype, B, D=c.d_model, F=F_, heads=heads,
+                           seed=seed)
+        cell = "" if batch is None else " (a cell's batch)"
+        x0, delta, w = ins["norm"]
+        xk, xp = x0.clone(), x0.clone()
+        D = c.d_model
+        row("add_rms_norm", f"B={B}{cell} D={D}, x += delta in place",
+            lambda: ops.add_rms_norm(xk, delta, w, 1e-5)[1],
+            lambda: ref.add_rms_norm_ref(xp, delta, w, 1e-5)[1],
+            lambda: ref.add_rms_norm_ref(x0.clone(), delta, w,
+                                         1e-5)[1].float(),
+            None, (4 * B * D + D) * elt, 6 * B * D, of_runs=of_runs)
+        if heads is not None:
+            Hq, Hkv, hd = heads
+            q, k, v, qp, fr, kp, vp, wp, wo = ins["rope"]
+            kp2, vp2 = kp.clone(), vp.clone()
+            row("rope_kv_write", f"B={B}{cell} Hq={Hq} Hkv={Hkv} hd={hd}, "
+                "K/V into a page arena",
+                lambda: ops.rope_kv_write(q, k, v, qp, fr, kp, vp, wp, wo),
+                lambda: ref.rope_kv_write_ref(q, k, v, qp, fr, kp2, vp2, wp,
+                                              wo),
+                lambda: ref.rope_kv_write_ref(q, k, v, qp, fr, kp2, vp2, wp,
+                                              wo).float(),
+                None, 2 * B * (Hq + 2 * Hkv) * hd * elt + hd * 2
+                + B * 20, 6 * B * (Hq + Hkv) * hd, of_runs=of_runs)
+        if F_:
+            gt, up = ins["silu"]
+            row("silu_mul", f"B={B}{cell} F={F_}",
+                lambda: ops.silu_mul(gt, up),
+                lambda: ref.silu_mul_ref(gt, up),
+                lambda: ref.silu_mul_ref(gt, up).float(),
+                None, 3 * B * F_ * elt, 5 * B * F_, of_runs=of_runs)
+
+    # the fused decode chain: every paged decode step's, at each run's
+    # arch (edge-6b's runs as the paged-decode row groups them, granite's,
+    # mamba2's, hymba's, the fleet's smollm instance, the two mesh runs'
+    # rank slabs); edge-6b and granite also at the cells' batch of 32
+    fused_rows("paged-atomic", 40, (
+        "paged-atomic", "paged-realtime", "paged-chunked",
+        "paged-chunked-realtime", "paged-spec", "paged-spec-rate8",
+        "paged-async-traced", "paged-orca", "paged-fastserve",
+        "paged-fastserve-swap", "paged-slice-swap", "fleet-traced/edge-6b"))
+    fused_rows("paged-atomic", 41, (), batch=32)
+    fused_rows("paged-moe", 42, ("paged-moe", "paged-moe-async"))
+    fused_rows("paged-moe", 43, (), batch=32)
+    fused_rows("paged-ssm", 44, ("paged-ssm", "paged-ssm-async"))
+    fused_rows("paged-hybrid", 45, ("paged-hybrid",))
+    fused_rows("fleet-traced/smollm-360m", 46, ("fleet-traced/smollm-360m",))
+    fused_rows("paged-mesh", 47, ("paged-mesh",))
+    fused_rows("paged-mesh-moe", 48, ("paged-mesh-moe",))
 
     # every run's launches of a kernel stand under exactly one of its rows
     for run, (_, counts) in runs.items():

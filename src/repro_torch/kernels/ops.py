@@ -1,5 +1,6 @@
 """Public wrappers of the port's kernels: attention, the SSD scan and
-decode step, and the grouped-expert FFN.
+decode step, the grouped-expert FFN, and the paged decode step's fused
+elementwise chain (add + RMSNorm, RoPE + K/V page write, silu * mul).
 
 A wrapper given CUDA tensors checks them (device, type, shape,
 contiguity, or strides where the kernel reads a view), allocates the
@@ -37,6 +38,7 @@ from typing import Callable, Dict, Optional, Tuple, TypeVar
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import decode_fused as _df
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import moe_dispatch as _moe
 from repro_torch.kernels import paged_attention as _pa
@@ -47,7 +49,9 @@ from repro_torch.kernels import ssd_scan as _ssd
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "flash_prefill": 0,
                             "flash_prefill_chunk": 0, "decode_attention": 0,
                             "paged_verify_attention": 0, "ssd_scan": 0,
-                            "ssd_decode_step": 0, "moe_grouped_ffn": 0}
+                            "ssd_decode_step": 0, "moe_grouped_ffn": 0,
+                            "add_rms_norm": 0, "rope_kv_write": 0,
+                            "silu_mul": 0}
 T = TypeVar("T")
 
 
@@ -474,5 +478,135 @@ def moe_grouped_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         return out
     hid = torch.empty((G, C, F), dtype=torch.float32, device=buf.device)
     _moe.launch(buf, wg, wu, wd, counts, hid, out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_rows(name: str, dtype: torch.dtype, width: int,
+                *tensors: torch.Tensor) -> None:
+    """Checks shared by the fused elementwise wrappers: one type of fp32 or
+    bf16, contiguous, 16-byte aligned, rows a whole number of the
+    kernels' 16-byte vectors wide."""
+    _check(name, dtype in _df.DTYPES and all(t.dtype == dtype
+                                              for t in tensors),
+           f"types {'/'.join(str(t.dtype) for t in tensors)}: one of fp32, "
+           "bf16, all alike, expected")
+    _check(name, all(t.is_contiguous() for t in tensors),
+           "tensors must be contiguous")
+    _check(name, all(t.data_ptr() % 16 == 0 for t in tensors)
+           and width % _df.vector(dtype) == 0,
+           f"tensors must be 16-byte aligned and rows of {width} a multiple "
+           f"of {_df.vector(dtype)} wide (the kernel moves 16 bytes at a "
+           "time)")
+
+
+def check_add_rms_norm(x: torch.Tensor, delta: Optional[torch.Tensor],
+                       w: torch.Tensor) -> None:
+    """What ``add_rms_norm``'s kernel takes; raises ValueError otherwise."""
+    name = "add_rms_norm"
+    D = x.shape[-1] if x.ndim else 0
+    _check(name, x.ndim >= 1 and w.shape == (D,)
+           and (delta is None or delta.shape == x.shape),
+           f"x [..., D], delta as x and w [D] expected (x "
+           f"{tuple(x.shape)}, delta "
+           f"{None if delta is None else tuple(delta.shape)}, w "
+           f"{tuple(w.shape)})")
+    _check_rows(name, x.dtype, D, x, w, *(() if delta is None else (delta,)))
+
+
+def add_rms_norm(x: torch.Tensor, delta: Optional[torch.Tensor],
+                 w: torch.Tensor, eps: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the next RMSNorm in one pass: x [..., D] +=
+    delta in place (rounded to x's type; None: x unchanged), then h =
+    x * rsqrt(mean(x^2) + eps) * (1 + w), fp32 inside, in x's type; w [D].
+    Returns (x, h)."""
+    name = "add_rms_norm"
+    tensors = (x, w) + (() if delta is None else (delta,))
+    if not _on_cuda(name, *tensors):
+        return ref.add_rms_norm_ref(x, delta, w, eps)
+    check_add_rms_norm(x, delta, w)
+    h = torch.empty_like(x)
+    if x.numel() == 0:
+        return x, h
+    _df.launch_add_rms_norm(x, delta, w, h, eps)
+    LAUNCHES[name] += 1
+    return x, h
+
+
+def check_rope_kv_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, freqs: torch.Tensor,
+                        k_pages: torch.Tensor, v_pages: torch.Tensor,
+                        w_page: torch.Tensor, w_off: torch.Tensor) -> None:
+    """What ``rope_kv_write``'s kernel takes; raises ValueError
+    otherwise."""
+    name = "rope_kv_write"
+    _check(name, q.ndim == 3 and k.ndim == 3 and k_pages.ndim == 4,
+           "q [B,Hq,hd], k/v [B,Hkv,hd] and pages [P,Hkv,psz,hd] expected")
+    B, Hq, hd = q.shape
+    Hkv = k.shape[1]
+    _check(name, k.shape == (B, Hkv, hd) and v.shape == k.shape
+           and v_pages.shape == k_pages.shape
+           and k_pages.shape[1] == Hkv and k_pages.shape[3] == hd,
+           f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v "
+           f"{tuple(v.shape)} pages {tuple(k_pages.shape)} disagree")
+    _check(name, hd in _df.HEAD_DIMS, f"head_dim {hd} not in "
+           f"{_df.HEAD_DIMS}")
+    _check(name, q_pos.dtype == torch.int32 and q_pos.shape == (B,)
+           and q_pos.is_contiguous(), "q_pos must be contiguous int32 [B]")
+    _check(name, all(t.dtype == torch.int64 and t.shape == (B,)
+                     and t.is_contiguous() for t in (w_page, w_off)),
+           "w_page and w_off must be contiguous int64 [B]")
+    _check(name, freqs.dtype == torch.float32 and freqs.shape == (hd // 2,)
+           and freqs.is_contiguous(), f"freqs must be contiguous fp32 "
+           f"[{hd // 2}]")
+    _check_rows(name, q.dtype, hd // 2, q, k, v, k_pages, v_pages)
+
+
+def rope_kv_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, freqs: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  w_page: torch.Tensor, w_off: torch.Tensor) -> torch.Tensor:
+    """RoPE of one decode token a row and its K/V written into one layer's
+    pages, in one pass. q [B,Hq,hd] and k [B,Hkv,hd] rotated at q_pos [B]
+    int32 (half-split, angles q_pos * freqs in fp32; freqs [hd/2] fp32,
+    ``layers.rope_table``); rotated k and v [B,Hkv,hd] written into
+    k/v_pages [P,Hkv,psz,hd] at (w_page[b], :, w_off[b], :) (int64 [B];
+    rows meant for the spare page write it). Returns rotated q [B,Hq,hd]
+    in q's type."""
+    name = "rope_kv_write"
+    tensors = (q, k, v, q_pos, freqs, k_pages, v_pages, w_page, w_off)
+    if not _on_cuda(name, *tensors):
+        return ref.rope_kv_write_ref(*tensors)
+    check_rope_kv_write(*tensors)
+    out = torch.empty_like(q)
+    if q.shape[0] == 0:
+        return out
+    _df.launch_rope_kv_write(*tensors, out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def check_silu_mul(g: torch.Tensor, u: torch.Tensor) -> None:
+    """What ``silu_mul``'s kernel takes; raises ValueError otherwise."""
+    name = "silu_mul"
+    _check(name, g.ndim >= 1 and u.shape == g.shape,
+           f"g and u of one shape expected ({tuple(g.shape)}, "
+           f"{tuple(u.shape)})")
+    _check_rows(name, g.dtype, g.shape[-1], g, u)
+
+
+def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The gated MLP's gate silu(g) * u in one pass, each op rounded to
+    g's type as the plain path rounds. g, u [..., F] of one type.
+    Returns [..., F]."""
+    name = "silu_mul"
+    if not _on_cuda(name, g, u):
+        return ref.silu_mul_ref(g, u)
+    check_silu_mul(g, u)
+    out = torch.empty_like(g)
+    if g.numel() == 0:
+        return out
+    _df.launch_silu_mul(g, u, out)
     LAUNCHES[name] += 1
     return out

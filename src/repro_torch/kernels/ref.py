@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (NEG_INF, attention, band_mask,
                                        chunk_decode_attention,
                                        decode_attention, gather_pages,
-                                       paged_kv_positions)
+                                       paged_kv_positions, rms_norm,
+                                       rope_rotate, silu_mul)
 from repro_torch.models.layers import paged_decode_attention as _paged
 from repro_torch.models.layers import paged_verify_attention as _verify
 
@@ -289,3 +290,39 @@ def moe_grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor,
         live = torch.arange(C, device=buf.device) < counts[:, None]
         out = torch.where(live[..., None], out, torch.zeros_like(out))
     return out.to(buf.dtype)
+
+
+def add_rms_norm_ref(x: torch.Tensor, delta: Optional[torch.Tensor],
+                     w: torch.Tensor, eps: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as the add_rms_norm entry of csrc/decode_fused.cu:
+    x [..., D] += delta in place (None: x unchanged), then (x, its RMSNorm
+    with weight w [D]): the decode step's ``x = x + mix`` followed by
+    ``layers.rms_norm``, rounding for rounding."""
+    if delta is not None:
+        x.add_(delta)
+    return x, rms_norm(x, w, eps)
+
+
+def rope_kv_write_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, freqs: torch.Tensor,
+                      k_pages: torch.Tensor, v_pages: torch.Tensor,
+                      w_page: torch.Tensor, w_off: torch.Tensor
+                      ) -> torch.Tensor:
+    """Same contract as the rope_kv_write entry of csrc/decode_fused.cu:
+    q [B,Hq,hd] and k [B,Hkv,hd] rotated at q_pos [B] (``layers.
+    rope_rotate`` over the table freqs [hd/2]); rotated k and v [B,Hkv,hd]
+    written into one layer's k/v_pages [P,Hkv,psz,hd] at (w_page[b], :,
+    w_off[b], :) (int64 [B]); returns rotated q."""
+    pos = q_pos[:, None]
+    q = rope_rotate(q[:, None], pos, freqs)[:, 0]
+    k = rope_rotate(k[:, None], pos, freqs)[:, 0]
+    k_pages[w_page, :, w_off] = k
+    v_pages[w_page, :, w_off] = v
+    return q
+
+
+def silu_mul_ref(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Same contract as the silu_mul entry of csrc/decode_fused.cu:
+    silu(g) * u, each op rounded to g's type (``layers.silu_mul``)."""
+    return silu_mul(g, u)

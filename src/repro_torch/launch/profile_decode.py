@@ -34,6 +34,10 @@ commit waits, at most one a stall: the commits the queue's depth
 forces) and the stalls; then the device busy and idle
 share over as many more steps under the profiler.
 
+Every profiled report also counts the device operations per op (kernels
+and copies) and splits the device time between cuBLAS's matrix products
+and everything else.
+
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
       --arch edge-6b --dtype bfloat16 --batch 8 --context 128
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
@@ -46,6 +50,7 @@ share over as many more steps under the profiler.
 from __future__ import annotations
 
 import argparse
+import re
 import time
 from typing import Optional, Sequence
 
@@ -57,6 +62,11 @@ from repro_torch.core.task import qa_task
 from repro_torch.launch.serve import DTYPES
 from repro_torch.serving.executor import (PagedTorchExecutor,
                                           TorchExecutor)
+
+
+# cuBLAS's matrix-product kernels by name (nvjet on Hopper, the older
+# gemm/gemv/xmma families), told apart from everything else in a step
+GEMM = re.compile(r"nvjet|gemm|gemv|xmma|cutlass", re.IGNORECASE)
 
 
 def _device_us(evt) -> float:
@@ -111,6 +121,13 @@ def report(prof, wall_ms: float, n: int, top: int, label: str) -> None:
               f"10 us (mean {1e3 * short / max(n_short, 1):.3f} us: launch "
               f"gaps between back-to-back kernels), {long / n:.3f} ms/op in "
               "longer gaps (waiting on the host)")
+    n_ops = sum(c for _, c, _ in rows)
+    n_gemm = sum(c for key, c, _ in rows if GEMM.search(key))
+    gemm_ms = sum(us for key, _, us in rows if GEMM.search(key)) / 1e3
+    print(f"{label}: {n_ops / n:.0f} device operations/op; matrix products "
+          f"{gemm_ms / n:.3f} ms/op in {n_gemm / n:.0f}/op, everything else "
+          f"{(busy_ms - gemm_ms) / n:.3f} ms/op in {(n_ops - n_gemm) / n:.0f}"
+          "/op")
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:top]:
         print(f"  {us / 1e3 / n:9.4f} ms/op  {count / n:7.1f} calls/op  "
               f"{100 * us / 1e3 / busy_ms:5.1f}%  {key[:100]}")

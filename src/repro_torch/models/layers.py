@@ -10,7 +10,8 @@ device.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,12 +36,26 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)     # python-scalar base: no host->device copy
 
 
+@functools.lru_cache(maxsize=None)
+def rope_table(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` made once per (head_dim, theta, device) and kept: the
+    paged decode step's table (the same fp32 values every call of
+    ``apply_rope`` rebuilds). Read only; made at a step's eager warm-up,
+    before any capture."""
+    return rope_freqs(head_dim, theta, device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., S, H, hd]; positions: broadcastable to [..., S]. Half-split
     rotation (first half against second half), not interleaved."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                   # [hd/2]
+    return rope_rotate(x, positions, rope_freqs(x.shape[-1], theta, x.device))
+
+
+def rope_rotate(x: torch.Tensor, positions: torch.Tensor,
+                freqs: torch.Tensor) -> torch.Tensor:
+    """``apply_rope`` with its frequency table given: freqs [hd/2] fp32."""
     ang = positions[..., None].float() * freqs                # [..., S, hd/2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -254,10 +269,18 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 # ---------------------------------------------------------------- MLP
 
+def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The gated MLP's gate: silu(g) * u, each op rounded to g's type."""
+    return F.silu(g) * u
+
+
 def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-              wd: torch.Tensor, partial: bool = False) -> torch.Tensor:
+              wd: torch.Tensor, partial: bool = False,
+              glu: Callable[[torch.Tensor, torch.Tensor],
+                            torch.Tensor] = silu_mul) -> torch.Tensor:
     """``partial``: wg/wu hold a slab of d_ff's columns and wd its rows (a
     tensor-parallel rank's), so the product is a partial sum, summed over
-    the model axis (``partitioning.reduce_model``)."""
-    y = (F.silu(x @ wg) * (x @ wu)) @ wd
+    the model axis (``partitioning.reduce_model``). ``glu``: the gate's
+    function of (x @ wg, x @ wu), ``silu_mul`` or its kernel's wrapper."""
+    y = glu(x @ wg, x @ wu) @ wd
     return P.reduce_model(y) if partial else y

@@ -359,7 +359,13 @@ def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor,
     loss path, as in JAX); otherwise the pad lanes are sliced off. A
     rank's vocabulary slab of the head gives a slab of the logits, which
     ``partitioning.gather_model`` puts together."""
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head(cfg, params, L.rms_norm(x, params["final_norm"],
+                                         cfg.norm_eps), keep_padded)
+
+
+def _head(cfg: ArchConfig, params: Params, x: torch.Tensor,
+          keep_padded: bool = False) -> torch.Tensor:
+    """``unembed`` of an input already through the final norm."""
     name = "embed" if cfg.tied_embeddings else "lm_head"
     head = P.gather_fsdp(params[name], name)
     if cfg.tied_embeddings:
@@ -378,16 +384,30 @@ def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor,
     return logits + bias
 
 
+def _has_ffn(cfg: ArchConfig) -> bool:
+    return cfg.block_kind == "moe" or cfg.d_ff > 0
+
+
 def _ffn(cfg: ArchConfig, blk: Params, layer: int,
          x: torch.Tensor) -> torch.Tensor:
-    """Post-mixer FFN (residual applied by the caller). MoE blocks dispatch
-    as the JAX model's default ``moe_impl="grouped"``: a sequence of T > 1
-    tokens a row through ``moe_ffn_grouped`` (per-example capacity, drops),
-    one token a row through the lossless ``moe_ffn_grouped_decode``. A
-    rank's slab of the experts, or of their d_ff columns, gives a partial
-    sum, summed over the model axis after the combine."""
+    """Post-mixer FFN (residual applied by the caller), on x through the
+    layer's ln2 (zeros for a block without an FFN)."""
+    if not _has_ffn(cfg):
+        return torch.zeros_like(x)
+    return _ffn_normed(cfg, blk, layer,
+                       L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps))
+
+
+def _ffn_normed(cfg: ArchConfig, blk: Params, layer: int, h: torch.Tensor,
+                glu=L.silu_mul) -> torch.Tensor:
+    """The FFN of an input h already normed (``glu``: the dense gate's
+    function, ``layers.gated_mlp``). MoE blocks dispatch as the JAX
+    model's default ``moe_impl="grouped"``: a sequence of T > 1 tokens a
+    row through ``moe_ffn_grouped`` (per-example capacity, drops), one
+    token a row through the lossless ``moe_ffn_grouped_decode``. A rank's
+    slab of the experts, or of their d_ff columns, gives a partial sum,
+    summed over the model axis after the combine."""
     if cfg.block_kind == "moe":
-        h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
         mp = {k: v[layer] for k, v in blk["moe"].items()}
         first = _first_expert(cfg, mp)
         if h.ndim == 3 and h.shape[1] > 1:
@@ -396,11 +416,8 @@ def _ffn(cfg: ArchConfig, blk: Params, layer: int,
             y = MOE.moe_ffn_grouped_decode(mp, h, cfg.top_k,
                                            first_expert=first)[0]
         return P.reduce_model(y) if P.cut("moe.wd") else y
-    if cfg.d_ff <= 0:
-        return torch.zeros_like(x)
-    h = L.rms_norm(x, blk["ln2"][layer], cfg.norm_eps)
     return L.gated_mlp(h, blk["wg"][layer], blk["wu"][layer],
-                       blk["wd"][layer], partial=P.cut("wd"))
+                       blk["wd"][layer], partial=P.cut("wd"), glu=glu)
 
 
 def _proj_qkv(cfg: ArchConfig, blk: Params, layer: int, h: torch.Tensor):
@@ -997,6 +1014,13 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     place. No host sync: the step can be captured as a CUDA graph.
     Returns (logits [B,V], pages).
 
+    The elementwise chain between the matrix products runs in the fused
+    kernels of ``kernels.ops``: each residual add with the RMSNorm after
+    it (ln1 and ln2 of a layer, the next layer's ln1 or the final norm
+    after its FFN), RoPE with the new token's K/V page write, and the
+    dense FFN's silu * mul. Their plain versions are the unfused chain's
+    ops, so on the CPU the step is that chain's bit for bit.
+
     With the batch split over 'data' (``partitioning.batch_rows``), this
     rank computes its data group's rows only, then gathers the logits and
     the step's new K/V of every row from the other groups and writes them
@@ -1034,18 +1058,19 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
     ks, vs = [], []
     if cfg.has_ssm:
         s_write = SSM.write_slots(state_slots, active, spare_slot(pages))
-    blk = params["blocks"]
-    for layer in range(cfg.n_layers):
-        h = L.rms_norm(x, blk["ln1"][layer], cfg.norm_eps)
+    if cfg.has_attention:
+        freqs = L.rope_table(cfg.head_dim, cfg.rope_theta, dev)
+    blk, eps, n = params["blocks"], cfg.norm_eps, cfg.n_layers
+    x, h = ops.add_rms_norm(x, None, blk["ln1"][0], eps)
+    for layer in range(n):
         parts = []
         if cfg.has_attention:
             q, k, v = _proj_qkv(cfg, blk, layer, h)
-            q = L.apply_rope(q[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
-            k = L.apply_rope(k[:, None], q_pos[:, None], cfg.rope_theta)[:, 0]
-            k_all[layer, w_page, :, w_off] = k
-            v_all[layer, w_page, :, w_off] = v
-            ks.append(k)
-            vs.append(v)
+            q = ops.rope_kv_write(q, k, v, q_pos, freqs, k_all[layer],
+                                  v_all[layer], w_page, w_off)
+            if mine is not None:       # the rotated K, read back
+                ks.append(k_all[layer, w_page, :, w_off])
+                vs.append(v)
             a = ops.paged_decode_attention(q, k_all[layer], v_all[layer],
                                            page_table, q_pos)
             parts.append(_attn_out(cfg, blk, layer, a))
@@ -1054,9 +1079,16 @@ def decode_step_paged(cfg: ArchConfig, params: Params, pages: Cache,
                 _ssm_params(blk, layer), h, cfg.ssm_inner, cfg.ssm_state,
                 cfg.ssm_head_dim, pages["ssm_state"][layer],
                 pages["conv_state"][layer], state_slots, active, s_write))
-        x = x + _mix(parts)
-        x = x + _ffn(cfg, blk, layer, x)
-    logits = unembed(cfg, params, x)
+        # the norm after this layer: the next layer's ln1, or the final
+        nxt = blk["ln1"][layer + 1] if layer + 1 < n else params["final_norm"]
+        if _has_ffn(cfg):
+            x, h = ops.add_rms_norm(x, _mix(parts), blk["ln2"][layer], eps)
+            x, h = ops.add_rms_norm(
+                x, _ffn_normed(cfg, blk, layer, h, glu=ops.silu_mul), nxt,
+                eps)
+        else:
+            x, h = ops.add_rms_norm(x, _mix(parts), nxt, eps)
+    logits = _head(cfg, params, h)
     if mine is not None:
         logits = _share_rows(pages, all_page, all_off, ks, vs, logits)
     return logits, pages

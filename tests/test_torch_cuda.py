@@ -26,6 +26,13 @@ at edge-6b, granite-moe and hymba heads, so rows span many page splits;
 the ring-cache kernel's two split bodies (hd 32 to 256, rings of 77 to
 1024 slots, wrapped, with holes and windows, empty rows); the three-pass
 SSD scan from 1 to 1024 steps at mamba2-780m and hymba-1.5b widths.
+The paged decode step's fused chain (residual add + RMSNorm, RoPE +
+K/V page write, silu * mul) at edge-6b, granite, hymba, a rank's slab
+and the reduced configs' shapes, rows 1 to 32, to one ulp of the working
+type (reasons at the tests), with a spare-page row and an inactive row,
+every other page slot untouched; each paged decode step's fused launches
+(2L+1, L, L), and the cells' configurations at full width (2 layers,
+bf16) captured against eager.
 Then the engines' captured steps against the same steps run eagerly
 (the slot engine also on mamba2-780m and hymba-1.5b, the SSD state in its
 slot cache), a traced engine's decode ``graph_ms`` against events timed
@@ -325,6 +332,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="16 bytes"):
         ops.flash_prefill_chunk(qb, wide.transpose(1, 2),
                                 wide.transpose(1, 2), qp)
+    # the fused decode chain: 16-byte vectors, one type, int64 slots
+    x = torch.zeros(4, 1536, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.add_rms_norm(x.view(-1)[1:1 + 1535 * 4].view(4, 1535), None,
+                         x[0, :1535], 1e-5)
+    with pytest.raises(ValueError, match="types"):
+        ops.add_rms_norm(x, None, x[0].float(), 1e-5)
+    with pytest.raises(ValueError, match="mixed devices"):
+        ops.silu_mul(x, x.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.silu_mul(x.T, x.T)
+    rq, rk, rv, rqp, rfr, rkp, rvp, rwp, rwo = _fused_rope_inputs(
+        "bfloat16", 32, 2, 128, 4)
+    with pytest.raises(ValueError, match="int64"):
+        ops.rope_kv_write(rq, rk, rv, rqp, rfr, rkp, rvp, rwp.int(), rwo)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ops.rope_kv_write(rq[..., :96].contiguous(), rk[..., :96].contiguous(),
+                          rv[..., :96].contiguous(), rqp, rfr[:48],
+                          rkp[..., :96].contiguous(),
+                          rvp[..., :96].contiguous(), rwp, rwo)
 
 
 def _ssd_inputs(B, T, H, P, N, seed=0):
@@ -1407,3 +1434,198 @@ def test_fastserve_kv_swap_under_page_pressure():
     assert ex.arena.bytes_held == 0 and ex.arena.owners_held == 0
     assert ops.LAUNCHES["paged_decode_attention"] > 0
     assert ops.LAUNCHES["flash_prefill"] > 0
+
+
+# ------------------------------------------------ the fused decode chain
+#
+# Each kernel against its plain version on the same inputs in the working
+# type, to one bf16 ulp of the output: the kernels round where the plain
+# path rounds, but sum the squares in another order and call sincosf
+# where PyTorch calls sinf and cosf, so a bf16 value can land on the
+# other side of a rounding boundary, and an fp32 one a few fp32 ulps
+# away (4 at D 4096 on an H100), far under a bf16 ulp. What
+# the kernels only move (the residual sum, v, every page slot no row
+# writes) is exact. Rows that meet on the spare page write it in no
+# fixed order, 16 bytes at a time: each of its elements is one of theirs.
+
+FUSED_HEADS = [(32, 2, 128), (24, 8, 64), (25, 5, 64), (16, 1, 128),
+               (4, 1, 32)]      # edge-6b, granite, hymba, a slab, reduced
+
+
+def _ulps_each(got, want):
+    """|got - want| per element, in bf16 ulps of want's magnitude."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), (e - 8).clamp(min=-133))
+    return (got.float() - w).abs() / ulp
+
+
+def _ulps(got, want):
+    """The largest of ``_ulps_each``."""
+    return _ulps_each(got, want).max().item()
+
+
+def _fused_rope_inputs(dtype, Hq, Hkv, hd, B, n_pages=80, psz=16, seed=0):
+    """Rows at positions up to 1023 on distinct pages; rows 0 and 1 (row
+    0 of one) sent to the spare page at offset 0, as an untabled and an
+    inactive row are."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+    q, k, v = rnd(B, Hq, hd), rnd(B, Hkv, hd), rnd(B, Hkv, hd)
+    rng = np.random.default_rng(seed + B)
+    q_pos = torch.from_numpy(rng.integers(0, 1024, B).astype(np.int32))
+    w_page = torch.from_numpy(rng.permutation(n_pages - 1)[:B]).long()
+    w_off = (q_pos % psz).long()
+    w_page[:2], w_off[:2] = n_pages - 1, 0
+    from repro_torch.models import layers as L
+    freqs = L.rope_table(hd, 10000.0, torch.device("cuda", 0))
+    kp, vp = rnd(n_pages, Hkv, psz, hd), rnd(n_pages, Hkv, psz, hd)
+    return (q, k, v, q_pos.cuda(), freqs, kp, vp, w_page.cuda(),
+            w_off.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,D", [(1, 4096), (8, 4096), (32, 4096),
+                                 (8, 1536), (32, 1536), (8, 1600),
+                                 (32, 256)])
+@pytest.mark.parametrize("with_delta", [False, True])
+def test_add_rms_norm_kernel_matches_plain(dtype, B, D, with_delta):
+    _need_cuda()
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(B + D)
+    dt = getattr(torch, dtype)
+    x = torch.randn(B, D, generator=g, device="cuda").to(dt)
+    delta = (torch.randn(B, D, generator=g, device="cuda").to(dt)
+             if with_delta else None)
+    w = (0.1 * torch.randn(D, generator=g, device="cuda")).to(dt)
+    want_x, want_h = ref.add_rms_norm_ref(x.clone(), delta, w, 1e-5)
+    before = ops.LAUNCHES["add_rms_norm"]
+    xin = x.clone()
+    got_x, got_h = ops.add_rms_norm(xin, delta, w, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["add_rms_norm"] == before + 1
+    assert got_x is xin
+    assert torch.equal(got_x, want_x)            # the add rounds once
+    assert _ulps(got_h, want_h) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,hd", FUSED_HEADS)
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_rope_kv_write_kernel_matches_plain(dtype, Hq, Hkv, hd, B):
+    _need_cuda()
+    from repro_torch.kernels import ref
+    q, k, v, qp, fr, kp, vp, wp, wo = _fused_rope_inputs(dtype, Hq, Hkv, hd,
+                                                         B)
+    kp_want, vp_want = kp.clone(), vp.clone()
+    want_q = ref.rope_kv_write_ref(q, k, v, qp, fr, kp_want, vp_want, wp, wo)
+    before = ops.LAUNCHES["rope_kv_write"]
+    got_q = ops.rope_kv_write(q, k, v, qp, fr, kp, vp, wp, wo)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rope_kv_write"] == before + 1
+    assert _ulps(got_q, want_q) <= 1
+    from repro_torch.models import layers as L
+    want_k = L.rope_rotate(k[:, None], qp[:, None], fr)[:, 0]
+    lo = min(B, 2)                                 # rows 0, 1: the spare
+    if B > lo:
+        assert _ulps(kp[wp[lo:], :, wo[lo:]], want_k[lo:]) <= 1
+        assert torch.equal(vp[wp[lo:], :, wo[lo:]], v[lo:])
+    spare_k, spare_v = kp[-1, :, 0], vp[-1, :, 0]
+    assert torch.stack([_ulps_each(spare_k, want_k[r])
+                        for r in range(lo)]).amin(0).max() <= 1
+    assert torch.stack([spare_v == v[r] for r in range(lo)]).any(0).all()
+    written = torch.zeros(kp.shape[0], kp.shape[2], dtype=torch.bool,
+                          device="cuda")
+    written[wp, wo] = True
+    keep = ~written[:, None, :, None].expand_as(kp)
+    assert torch.equal(kp[keep], kp_want[keep])    # nothing else touched
+    assert torch.equal(vp[keep], vp_want[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,F", [(1, 13696), (8, 13696), (32, 13696),
+                                 (8, 5504), (32, 512)])
+def test_silu_mul_kernel_matches_plain(dtype, B, F):
+    _need_cuda()
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(B + F)
+    dt = getattr(torch, dtype)
+    gate = (3 * torch.randn(B, F, generator=g, device="cuda")).to(dt)
+    up = torch.randn(B, F, generator=g, device="cuda").to(dt)
+    before = ops.LAUNCHES["silu_mul"]
+    got = ops.silu_mul(gate, up)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["silu_mul"] == before + 1
+    assert _ulps(got, ref.silu_mul_ref(gate, up)) <= 1
+
+
+def _fused_per_step(cfg):
+    """Launches of the fused chain in one paged decode step."""
+    n = cfg.n_layers
+    has_ffn = cfg.block_kind == "moe" or cfg.d_ff > 0
+    return {"add_rms_norm": (2 if has_ffn else 1) * n + 1,
+            "rope_kv_write": n if cfg.has_attention else 0,
+            "silu_mul": n if cfg.block_kind != "moe" and cfg.d_ff > 0 else 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["edge-6b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b", "mamba2-780m"])
+def test_paged_decode_step_launches_the_fused_chain(arch):
+    """Reduced fp32 engines, eager and captured: every decode step
+    launches 2L+1 add_rms_norm, L rope_kv_write and L silu_mul (none
+    for MoE blocks; L+1 and none for a block with neither attention nor
+    FFN), in one step's record as in the replays' counts."""
+    _need_cuda()
+    cfg, eager, graphs = _eager_and_captured(arch)
+    tasks = _tasks((5, 17, 40), 8300)
+    batches = [3, 2, 3, 1]
+    _, launches, _ = _run_both((eager, graphs), tasks, batches)
+    per = _fused_per_step(cfg)
+    for got in launches:
+        assert {k: got[k] for k in per} == {k: n * len(batches)
+                                            for k, n in per.items()}
+    _, one = ops.recorded_launches(lambda: graphs.decode(tasks[:2]))
+    assert {k: one[k] for k in per} == per
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["edge-6b", "granite-moe-3b-a800m"])
+def test_captured_full_width_decode_matches_eager(arch):
+    """The cells' configurations at full width, cut to 2 layers, in bf16:
+    the paged engine's captured decode steps against the same steps run
+    eagerly (the fused chain at edge-6b's hd 128, 32/2 heads and D 4096,
+    granite's hd 64, 24/8 and D 1536): edge-6b's logits bit for bit,
+    granite's within bf16's 1.6e-2 (its dispatch adds with atomics);
+    launches equal and the fused chain's as ``_fused_per_step``."""
+    _need_cuda()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PagedTorchExecutor
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    eager, graphs = (PagedTorchExecutor(
+        cfg, params=params, n_pages=64, page_size=16, max_seq=256,
+        max_batch=8, device="cuda", dtype=torch.bfloat16, cuda_graphs=c)
+        for c in (False, True))
+    tasks = _tasks((5, 17, 40, 100, 33, 64, 9, 120), 8400)
+    batches = [8, 5, 8, 3, 8]
+    logits, launches, streams = _run_both((eager, graphs), tasks, batches)
+    for a, b in zip(*logits):
+        if cfg.block_kind == "moe":
+            np.testing.assert_allclose(b, a, atol=TOL["bfloat16"], rtol=0)
+        else:
+            np.testing.assert_array_equal(b, a)
+    if cfg.block_kind != "moe":
+        assert streams[0] == streams[1]
+    assert launches[0] == launches[1]
+    per = _fused_per_step(cfg)
+    assert {k: launches[1][k] for k in per} == {k: n * len(batches)
+                                                for k, n in per.items()}

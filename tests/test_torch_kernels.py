@@ -419,10 +419,20 @@ def test_cpu_calls_do_not_count_launches():
                         torch.tensor([True]))
     ops.moe_grouped_ffn(torch.randn(4, 3, 8), torch.randn(2, 8, 6),
                         torch.randn(2, 8, 6), torch.randn(2, 6, 8))
+    ops.add_rms_norm(torch.randn(2, 8), torch.randn(2, 8), torch.zeros(8),
+                     1e-5)
+    ops.rope_kv_write(torch.randn(1, 2, 8), torch.randn(1, 1, 8),
+                      torch.randn(1, 1, 8), torch.tensor([5], dtype=torch.int32),
+                      torch.ones(4), torch.zeros(3, 1, 4, 8),
+                      torch.zeros(3, 1, 4, 8), torch.tensor([1]),
+                      torch.tensor([2]))
+    ops.silu_mul(torch.randn(2, 8), torch.randn(2, 8))
     assert ops.LAUNCHES == {"paged_decode_attention": 0, "flash_prefill": 0,
                             "flash_prefill_chunk": 0, "decode_attention": 0,
                             "paged_verify_attention": 0, "ssd_scan": 0,
-                            "ssd_decode_step": 0, "moe_grouped_ffn": 0}
+                            "ssd_decode_step": 0, "moe_grouped_ffn": 0,
+                            "add_rms_norm": 0, "rope_kv_write": 0,
+                            "silu_mul": 0}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -86,6 +86,18 @@ WRAPPERS = {
     "moe_grouped_ffn": (
         lambda: (_f(2, 3, 4), _f(2, 4, 5), _f(2, 4, 5), _f(2, 5, 4)),
         lambda *a: ops.moe_grouped_ffn(*a)),
+    "add_rms_norm": (
+        lambda: (_f(2, 8), _f(2, 8), _f(8)),
+        lambda x, d, w: ops.add_rms_norm(x, d, w, 1e-5)),
+    "rope_kv_write": (
+        lambda: (_f(1, 2, 8), _f(1, 1, 8), _f(1, 1, 8), _f(4),
+                 _f(3, 1, 4, 8), _f(3, 1, 4, 8)),
+        lambda q, k, v, fr, kp, vp: ops.rope_kv_write(
+            q, k, v, _i(5), fr, kp, vp, torch.tensor([1]),
+            torch.tensor([2]))),
+    "silu_mul": (
+        lambda: (_f(2, 8), _f(2, 8)),
+        lambda g, u: ops.silu_mul(g, u)),
 }
 
 
