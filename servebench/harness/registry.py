@@ -1,11 +1,14 @@
 """Finds a cell's files by the names in ``BENCHMARK.json``.
 
-A later change adds a configuration, a traffic mix, a per-layer metric
-or a roofline by adding a file under the matching folder and an entry
-in ``BENCHMARK.json``; nothing here changes.
+A later change adds a configuration, a traffic mix, a per-layer metric,
+a roofline or a reference by adding a file under the matching folder and
+an entry in ``BENCHMARK.json``, and a weight layout by adding a file
+under ``layouts/`` that names the ``block_kind`` it serves; nothing here
+changes.
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -67,6 +70,29 @@ def _module(path: Path) -> ModuleType:
 def reference(name: str) -> ModuleType:
     """The plain model ``reference/<name>.py``."""
     return _module(BENCH_DIR / "reference" / f"{name}.py")
+
+
+@functools.cache
+def layouts() -> Dict[str, ModuleType]:
+    """Every weight layout ``layouts/<name>.py`` by name."""
+    return {p.stem: _module(p)
+            for p in sorted((BENCH_DIR / "layouts").glob("*.py"))}
+
+
+def layout_of(m: dict) -> ModuleType:
+    """The layout of the model dims ``m`` (a configuration file's ``port``
+    block): the one whose ``BLOCK_KINDS`` holds ``m["block_kind"]``. It
+    gives ``leaves``, ``token_params``, ``attn_layers`` and
+    ``recurrence_flops``. A block kind that no layout serves, or that two
+    do, fails at once, with what each layout serves."""
+    kind = m["block_kind"]
+    found = [mod for mod in layouts().values() if kind in mod.BLOCK_KINDS]
+    if len(found) != 1:
+        served = "; ".join(f"{name}: {', '.join(mod.BLOCK_KINDS)}"
+                           for name, mod in layouts().items())
+        raise KeyError(f"{len(found)} layouts serve block_kind {kind!r}; "
+                       f"served: {served}")
+    return found[0]
 
 
 def roofline(name: str) -> ModuleType:
